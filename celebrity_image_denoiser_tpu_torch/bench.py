@@ -36,8 +36,8 @@ SIZE = 128
 SEED = 0
 
 
-def run(batch: int = BATCH, n_iters: int = N_ITERS, device="cuda") -> dict:
-    """Time ``n_iters`` chained bf16 serving steps at ``batch`` × 128²."""
+def run(batch: int = BATCH, device="cuda") -> dict:
+    """Time ``N_ITERS`` chained bf16 serving steps at ``batch`` × 128²."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the bench measures the card: device must be CUDA")
@@ -50,10 +50,10 @@ def run(batch: int = BATCH, n_iters: int = N_ITERS, device="cuda") -> dict:
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     cur = x
-    for _ in range(n_iters):
+    for _ in range(N_ITERS):
         cur = serve_step(model, cur, device=dev)  # chained: no elision
     torch.cuda.synchronize(dev)
-    rate = n_iters * batch / (time.perf_counter() - t0)
+    rate = N_ITERS * batch / (time.perf_counter() - t0)
     return {
         "metric": METRIC,
         "value": round(rate, 1),

@@ -235,6 +235,8 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
   const int c1p = (c1 + COT - 1) / COT * COT;
   const size_t smem = sizeof(float) * (kWsFloats + kXsFloats) +
                       sizeof(T) * (size_t)MH * MW * c1p;
+  // a C1 too wide for one block's shared memory is refused here, and the
+  // error comes back to the wrapper
   cudaError_t err = cudaFuncSetAttribute(
       double_conv3x3_relu_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -252,14 +254,6 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
 }
 
 }  // namespace
-
-// Dynamic shared memory the kernel needs for intermediate width c1; the
-// wrapper refuses shapes above the 227 KB a block may use.
-extern "C" long long cid_double_conv3x3_relu_smem_bytes(int c1, int dtype) {
-  const long long c1p = (c1 + COT - 1) / COT * COT;
-  const long long elem = dtype == cid::kDtypeBF16 ? 2 : 4;
-  return 4LL * (kWsFloats + kXsFloats) + elem * MH * MW * c1p;
-}
 
 extern "C" int cid_double_conv3x3_relu(const void* x, const void* w1,
                                        const void* b1, const void* w2,

@@ -122,8 +122,6 @@ def library() -> ctypes.CDLL:
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 6 + [I] * 7 + [P])
             lib.cid_double_conv3x3_relu.restype = I
-            lib.cid_double_conv3x3_relu_smem_bytes.argtypes = [I, I]
-            lib.cid_double_conv3x3_relu_smem_bytes.restype = ctypes.c_longlong
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

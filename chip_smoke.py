@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — every kernel entry point against its plain PyTorch version on
              the card, at every shape the U-Net launches at 128² batch 8 and
              at a ragged 132×100 input (tiles straddle every edge), in f32
-             and bf16, TF32 off;
+             and bf16, TF32 off; then, as a control, the f32 plain versions
+             with TF32 on must fail the f32 check at 128² batch 8;
 4. serve   — the port's ``ServeState`` on the shipped weights behind the
              stdlib HTTP server on 127.0.0.1; three ``/enhance`` requests
              (256×256, 130×98, 64×64) whose pixels must match the plain-path
@@ -19,13 +20,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              counts must be exactly 4 (double conv) + 2 (single conv) each;
              then 100 more 256×256 requests from one client for p50/p90
              latency;
-5. bench   — the port's bench line at batch 256, then each kernel's time at
-             the bench shapes (bf16, 128², batch 256) beside its plain
-             version, one cuDNN call for the same function (``library_ms``,
-             a yardstick the port never calls) and its bound: the larger of
-             its operations at 989 TFLOP/s (dense bf16) and its bytes (each
-             input read once, each output written once) at 3.35 TB/s;
-6. profile — one bench step under torch.profiler: device time by kernel and
+5. bench   — the port's bench line at batch 256, whose kernel launch counts
+             must be exactly 4 (double conv) + 2 (single conv) per step; then
+             each kernel at the bench shapes (bf16, 128², batch 256) checked
+             against its plain version and timed beside it, beside one cuDNN
+             call for the same function (``library_ms``, a yardstick the port
+             never calls) and its bound: the larger of its operations at 989
+             TFLOP/s (dense bf16) and its bytes (each input read once, each
+             output written once) at 3.35 TB/s;
+6. batch   — one bf16 forward at the JAX bench's batch of 2048, where
+             down1's output holds 2^31 elements and upconv1's input 2^32,
+             checked against the plain forward (64-bit indexing);
+7. profile — one bench step under torch.profiler: device time by kernel and
              the device's busy share of the step.
 
 The line before the last is the kernels JSON; the last line is
@@ -36,6 +42,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import functools
 import json
 import subprocess
 import sys
@@ -48,8 +55,12 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-TOL = {torch.float32: 1e-3, torch.bfloat16: 1.6e-2}  # × max|ref|
+# × max|ref|.  f32: the kernels differ from the plain versions by summation
+# order only (≤ 1.5e-6 on the card); TF32 operands (10-bit mantissa) miss by
+# far more, so a kernel that quietly used TF32 fails.  bf16: two ulps.
+TOL = {torch.float32: 3e-5, torch.bfloat16: 1.6e-2}
 BENCH_BATCH = 256
+BIG_BATCH = 2048  # the JAX bench's batch: tensors beyond 2^31 elements
 LATENCY_REQUESTS = 100  # p90 then has 10 samples beyond it
 SEED = 0
 
@@ -147,9 +158,11 @@ def phase_kernels(conv3x3, double_conv):
     say("== phase 3: kernels vs plain (TF32 off)")
     gen = make_gen()
     worst = {"conv3x3_bias_relu": 0.0, "double_conv3x3_relu": 0.0}
+    controls = []  # (layer, shape, plain fn, args, f32 reference)
     shapes = [(8, 128, 128), (2, 132, 100)]
     for dtype in (torch.float32, torch.bfloat16):
         for n, h, w in shapes:
+            control = dtype == torch.float32 and (n, h, w) == shapes[0]
             for layer, shape in pair_shapes(n, h, w).items():
                 args = pair_inputs(gen, shape, dtype)
                 got = double_conv.double_conv3x3_relu(*args)
@@ -157,6 +170,9 @@ def phase_kernels(conv3x3, double_conv):
                 worst["double_conv3x3_relu"] = max(
                     worst["double_conv3x3_relu"],
                     check("double_conv3x3_relu", layer, shape, dtype, got, ref))
+                if control:
+                    controls.append((layer, shape, functools.partial(
+                        double_conv.double_conv3x3_relu_plain, *args), ref))
             for layer, shape in single_shapes(n, h, w).items():
                 args, relu = single_inputs(gen, shape, dtype)
                 ref = conv3x3.conv3x3_bias_relu_plain(*args, relu=relu)
@@ -166,8 +182,25 @@ def phase_kernels(conv3x3, double_conv):
                     worst["conv3x3_bias_relu"] = max(
                         worst["conv3x3_bias_relu"],
                         check(entry.__name__, layer, shape, dtype, got, ref))
+                if control:
+                    controls.append((layer, shape, functools.partial(
+                        conv3x3.conv3x3_bias_relu_plain, *args, relu=relu),
+                        ref))
     say("kernels: conv3x3_bias_relu, conv3x3_bias_relu_v2, "
         "double_conv3x3_relu")
+    # control: the f32 check must reject TF32 in the kernels' place
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = [(layer, shape, fn(), ref) for layer, shape, fn, ref in controls]
+    torch.backends.cudnn.allow_tf32 = False
+    for layer, shape, got, ref in tf32:
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = TOL[torch.float32] * ref.abs().max().item()
+        say(f"  TF32 control {layer:10s} {str(shape):30s} max_abs_err "
+            f"{err:.3e} ({err / ref.abs().max().item():.2e} x max|ref|) tol "
+            f"{tol:.3e} {'rejected' if err > tol else 'ACCEPTED'}")
+        if not err > tol:
+            fail(f"the f32 check accepts TF32 for {layer} {shape}")
     return worst
 
 
@@ -177,10 +210,12 @@ def check(name, layer, shape, dtype, got, ref) -> float:
         fail(f"{name} {layer}: {tuple(got.shape)} {got.dtype} vs "
              f"{tuple(ref.shape)} {ref.dtype}")
     err = (got.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype] * ref.float().abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = TOL[dtype] * scale
     ok = err <= tol and bool(torch.isfinite(got.float()).all())
     say(f"  {name:22s} {layer:10s} {str(shape):30s} {str(dtype):15s} "
-        f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        f"max_abs_err {err:.3e} ({err / scale:.2e} x max|ref|) tol "
+        f"{tol:.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} {layer} {shape} {dtype} disagrees with its plain version")
     return err
@@ -279,11 +314,20 @@ def bound_ms(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
 
 
-def phase_bench(conv3x3, double_conv, bench):
+def phase_bench(conv3x3, double_conv, bench, worst):
     import torch.nn.functional as F
 
     say(f"== phase 5: bench (batch {BENCH_BATCH}) and kernel times")
+    steps = 1 + bench.N_ITERS  # the warm-up step, then the timed ones
+    conv3x3.LAUNCHES = 0
+    double_conv.LAUNCHES = 0
     bench.main(batch=BENCH_BATCH)
+    n1, n3 = conv3x3.LAUNCHES, double_conv.LAUNCHES
+    say(f"  bench launches over {steps} steps: double_conv {n3} conv3x3 {n1}")
+    if (n3, n1) != (4 * steps, 2 * steps):
+        fail(f"bench: launches double_conv {n3} conv3x3 {n1}, expected "
+             f"{4 * steps} and {2 * steps}")
+    launches = {"conv3x3_bias_relu": n1, "double_conv3x3_relu": n3}
     gen = make_gen()
     dt = torch.bfloat16
     n, h, w = BENCH_BATCH, bench.SIZE, bench.SIZE
@@ -315,6 +359,11 @@ def phase_bench(conv3x3, double_conv, bench):
         x, w1, b1, w2, b2 = pair_inputs(gen, shape, dt)
         _, hh, ww, c0, c1, c2 = shape
         k1, k2, bb1, bb2 = oihw(w1), oihw(w2), b1.to(dt), b2.to(dt)
+        worst["double_conv3x3_relu"] = max(
+            worst["double_conv3x3_relu"],
+            check("double_conv3x3_relu", layer, shape, dt,
+                  double_conv.double_conv3x3_relu(x, w1, b1, w2, b2),
+                  double_conv.double_conv3x3_relu_plain(x, w1, b1, w2, b2)))
         ms = time_ms(lambda: double_conv.double_conv3x3_relu(x, w1, b1, w2, b2))
         plain = time_ms(lambda: double_conv.double_conv3x3_relu_plain(
             x, w1, b1, w2, b2))
@@ -333,6 +382,11 @@ def phase_bench(conv3x3, double_conv, bench):
         _, hh, ww, cin, cout, _ = shape
         ko, bb = oihw(k), b.to(dt)
         act = F.relu if relu else (lambda t: t)
+        worst["conv3x3_bias_relu"] = max(
+            worst["conv3x3_bias_relu"],
+            check("conv3x3_bias_relu", layer, shape, dt,
+                  conv3x3.conv3x3_bias_relu(x, k, b, relu=relu),
+                  conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)))
         ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, k, b, relu=relu))
         plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
             x, k, b, relu=relu))
@@ -348,7 +402,27 @@ def phase_bench(conv3x3, double_conv, bench):
         say(f"  {name}: {s['per_step']} launches per step, kernel "
             f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, cudnn "
             f"{s['library_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms per step")
-    return stats
+    return stats, launches
+
+
+def phase_big_batch(bench):
+    from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+        _BF16_2_OVER_255,
+        DenoiseGenerator,
+    )
+
+    say(f"== phase 6: one forward at batch {BIG_BATCH} (bf16) vs plain")
+    model = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
+    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+    gen = make_gen()
+    x = torch.randint(0, 256, (BIG_BATCH, bench.SIZE, bench.SIZE, 3),
+                      generator=gen, dtype=torch.uint8, device="cuda")
+    x = (x.to(torch.bfloat16) * _BF16_2_OVER_255 - 1.0).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = model(x)
+        ref = model(x, plain=True)
+    check("DenoiseGenerator", f"b{BIG_BATCH}", tuple(x.shape),
+          torch.bfloat16, got, ref)
 
 
 def phase_profile(bench):
@@ -360,7 +434,7 @@ def phase_profile(bench):
         serve_step,
     )
 
-    say(f"== phase 6: profile of one bench step (batch {BENCH_BATCH})")
+    say(f"== phase 7: profile of one bench step (batch {BENCH_BATCH})")
     model = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
     model = model.to(device="cuda", dtype=torch.bfloat16).eval()
     x = torch.randint(0, 256, (BENCH_BATCH, bench.SIZE, bench.SIZE, 3),
@@ -413,7 +487,8 @@ def main() -> int:
     phase_build(_build)
     worst = phase_kernels(conv3x3, double_conv)
     launches = phase_serve(conv3x3, double_conv)
-    stats = phase_bench(conv3x3, double_conv, bench)
+    stats, bench_launches = phase_bench(conv3x3, double_conv, bench, worst)
+    phase_big_batch(bench)
     phase_profile(bench)
 
     replaces = {
@@ -424,14 +499,16 @@ def main() -> int:
     }
     kernels = []
     for name in ("conv3x3_bias_relu", "double_conv3x3_relu"):
-        if launches[name] < 1:
+        if launches[name] < 1 or bench_launches[name] < 1:
             fail(f"{name} was not launched on the main path")
         s = stats[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": launches[name], "max_abs_err": worst[name],
+            # both main paths: the /enhance requests and the bench run
+            "launches": launches[name] + bench_launches[name],
+            "max_abs_err": worst[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if s["operations"] >= s["bytes"]

@@ -107,7 +107,7 @@ def test_bench_refuses_to_run_without_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         bench.main()
     with pytest.raises(ValueError):  # a CPU number is not a device metric
-        bench.run(batch=1, n_iters=1, device="cpu")
+        bench.run(batch=1, device="cpu")
 
 
 def test_serve_step_refuses_cuda_without_a_card(no_cuda):
