@@ -2,11 +2,15 @@
 ``celebrity_image_denoiser_tpu``, written for an NVIDIA H100.
 
 The JAX package stays beside it as the reference; this package imports
-nothing of it (and never ``jax``).  What is ported so far is the flagship
-serving path: the denoise U-Net behind ``POST /enhance`` in float32, and
-the bf16 serving step the bench times.  Its 3×3 convolutions run through
-hand-written CUDA kernels (``csrc/``, bound in ``ops/cuda/``) that port the
-Pallas kernels ``ops/pallas/conv_fused.py`` and ``ops/pallas/double_conv.py``.
+nothing of it (and never ``jax``).  What is ported so far is the denoise
+family: the U-Net behind ``POST /enhance`` in float32, the bf16 serving
+step the bench times, and the GAN trainer (``cli.train``) with on-the-fly
+noise.  The inference forward's 3×3 convolutions run through hand-written
+CUDA kernels (``csrc/``, bound in ``ops/cuda/``) that port the Pallas kernels
+``ops/pallas/conv_fused.py`` and ``ops/pallas/double_conv.py``; the training
+input stage runs the port of ``ops/pallas/noise_kernel.py``.  The train step
+itself differentiates through PyTorch's convs, as the JAX trainer
+differentiates through XLA's.
 
 Conventions
 -----------
@@ -15,7 +19,8 @@ Conventions
   memory without copies.
 * The kernel entry points in ``ops/cuda/`` take NHWC tensors and HWIO
   weights, like their Pallas counterparts.
-* Entry points (``ServeState``, ``cli.serve``, ``bench``) run on the card
+* Entry points (``ServeState``, ``cli.serve``, ``bench``, ``cli.train``,
+  ``GANTrainer``, ``DataPipeline``) run on the card
   by default and raise when CUDA is absent; only an explicit
   ``device="cpu"`` runs on the CPU, where every kernel wrapper uses its
   plain PyTorch version.

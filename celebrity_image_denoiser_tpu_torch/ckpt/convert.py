@@ -1,13 +1,21 @@
 """Carry weights across: JAX param trees, native npz checkpoints and
-reference ``.pth`` files into the port's torch state_dict.
+reference ``.pth`` files into the port's torch state_dict, and back.
 
 The JAX package stores conv kernels HWIO and transpose-conv kernels
 (kH, kW, C_out, C_in) under ``<path>.kernel`` (``nn/layers.py:27,84``); its
 exporter maps both to torch with the permutation (3, 2, 0, 1)
 (``ckpt/export.py:44-52``): HWIO → OIHW, and (kH, kW, C_out, C_in) →
 (C_in, C_out, kH, kW).  ``kernel`` is renamed ``weight``; ``bias`` stays.
-The generator of the denoise family has only those two layer kinds; the
-BatchNorm and Linear cases come with the discriminator.
+A BatchNorm layer's params ``scale`` / ``bias`` become ``weight`` / ``bias``
+and its state ``mean`` / ``var`` become ``running_mean`` / ``running_var``
+(``nn/layers.py`` BatchNorm2d); torch's ``num_batches_tracked`` has no JAX
+counterpart and keeps the module's own value (``load_jax_trees``).  The
+Linear case comes with the families that have one.
+
+``state_dict_to_jax_params`` is the way back — torch → a numpy tree in the
+JAX layout, kernels HWIO again (the permutation's inverse, (2, 3, 1, 0), is
+the same for both conv kinds) — used to write checkpoints that the JAX
+package can resume from.
 
 ``load_npz_state_dict`` reads the native checkpoint layout of
 ``ckpt/checkpoint.py::load_checkpoint`` (:101): ``<dir>/arrays.npz`` with
@@ -21,7 +29,7 @@ but with ``torch.load(..., weights_only=True)``, so no pickle code runs.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +37,10 @@ import torch
 from celebrity_image_denoiser_tpu_torch.utils import tree as treelib
 
 _KERNEL_PERM = (3, 2, 0, 1)
+_KERNEL_PERM_BACK = (2, 3, 1, 0)
+# JAX leaf name -> torch name, for the leaves that are carried as they are
+_LEAF_TO_TORCH = {"bias": "bias", "scale": "weight", "mean": "running_mean",
+                  "var": "running_var"}
 
 
 def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
@@ -36,8 +48,9 @@ def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
                              ) -> Dict[str, torch.Tensor]:
     """A JAX param tree (nested dicts of arrays) or a flat dotted-key dict
     (the ``arrays.npz`` layout, ``<section>.`` prefixes allowed) → a torch
-    state_dict of float32 tensors.  Raises ``ValueError`` on a leaf it does
-    not know how to carry (anything but a 4-D conv kernel or a bias)."""
+    state_dict of float32 tensors.  Takes a params tree or a BatchNorm state
+    tree (``mean`` / ``var``).  Raises ``ValueError`` on a leaf it does not
+    know how to carry."""
     flat = treelib.flatten(dict(tree_or_flat))
     prefix = section + "."
     if any(k.startswith(prefix) for k in flat):
@@ -53,11 +66,59 @@ def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
                                  f"across, got shape {arr.shape}")
             arr = np.transpose(arr, _KERNEL_PERM)
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf in _LEAF_TO_TORCH:
+            leaf = _LEAF_TO_TORCH[leaf]
+        else:
             raise ValueError(f"{key}: no torch counterpart for leaf {leaf!r}")
         sd[f"{path}.{leaf}" if path else leaf] = torch.from_numpy(
             np.array(arr, copy=True, order="C"))
     return sd
+
+
+def load_jax_trees(module: torch.nn.Module, params: Mapping[str, Any],
+                   state: Optional[Mapping[str, Any]] = None) -> None:
+    """Load a JAX (params, state) pair into ``module`` strictly: every
+    parameter and running statistic of the module must be given and every
+    given leaf must have a place.  ``num_batches_tracked`` buffers keep the
+    module's values."""
+    sd = jax_params_to_state_dict(params)
+    if state:
+        sd.update(jax_params_to_state_dict(state))
+    own = module.state_dict()
+    need = {k for k in own if not k.endswith("num_batches_tracked")}
+    if set(sd) != need:
+        raise KeyError(f"missing {sorted(need - set(sd))}, unexpected "
+                       f"{sorted(set(sd) - need)}")
+    module.load_state_dict({**own, **sd}, strict=True)
+
+
+def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]
+                             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A torch state_dict (or any dict keyed like one: gradients, optimiser
+    moments) → ``(params, state)`` as nested dicts of float32 numpy arrays in
+    the JAX layout: 4-D ``weight`` → HWIO ``kernel``, 1-D ``weight`` →
+    ``scale``, ``running_mean`` / ``running_var`` → state ``mean`` / ``var``;
+    ``num_batches_tracked`` is dropped."""
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    for key, value in sd.items():
+        path, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        target = params
+        if leaf == "weight" and arr.ndim == 4:
+            arr, leaf = np.transpose(arr, _KERNEL_PERM_BACK), "kernel"
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf in ("running_mean", "running_var"):
+            leaf, target = leaf[len("running_"):], state
+        elif leaf != "bias":
+            raise ValueError(f"{key}: no JAX counterpart for {leaf!r} of "
+                             f"shape {arr.shape}")
+        treelib.set_path(target, f"{path}.{leaf}" if path else leaf,
+                         np.array(arr, copy=True, order="C"))
+    return params, state
 
 
 def load_npz_state_dict(npz_dir: str, section: str = "generator"

@@ -1,0 +1,70 @@
+"""Synthetic clean images, made on the device from a ``torch.Generator``.
+
+Port of ``celebrity_image_denoiser_tpu/data/synthetic.py::synth_clean_batch``
+(:20-90) — the same recipe and ranges: a smooth low-frequency colour field
+(6×6 uniform, cubic upsampling), a mid-frequency layer (24×24 in ±0.12,
+linear), ``num_shapes`` antialiased rectangles or ellipses (1.5 px sigmoid
+edge), two band-limited texture layers at quarter and half resolution with
+per-image amplitude in [0, 0.12] coupled to luminance, and a radial vignette
+of strength in [0, 0.35]; clipped to [0, 1].  The images differ from the JAX
+package's for the same seed (another generator, and PyTorch's cubic kernel
+has a = −0.75 where JAX's has −0.5); the statistics a denoiser needs — flat
+regions, sharp edges, fine texture — are the same.  The calibration and
+low-resolution batches wait for int8 and SRGAN.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _uniform(gen, shape, lo, hi, device):
+    return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+
+def _resize(x, size: int, mode: str):
+    """(n, h, w, 3) → (n, size, size, 3), half-pixel centres."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode=mode,
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def synth_clean_batch(gen: torch.Generator, n: int, size: int = 128,
+                      num_shapes: int = 4) -> torch.Tensor:
+    """(n, size, size, 3) float32 clean images in [0, 1] on ``gen``'s
+    device."""
+    dev = gen.device
+    img = _resize(_uniform(gen, (n, 6, 6, 3), 0.0, 1.0, dev), size, "bicubic")
+    img = img + _resize(_uniform(gen, (n, 24, 24, 3), -0.12, 0.12, dev), size,
+                        "bilinear")
+    coords = torch.arange(size, dtype=torch.float32, device=dev)
+    yy, xx = coords.view(1, size, 1), coords.view(1, 1, size)
+
+    for _ in range(num_shapes):
+        centre = _uniform(gen, (n, 2), 0.15 * size, 0.85 * size, dev)
+        dims = _uniform(gen, (n, 2), 0.06 * size, 0.30 * size, dev)
+        cy, cx = centre[:, 0].view(n, 1, 1), centre[:, 1].view(n, 1, 1)
+        hh, ww = dims[:, 0].view(n, 1, 1), dims[:, 1].view(n, 1, 1)
+        # signed distances (negative inside) for both candidate shapes
+        d_rect = torch.maximum((yy - cy).abs() - hh, (xx - cx).abs() - ww)
+        d_ell = (torch.sqrt(((yy - cy) / hh) ** 2 + ((xx - cx) / ww) ** 2)
+                 - 1.0) * torch.minimum(hh, ww)
+        use_rect = torch.rand((n, 1, 1), generator=gen, device=dev) < 0.5
+        mask = torch.sigmoid(-torch.where(use_rect, d_rect, d_ell) / 1.5)
+        mask = mask.unsqueeze(-1)
+        color = _uniform(gen, (n, 1, 1, 3), 0.0, 1.0, dev)
+        img = img * (1.0 - mask) + color * mask
+
+    amp = _uniform(gen, (n, 2), 0.0, 0.12, dev).view(n, 2, 1, 1, 1)
+    tex_q = _resize(_uniform(gen, (n, size // 4, size // 4, 3), -1.0, 1.0,
+                             dev), size, "bilinear")
+    tex_h = _resize(_uniform(gen, (n, size // 2, size // 2, 3), -1.0, 1.0,
+                             dev), size, "bilinear")
+    tex = amp[:, 0] * tex_q + amp[:, 1] * tex_h
+    img = img + tex * img.mean(dim=-1, keepdim=True)
+
+    r2 = ((yy / size - 0.5) ** 2 + (xx / size - 0.5) ** 2) * 2.0
+    strength = _uniform(gen, (n, 1, 1), 0.0, 0.35, dev)
+    img = img * (1.0 - strength * r2).unsqueeze(-1)
+    return torch.clamp(img, 0.0, 1.0)

@@ -1,4 +1,4 @@
-"""Denoise U-Net generator — the flagship family — and its serving step.
+"""Denoise GAN models — the flagship family — and the serving step.
 
 Port of ``celebrity_image_denoiser_tpu/models/denoise_unet.py::
 DenoiseGenerator`` (:21-72): (3→64→64) ↓ (64→128→128) ↓ bottleneck
@@ -19,9 +19,24 @@ kernels is contiguous without a copy.  The ten 3×3 convs run through
 ``upconv1``'s two convs through ``conv3x3_bias_relu`` (2 launches; the last
 without ReLU).  Transpose convs, max-pools, the concats and the tanh are
 PyTorch ops, as they were XLA ops in the JAX package.  On a CPU tensor every
-kernel wrapper runs its plain version; ``forward(x, plain=True)`` runs the
-plain versions on any device — the reference ``chip_smoke.py`` holds the
-kernel path against on the card.
+kernel wrapper runs its plain version.
+
+``forward(x, route=...)`` names the way through the 3×3 convs:
+
+* ``"kernel"`` (default) — the kernel wrappers, for inference.  They have
+  no backward, so with autograd recording and trainable parameters they
+  raise;
+* ``"plain"`` — the kernels' plain versions on any device, the reference
+  ``chip_smoke.py`` holds the kernel route against on the card;
+* ``"autograd"`` — the module's own parameters through ``ops/conv.py``
+  (PyTorch's differentiable convs), weights cast to the activation dtype at
+  use and the bias added in that dtype, as the JAX layers run under AD
+  (``ops/conv.py:76-101``).  The trainer's step takes this route, as the JAX
+  trainer differentiates through XLA's convs and no Pallas kernel.
+
+``DenoiseDiscriminator`` (:75-101) is the trainer's critic: 4 convs with
+BatchNorm and LeakyReLU(0.2), a global average pool, a 1×1 conv and a
+sigmoid; it has no Pallas kernel in the JAX package and none here.
 """
 
 from __future__ import annotations
@@ -33,9 +48,19 @@ import torch
 import torch.nn as nn
 
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
-from celebrity_image_denoiser_tpu_torch.ops.conv import conv2d_transpose
+from celebrity_image_denoiser_tpu_torch.ops.activations import leaky_relu
+from celebrity_image_denoiser_tpu_torch.ops.conv import (
+    conv2d_layer,
+    conv2d_transpose,
+)
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3, double_conv
-from celebrity_image_denoiser_tpu_torch.ops.pool import max_pool2d
+from celebrity_image_denoiser_tpu_torch.ops.norm import batch_norm
+from celebrity_image_denoiser_tpu_torch.ops.pool import (
+    global_avg_pool,
+    max_pool2d,
+)
+
+ROUTES = ("kernel", "plain", "autograd")
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -46,6 +71,20 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC -> NCHW view in channels_last memory."""
     return t.permute(0, 3, 1, 2)
+
+
+@torch.no_grad()
+def _reset_conv_parameters(module: nn.Module,
+                           generator: Optional[torch.Generator]) -> None:
+    """PyTorch's default conv init — U(±1/sqrt(fan_in)) for weight and bias,
+    fan_in from weight dim 1 (C_out for a transpose conv, the quirk
+    ``nn/layers.py:87-88`` keeps) — drawn from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            kh, kw = m.weight.shape[2:]
+            bound = 1.0 / math.sqrt(m.weight.shape[1] * kh * kw)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
 
 
 class DenoiseGenerator(nn.Module):
@@ -76,23 +115,19 @@ class DenoiseGenerator(nn.Module):
         self._kparams: Dict[Tuple[str, torch.dtype], tuple] = {}
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """PyTorch's default conv init — U(±1/sqrt(fan_in)) for weight and
-        bias, fan_in from weight dim 1 (C_out for a transpose conv, the
-        quirk ``nn/layers.py:87-88`` keeps) — drawn from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                kh, kw = m.weight.shape[2:]
-                bound = 1.0 / math.sqrt(m.weight.shape[1] * kh * kw)
-                m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+        _reset_conv_parameters(self, generator)
 
     def _kernel_params(self, name: str, conv: nn.Conv2d, dtype: torch.dtype):
         """(HWIO weight in ``dtype``, f32 bias) for ``conv``, rebuilt only
-        when the parameters change (load_state_dict bumps ``_version``,
-        ``.to()`` replaces the storage)."""
+        when the parameters change (load_state_dict and in-place optimiser
+        updates bump ``_version``, ``.to()`` replaces the storage).  While
+        autograd records and the parameters are trainable, the pair is made
+        anew and stays in the graph: the plain route is then differentiable,
+        and the kernel route refuses."""
         w, b = conv.weight, conv.bias
+        if torch.is_grad_enabled() and (w.requires_grad or b.requires_grad):
+            return w.permute(2, 3, 1, 0).to(dtype).contiguous(), b.float()
         stamp = (w.data_ptr(), w._version, b.data_ptr(), b._version)
         hit = self._kparams.get((name, dtype))
         if hit is None or hit[0] != stamp:
@@ -103,19 +138,27 @@ class DenoiseGenerator(nn.Module):
             self._kparams[(name, dtype)] = hit
         return hit[1], hit[2]
 
-    def _pair(self, name: str, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    def _pair(self, name: str, x: torch.Tensor, route: str) -> torch.Tensor:
         seq = getattr(self, name)
+        if route == "autograd":
+            h = torch.relu(conv2d_layer(x, seq[0].weight, seq[0].bias,
+                                        padding=1))
+            return torch.relu(conv2d_layer(h, seq[2].weight, seq[2].bias,
+                                           padding=1))
         w1, b1 = self._kernel_params(f"{name}.0", seq[0], x.dtype)
         w2, b2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
-        fn = (double_conv.double_conv3x3_relu_plain if plain
+        fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
               else double_conv.double_conv3x3_relu)
         return _nchw(fn(_nhwc(x), w1, b1, w2, b2))
 
     def _single(self, idx: int, x: torch.Tensor, relu: bool,
-                plain: bool) -> torch.Tensor:
-        w, b = self._kernel_params(f"upconv1.{idx}", self.upconv1[idx],
-                                   x.dtype)
-        fn = (conv3x3.conv3x3_bias_relu_plain if plain
+                route: str) -> torch.Tensor:
+        conv = self.upconv1[idx]
+        if route == "autograd":
+            y = conv2d_layer(x, conv.weight, conv.bias, padding=1)
+            return torch.relu(y) if relu else y
+        w, b = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
+        fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
               else conv3x3.conv3x3_bias_relu)
         return _nchw(fn(_nhwc(x), w, b, relu=relu))
 
@@ -123,23 +166,77 @@ class DenoiseGenerator(nn.Module):
         return conv2d_transpose(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
                                 stride=2)
 
-    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-        e1 = self._pair("down1", x, plain)
-        e2 = self._pair("down2", max_pool2d(e1), plain)
-        b = self._pair("bottleneck", max_pool2d(e2), plain)
+    def forward(self, x: torch.Tensor, *, route: str = "kernel"
+                ) -> torch.Tensor:
+        if route not in ROUTES:
+            raise ValueError(f"unknown route {route!r}; choose from {ROUTES}")
+        e1 = self._pair("down1", x, route)
+        e2 = self._pair("down2", max_pool2d(e1), route)
+        b = self._pair("bottleneck", max_pool2d(e2), route)
 
         d2 = self._up(self.up2, b)
         if d2.shape[2:] != e2.shape[2:]:  # skip-crop, JAX :62-63
             e2 = e2[:, :, : d2.shape[2], : d2.shape[3]]
-        d2 = self._pair("upconv2", torch.cat([d2, e2], dim=1), plain)
+        d2 = self._pair("upconv2", torch.cat([d2, e2], dim=1), route)
 
         d1 = self._up(self.up1, d2)
         if d1.shape[2:] != e1.shape[2:]:  # skip-crop, JAX :68-69
             e1 = e1[:, :, : d1.shape[2], : d1.shape[3]]
         d1 = torch.cat([d1, e1], dim=1)
-        d1 = self._single(0, d1, relu=True, plain=plain)
-        d1 = self._single(2, d1, relu=False, plain=plain)
+        d1 = self._single(0, d1, relu=True, route=route)
+        d1 = self._single(2, d1, relu=False, route=route)
         return torch.tanh(d1)
+
+
+class DenoiseDiscriminator(nn.Module):
+    """Input (N, 3, H, W); output (N,) probabilities.  Child names equal the
+    JAX param paths (``model.0`` … ``model.12``); the activations and the
+    pool hold no parameters and are plain functions in ``forward``.
+
+    The float32 parameters are cast to x's dtype at use and each conv's bias
+    is added in that dtype (``conv2d_layer``); BatchNorm takes its batch
+    statistics in float32 and keeps float32 running statistics, updated in
+    train mode on every forward."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.model = nn.Sequential(
+            nn.Conv2d(3, 64, 3, padding=1),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(64, 64, 3, stride=2, padding=1),
+            nn.BatchNorm2d(64),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(64, 128, 3, padding=1),
+            nn.BatchNorm2d(128),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(128, 128, 3, stride=2, padding=1),
+            nn.BatchNorm2d(128),
+            nn.LeakyReLU(0.2),
+            nn.AdaptiveAvgPool2d(1),
+            nn.Conv2d(128, 1, 1),
+            nn.Sigmoid())
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv_parameters(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.model:
+            if isinstance(layer, nn.Conv2d):
+                x = conv2d_layer(x, layer.weight, layer.bias,
+                                 stride=layer.stride, padding=layer.padding)
+            elif isinstance(layer, nn.BatchNorm2d):
+                x = batch_norm(x, layer.weight, layer.bias,
+                               layer.running_mean, layer.running_var,
+                               train=self.training, eps=layer.eps,
+                               momentum=layer.momentum)
+            elif isinstance(layer, nn.LeakyReLU):
+                x = leaky_relu(x, layer.negative_slope)
+            elif isinstance(layer, nn.AdaptiveAvgPool2d):
+                x = global_avg_pool(x)
+            else:  # nn.Sigmoid
+                x = torch.sigmoid(x)
+        return x.reshape(-1)
 
 
 # bf16(2/255): the JAX step multiplies a bf16 array by the Python float 2/255,

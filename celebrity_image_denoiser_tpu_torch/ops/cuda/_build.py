@@ -28,7 +28,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu")
+SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
+           "normalize_gaussian_noise.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -111,7 +112,8 @@ def build() -> BuildResult:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every C entry
     point's ``argtypes``/``restype`` declared: pointers and the stream as
-    ``c_void_p`` (a bare int would be cut to 32 bits), ints as ``c_int``."""
+    ``c_void_p`` (a bare int would be cut to 32 bits), ints as ``c_int``,
+    element counts and seeds as 64-bit integers."""
     global _lib
     with _lock:
         if _lib is None:
@@ -122,6 +124,12 @@ def library() -> ctypes.CDLL:
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 6 + [I] * 7 + [P])
             lib.cid_double_conv3x3_relu.restype = I
+            lib.cid_normalize_gaussian_noise.argtypes = [
+                P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
+                I, P]
+            lib.cid_normalize_gaussian_noise.restype = I
+            lib.cid_philox4x32_10.argtypes = [ctypes.c_uint] * 6 + [P, P]
+            lib.cid_philox4x32_10.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

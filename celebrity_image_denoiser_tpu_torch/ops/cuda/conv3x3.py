@@ -10,6 +10,12 @@ On a CUDA tensor the entry points launch that kernel or raise; on a CPU
 tensor they run ``conv3x3_bias_relu_plain``, the plain PyTorch version of the
 same function.  ``LAUNCHES`` counts the kernel's launches (both entry
 points), so a run can show its main path went through the kernel.
+
+The kernel has no backward, as its Pallas originals have none (the JAX
+trainer differentiates through XLA's convs, never through a Pallas call).
+So with autograd recording and an argument that requires a gradient the
+entry points raise — on either device — instead of returning a tensor cut
+off from the graph; a trainer uses the model's ``route="autograd"``.
 """
 
 from __future__ import annotations
@@ -58,8 +64,19 @@ def conv3x3_bias_relu_plain(x: torch.Tensor, kernel: torch.Tensor,
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward (its Pallas original has "
+            "none either), and an argument requires a gradient; call it "
+            "under torch.no_grad() / torch.inference_mode(), or train "
+            "through the model's route='autograd'")
+
+
 def _run(x, kernel, bias, relu: bool) -> torch.Tensor:
     _check(x, kernel, bias)
+    refuse_grad("conv3x3_bias_relu", x, kernel, bias)
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, kernel, bias, relu=relu)
     if x.device.type != "cuda":

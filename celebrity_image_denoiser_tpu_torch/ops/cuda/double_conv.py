@@ -8,7 +8,9 @@ and ``tile_h`` were MXU/TPU choices and have no counterpart here.
 
 On a CUDA tensor ``double_conv3x3_relu`` launches the kernel or raises; on a
 CPU tensor it runs ``double_conv3x3_relu_plain``.  ``LAUNCHES`` counts the
-kernel's launches.
+kernel's launches.  The kernel has no backward, as its Pallas original has
+none: with autograd recording and an argument that requires a gradient the
+entry point raises on either device (``conv3x3.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from celebrity_image_denoiser_tpu_torch.ops.conv import conv2d
 from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
+from celebrity_image_denoiser_tpu_torch.ops.cuda.conv3x3 import refuse_grad
 
 LAUNCHES = 0  # launches of csrc/double_conv3x3_relu.cu
 
@@ -65,6 +68,7 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x (N,H,W,C0) f32 or bf16; w1 (3,3,C0,C1), w2 (3,3,C1,C2) in x's
     dtype; b1, b2 f32.  Any C0 (3 included) and any H, W."""
     _check(x, w1, b1, w2, b2)
+    refuse_grad("double_conv3x3_relu", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return double_conv3x3_relu_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

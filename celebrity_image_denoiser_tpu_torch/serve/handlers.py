@@ -177,7 +177,8 @@ class ServeState:
         """(1, H, W, 3) float32 in [-1, 1] → (1, H, W, 3) uint8, truncated."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         with torch.inference_mode():
-            y = self.models[name](xt.permute(0, 3, 1, 2), plain=plain)
+            y = self.models[name](xt.permute(0, 3, 1, 2),
+                                  route="plain" if plain else "kernel")
             y01 = torch.clamp(y * 0.5 + 0.5, 0.0, 1.0)
             u8 = (y01 * 255.0).to(torch.uint8)
         return u8.permute(0, 2, 3, 1).cpu().numpy()

@@ -32,7 +32,33 @@ Phases, each printing its own lines; any failure exits non-zero:
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
 7. profile — one bench step under torch.profiler: device time by kernel and
-             the device's busy share of the step.
+             the device's busy share of the step;
+8. noise   — the fused normalise + Gaussian-noise kernel against its plain
+             version on the card (same Philox stream, so the f32 outputs
+             must agree within 1e-5 and the bf16 ones within one bf16 ulp
+             with ≥ 99.9% equal) at 16×256×256×3, 2×64×64×3 and a ragged
+             3×9×7×3; the generator's known answers computed by the kernel
+             source; moments and determinism on a constant image; and one
+             tensor of more than 2^31 elements whose last image is held
+             against the plain version at its index offset;
+9. train-check — one f32 train step at 4×32×32 from fixed arrays, on the card
+             and on the CPU with the port itself: losses rtol 1e-4, the
+             discriminator's BatchNorm statistics atol 1e-4, parameters atol
+             2.5e-4, every generator parameter moved (no all-zero gradient),
+             no conv kernel launched;
+10. train  — 80 synthetic 256×256 PNGs, then ``cli.train`` at full width
+             (batch 16, 256², one epoch = 4 steps) in bfloat16 and in
+             float32: finite losses, PSNR > 5 dB, the noise kernel launched
+             once in every step that drew a gaussian sample and nowhere
+             else, no conv kernel launched while training, the checkpoint
+             resumed with identical parameters, a held-out evaluation that
+             launches exactly 4 + 2 conv kernels per forward; steps/s and
+             images/s; then ``random_noise_batch`` with
+             ``types=("gaussian",)``: one launch per call;
+11. train-profile — the noise kernel's time per launch beside its plain
+             version and its bytes bound; one bf16 train step under
+             torch.profiler (device time by kernel, busy share) and the
+             input stage's share of the step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -63,6 +89,20 @@ BENCH_BATCH = 256
 BIG_BATCH = 2048  # the JAX bench's batch: tensors beyond 2^31 elements
 LATENCY_REQUESTS = 100  # p90 then has 10 samples beyond it
 SEED = 0
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_IMAGES = 16, 256, 80  # 64 train images: 4 steps
+NOISE_TOL_F32 = 1e-5       # [-1, 1] scale; same stream, same f32 operations
+BF16_ULP = 2.0 ** -7       # one bf16 ulp just below 1
+# more than 2^31 elements; the last image straddles element 2^31
+BIG_NOISE_SHAPE = (683, 1024, 1024, 3)
+PHILOX_KAT = [  # Random123 kat_vectors: counter, key, output
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
 
 
 def fail(msg: str) -> None:
@@ -420,13 +460,34 @@ def phase_big_batch(bench):
     x = (x.to(torch.bfloat16) * _BF16_2_OVER_255 - 1.0).permute(0, 3, 1, 2)
     with torch.inference_mode():
         got = model(x)
-        ref = model(x, plain=True)
+        ref = model(x, route="plain")
     check("DenoiseGenerator", f"b{BIG_BATCH}", tuple(x.shape),
           torch.bfloat16, got, ref)
 
 
-def phase_profile(bench):
+def report_profile(prof, wall_ms: float, top: int = 10) -> None:
+    """Device time by kernel and the busy share of a profiled window."""
     from torch.autograd import DeviceType
+
+    rows = []  # device-side events only, so no kernel is counted twice
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        say("  profiler saw no device time: not measured")
+        return
+    say(f"  step wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / wall_ms:.1%} of the step; idle {1 - busy / wall_ms:.1%})")
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        say(f"  {ms:9.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:90]}")
+
+
+def phase_profile(bench):
     from torch.profiler import ProfilerActivity, profile
 
     from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
@@ -447,22 +508,318 @@ def phase_profile(bench):
         serve_step(model, x)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []  # device-side events only, so no kernel is counted twice
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    report_profile(prof, wall)
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+def check_noise(label, dtype, got, ref) -> float:
+    """The noise kernel against its plain version: f32 within NOISE_TOL_F32,
+    bf16 within one ulp with at least 99.9% of the elements equal."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"noise kernel {label}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(ref.shape)} {ref.dtype}")
+    err = (got.float() - ref.float()).abs().max().item()
+    equal = (got == ref).float().mean().item()
+    tol = NOISE_TOL_F32 if dtype == torch.float32 else BF16_ULP
+    ok = (err <= tol and bool(torch.isfinite(got.float()).all())
+          and got.min().item() >= -1.0 and got.max().item() <= 1.0
+          and (dtype == torch.float32 or equal >= 0.999))
+    say(f"  fused_normalize_gaussian_noise {label:24s} {str(dtype):15s} "
+        f"max_abs_err {err:.3e} tol {tol:.3e} equal {equal:.4%} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"noise kernel {label} {dtype} disagrees with its plain version")
+    return err
+
+
+def phase_noise_kernel(noise) -> float:
+    say("== phase 8: noise kernel vs plain")
+    for counter, key, want in PHILOX_KAT:
+        got = tuple(noise.philox4x32_10_on_card(counter, key))
+        say("  philox4x32_10 " + " ".join(f"{v:08x}" for v in got)
+            + (" ok" if got == want else " FAIL"))
+        if got != want:
+            fail(f"the kernel source's Philox misses a known answer: {got}")
+    gen = make_gen()
+    worst = 0.0
+    for shape in ((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), (2, 64, 64, 3),
+                  (3, 9, 7, 3)):
+        x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                          device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            got = noise.fused_normalize_gaussian_noise(1234, x, 25.0, dtype)
+            ref = noise.fused_normalize_gaussian_noise_plain(1234, x, 25.0,
+                                                             dtype)
+            worst = max(worst, check_noise(str(shape), dtype, got, ref))
+    # an unaligned view takes the kernel's scalar path
+    flat = torch.randint(0, 256, (1 + 2 * 16 * 16 * 3,), generator=gen,
+                         dtype=torch.uint8, device="cuda")
+    x = flat[1:].view(2, 16, 16, 3)
+    worst = max(worst, check_noise(
+        "unaligned (2,16,16,3)", torch.float32,
+        noise.fused_normalize_gaussian_noise(5, x, 25.0, torch.float32),
+        noise.fused_normalize_gaussian_noise_plain(5, x, 25.0,
+                                                   torch.float32)))
+    # moments and determinism on a constant image (255 scale)
+    xu = torch.full((2, 64, 64, 3), 128, dtype=torch.uint8, device="cuda")
+    o = noise.fused_normalize_gaussian_noise(42, xu, 25.0, torch.float32)
+    d = (o - (128 / 255 * 2 - 1)) * 255 / 2
+    mean, std = d.mean().item(), d.std().item()
+    same = torch.equal(o, noise.fused_normalize_gaussian_noise(
+        42, xu, 25.0, torch.float32))
+    other = not torch.equal(o, noise.fused_normalize_gaussian_noise(
+        43, xu, 25.0, torch.float32))
+    say(f"  constant 128: mean {mean:+.3f} std {std:.3f} (255 scale), range "
+        f"[{o.min().item():.3f}, {o.max().item():.3f}], same seed identical "
+        f"{same}, other seed differs {other}")
+    if not (abs(mean) < 1.0 and abs(std - 25.0) < 2.0 and same and other
+            and o.min().item() >= -1.0 and o.max().item() <= 1.0):
+        fail("noise kernel: moments or determinism off")
+    # beyond 2^31 elements: the last image against the plain version
+    n_img = BIG_NOISE_SHAPE[1] * BIG_NOISE_SHAPE[2] * BIG_NOISE_SHAPE[3]
+    total = BIG_NOISE_SHAPE[0] * n_img
+    big = torch.randint(0, 256, BIG_NOISE_SHAPE, generator=gen,
+                        dtype=torch.uint8, device="cuda")
+    out = noise.fused_normalize_gaussian_noise(77, big, 25.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    for label, i in (("first image", 0), ("last image", BIG_NOISE_SHAPE[0] - 1)):
+        ref = noise.fused_normalize_gaussian_noise_plain(
+            77, big[i:i + 1], 25.0, torch.bfloat16, _index_offset=i * n_img)
+        worst = max(worst, check_noise(
+            f"{total} elements, {label}", torch.bfloat16, out[i:i + 1], ref))
+    if total <= 2 ** 31:
+        fail("the large tensor does not pass 2^31 elements")
+    del big, out
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_check(conv3x3, double_conv):
+    from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+        DenoiseDiscriminator,
+        DenoiseGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
+        make_train_step,
+    )
+
+    say("== phase 9: one f32 train step, card vs CPU (4x32x32, TF32 off)")
+    rng = np.random.default_rng(SEED)
+    clean = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    noisy = np.clip(clean + rng.normal(0, 0.2, clean.shape), -1,
+                    1).astype(np.float32)
+    results = {}
+    conv3x3.LAUNCHES = 0
+    double_conv.LAUNCHES = 0
+    for dev in ("cpu", "cuda"):
+        init = torch.Generator().manual_seed(SEED)
+        g = DenoiseGenerator(generator=init).to(dev)
+        d = DenoiseDiscriminator(generator=init).to(dev)
+        before = {k: v.clone() for k, v in g.state_dict().items()}
+        init_fn, step_fn = make_train_step(g, d, compute_dtype="float32")
+        out = step_fn(init_fn(), torch.from_numpy(noisy).to(dev),
+                      torch.from_numpy(clean).to(dev), None, 1e-4, 1e-4)
+        unmoved = [k for k, v in g.state_dict().items()
+                   if torch.equal(v, before[k])]
+        if unmoved:  # Adam's first step moves every weight with a gradient
+            fail(f"train step on {dev}: no gradient reached {unmoved}")
+        results[dev] = (
+            {k: float(v) for k, v in out.items()},
+            {f"G.{k}": v.cpu() for k, v in g.state_dict().items()}
+            | {f"D.{k}": v.cpu() for k, v in d.state_dict().items()})
+    if conv3x3.LAUNCHES or double_conv.LAUNCHES:
+        fail("the train step launched a conv kernel (it has no backward)")
+    (m_cpu, sd_cpu), (m_gpu, sd_gpu) = results["cpu"], results["cuda"]
+    for k in ("g_loss", "d_loss"):
+        rel = abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+        say(f"  {k}: card {m_gpu[k]:.7f} cpu {m_cpu[k]:.7f} rel {rel:.2e}")
+        if not rel <= 1e-4:
+            fail(f"train step: {k} differs between card and CPU")
+    worst = {"stats": 0.0, "params": 0.0}
+    for k, v in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
             continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        say("  profiler saw no device time: not measured")
-        return
-    say(f"  step wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({busy / wall:.1%} of the step; idle {1 - busy / wall:.1%})")
-    for ms, count, key in sorted(rows, reverse=True)[:10]:
-        say(f"  {ms:9.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:90]}")
+        kind = "stats" if "running_" in k else "params"
+        worst[kind] = max(worst[kind], (sd_gpu[k] - v).abs().max().item())
+    say(f"  BatchNorm running stats max diff {worst['stats']:.3e} (tol 1e-4), "
+        f"parameters max diff {worst['params']:.3e} (tol 2.5e-4), psnr card "
+        f"{m_gpu['psnr']:.4f} cpu {m_cpu['psnr']:.4f}; every generator "
+        "parameter moved; conv kernel launches 0")
+    if not (worst["stats"] <= 1e-4 and worst["params"] <= 2.5e-4):
+        fail("train step: state differs between card and CPU")
+
+
+def timed_steps(trainer, batch, warmup=3, steps=10) -> float:
+    """Seconds per train step of ``trainer.step_fn`` on a resident batch."""
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        trainer.step_fn(trainer.opt, None, batch, trainer.noise_gen, 1e-4,
+                        1e-4)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def phase_train(conv3x3, double_conv, noise):
+    import tempfile
+
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        synth_clean_batch,
+    )
+
+    say(f"== phase 10: cli.train at batch {TRAIN_BATCH}, {TRAIN_SIZE}x"
+        f"{TRAIN_SIZE}, one epoch")
+    launches = 0
+    trainers = {}
+    with tempfile.TemporaryDirectory(prefix="cid_train_") as tmp:
+        imgs = synth_clean_batch(make_gen(), TRAIN_IMAGES, TRAIN_SIZE)
+        imgs = (imgs * 255).round().to(torch.uint8).cpu().numpy()
+        for i, im in enumerate(imgs):
+            with open(f"{tmp}/{i:03d}.png", "wb") as f:
+                f.write(imageio.encode_png(im))
+        for cdt in ("bfloat16", "float32"):
+            argv = ["--model", "denoise", "--clean-dir", tmp, "--image-size",
+                    str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
+                    str(TRAIN_BATCH), "--num-epochs", "1", "--compute-dtype",
+                    cdt, "--checkpoint-dir", f"{tmp}/ckpt_{cdt}"]
+            noise.LAUNCHES = conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+            t0 = time.perf_counter()
+            tr = cli_train.run(argv)
+            wall = time.perf_counter() - t0
+            k4, k2, k3 = (noise.LAUNCHES, conv3x3.LAUNCHES,
+                          double_conv.LAUNCHES)
+            hist = {k: v[-1] for k, v in tr.metric_history.items() if v}
+            say(f"  {cdt}: {tr.steps} steps in {wall:.2f} s (first-use "
+                f"set-up included), g_loss {hist.get('g_loss')} d_loss "
+                f"{hist.get('d_loss')} psnr {hist.get('psnr')} ssim "
+                f"{hist.get('ssim')}; noise kernel launches {k4}, steps "
+                f"with a gaussian sample {tr.steps_with_gaussian}; conv "
+                f"kernel launches {k2 + k3}")
+            if tr.steps != 4 or len(tr.metric_history["g_loss"]) != 1:
+                fail(f"train {cdt}: expected 4 steps and one finite epoch")
+            if not all(np.isfinite(v) for v in hist.values()):
+                fail(f"train {cdt}: non-finite metrics {hist}")
+            if not hist["psnr"] > 5.0:
+                fail(f"train {cdt}: PSNR {hist['psnr']} not above 5 dB")
+            if k4 != tr.steps_with_gaussian or k4 < 1:
+                fail(f"train {cdt}: noise kernel launches {k4}, steps with "
+                     f"a gaussian sample {tr.steps_with_gaussian}")
+            if k2 or k3:
+                fail(f"train {cdt}: conv kernels launched while training")
+            launches += k4
+            # the checkpoint resumes with identical parameters
+            again = cli_train.build_trainer(
+                cli_train.build_parser().parse_args(argv + ["--resume"]))
+            if again.start_epoch != 1:
+                fail(f"train {cdt}: resume found no checkpoint")
+            for a, b in ((tr.generator, again.generator),
+                         (tr.discriminator, again.discriminator)):
+                for (k, v), w in zip(a.state_dict().items(),
+                                     b.state_dict().values()):
+                    if not k.endswith("num_batches_tracked") \
+                            and not torch.equal(v, w):
+                        fail(f"train {cdt}: {k} differs after resume")
+            if again.opt[0].step != 4 or not all(
+                    torch.equal(v, again.opt[0].nu[k])
+                    for k, v in tr.opt[0].nu.items()):
+                fail(f"train {cdt}: optimiser state differs after resume")
+            # held-out evaluation through the conv kernels
+            test = np.stack([tr.pipeline.dataset.get_test(i) for i in
+                             range(len(tr.pipeline.dataset.test_paths))])
+            clean_u8 = torch.from_numpy(test).cuda()
+            noisy, _ = noise_lib.random_noise_batch(make_gen(), clean_u8)
+            clean = clean_u8.float() / 255.0 * 2.0 - 1.0
+            conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+            val = again.evaluate_dataset([(noisy, clean)])
+            k2, k3 = conv3x3.LAUNCHES, double_conv.LAUNCHES
+            say(f"  {cdt}: resumed at epoch {again.start_epoch} with "
+                f"identical state; held-out {tuple(noisy.shape)} psnr "
+                f"{val['psnr']:.3f} ssim {val['ssim']:.4f}, launches "
+                f"double_conv {k3} conv3x3 {k2}")
+            if (k3, k2) != (4, 2) or not np.isfinite(val["psnr"]):
+                fail(f"train {cdt}: evaluation launched double_conv {k3} "
+                     f"conv3x3 {k2}, expected 4 and 2")
+            # steady-state rate on a resident batch (input stage included)
+            batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+            sec = timed_steps(tr, batch)
+            say(f"  {cdt}: {1 / sec:.3f} steps/s, {TRAIN_BATCH / sec:.1f} "
+                f"images/s ({sec * 1e3:.2f} ms per step, 10 steps on a "
+                "resident batch, on-the-fly noise included)")
+            trainers[cdt] = tr
+    # every sample through the noise kernel: one launch per call
+    batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+    gen = make_gen()
+    noise.LAUNCHES = 0
+    for _ in range(3):
+        out, kinds = noise_lib.random_noise_batch(gen, batch,
+                                                  types=("gaussian",))
+    torch.cuda.synchronize()
+    say(f"  random_noise_batch(types=('gaussian',)) x3: noise kernel "
+        f"launches {noise.LAUNCHES}")
+    if noise.LAUNCHES != 3 or kinds != [0] * TRAIN_BATCH \
+            or not bool(torch.isfinite(out).all()):
+        fail("gaussian-only input stage: expected one launch per call")
+    return launches + noise.LAUNCHES, trainers["bfloat16"], batch
+
+
+def phase_train_profile(noise, trainer, batch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+
+    say("== phase 11: noise kernel times and one bf16 train step profiled")
+    stats = {}
+    for n in (TRAIN_BATCH, 3):  # the whole batch; a typical gaussian share
+        x = batch[:n].contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            ms = time_ms(lambda: noise.fused_normalize_gaussian_noise(
+                1, x, 25.0, dtype), reps=50, warmup=5)
+            plain = time_ms(lambda: noise.fused_normalize_gaussian_noise_plain(
+                1, x, 25.0, dtype))
+            nbytes = x.numel() * (1 + torch.empty((), dtype=dtype)
+                                  .element_size())
+            bound = nbytes / PEAK_BYTES * 1e3
+            say(f"  fused_normalize_gaussian_noise {str(tuple(x.shape)):20s} "
+                f"{str(dtype):15s} kernel {ms:.4f} ms plain {plain:.3f} ms "
+                f"bound {bound:.5f} ms ({nbytes} bytes; "
+                f"{nbytes / ms / 1e6:.1f} GB/s) library: none")
+            stats[(n, dtype)] = {"ms": ms, "plain_ms": plain,
+                                 "bound_ms": bound}
+    # the kernel alone on the device's clock (the times above include the
+    # wrapper's host work between back-to-back launches)
+    x = batch.contiguous()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dtype in (torch.float32, torch.bfloat16):
+            for _ in range(20):
+                noise.fused_normalize_gaussian_noise(1, x, 25.0, dtype)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "normalize_gaussian_noise_kernel" in ev.key:
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            say(f"  device time per launch {dev_us / max(ev.count, 1):.2f} us "
+                f"x{ev.count} {ev.key[:70]}")
+    # the input stage's share of a step (CUDA events around the stage)
+    stage = time_ms(lambda: noise_lib.random_noise_batch(
+        trainer.noise_gen, batch), reps=10, warmup=2)
+    sec = timed_steps(trainer, batch)
+    say(f"  input stage (random_noise_batch, five kinds) {stage:.3f} ms of a "
+        f"{sec * 1e3:.3f} ms bf16 step: {stage / (sec * 1e3):.1%}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(trainer.opt, None, batch, trainer.noise_gen, 1e-4,
+                        1e-4)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall, top=12)
+    return stats[(TRAIN_BATCH, torch.float32)]
 
 
 def main() -> int:
@@ -472,6 +829,7 @@ def main() -> int:
         _build,
         conv3x3,
         double_conv,
+        noise,
     )
 
     if not torch.cuda.is_available():
@@ -490,6 +848,10 @@ def main() -> int:
     stats, bench_launches = phase_bench(conv3x3, double_conv, bench, worst)
     phase_big_batch(bench)
     phase_profile(bench)
+    noise_err = phase_noise_kernel(noise)
+    phase_train_check(conv3x3, double_conv)
+    noise_launches, trainer, batch = phase_train(conv3x3, double_conv, noise)
+    noise_stats = phase_train_profile(noise, trainer, batch)
 
     replaces = {
         "conv3x3_bias_relu":
@@ -519,6 +881,24 @@ def main() -> int:
             entry["also_replaces"] = (
                 "celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py:85")
         kernels.append(entry)
+    if noise_launches < 1:
+        fail("fused_normalize_gaussian_noise was not launched on the "
+             "training path")
+    kernels.append({
+        "name": "fused_normalize_gaussian_noise", "route": "cuda",
+        "source": "celebrity_image_denoiser_tpu_torch/csrc/"
+                  "normalize_gaussian_noise.cu",
+        "replaces":
+            "celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py:46",
+        # the two cli.train runs and the gaussian-only input stage
+        "launches": noise_launches,
+        "max_abs_err": noise_err,
+        # per launch at the training batch, float32 out (what the input
+        # stage asks for); no single PyTorch call computes this function
+        "ms": noise_stats["ms"], "plain_ms": noise_stats["plain_ms"],
+        "bound_ms": noise_stats["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    })
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,14 @@ def _modules():
 def test_port_has_modules_to_check():
     mods = _modules()
     assert "celebrity_image_denoiser_tpu_torch.serve.handlers" in mods
-    assert len(PORT_FILES) > 20
+    # the training slice: every new module is imported and scanned below
+    for name in ("ops.cuda.noise", "ops.norm", "ops.activations",
+                 "data.noise", "data.synthetic", "data.datasets",
+                 "data.pipeline", "ckpt.checkpoint", "train.losses",
+                 "train.optim", "train.gan_trainer", "metrics.psnr_ssim",
+                 "cli.train"):
+        assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
+    assert len(PORT_FILES) > 35
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -99,6 +106,23 @@ def test_cli_serve_defaults_to_the_card(no_cuda):
         serve.main(["--quantize", "off", "--port", "0"])
     with pytest.raises(NotImplementedError):  # the int8 default is refused
         serve.main(["--device", "cpu", "--port", "0"])
+
+
+def test_cli_train_defaults_to_the_card(no_cuda, tmp_path):
+    from celebrity_image_denoiser_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--clean-dir", str(tmp_path), "--num-epochs", "1"])
+
+
+def test_noise_kernel_never_falls_back_off_the_cpu(no_cuda):
+    """A tensor that is neither on the CPU nor on a card raises; nothing
+    routes it to the plain version."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import noise
+
+    x = torch.zeros(1, 2, 2, 3, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        noise.fused_normalize_gaussian_noise(0, x)
 
 
 def test_bench_refuses_to_run_without_the_card(no_cuda):

@@ -89,8 +89,11 @@ def test_tree_and_flat_npz_carry_the_same(shipped_params):
 def test_convert_refuses_unknown_leaves():
     with pytest.raises(ValueError):
         jax_params_to_state_dict({"fc": {"kernel": np.zeros((4, 3))}})
-    with pytest.raises(ValueError):
-        jax_params_to_state_dict({"bn": {"scale": np.zeros((4,))}})
+    with pytest.raises(ValueError):  # PReLU's slope: no layer carries it yet
+        jax_params_to_state_dict({"act": {"alpha": np.zeros((1,))}})
+    # a BatchNorm's scale is carried since the discriminator was ported
+    assert set(jax_params_to_state_dict({"bn": {"scale": np.zeros((4,))}})) \
+        == {"bn.weight"}
 
 
 @pytest.mark.parametrize("weights", ["shipped", "jax_random_init"])
@@ -115,7 +118,7 @@ def test_plain_flag_and_cpu_dispatch_agree(shipped_params):
     m = _port(shipped_params)
     x = torch.rand(1, 3, 20, 24) * 2 - 1
     with torch.no_grad():
-        assert torch.equal(m(x), m(x, plain=True))
+        assert torch.equal(m(x), m(x, route="plain"))
 
 
 def test_kernel_weights_follow_a_reload(shipped_params, jax_model):
