@@ -167,23 +167,3 @@ extern "C" int cid_normalize_gaussian_noise(const void* x, void* y,
     return (int)launch<__nv_bfloat16>(x, y, total, seed, sigma01, s);
   return (int)cudaErrorInvalidValue;
 }
-
-// Philox4x32-10 of one counter and key, for known-answer checks: out[0..3].
-namespace {
-__global__ void philox_probe_kernel(uint32_t c0, uint32_t c1, uint32_t c2,
-                                    uint32_t c3, uint32_t k0, uint32_t k1,
-                                    uint32_t* out) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  const Philox4 r = philox4x32_10(c0, c1, c2, c3, k0, k1);
-  for (int j = 0; j < 4; ++j) out[j] = r.w[j];
-}
-}  // namespace
-
-extern "C" int cid_philox4x32_10(unsigned c0, unsigned c1, unsigned c2,
-                                 unsigned c3, unsigned k0, unsigned k1,
-                                 void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  philox_probe_kernel<<<1, 1, 0, s>>>(c0, c1, c2, c3, k0, k1,
-                                      static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
-}

@@ -23,11 +23,11 @@ kernel wrapper runs its plain version.
 
 ``forward(x, route=...)`` names the way through the 3×3 convs:
 
-* ``"kernel"`` (default) — the kernel wrappers, for inference.  They have
-  no backward, so with autograd recording and trainable parameters they
-  raise;
+* ``"kernel"`` (default) — the kernel wrappers, for inference;
 * ``"plain"`` — the kernels' plain versions on any device, the reference
-  ``chip_smoke.py`` holds the kernel route against on the card;
+  ``chip_smoke.py`` holds the kernel route against on the card.  Both run
+  detached kernel-layout weights and have no backward: with autograd
+  recording and a trainable parameter or input they raise;
 * ``"autograd"`` — the module's own parameters through ``ops/conv.py``
   (PyTorch's differentiable convs), weights cast to the activation dtype at
   use and the bias added in that dtype, as the JAX layers run under AD
@@ -121,13 +121,8 @@ class DenoiseGenerator(nn.Module):
     def _kernel_params(self, name: str, conv: nn.Conv2d, dtype: torch.dtype):
         """(HWIO weight in ``dtype``, f32 bias) for ``conv``, rebuilt only
         when the parameters change (load_state_dict and in-place optimiser
-        updates bump ``_version``, ``.to()`` replaces the storage).  While
-        autograd records and the parameters are trainable, the pair is made
-        anew and stays in the graph: the plain route is then differentiable,
-        and the kernel route refuses."""
+        updates bump ``_version``, ``.to()`` replaces the storage)."""
         w, b = conv.weight, conv.bias
-        if torch.is_grad_enabled() and (w.requires_grad or b.requires_grad):
-            return w.permute(2, 3, 1, 0).to(dtype).contiguous(), b.float()
         stamp = (w.data_ptr(), w._version, b.data_ptr(), b._version)
         hit = self._kparams.get((name, dtype))
         if hit is None or hit[0] != stamp:
@@ -170,6 +165,9 @@ class DenoiseGenerator(nn.Module):
                 ) -> torch.Tensor:
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; choose from {ROUTES}")
+        if route != "autograd":
+            conv3x3.refuse_grad(f"DenoiseGenerator route={route!r}", x,
+                                *self.parameters())
         e1 = self._pair("down1", x, route)
         e2 = self._pair("down2", max_pool2d(e1), route)
         b = self._pair("bottleneck", max_pool2d(e2), route)

@@ -128,8 +128,6 @@ def library() -> ctypes.CDLL:
                 P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                 I, P]
             lib.cid_normalize_gaussian_noise.restype = I
-            lib.cid_philox4x32_10.argtypes = [ctypes.c_uint] * 6 + [P, P]
-            lib.cid_philox4x32_10.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

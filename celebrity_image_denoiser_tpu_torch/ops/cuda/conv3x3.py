@@ -65,11 +65,11 @@ def conv3x3_bias_relu_plain(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through kernel ``name``."""
+    """Raise if autograd would need a gradient through ``name``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: this kernel has no backward (its Pallas original has "
-            "none either), and an argument requires a gradient; call it "
+            f"{name} has no backward (the Pallas kernels have none "
+            "either), and an argument requires a gradient; call it "
             "under torch.no_grad() / torch.inference_mode(), or train "
             "through the model's route='autograd'")
 

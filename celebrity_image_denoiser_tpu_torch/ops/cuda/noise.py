@@ -160,15 +160,3 @@ def fused_normalize_gaussian_noise(
     LAUNCHES += 1
     return y
 
-
-def philox4x32_10_on_card(counter, key, device="cuda"):
-    """One Philox4x32-10 block computed by the kernel source's own
-    generator on the card, for known-answer checks: four Python ints."""
-    out = torch.zeros(4, dtype=torch.int32, device=device)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device):
-        rc = lib.cid_philox4x32_10(*map(int, (*counter, *key)),
-                                   out.data_ptr(), stream)
-    _build.check(rc, "philox4x32_10")
-    return [int(v) & _MASK32 for v in out.tolist()]

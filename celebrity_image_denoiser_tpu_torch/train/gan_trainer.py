@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -226,10 +226,15 @@ class GANTrainer:
         # the noise stream: seeded cfg.seed + 1 like the JAX key stream
         self.noise_gen = torch.Generator(device=self.device)
         self.noise_gen.manual_seed(cfg.seed + 1)
-        # steps run, and those of them in which a sample drew gaussian (each
-        # launches the fused noise kernel exactly once)
+        # steps run, and how many samples of each step drew gaussian: that
+        # sub-batch, if not empty, takes one launch of the fused noise kernel
         self.steps = 0
-        self.steps_with_gaussian = 0
+        self.gaussian_counts: List[int] = []
+
+    @property
+    def steps_with_gaussian(self) -> int:
+        """Steps in which a sample drew gaussian: the noise kernel's launches."""
+        return sum(1 for c in self.gaussian_counts if c)
 
     # ---- checkpointing ------------------------------------------------------
     def _sections(self) -> Dict[str, object]:
@@ -356,8 +361,8 @@ class GANTrainer:
                                  lr_g, lr_d)
                 kinds = m.pop("noise_kinds", None)
                 self.steps += 1
-                if kinds is not None and gaussian in kinds:
-                    self.steps_with_gaussian += 1
+                if kinds is not None:
+                    self.gaussian_counts.append(kinds.count(gaussian))
                 step_metrics.append(m)
             n_batches = len(step_metrics)
             if n_batches == 0:

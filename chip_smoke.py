@@ -37,8 +37,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              version on the card (same Philox stream, so the f32 outputs
              must agree within 1e-5 and the bf16 ones within one bf16 ulp
              with ≥ 99.9% equal) at 16×256×256×3, 2×64×64×3 and a ragged
-             3×9×7×3; the generator's known answers computed by the kernel
-             source; moments and determinism on a constant image; and one
+             3×9×7×3; the generator's known answers from the plain version
+             on the card; moments and determinism on a constant image; and one
              tensor of more than 2^31 elements whose last image is held
              against the plain version at its index offset;
 9. train-check — one f32 train step at 4×32×32 from fixed arrays, on the card
@@ -53,10 +53,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              else, no conv kernel launched while training, the checkpoint
              resumed with identical parameters, a held-out evaluation that
              launches exactly 4 + 2 conv kernels per forward; steps/s and
-             images/s; then ``random_noise_batch`` with
-             ``types=("gaussian",)``: one launch per call;
-11. train-profile — the noise kernel's time per launch beside its plain
-             version and its bytes bound; one bf16 train step under
+             images/s over three windows of about 5 s each, with their
+             spread; then, apart from the training path's count,
+             ``random_noise_batch`` with ``types=("gaussian",)``: one launch
+             per call;
+11. train-profile — the noise kernel at the gaussian sub-batches that the
+             ``cli.train`` runs gave it (float32 out), held against its plain
+             version and timed beside it and its bytes bound, and the same
+             times at the whole batch; one bf16 train step under
              torch.profiler (device time by kernel, busy share) and the
              input stage's share of the step.
 
@@ -90,6 +94,8 @@ BIG_BATCH = 2048  # the JAX bench's batch: tensors beyond 2^31 elements
 LATENCY_REQUESTS = 100  # p90 then has 10 samples beyond it
 SEED = 0
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_IMAGES = 16, 256, 80  # 64 train images: 4 steps
+# steps per timed window of phase 10, about 5 s each
+TIMED_STEPS = {"bfloat16": 200, "float32": 30}
 NOISE_TOL_F32 = 1e-5       # [-1, 1] scale; same stream, same f32 operations
 BF16_ULP = 2.0 ** -7       # one bf16 ulp just below 1
 # more than 2^31 elements; the last image straddles element 2^31
@@ -536,12 +542,16 @@ def check_noise(label, dtype, got, ref) -> float:
 
 def phase_noise_kernel(noise) -> float:
     say("== phase 8: noise kernel vs plain")
+    # the plain version's Philox on the card gives the known answers; the
+    # kernel is then held to that stream bit for bit
     for counter, key, want in PHILOX_KAT:
-        got = tuple(noise.philox4x32_10_on_card(counter, key))
-        say("  philox4x32_10 " + " ".join(f"{v:08x}" for v in got)
+        got = tuple(int(w) for w in noise.philox4x32_10(
+            tuple(torch.tensor([c], device="cuda") for c in counter), key))
+        say("  philox4x32_10 (plain, on the card) "
+            + " ".join(f"{v:08x}" for v in got)
             + (" ok" if got == want else " FAIL"))
         if got != want:
-            fail(f"the kernel source's Philox misses a known answer: {got}")
+            fail(f"the plain Philox misses a known answer: {got}")
     gen = make_gen()
     worst = 0.0
     for shape in ((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), (2, 64, 64, 3),
@@ -651,16 +661,22 @@ def phase_train_check(conv3x3, double_conv):
         fail("train step: state differs between card and CPU")
 
 
-def timed_steps(trainer, batch, warmup=3, steps=10) -> float:
-    """Seconds per train step of ``trainer.step_fn`` on a resident batch."""
-    for i in range(warmup + steps):
-        if i == warmup:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        trainer.step_fn(trainer.opt, None, batch, trainer.noise_gen, 1e-4,
-                        1e-4)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / steps
+def timed_steps(trainer, batch, steps, repeats=3, warmup=3) -> list:
+    """Seconds per train step of ``trainer.step_fn`` on a resident batch:
+    one figure for each of ``repeats`` windows of ``steps`` steps, sorted."""
+    def run(n):
+        for _ in range(n):
+            trainer.step_fn(trainer.opt, None, batch, trainer.noise_gen,
+                            1e-4, 1e-4)
+        torch.cuda.synchronize()
+
+    run(warmup)
+    secs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(steps)
+        secs.append((time.perf_counter() - t0) / steps)
+    return sorted(secs)
 
 
 def phase_train(conv3x3, double_conv, noise):
@@ -676,6 +692,8 @@ def phase_train(conv3x3, double_conv, noise):
     say(f"== phase 10: cli.train at batch {TRAIN_BATCH}, {TRAIN_SIZE}x"
         f"{TRAIN_SIZE}, one epoch")
     launches = 0
+    sub_batches = []  # sizes of the gaussian sub-batches the kernel was given
+    step_sec = {}
     trainers = {}
     with tempfile.TemporaryDirectory(prefix="cid_train_") as tmp:
         imgs = synth_clean_batch(make_gen(), TRAIN_IMAGES, TRAIN_SIZE)
@@ -713,6 +731,7 @@ def phase_train(conv3x3, double_conv, noise):
             if k2 or k3:
                 fail(f"train {cdt}: conv kernels launched while training")
             launches += k4
+            sub_batches += [c for c in tr.gaussian_counts if c]
             # the checkpoint resumes with identical parameters
             again = cli_train.build_trainer(
                 cli_train.build_parser().parse_args(argv + ["--resume"]))
@@ -747,12 +766,20 @@ def phase_train(conv3x3, double_conv, noise):
                      f"conv3x3 {k2}, expected 4 and 2")
             # steady-state rate on a resident batch (input stage included)
             batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
-            sec = timed_steps(tr, batch)
-            say(f"  {cdt}: {1 / sec:.3f} steps/s, {TRAIN_BATCH / sec:.1f} "
-                f"images/s ({sec * 1e3:.2f} ms per step, 10 steps on a "
-                "resident batch, on-the-fly noise included)")
+            steps = TIMED_STEPS[cdt]
+            secs = timed_steps(tr, batch, steps)
+            sec = secs[len(secs) // 2]
+            say(f"  {cdt}: median {1 / sec:.3f} steps/s, "
+                f"{TRAIN_BATCH / sec:.1f} images/s ({sec * 1e3:.2f} ms per "
+                f"step); {len(secs)} windows of {steps} steps on a resident "
+                "batch, on-the-fly noise included: "
+                + ", ".join(f"{1 / v:.3f}" for v in secs[::-1])
+                + f" steps/s, spread {(secs[-1] - secs[0]) / sec:.1%} of "
+                "the median")
+            step_sec[cdt] = sec
             trainers[cdt] = tr
-    # every sample through the noise kernel: one launch per call
+    # every sample through the noise kernel: one launch per call.  A check
+    # of its own: these launches are not the training path's
     batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
     gen = make_gen()
     noise.LAUNCHES = 0
@@ -765,17 +792,29 @@ def phase_train(conv3x3, double_conv, noise):
     if noise.LAUNCHES != 3 or kinds != [0] * TRAIN_BATCH \
             or not bool(torch.isfinite(out).all()):
         fail("gaussian-only input stage: expected one launch per call")
-    return launches + noise.LAUNCHES, trainers["bfloat16"], batch
+    return (launches, sub_batches, trainers["bfloat16"], batch,
+            step_sec["bfloat16"])
 
 
-def phase_train_profile(noise, trainer, batch):
+def phase_train_profile(noise, trainer, batch, sub_batches, step_sec):
     from torch.profiler import ProfilerActivity, profile
 
     from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
 
     say("== phase 11: noise kernel times and one bf16 train step profiled")
+    # the shapes cli.train gave the kernel (each gaussian sub-batch, float32
+    # out), held against the plain version and timed; then the whole batch
+    say(f"  gaussian sub-batches of the cli.train runs: {sub_batches}")
+    err = 0.0
+    for n in sorted(set(sub_batches)):
+        x = batch[:n].contiguous()
+        err = max(err, check_noise(
+            str(tuple(x.shape)), torch.float32,
+            noise.fused_normalize_gaussian_noise(99, x, 25.0, torch.float32),
+            noise.fused_normalize_gaussian_noise_plain(99, x, 25.0,
+                                                       torch.float32)))
     stats = {}
-    for n in (TRAIN_BATCH, 3):  # the whole batch; a typical gaussian share
+    for n in sorted(set(sub_batches) | {TRAIN_BATCH}):
         x = batch[:n].contiguous()
         for dtype in (torch.float32, torch.bfloat16):
             ms = time_ms(lambda: noise.fused_normalize_gaussian_noise(
@@ -808,9 +847,9 @@ def phase_train_profile(noise, trainer, batch):
     # the input stage's share of a step (CUDA events around the stage)
     stage = time_ms(lambda: noise_lib.random_noise_batch(
         trainer.noise_gen, batch), reps=10, warmup=2)
-    sec = timed_steps(trainer, batch)
     say(f"  input stage (random_noise_batch, five kinds) {stage:.3f} ms of a "
-        f"{sec * 1e3:.3f} ms bf16 step: {stage / (sec * 1e3):.1%}")
+        f"{step_sec * 1e3:.3f} ms bf16 step (phase 10's median): "
+        f"{stage / (step_sec * 1e3):.1%}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -819,7 +858,11 @@ def phase_train_profile(noise, trainer, batch):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     report_profile(prof, wall, top=12)
-    return stats[(TRAIN_BATCH, torch.float32)]
+    # for the kernels line: the mean over the training path's launches,
+    # each at the sub-batch it was given, float32 out
+    path = [stats[(n, torch.float32)] for n in sub_batches]
+    return err, {k: sum(s[k] for s in path) / len(path)
+                 for k in ("ms", "plain_ms", "bound_ms")}
 
 
 def main() -> int:
@@ -850,8 +893,13 @@ def main() -> int:
     phase_profile(bench)
     noise_err = phase_noise_kernel(noise)
     phase_train_check(conv3x3, double_conv)
-    noise_launches, trainer, batch = phase_train(conv3x3, double_conv, noise)
-    noise_stats = phase_train_profile(noise, trainer, batch)
+    noise_launches, sub_batches, trainer, batch, step_sec = phase_train(
+        conv3x3, double_conv, noise)
+    if noise_launches < 1 or len(sub_batches) != noise_launches:
+        fail("fused_normalize_gaussian_noise was not launched on the "
+             "training path")
+    path_err, noise_stats = phase_train_profile(noise, trainer, batch,
+                                                sub_batches, step_sec)
 
     replaces = {
         "conv3x3_bias_relu":
@@ -881,20 +929,17 @@ def main() -> int:
             entry["also_replaces"] = (
                 "celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py:85")
         kernels.append(entry)
-    if noise_launches < 1:
-        fail("fused_normalize_gaussian_noise was not launched on the "
-             "training path")
     kernels.append({
         "name": "fused_normalize_gaussian_noise", "route": "cuda",
         "source": "celebrity_image_denoiser_tpu_torch/csrc/"
                   "normalize_gaussian_noise.cu",
         "replaces":
             "celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py:46",
-        # the two cli.train runs and the gaussian-only input stage
+        # the two cli.train runs, counts set to 0 just before each
         "launches": noise_launches,
-        "max_abs_err": noise_err,
-        # per launch at the training batch, float32 out (what the input
-        # stage asks for); no single PyTorch call computes this function
+        "max_abs_err": max(noise_err, path_err),
+        # per launch, the mean over those launches' own shapes (the gaussian
+        # sub-batches, float32 out); no single PyTorch call computes this
         "ms": noise_stats["ms"], "plain_ms": noise_stats["plain_ms"],
         "bound_ms": noise_stats["bound_ms"], "bound_by": "bytes",
         "library_ms": None,

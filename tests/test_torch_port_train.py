@@ -257,20 +257,32 @@ def test_kernel_wrappers_raise_under_grad():
         model(torch.zeros(1, 3, 8, 8), route="fast")
 
 
+def _module_forward(m, x):
+    """The generator through its own ``nn.Sequential`` children: PyTorch's
+    conv modules called as they stand, no route of the port."""
+    pool = torch.nn.functional.max_pool2d
+    e1 = m.down1(x)
+    e2 = m.down2(pool(e1, 2))
+    d2 = m.upconv2(torch.cat([m.up2(m.bottleneck(pool(e2, 2))), e2], dim=1))
+    return torch.tanh(m.upconv1(torch.cat([m.up1(d2), e1], dim=1)))
+
+
 def test_autograd_route_gradients_equal_the_plain_route():
     """Same forward (1e-5) and the same gradient for the input and every
     parameter (1e-5 × the gradient's largest value) as autograd through the
-    kernels' plain versions; no gradient is zero everywhere."""
+    plain ``nn.Conv2d`` modules; no gradient is zero everywhere.  The
+    ``"plain"`` route itself is for inference and raises like the kernels."""
     model = DenoiseGenerator(generator=torch.Generator().manual_seed(0))
     noisy, clean = _batch(5, n=2)
     target = _t(clean).permute(0, 3, 1, 2)
     grads = {}
-    for route in ("autograd", "plain"):
+    for name, fwd in (("autograd", lambda x: model(x, route="autograd")),
+                      ("plain", lambda x: _module_forward(model, x))):
         x = _t(noisy).permute(0, 3, 1, 2).clone().requires_grad_(True)
-        y = model(x, route=route)
+        y = fwd(x)
         loss = torch.mean((y - target) ** 2)
         got = torch.autograd.grad(loss, [x, *model.parameters()])
-        grads[route] = (y.detach(), got)
+        grads[name] = (y.detach(), got)
     np.testing.assert_allclose(grads["autograd"][0].numpy(),
                                grads["plain"][0].numpy(), atol=1e-5, rtol=0)
     names = ["input"] + [n for n, _ in model.named_parameters()]
@@ -278,6 +290,8 @@ def test_autograd_route_gradients_equal_the_plain_route():
         scale = b.abs().max().item()
         assert scale > 0, name
         assert (a - b).abs().max().item() <= 1e-5 * scale + 1e-9, name
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(_t(noisy).permute(0, 3, 1, 2), route="plain")
 
 
 # ---------------------------------------------------------------------------
