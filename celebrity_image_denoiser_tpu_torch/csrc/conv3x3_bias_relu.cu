@@ -1,50 +1,72 @@
 // 3x3 'same' convolution, stride 1, with fused bias and optional ReLU.
 //
-// Replaces (one kernel, two Python entry points in ops/cuda/conv3x3.py):
+// Replaces (one source, two Python entry points in ops/cuda/conv3x3.py):
 //   celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py::conv3x3_bias_relu    (:143, halo DMA)
 //   celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py::conv3x3_bias_relu_v2 (:85, shifted inputs)
 // Both compute y = maybe_relu(conv3x3_same(x, W) + b) with f32 accumulation
 // and store y in x's dtype; they differ only in how the TPU moves data, so
-// on Hopper they are one kernel.
+// on Hopper they are one function.
 //
 // Layout: x (N,H,W,Cin) NHWC, W (3,3,Cin,Cout) HWIO in x's dtype, b (Cout,)
-// float32, y (N,H,W,Cout) NHWC.
+// float32, y (N,H,W,Cout) NHWC.  Any H, W, Cin, Cout; ragged edges are
+// masked, and channels >= Cout are never stored.
 //
 // What bounds it on an H100: upconv1.0 (Cin 128 -> Cout 64) is above the
-// card's bf16 ridge point, so bound by operations; upconv1.2 (64 -> 3) is
-// below it, bound by reading its input.  This first version runs the
-// products on the CUDA cores in f32 FMA, not on the tensor cores, so it
-// sits well above its bound; the design keeps what makes it right and cheap
-// to move to mma/wgmma later:
-//   * one block computes a TH x TW output tile for COT output channels;
-//     the (TH+2) x (TW+2) halo window is staged in shared memory with zeros
-//     outside the image (the ragged H/W edges are masked, no tile divides
-//     the image), so each activation is read from device memory once per
-//     channel tile instead of nine times;
-//   * Cin is walked in CIC-wide chunks (window + 9*CIC*COT weights in
-//     shared memory), accumulating the nine taps in registers;
-//   * each thread owns PPT pixels of one tile row x 4 output channels, so a
-//     row of PPT+2 window values is reused across the three dx taps and one
-//     float4 of weights across PPT pixels;
-//   * bias + ReLU run in the f32 epilogue, and channels >= Cout are never
-//     stored (Cout = 3 for upconv1.2 is not padded into the output).
+// card's bf16 ridge point, so bound by operations, and only the tensor
+// cores come near that bound; upconv1.2 (64 -> 3) is below it, bound by
+// reading its input once.
+//
+// bfloat16 runs on the tensor cores (blocks from conv_mma.cuh):
+//   * Cout > 8: an implicit GEMM per 16x16-pixel tile on wgmma m64n64k16.
+//     A block is three warpgroups.  Two consume: each owns two 64-pixel
+//     position tiles (four tile rows each, one warp per tile row) and
+//     accumulates 64 output channels in registers; A comes from the 18x18
+//     halo window by ldmatrix (a tap is a shift of the row addresses), B is
+//     the tap's [ci][co] weight slice read by wgmma through its descriptor.
+//     The third produces: it only issues the 16-byte cp.async copies, S - 1
+//     work items ahead, with most of its registers handed to the consumers
+//     (setmaxnreg).  Blocks are persistent (one per SM) and the ring runs
+//     across tile boundaries, so a tile's epilogue overlaps the next tile's
+//     copies.
+//     Where one output pass covers Cout and all the weights fit beside the
+//     window stages (upconv1.0: 9 x 128 x 64 weights = 147,456 bytes beside
+//     four 32-channel window stages of 20,736) the weights are loaded once
+//     per block and stay resident: streamed with every window they were 2.4
+//     of the 3.8 GB a bench step pulled through L2, and the copies, not the
+//     tensor cores, set the kernel's pace.  Otherwise weights and windows
+//     are streamed together, 32 channels at a time through three stages, or
+//     16 through four where Cin is not a multiple of 32.
+//   * Cout <= 8 (upconv1.2): bound by bytes, so N is padded to 8 in
+//     registers only: mma.sync m16n8k16, eight warps of two tile rows each,
+//     the B fragments read from a small [tap][8][KC] weight tile.  A
+//     persistent two-stage ring (every thread issues copies; at most two
+//     blocks per SM) brings the windows; results are staged in shared memory
+//     and written as contiguous runs (a tile row of 16 pixels x Cout
+//     channels).
+// float32 keeps f32 FMA on the CUDA cores (no tensor-core type holds f32's
+// tolerance; TF32 must fail it):
+//   * one block computes a TH x TW output tile for COT output channels from
+//     a halo window staged in shared memory CIC channels at a time; each
+//     thread owns PPT pixels of one tile row x 4 output channels.
 // The TPU artifacts of the Pallas version (channel padding to 128 lanes,
 // H % tile_h == 0) are not carried over.
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
+// ---- float32: CUDA cores --------------------------------------------------
 constexpr int kThreads = 256;
 
-template <typename T, int TH, int TW, int COT, int CIC>
+template <int TH, int TW, int COT, int CIC>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_bias_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                         const float* __restrict__ bias, T* __restrict__ y,
-                         int H, int W, int Cin, int Cout, int relu,
-                         int tiles_h, int tiles_w) {
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ y,
+                   int H, int W, int Cin, int Cout, int relu, int tiles_h,
+                   int tiles_w) {
   constexpr int CG = COT / 4;        // groups of 4 output channels
   constexpr int PG = kThreads / CG;  // pixel groups
   constexpr int PPT = TH * TW / PG;  // pixels per thread, along one row
@@ -89,7 +111,7 @@ conv3x3_bias_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gc = ci0 + c;
       float v = 0.f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < Cin)
-        v = cid::to_f32(x[(img + (size_t)gy * W + gx) * Cin + gc]);
+        v = x[(img + (size_t)gy * W + gx) * Cin + gc];
       xs[c * IHW + p] = v;
     }
     for (int i = tid; i < 9 * CIC * COT; i += kThreads) {
@@ -100,7 +122,7 @@ conv3x3_bias_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gc = ci0 + c, gco = co0 + co;
       float v = 0.f;
       if (gc < Cin && gco < Cout)
-        v = cid::to_f32(w[((size_t)tap * Cin + gc) * Cout + gco]);
+        v = w[((size_t)tap * Cin + gc) * Cout + gco];
       ws[i] = v;
     }
     __syncthreads();
@@ -135,45 +157,364 @@ conv3x3_bias_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int j = 0; j < PPT; ++j) {
     const int gx = x0 + pc + j;
     if (gx >= W) continue;
-    T* out = y + (img + (size_t)gy * W + gx) * Cout;
+    float* out = y + (img + (size_t)gy * W + gx) * Cout;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int co = co0 + cg * 4 + k;
       if (co >= Cout) continue;
       float v = acc[j][k] + bias[co];
       if (relu) v = cid::relu_f32(v);
-      out[co] = cid::from_f32<T>(v);
+      out[co] = v;
     }
   }
 }
 
-template <typename T, int TH, int TW, int COT, int CIC>
-cudaError_t launch(const void* x, const void* w, const void* b, void* y,
-                   int n, int h, int wd, int cin, int cout, int relu,
-                   cudaStream_t stream) {
+template <int TH, int TW, int COT, int CIC>
+cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y,
+                       int n, int h, int wd, int cin, int cout, int relu,
+                       cudaStream_t stream) {
   const int tiles_h = (h + TH - 1) / TH;
   const int tiles_w = (wd + TW - 1) / TW;
   const long long blocks = (long long)n * tiles_h * tiles_w;
   if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)blocks, (unsigned)((cout + COT - 1) / COT));
-  conv3x3_bias_relu_kernel<T, TH, TW, COT, CIC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), h, wd, cin, cout,
+  conv3x3_f32_kernel<TH, TW, COT, CIC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(y), h, wd, cin, cout,
       relu, tiles_h, tiles_w);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* x, const void* w, const void* b, void* y,
-                     int n, int h, int wd, int cin, int cout, int relu,
-                     cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* x, const void* w, const void* b, void* y,
+                         int n, int h, int wd, int cin, int cout, int relu,
+                         cudaStream_t stream) {
   // Narrow outputs (upconv1.2: Cout = 3) take a 4-channel tile over a wide
   // pixel tile instead of wasting 61 of 64 channel lanes.
   if (cout <= 4)
-    return launch<T, 32, 64, 4, 4>(x, w, b, y, n, h, wd, cin, cout, relu,
-                                   stream);
-  return launch<T, 16, 8, 64, 8>(x, w, b, y, n, h, wd, cin, cout, relu,
-                                 stream);
+    return launch_f32<32, 64, 4, 4>(x, w, b, y, n, h, wd, cin, cout, relu,
+                                    stream);
+  return launch_f32<16, 8, 64, 8>(x, w, b, y, n, h, wd, cin, cout, relu,
+                                  stream);
+}
+
+// ---- bfloat16: tensor cores -------------------------------------------------
+using cid::conv::bf16;
+namespace conv = cid::conv;
+namespace mma = cid::mma;
+
+constexpr int kTile = 16;        // output tile, pixels a side
+constexpr int kWin = kTile + 2;  // its halo window
+
+struct TileAt { int n, y0, x0; };
+__device__ __forceinline__ TileAt tile_at(int t, int tiles_h, int tiles_w) {
+  TileAt r;
+  r.x0 = (t % tiles_w) * kTile;
+  t /= tiles_w;
+  r.y0 = (t % tiles_h) * kTile;
+  r.n = t / tiles_h;
+  return r;
+}
+
+// Where a block's walk over its work items stands.  Producer and consumers
+// each carry their own along, so that no item costs a division.
+struct Cursor {
+  int chunk, pass, tile;
+  TileAt at;
+  __device__ __forceinline__ void start(int tiles_h, int tiles_w) {
+    chunk = pass = 0;
+    tile = blockIdx.x;
+    at = tile_at(tile, tiles_h, tiles_w);
+  }
+  __device__ __forceinline__ void advance(int nchunks, int npass, int tiles_h,
+                                          int tiles_w) {
+    if (++chunk < nchunks) return;
+    chunk = 0;
+    if (++pass < npass) return;
+    pass = 0;
+    tile += gridDim.x;
+    at = tile_at(tile, tiles_h, tiles_w);
+  }
+};
+
+// Cout > 8.  One work item = (tile, 64-channel output pass, KC-channel chunk);
+// a block walks the items of tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// resident: all the weights (one slot per chunk) are loaded with the first
+// tile and stay; else they are streamed with the windows (S slots).
+template <int KC, int S>
+__global__ void __launch_bounds__(conv::kThreads, 1)
+conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ bias, bf16* __restrict__ y,
+                     int H, int W, int Cin, int Cout, int relu, int tiles_h,
+                     int tiles_w, int total_tiles, int vec_x, int vec_w,
+                     int pair_ok, int resident) {
+  constexpr int WB = conv::weight_stage_bytes(KC);
+  constexpr int XB = kWin * kWin * 2 * KC;
+  constexpr int MT = 2;  // position tiles (4 tile rows each) per warpgroup
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+
+  const int tid = threadIdx.x;
+  const int nchunks = (Cin + KC - 1) / KC;
+  const int npass = (Cout + conv::kNB - 1) / conv::kNB;
+  const int my_tiles =
+      (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nitems = my_tiles * npass * nchunks;
+  unsigned char* wst = smem_mma;  // [resident ? nchunks : S][WB]
+  unsigned char* xst = smem_mma + (resident ? nchunks : S) * WB;  // [S][XB]
+  float* bs = reinterpret_cast<float*>(xst + S * XB);  // [npass * 64]
+  conv::load_bias(bs, bias, Cout, npass * conv::kNB, tid, conv::kThreads);
+
+  if (tid >= conv::kConsumers) {
+    mma::setmaxnreg_dec<conv::kProducerRegs>();
+    const int ptid = tid - conv::kConsumers;
+    Cursor ahead;
+    ahead.start(tiles_h, tiles_w);
+    conv::produce<S>(nitems, [&](int item, int stage) {
+      const int c0 = ahead.chunk * KC;
+      conv::load_window<KC, kWin, kWin, conv::kProducers>(
+          xst + stage * XB, x + (size_t)ahead.at.n * H * W * Cin, H, W, Cin,
+          c0, ahead.at.y0 - 1, ahead.at.x0 - 1, vec_x, ptid);
+      if (!resident || item < nchunks)
+        conv::load_weights<KC, conv::kProducers>(
+            wst + (resident ? ahead.chunk : stage) * WB, w, Cin, Cout, c0,
+            ahead.pass * conv::kNB, vec_w, ptid);
+      ahead.advance(nchunks, npass, tiles_h, tiles_w);
+    });
+    return;
+  }
+  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  int pbase[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    pbase[mt] = ((wg * MT + mt) * 4 + warp) * kWin + conv::ldm_row();
+
+  Cursor cur;
+  cur.start(tiles_h, tiles_w);
+  float acc[MT][32];
+  conv::consume<S>(nitems, [&](int, int stage) {
+    if (cur.chunk == 0) conv::zero_acc(acc);
+    conv::mma_chunk<KC, MT>(
+        acc, conv::WindowAddr<KC>{mma::smem_u32(xst + stage * XB)}, pbase,
+        kWin, mma::smem_u32(wst + (resident ? cur.chunk : stage) * WB));
+    if (cur.chunk == nchunks - 1) {
+      const int n0 = cur.pass * conv::kNB;
+      const TileAt at = cur.at;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int gy = at.y0 + (wg * MT + mt) * 4 + warp;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int gx = at.x0 + lane / 4 + 8 * hf;
+          if (gy >= H || gx >= W) continue;
+          bf16* out = y + ((size_t)at.n * H * W + (size_t)gy * W + gx) * Cout;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int co = n0 + 8 * i + 2 * (lane % 4);
+            conv::store_pair(out, co, Cout,
+                             conv::finish_pair(bs, co, Cout,
+                                               acc[mt][4 * i + 2 * hf],
+                                               acc[mt][4 * i + 2 * hf + 1],
+                                               relu),
+                             pair_ok);
+          }
+        }
+      }
+    }
+    cur.advance(nchunks, npass, tiles_h, tiles_w);
+  });
+}
+
+// Cout <= 8.  One work item = (tile, KC-channel chunk).
+constexpr int kNarrowThreads = 256;  // eight warps, two tile rows each
+constexpr int kNarrowOutBytes = kTile * kTile * 8 * 2;
+template <int KC>
+__host__ __device__ constexpr int narrow_stage_bytes() {
+  return kWin * kWin * 2 * KC + 9 * 8 * (KC + 8) * 2;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+conv3x3_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                      const float* __restrict__ bias, bf16* __restrict__ y,
+                      int H, int W, int Cin, int Cout, int relu, int tiles_h,
+                      int tiles_w, int total_tiles, int vec_x) {
+  constexpr int XB = kWin * kWin * 2 * KC;
+  constexpr int SB = narrow_stage_bytes<KC>();
+  constexpr int WP = KC + 8;  // weight row pitch: rows fall on distinct banks
+  constexpr int KS = KC / 16;
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  bf16* outs = reinterpret_cast<bf16*>(smem_mma + 2 * SB);  // [row][px][Cout]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int nchunks = (Cin + KC - 1) / KC;
+  const int my_tiles =
+      (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nitems = my_tiles * nchunks;
+
+  auto issue = [&](int item, int stage) {
+    const int t = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
+    const int c0 = (item % nchunks) * KC;
+    const TileAt at = tile_at(t, tiles_h, tiles_w);
+    unsigned char* st = smem_mma + stage * SB;
+    conv::load_window<KC, kWin, kWin, kNarrowThreads>(
+        st, x + (size_t)at.n * H * W * Cin, H, W, Cin, c0, at.y0 - 1,
+        at.x0 - 1, vec_x, tid);
+    // with one chunk per tile both stages keep the weights they were given
+    if (nchunks > 1 || item < 2) {
+      bf16* ws = reinterpret_cast<bf16*>(st + XB);  // [tap][n][WP]
+      for (int i = tid; i < 9 * 8 * KC; i += kNarrowThreads) {
+        const int k = i % KC, n = (i / KC) % 8, tap = i / (8 * KC);
+        bf16 v = __float2bfloat16(0.f);
+        if (c0 + k < Cin && n < Cout)
+          v = w[((size_t)tap * Cin + c0 + k) * Cout + n];
+        ws[(tap * 8 + n) * WP + k] = v;
+      }
+    }
+  };
+
+  int pbase[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    pbase[mt] = (warp * 2 + mt) * kWin + conv::ldm_row();
+  const int khalf = conv::ldm_khalf();
+
+  float acc[2][4];
+  if (nitems > 0) issue(0, 0);
+  mma::cp_async_commit();
+  for (int item = 0; item < nitems; ++item) {
+    const int stage = item & 1;
+    if (item + 1 < nitems) issue(item + 1, stage ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (item % nchunks == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+    }
+    const conv::WindowAddr<KC> addr{mma::smem_u32(smem_mma + stage * SB)};
+    const unsigned char* ws = smem_mma + stage * SB + XB;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * kWin + tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+            ws + ((tap * 8 + g) * WP + ks * 16 + 2 * q) * 2);
+        const uint32_t b[2] = {wr[0], wr[4]};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t a[4];
+          mma::ldmatrix_x4(a, addr(pbase[mt] + shift, ks * 2 + khalf));
+          mma::mma_m16n8k16(acc[mt], a, b);
+        }
+      }
+    }
+    if (item % nchunks == nchunks - 1) {
+      const int t = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
+      const TileAt at = tile_at(t, tiles_h, tiles_w);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int px = g + 8 * (e / 2), co = 2 * q + e % 2;
+          if (co >= Cout) continue;
+          float v = acc[mt][e] + bias[co];
+          if (relu) v = cid::relu_f32(v);
+          outs[((warp * 2 + mt) * kTile + px) * Cout + co] =
+              __float2bfloat16(v);
+        }
+      __syncthreads();
+      // each tile row is one contiguous run of the output
+      const int run = min(kTile, W - at.x0) * Cout;
+      for (int i = tid; i < kTile * kTile * Cout; i += kNarrowThreads) {
+        const int r = i / (kTile * Cout), e = i % (kTile * Cout);
+        const int gy = at.y0 + r;
+        if (gy < H && e < run)
+          y[((size_t)at.n * H * W + (size_t)gy * W + at.x0) * Cout + e] =
+              outs[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int bias_bytes(int cout) {
+  return (cout + conv::kNB - 1) / conv::kNB * conv::kNB * 4;
+}
+template <int KC, int S>
+constexpr int wide_ring_bytes(int weight_slots) {
+  return weight_slots * conv::weight_stage_bytes(KC) + S * kWin * kWin * 2 * KC;
+}
+
+template <int KC, int S>
+cudaError_t launch_wide(const bf16* x, const bf16* w, const float* b, bf16* y,
+                        int n, int h, int wd, int cin, int cout, int relu,
+                        bool resident, cudaStream_t stream) {
+  const int nchunks = (cin + KC - 1) / KC;
+  const int smem =
+      wide_ring_bytes<KC, S>(resident ? nchunks : S) + bias_bytes(cout);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgmma_kernel<KC, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = conv::sm_count();
+  if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  conv3x3_wgmma_kernel<KC, S><<<grid, conv::kThreads, smem, stream>>>(
+      x, w, b, y, h, wd, cin, cout, relu, tiles_h, tiles_w, (int)tiles,
+      cin % 8 == 0 && conv::aligned16(x), cout % 8 == 0 && conv::aligned16(w),
+      cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident);
+  return cudaGetLastError();
+}
+
+template <int KC>
+cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* b,
+                          bf16* y, int n, int h, int wd, int cin, int cout,
+                          int relu, cudaStream_t stream) {
+  constexpr int smem = 2 * narrow_stage_bytes<KC>() + kNarrowOutBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_narrow_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = conv::sm_count();
+  if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < 2 * sms ? tiles : 2 * sms);
+  conv3x3_narrow_kernel<KC><<<grid, kNarrowThreads, smem, stream>>>(
+      x, w, b, y, h, wd, cin, cout, relu, tiles_h, tiles_w, (int)tiles,
+      cin % 8 == 0 && conv::aligned16(x));
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const void* xv, const void* wv, const void* bv,
+                          void* yv, int n, int h, int wd, int cin, int cout,
+                          int relu, cudaStream_t s) {
+  const bf16* x = static_cast<const bf16*>(xv);
+  const bf16* w = static_cast<const bf16*>(wv);
+  const float* b = static_cast<const float*>(bv);
+  bf16* y = static_cast<bf16*>(yv);
+  if (cout <= 8) {
+    if (cin % 64 == 0)
+      return launch_narrow<64>(x, w, b, y, n, h, wd, cin, cout, relu, s);
+    return launch_narrow<16>(x, w, b, y, n, h, wd, cin, cout, relu, s);
+  }
+  // One 64-channel output pass and room for every chunk's weights beside
+  // four 32-channel window stages (upconv1.0: 147,456 + 82,944 bytes): the
+  // weights stay resident.  Else weights and windows are streamed together,
+  // 32 channels at a time through three stages, or 16 through four where Cin
+  // is ragged.
+  if (cin % 32 == 0 && cout <= conv::kNB &&
+      wide_ring_bytes<32, 4>(cin / 32) + bias_bytes(cout) <= conv::kMaxSmem)
+    return launch_wide<32, 4>(x, w, b, y, n, h, wd, cin, cout, relu, true, s);
+  if (cin % 32 == 0)
+    return launch_wide<32, 3>(x, w, b, y, n, h, wd, cin, cout, relu, false, s);
+  return launch_wide<16, 4>(x, w, b, y, n, h, wd, cin, cout, relu, false, s);
 }
 
 }  // namespace
@@ -184,10 +525,9 @@ extern "C" int cid_conv3x3_bias_relu(const void* x, const void* w,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == cid::kDtypeF32)
-    return (int)dispatch<float>(x, w, b, y, n, h, wd, cin, cout, relu, s);
+    return (int)dispatch_f32(x, w, b, y, n, h, wd, cin, cout, relu, s);
   if (dtype == cid::kDtypeBF16)
-    return (int)dispatch<__nv_bfloat16>(x, w, b, y, n, h, wd, cin, cout, relu,
-                                        s);
+    return (int)dispatch_bf16(x, w, b, y, n, h, wd, cin, cout, relu, s);
   return (int)cudaErrorInvalidValue;
 }
 

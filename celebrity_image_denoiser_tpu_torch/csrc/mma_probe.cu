@@ -1,0 +1,106 @@
+// Probes of mma.cuh: each computes one small matrix product through the
+// wrappers exactly as the conv kernels use them (cp.async into the swizzled
+// shared-memory layouts of conv_mma.cuh, ldmatrix, then mma.sync or wgmma)
+// and writes the result out by the documented fragment layout.  The CPU
+// tests run them under the g++ emulation and chip_smoke.py runs them on the
+// card, both against a plain product, so the emulation's layouts are held
+// to the hardware's.
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "conv_mma.cuh"
+
+namespace {
+
+using cid::conv::bf16;
+namespace conv = cid::conv;
+namespace mma = cid::mma;
+
+// d (16x8) = a (16x16, row-major) * b (16x8, [k][n]); one warp.
+__global__ void probe_mma_sync_kernel(const bf16* __restrict__ a,
+                                      const bf16* __restrict__ b,
+                                      float* __restrict__ d) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  const int lane = threadIdx.x, g = lane / 4, q = lane % 4;
+  const conv::WindowAddr<16> addr{mma::smem_u32(smem_mma)};
+  mma::cp_async16(addr(lane / 2, lane % 2), a + (lane / 2) * 16 + (lane % 2) * 8,
+                  true);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t fa[4];
+  mma::ldmatrix_x4(fa, addr(conv::ldm_row(), conv::ldm_khalf()));
+  uint32_t fb[2];
+  for (int i = 0; i < 2; ++i) {
+    const int k = 2 * q + 8 * i;
+    __nv_bfloat162 pr;
+    pr.x = b[k * 8 + g];
+    pr.y = b[(k + 1) * 8 + g];
+    fb[i] = *reinterpret_cast<uint32_t*>(&pr);
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma::mma_m16n8k16(acc, fa, fb);
+  for (int e = 0; e < 4; ++e)
+    d[(g + 8 * (e / 2)) * 8 + 2 * q + e % 2] = acc[e];
+}
+
+// d (64x64) = a (64 x 16*ksteps, row-major) * b (16*ksteps x 64, [k][n]);
+// one warpgroup, ksteps <= 4.
+__global__ void probe_wgmma_kernel(const bf16* __restrict__ a,
+                                   const bf16* __restrict__ b,
+                                   float* __restrict__ d, int ksteps) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  unsigned char* bs = smem_mma;             // 64 rows of 128 bytes
+  unsigned char* as = smem_mma + 64 * 128;  // 64 pixels of 128 bytes
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int K = 16 * ksteps;
+  const conv::WindowAddr<64> addr{mma::smem_u32(as)};
+  const uint32_t b0 = mma::smem_u32(bs);
+  for (int i = tid; i < 64 * 8; i += 128) {
+    const int r = i / 8, j = i % 8;
+    mma::cp_async16(addr(r, j), 8 * j < K ? a + r * K + 8 * j : a, 8 * j < K);
+    mma::cp_async16(b0 + r * 128 + ((j ^ (r & 7)) << 4),
+                    r < K ? b + r * 64 + 8 * j : b, r < K);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  float acc[32];
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t fa[4];
+    mma::ldmatrix_x4(fa, addr(warp * 16 + conv::ldm_row(),
+                              ks * 2 + conv::ldm_khalf()));
+    mma::wgmma_fence();
+    mma::wgmma_m64n64k16(acc, fa, mma::wgmma_desc(b0 + ks * 16 * 128, 1024));
+    mma::wgmma_commit();
+    mma::wgmma_wait<0>();
+  }
+  for (int e = 0; e < 32; ++e) {
+    const int row = warp * 16 + lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    d[row * 64 + col] = acc[e];
+  }
+}
+
+}  // namespace
+
+extern "C" int cid_probe_mma_sync(const void* a, const void* b, void* d,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_mma_sync_kernel<<<1, 32, 1024, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<float*>(d));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cid_probe_wgmma(const void* a, const void* b, void* d,
+                               int ksteps, void* stream) {
+  if (ksteps < 1 || ksteps > 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_wgmma_kernel<<<1, 128, 2 * 64 * 128, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<float*>(d), ksteps);
+  return (int)cudaGetLastError();
+}

@@ -29,8 +29,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
-           "normalize_gaussian_noise.cu")
-HEADERS = ("common.cuh",)
+           "normalize_gaussian_noise.cu", "mma_probe.cu")
+HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -128,6 +128,10 @@ def library() -> ctypes.CDLL:
                 P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                 I, P]
             lib.cid_normalize_gaussian_noise.restype = I
+            lib.cid_probe_mma_sync.argtypes = [P] * 4
+            lib.cid_probe_mma_sync.restype = I
+            lib.cid_probe_wgmma.argtypes = [P] * 3 + [I, P]
+            lib.cid_probe_wgmma.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

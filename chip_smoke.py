@@ -7,12 +7,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's view;
 2. build   — compile ``celebrity_image_denoiser_tpu_torch/csrc`` with nvcc
-             for sm_90a (one nvcc per source, started together);
-3. kernels — every kernel entry point against its plain PyTorch version on
-             the card, at every shape the U-Net launches at 128² batch 8 and
-             at a ragged 132×100 input (tiles straddle every edge), in f32
-             and bf16, TF32 off; then, as a control, the f32 plain versions
-             with TF32 on must fail the f32 check at 128² batch 8;
+             for sm_90a (one nvcc per source, started together); registers,
+             spills and static shared memory of every kernel from ptxas, and
+             which matrix instructions the library holds (``cuobjdump
+             -sass``: HGMMA is wgmma, HMMA is mma.sync);
+3. kernels — the wrappers of ``csrc/mma.cuh`` (cp.async, ldmatrix, mma.sync,
+             wgmma with its descriptor) through ``csrc/mma_probe.cu``
+             against an exact integer product; then every kernel entry point
+             against its plain PyTorch version on the card, at every shape
+             the U-Net launches at 128² batch 8, at a ragged 132×100 input
+             (tiles straddle every edge), at 12×20 (an image smaller than a
+             16×16 tile) and at 40×36 (W not a multiple of 8), in f32 and
+             bf16, TF32 off; then, as a control, the f32 plain versions with
+             TF32 on must fail the f32 check at 128² batch 8;
 4. serve   — the port's ``ServeState`` on the shipped weights behind the
              stdlib HTTP server on 127.0.0.1; three ``/enhance`` requests
              (256×256, 130×98, 64×64) whose pixels must match the plain-path
@@ -27,7 +34,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              call for the same function (``library_ms``, a yardstick the port
              never calls) and its bound: the larger of its operations at 989
              TFLOP/s (dense bf16) and its bytes (each input read once, each
-             output written once) at 3.35 TB/s;
+             output written once) at 3.35 TB/s; per layer the useful TFLOP/s
+             and the share of the bound reached;
 6. batch   — one bf16 forward at the JAX bench's batch of 2048, where
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
@@ -74,6 +82,8 @@ from __future__ import annotations
 import base64
 import functools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -194,18 +204,88 @@ def phase_build(_build):
     res = _build.build()
     say(f"built {res.path.name} in {res.seconds:.1f} s"
         f"{' (cached)' if res.cached else ''}")
+    # ptxas: one line per kernel (dynamic shared memory is set at launch and
+    # not shown here; the sources' headers give it)
+    name = None
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say("  " + line.strip())
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            short = re.search(r".*\d((?:conv3x3|double_conv3x3|normalize|probe)"
+                              r"[a-z_0-9]*?_kernel)(I\w*?E)?Ev?P", m.group(1))
+            name = (short.group(1) + (short.group(2) or "")) if short \
+                else m.group(1)[-60:]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            say(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
     _build.library()
+    # which matrix instructions were compiled in
+    tool = shutil.which("cuobjdump") or str(
+        _build.find_nvcc()).replace("nvcc", "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(res.path)],
+                              capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        say(f"  matrix instructions: could not run cuobjdump ({e}): not "
+            "checked")
+        return
+    if sass.returncode != 0:
+        say(f"  matrix instructions: cuobjdump failed "
+            f"({sass.stderr.strip()[:200]}): not checked")
+        return
+    hgmma = len(re.findall(r"\bHGMMA\.", sass.stdout))
+    hmma = len(re.findall(r"\bHMMA\.", sass.stdout))
+    say(f"  matrix instructions in {res.path.name}: HGMMA (wgmma) {hgmma}, "
+        f"HMMA (mma.sync) {hmma}")
+    if hgmma < 1 or hmma < 1:
+        fail("the built library holds no tensor-core matrix instruction")
 
 
-def phase_kernels(conv3x3, double_conv):
+def phase_mma_probes(_build):
+    """csrc/mma.cuh's wrappers on the card.  Small integers in bf16: every
+    product and sum is exact, so the results must be equal, and one
+    misplaced fragment element or descriptor field shows."""
+    lib = _build.library()
+    gen = make_gen()
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+
+    a, b = ints(16, 16), ints(16, 8)
+    d = torch.full((16, 8), float("nan"), device="cuda")
+    _build.check(lib.cid_probe_mma_sync(a.data_ptr(), b.data_ptr(),
+                                        d.data_ptr(), None), "mma.sync probe")
+    torch.cuda.synchronize()
+    ok = torch.equal(d, a.float() @ b.float())
+    say(f"  mma.cuh cp.async + ldmatrix + mma.sync m16n8k16: "
+        f"{'exact' if ok else 'FAIL'}")
+    if not ok:
+        fail("mma.sync probe disagrees with the plain product")
+    for ksteps in (1, 2, 3, 4):
+        a, b = ints(64, 16 * ksteps), ints(16 * ksteps, 64)
+        d = torch.full((64, 64), float("nan"), device="cuda")
+        _build.check(lib.cid_probe_wgmma(a.data_ptr(), b.data_ptr(),
+                                         d.data_ptr(), ksteps, None),
+                     "wgmma probe")
+        torch.cuda.synchronize()
+        ok = torch.equal(d, a.float() @ b.float())
+        say(f"  mma.cuh cp.async + ldmatrix + wgmma m64n64k16, k = "
+            f"{16 * ksteps}: {'exact' if ok else 'FAIL'}")
+        if not ok:
+            fail("wgmma probe disagrees with the plain product")
+
+
+def phase_kernels(_build, conv3x3, double_conv):
     say("== phase 3: kernels vs plain (TF32 off)")
+    phase_mma_probes(_build)
     gen = make_gen()
     worst = {"conv3x3_bias_relu": 0.0, "double_conv3x3_relu": 0.0}
     controls = []  # (layer, shape, plain fn, args, f32 reference)
-    shapes = [(8, 128, 128), (2, 132, 100)]
+    # the U-Net's shapes; ragged on every tile edge; smaller than a 16x16
+    # tile; W not a multiple of 8
+    shapes = [(8, 128, 128), (2, 132, 100), (2, 12, 20), (3, 40, 36)]
     for dtype in (torch.float32, torch.bfloat16):
         for n, h, w in shapes:
             control = dtype == torch.float32 and (n, h, w) == shapes[0]
@@ -419,10 +499,11 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + n * hh * ww * c2) \
             + 4 * (c1 + c2)
         add("double_conv3x3_relu", ms, plain, lib, flops, nbytes)
+        bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         say(f"  double_conv3x3_relu {layer:10s} {str(shape):30s} kernel "
             f"{ms:.3f} ms plain {plain:.3f} ms cudnn {lib:.3f} ms bound "
-            f"{bound_ms(flops, nbytes, PEAK_BF16_FLOPS):.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)")
+            f"{bound:.3f} ms: {flops / ms / 1e9:.1f} TFLOP/s useful, "
+            f"{bound / ms:.1%} of the bound, {lib / ms:.2f}x cudnn's speed")
     for layer, shape in single_shapes(n, h, w).items():
         (x, k, b), relu = single_inputs(gen, shape, dt)
         _, hh, ww, cin, cout, _ = shape
@@ -440,14 +521,16 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         flops = 2 * n * hh * ww * 9 * cin * cout
         nbytes = 2 * (x.numel() + k.numel() + n * hh * ww * cout) + 4 * cout
         add("conv3x3_bias_relu", ms, plain, lib, flops, nbytes)
+        bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         say(f"  conv3x3_bias_relu   {layer:10s} {str(shape):30s} kernel "
             f"{ms:.3f} ms plain {plain:.3f} ms cudnn {lib:.3f} ms bound "
-            f"{bound_ms(flops, nbytes, PEAK_BF16_FLOPS):.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)")
+            f"{bound:.3f} ms: {flops / ms / 1e9:.1f} TFLOP/s useful, "
+            f"{bound / ms:.1%} of the bound, {lib / ms:.2f}x cudnn's speed")
     for name, s in stats.items():
         say(f"  {name}: {s['per_step']} launches per step, kernel "
             f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, cudnn "
-            f"{s['library_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms per step")
+            f"{s['library_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms per step "
+            f"({s['bound_ms'] / s['ms']:.1%} of the bound)")
     return stats, launches
 
 
@@ -886,7 +969,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(_build)
-    worst = phase_kernels(conv3x3, double_conv)
+    worst = phase_kernels(_build, conv3x3, double_conv)
     launches = phase_serve(conv3x3, double_conv)
     stats, bench_launches = phase_bench(conv3x3, double_conv, bench, worst)
     phase_big_batch(bench)
