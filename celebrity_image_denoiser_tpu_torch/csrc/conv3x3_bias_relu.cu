@@ -18,14 +18,16 @@
 //
 // bfloat16 runs on the tensor cores (blocks from conv_mma.cuh):
 //   * Cout > 8: an implicit GEMM per 16x16-pixel tile on wgmma m64n64k16.
-//     A block is three warpgroups.  Two consume: each owns two 64-pixel
+//     A block is four warpgroups.  Two consume: each owns two 64-pixel
 //     position tiles (four tile rows each, one warp per tile row) and
 //     accumulates 64 output channels in registers; A comes from the 18x18
 //     halo window by ldmatrix (a tap is a shift of the row addresses), B is
 //     the tap's [ci][co] weight slice read by wgmma through its descriptor.
-//     The third produces: it only issues the 16-byte cp.async copies, S - 1
-//     work items ahead, with most of its registers handed to the consumers
-//     (setmaxnreg).  Blocks are persistent (one per SM) and the ring runs
+//     The other two produce: they only start the 16-byte cp.async copies, S
+//     - 1 work items ahead, with most of their registers handed to the
+//     consumers (setmaxnreg); eight producer warps, because a warp keeps only
+//     so many copies in flight and four moved a third fewer bytes a clock.
+//     Blocks are persistent (one per SM) and the ring runs
 //     across tile boundaries, so a tile's epilogue overlaps the next tile's
 //     copies.
 //     Where one output pass covers Cout and all the weights fit beside the
@@ -39,7 +41,7 @@
 //   * Cout <= 8 (upconv1.2): bound by bytes, so N is padded to 8 in
 //     registers only: mma.sync m16n8k16, eight warps of two tile rows each,
 //     the B fragments read from a small [tap][8][KC] weight tile.  A
-//     persistent two-stage ring (every thread issues copies; at most two
+//     persistent two-stage ring (every thread starts copies; at most two
 //     blocks per SM) brings the windows; results are staged in shared memory
 //     and written as contiguous runs (a tile row of 16 pixels x Cout
 //     channels).
@@ -352,7 +354,7 @@ conv3x3_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int nitems = my_tiles * nchunks;
 
-  auto issue = [&](int item, int stage) {
+  auto fill = [&](int item, int stage) {
     const int t = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
     const int c0 = (item % nchunks) * KC;
     const TileAt at = tile_at(t, tiles_h, tiles_w);
@@ -380,11 +382,11 @@ conv3x3_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int khalf = conv::ldm_khalf();
 
   float acc[2][4];
-  if (nitems > 0) issue(0, 0);
+  if (nitems > 0) fill(0, 0);
   mma::cp_async_commit();
   for (int item = 0; item < nitems; ++item) {
     const int stage = item & 1;
-    if (item + 1 < nitems) issue(item + 1, stage ^ 1);
+    if (item + 1 < nitems) fill(item + 1, stage ^ 1);
     mma::cp_async_commit();
     mma::cp_async_wait<1>();
     __syncthreads();

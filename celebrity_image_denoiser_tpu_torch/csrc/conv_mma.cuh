@@ -23,13 +23,16 @@ namespace conv {
 
 using bf16 = __nv_bfloat16;
 
-// A wgmma block: two consumer warpgroups (ldmatrix, wgmma, epilogue) and one
-// producer warpgroup that only issues the copies, so their address
-// arithmetic stays out of the consumers' instruction stream.
+// A wgmma block: two consumer warpgroups (ldmatrix, wgmma, epilogue) and two
+// producer warpgroups that only start the copies, so their address
+// arithmetic stays out of the consumers' instruction stream.  Eight producer
+// warps rather than four: a warp keeps a limited number of copies in flight,
+// and with four the bottleneck layer's copies alone took half as long again.
+// The register split must fit the SM's file: 256 x 216 + 256 x 40 = 65,536.
 constexpr int kConsumers = 256;
-constexpr int kProducers = 128;
+constexpr int kProducers = 256;
 constexpr int kThreads = kConsumers + kProducers;
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg
+constexpr int kProducerRegs = 40, kConsumerRegs = 216;  // setmaxnreg
 constexpr int kNB = 64;         // output channels per wgmma and per B tile
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 
@@ -188,22 +191,22 @@ __device__ __forceinline__ void load_weights(unsigned char* dst, const bf16* w,
 }
 
 // ---- the ring --------------------------------------------------------------
-// The producer warpgroup's loop over a block's work items: issue(item,
+// The producer warps' loop over a block's work items: fill(item,
 // stage) starts the copies of an item into one of S stages, S - 1 items
 // ahead of the one being multiplied.  Each item has two block-wide barriers,
 // which the consumers meet in consume(): the first when the item's data has
 // landed, the second when its stage may be overwritten.
-template <int S, class Issue>
-__device__ __forceinline__ void produce(int nitems, Issue issue) {
+template <int S, class Fill>
+__device__ __forceinline__ void produce(int nitems, Fill fill) {
   for (int item = 0; item < S - 1; ++item) {
-    if (item < nitems) issue(item, item);
+    if (item < nitems) fill(item, item);
     mma::cp_async_commit();
   }
   for (int item = 0; item < nitems; ++item) {
     mma::cp_async_wait<S - 2>();  // all but the S - 2 newest groups: item's
     __syncthreads();
     const int ahead = item + S - 1;
-    if (ahead < nitems) issue(ahead, ahead % S);
+    if (ahead < nitems) fill(ahead, ahead % S);
     mma::cp_async_commit();
     __syncthreads();
   }
@@ -241,7 +244,7 @@ __device__ __forceinline__ int ldm_khalf() { return (threadIdx.x % 32) / 16; }
 // points ldmatrix at; row_pitch the tile's width in pixels; wstage the
 // staged weight chunk.
 // The 9 * KC / 16 steps (tap, 16 channels) run in batches of three: the A
-// fragments of a batch are loaded, then its wgmmas issued under one fence
+// fragments of a batch are loaded, then its wgmmas started under one fence
 // and one commit.  The fragments are double-buffered: a batch is loaded
 // while the one before runs.
 template <int KC, int MT, class Addr>

@@ -19,8 +19,8 @@
 // so the tile must be large enough to amortise them.
 //
 // bfloat16 runs on the tensor cores (blocks from conv_mma.cuh; wgmma
-// m64n64k16; two consumer warpgroups and one producer warpgroup a block, the
-// producer only issuing the cp.async copies one work item ahead):
+// m64n64k16; two consumer warpgroups and two producer warpgroups a block, the
+// producers only starting the cp.async copies one work item ahead):
 //   * a block owns a 16x16 output tile and all C2 channels, for every layer:
 //     the bottleneck's 18x18xC1 intermediate (165,888 bytes at C1 = 256) is
 //     the largest that still leaves room in 227 KB for two stages of a

@@ -156,7 +156,7 @@ inline uint32_t smem_u32(const void* p) {
 
 namespace emu {
 struct Copy { uint32_t dst; unsigned char bytes[16]; };
-// groups of copies this thread has issued; the last one is still open
+// groups of copies this thread has started; the last one is still open
 inline thread_local std::vector<std::vector<Copy>> groups(1);
 inline float bf16_at(uint32_t word, int half) {
   const uint32_t u = (half ? (word >> 16) : (word & 0xFFFFu)) << 16;

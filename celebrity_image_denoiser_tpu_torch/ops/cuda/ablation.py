@@ -10,8 +10,8 @@ producers' copies, the epilogues), and times each variant at the bench
 shapes (bf16, 128², batch 256) on the card.  A variant's results are wrong;
 only its time is read: what a part costs is the time that goes away with
 it, and what is left when everything is out is the ring's skeleton (barriers
-and bookkeeping).  The sandboxed card machines have no ncu or nsys, so this
-takes the place of a kernel profile.  Needs one CUDA card and nvcc.
+and bookkeeping).  Where ncu and nsys cannot run, this takes the place of
+a kernel profile.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ PARTS = {
                   "        mma::ldmatrix_x4(a[par][i][mt],",
                   "        if (b0 == 0) mma::ldmatrix_x4(a[par][i][mt],")],
     "copies": [("conv_mma.cuh",
-                "if (ahead < nitems) issue(ahead, ahead % S);",
-                "if (ahead < 0) issue(ahead, ahead % S);")],
+                "if (ahead < nitems) fill(ahead, ahead % S);",
+                "if (ahead < 0) fill(ahead, ahead % S);")],
     "epilogues": [
         ("double_conv3x3_relu.cu", "if (cur.chunk == nchunks1 - 1) {",
          "if (cur.chunk == nchunks1 - 1 && H < 0) {"),
