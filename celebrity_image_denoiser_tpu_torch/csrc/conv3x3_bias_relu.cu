@@ -9,7 +9,10 @@
 //
 // Layout: x (N,H,W,Cin) NHWC, W (3,3,Cin,Cout) HWIO in x's dtype, b (Cout,)
 // float32, y (N,H,W,Cout) NHWC.  Any H, W, Cin, Cout; ragged edges are
-// masked, and channels >= Cout are never stored.
+// masked, and channels >= Cout are never stored.  In bf16 the input may come
+// as two tensors, x (ca channels) and x2 (cb channels, a strided NHWC view
+// with contiguous channels), standing for their concatenation: the U-Net's
+// skip concat before upconv1.0 is then never written to device memory.
 //
 // What bounds it on an H100: upconv1.0 (Cin 128 -> Cout 64) is above the
 // card's bf16 ridge point, so bound by operations, and only the tensor
@@ -244,11 +247,12 @@ struct Cursor {
 // tile and stay; else they are streamed with the windows (S slots).
 template <int KC, int S>
 __global__ void __launch_bounds__(conv::kThreads, 1)
-conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
                      const float* __restrict__ bias, bf16* __restrict__ y,
-                     int H, int W, int Cin, int Cout, int relu, int tiles_h,
-                     int tiles_w, int total_tiles, int vec_x, int vec_w,
-                     int pair_ok, int resident) {
+                     int H, int W, int Cout, int relu, int tiles_h,
+                     int tiles_w, int total_tiles, int vec_w, int pair_ok,
+                     int resident) {
+  const int Cin = in.a.C + in.b.C;
   constexpr int WB = conv::weight_stage_bytes(KC);
   constexpr int XB = kWin * kWin * 2 * KC;
   constexpr int MT = 2;  // position tiles (4 tile rows each) per warpgroup
@@ -273,8 +277,8 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     conv::produce<S>(nitems, [&](int item, int stage) {
       const int c0 = ahead.chunk * KC;
       conv::load_window<KC, kWin, kWin, conv::kProducers>(
-          xst + stage * XB, x + (size_t)ahead.at.n * H * W * Cin, H, W, Cin,
-          c0, ahead.at.y0 - 1, ahead.at.x0 - 1, vec_x, ptid);
+          xst + stage * XB, in.of(c0, ahead.at.n), H, W, in.local(c0),
+          ahead.at.y0 - 1, ahead.at.x0 - 1, ptid);
       if (!resident || item < nchunks)
         conv::load_weights<KC, conv::kProducers>(
             wst + (resident ? ahead.chunk : stage) * WB, w, Cin, Cout, c0,
@@ -336,10 +340,11 @@ __host__ __device__ constexpr int narrow_stage_bytes() {
 
 template <int KC>
 __global__ void __launch_bounds__(kNarrowThreads, 2)
-conv3x3_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+conv3x3_narrow_kernel(conv::Image im, const bf16* __restrict__ w,
                       const float* __restrict__ bias, bf16* __restrict__ y,
-                      int H, int W, int Cin, int Cout, int relu, int tiles_h,
-                      int tiles_w, int total_tiles, int vec_x) {
+                      int H, int W, int Cout, int relu, int tiles_h,
+                      int tiles_w, int total_tiles) {
+  const int Cin = im.C;
   constexpr int XB = kWin * kWin * 2 * KC;
   constexpr int SB = narrow_stage_bytes<KC>();
   constexpr int WP = KC + 8;  // weight row pitch: rows fall on distinct banks
@@ -360,8 +365,7 @@ conv3x3_narrow_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const TileAt at = tile_at(t, tiles_h, tiles_w);
     unsigned char* st = smem_mma + stage * SB;
     conv::load_window<KC, kWin, kWin, kNarrowThreads>(
-        st, x + (size_t)at.n * H * W * Cin, H, W, Cin, c0, at.y0 - 1,
-        at.x0 - 1, vec_x, tid);
+        st, im.at(at.n), H, W, c0, at.y0 - 1, at.x0 - 1, tid);
     // with one chunk per tile both stages keep the weights they were given
     if (nchunks > 1 || item < 2) {
       bf16* ws = reinterpret_cast<bf16*>(st + XB);  // [tap][n][WP]
@@ -452,9 +456,10 @@ constexpr int wide_ring_bytes(int weight_slots) {
 }
 
 template <int KC, int S>
-cudaError_t launch_wide(const bf16* x, const bf16* w, const float* b, bf16* y,
-                        int n, int h, int wd, int cin, int cout, int relu,
+cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
+                        bf16* y, int n, int h, int wd, int cout, int relu,
                         bool resident, cudaStream_t stream) {
+  const int cin = in.a.C + in.b.C;
   const int nchunks = (cin + KC - 1) / KC;
   const int smem =
       wide_ring_bytes<KC, S>(resident ? nchunks : S) + bias_bytes(cout);
@@ -468,8 +473,8 @@ cudaError_t launch_wide(const bf16* x, const bf16* w, const float* b, bf16* y,
   if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   conv3x3_wgmma_kernel<KC, S><<<grid, conv::kThreads, smem, stream>>>(
-      x, w, b, y, h, wd, cin, cout, relu, tiles_h, tiles_w, (int)tiles,
-      cin % 8 == 0 && conv::aligned16(x), cout % 8 == 0 && conv::aligned16(w),
+      in, w, b, y, h, wd, cout, relu, tiles_h, tiles_w, (int)tiles,
+      cout % 8 == 0 && conv::aligned16(w),
       cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident);
   return cudaGetLastError();
 }
@@ -489,23 +494,36 @@ cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* b,
   if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
   const unsigned grid = (unsigned)(tiles < 2 * sms ? tiles : 2 * sms);
   conv3x3_narrow_kernel<KC><<<grid, kNarrowThreads, smem, stream>>>(
-      x, w, b, y, h, wd, cin, cout, relu, tiles_h, tiles_w, (int)tiles,
-      cin % 8 == 0 && conv::aligned16(x));
+      conv::dense_image(x, h, wd, cin), w, b, y, h, wd, cout, relu, tiles_h,
+      tiles_w, (int)tiles);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const void* xv, const void* wv, const void* bv,
-                          void* yv, int n, int h, int wd, int cin, int cout,
-                          int relu, cudaStream_t s) {
+// x2 (may be null): a second input of cb channels, concatenated behind x's
+// ca; its strides in elements.  It needs the wgmma path and a first input
+// that ends on a chunk boundary; the wrapper concatenates otherwise.
+cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
+                          const void* bv, void* yv, int n, int h, int wd,
+                          int ca, int cb, int cout, int relu, long long x2_sn,
+                          long long x2_sh, long long x2_sw, cudaStream_t s) {
   const bf16* x = static_cast<const bf16*>(xv);
   const bf16* w = static_cast<const bf16*>(wv);
   const float* b = static_cast<const float*>(bv);
   bf16* y = static_cast<bf16*>(yv);
+  const int cin = ca + cb;
+  if (x2v != nullptr && (cout <= 8 || ca % 32 != 0 || cb < 1 ||
+                         !conv::strides_fit(x2_sh, x2_sw)))
+    return cudaErrorInvalidValue;
+  if (!conv::strides_fit((long long)wd * cin, cin))
+    return cudaErrorInvalidValue;
   if (cout <= 8) {
     if (cin % 64 == 0)
       return launch_narrow<64>(x, w, b, y, n, h, wd, cin, cout, relu, s);
     return launch_narrow<16>(x, w, b, y, n, h, wd, cin, cout, relu, s);
   }
+  conv::Input in{conv::dense_image(x, h, wd, ca),
+                 conv::strided_image(static_cast<const bf16*>(x2v), cb, x2_sn,
+                                     x2_sh, x2_sw)};
   // One 64-channel output pass and room for every chunk's weights beside
   // four 32-channel window stages (upconv1.0: 147,456 + 82,944 bytes): the
   // weights stay resident.  Else weights and windows are streamed together,
@@ -513,23 +531,26 @@ cudaError_t dispatch_bf16(const void* xv, const void* wv, const void* bv,
   // is ragged.
   if (cin % 32 == 0 && cout <= conv::kNB &&
       wide_ring_bytes<32, 4>(cin / 32) + bias_bytes(cout) <= conv::kMaxSmem)
-    return launch_wide<32, 4>(x, w, b, y, n, h, wd, cin, cout, relu, true, s);
+    return launch_wide<32, 4>(in, w, b, y, n, h, wd, cout, relu, true, s);
   if (cin % 32 == 0)
-    return launch_wide<32, 3>(x, w, b, y, n, h, wd, cin, cout, relu, false, s);
-  return launch_wide<16, 4>(x, w, b, y, n, h, wd, cin, cout, relu, false, s);
+    return launch_wide<32, 3>(in, w, b, y, n, h, wd, cout, relu, false, s);
+  return launch_wide<16, 4>(in, w, b, y, n, h, wd, cout, relu, false, s);
 }
 
 }  // namespace
 
-extern "C" int cid_conv3x3_bias_relu(const void* x, const void* w,
-                                     const void* b, void* y, int n, int h,
-                                     int wd, int cin, int cout, int relu,
+extern "C" int cid_conv3x3_bias_relu(const void* x, const void* x2,
+                                     const void* w, const void* b, void* y,
+                                     int n, int h, int wd, int ca, int cb,
+                                     int cout, int relu, long long x2_sn,
+                                     long long x2_sh, long long x2_sw,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == cid::kDtypeF32)
-    return (int)dispatch_f32(x, w, b, y, n, h, wd, cin, cout, relu, s);
+  if (dtype == cid::kDtypeF32 && x2 == nullptr)
+    return (int)dispatch_f32(x, w, b, y, n, h, wd, ca, cout, relu, s);
   if (dtype == cid::kDtypeBF16)
-    return (int)dispatch_bf16(x, w, b, y, n, h, wd, cin, cout, relu, s);
+    return (int)dispatch_bf16(x, x2, w, b, y, n, h, wd, ca, cb, cout, relu,
+                              x2_sn, x2_sh, x2_sw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -83,18 +83,65 @@ inline int sm_count() {
   return sms;
 }
 
+// A batch of NHWC images whose channels are contiguous: pixel (n, y, x) starts
+// at p + n * sn + y * sh + x * sw (in elements), so a cropped view of a
+// larger tensor is an Image too.  vec: C and the strides are multiples of 8
+// and p is 16-byte aligned, so every 8-channel piece is.  The strides inside
+// one image are 32-bit (strides_fit), which keeps the producers' address
+// arithmetic and registers small.
+struct Image {
+  const bf16* p;
+  long long sn;
+  int C, sh, sw;
+  bool vec;
+  // image n alone
+  __device__ __forceinline__ Image at(int n) const {
+    return Image{p + n * sn, 0, C, sh, sw, vec};
+  }
+};
+inline bool strides_fit(long long sh, long long sw) {
+  return sh >= 0 && sh <= 2147483647LL && sw >= 0 && sw <= 2147483647LL;
+}
+inline Image strided_image(const bf16* p, int C, long long sn, long long sh,
+                           long long sw) {
+  return Image{p, sn, C, (int)sh, (int)sw,
+               C % 8 == 0 && sn % 8 == 0 && sh % 8 == 0 && sw % 8 == 0 &&
+                   aligned16(p)};
+}
+inline Image dense_image(const bf16* p, int H, int W, int C) {
+  return strided_image(p, C, (long long)H * W * C, (long long)W * C, C);
+}
+
+// A conv input given as two channel ranges, the first a.C channels from `a`
+// and the rest from `b` (b.C = 0: one input): the concatenation is never
+// written to device memory.  A chunk of KC channels lies in one of the two
+// (a.C is a multiple of KC whenever b.C > 0; the launcher sees to it).
+struct Input {
+  Image a, b;
+  // image n of the input that holds channel c0; field by field: a
+  // reference picked at run time would send both images through local memory
+  __device__ __forceinline__ Image of(int c0, int n) const {
+    const bool f = c0 < a.C;
+    return Image{(f ? a.p : b.p) + n * (f ? a.sn : b.sn), 0, f ? a.C : b.C,
+                 f ? a.sh : b.sh, f ? a.sw : b.sw, f ? a.vec : b.vec};
+  }
+  __device__ __forceinline__ int local(int c0) const {
+    return c0 < a.C ? c0 : c0 - a.C;
+  }
+};
+
 // Stage channels [c0, c0 + KC) of the WH x WW window whose top-left pixel is
-// (gy0, gx0) of the image `img` (H x W x C); zeros outside the image and
-// beyond C.  vec: C % 8 == 0 and img 16-byte aligned.  Called by NTHR threads
-// numbered tid.  A thread's copies keep their 16-byte piece and step through
-// the pixels by a constant.
+// (gy0, gx0) of the one image `im` (H x W); zeros outside the image and
+// beyond im.C.  Called by NTHR threads numbered tid.  A thread's copies keep
+// their 16-byte piece and step through the pixels by a constant.
 template <int KC, int WH, int WW, int NTHR>
-__device__ __forceinline__ void load_window(unsigned char* dst, const bf16* img,
-                                            int H, int W, int C, int c0,
-                                            int gy0, int gx0, bool vec,
-                                            int tid) {
+__device__ __forceinline__ void load_window(unsigned char* dst, const Image& im,
+                                            int H, int W, int c0, int gy0,
+                                            int gx0, int tid) {
   constexpr int PITCH = 2 * KC, PIECES = KC / 8;
-  if (vec) {
+  const bf16* img = im.p;
+  const int C = im.C;
+  if (im.vec) {
     static_assert(NTHR % PIECES == 0, "a thread keeps its piece");
     constexpr int STEP = NTHR / PIECES;  // pixels between a thread's copies
     const uint32_t d0 = mma::smem_u32(dst);
@@ -104,7 +151,7 @@ __device__ __forceinline__ void load_window(unsigned char* dst, const bf16* img,
     for (; p < WH * WW; p += STEP) {
       const int gy = gy0 + py, gx = gx0 + px;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
-      const bf16* src = ok ? img + ((size_t)gy * W + gx) * C + c : img;
+      const bf16* src = ok ? img + ((long long)gy * im.sh + gx * im.sw + c) : img;
       mma::cp_async16(d0 + p * PITCH + ((j ^ swizzle<PITCH>(p)) << 4), src,
                       ok);
       py += STEP / WW;
@@ -122,7 +169,7 @@ __device__ __forceinline__ void load_window(unsigned char* dst, const bf16* img,
       const int p = u / PIECES, j = u % PIECES;
       const int gy = gy0 + p / WW, gx = gx0 + p % WW, c = c0 + 8 * j;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const bf16* src = img + ((size_t)gy * W + gx) * C + c;
+      const bf16* src = img + ((long long)gy * im.sh + gx * im.sw + c);
       __align__(16) bf16 v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {

@@ -10,7 +10,9 @@
 //
 // Layout: x (N,H,W,C0) NHWC; w1 (3,3,C0,C1), w2 (3,3,C1,C2) HWIO in x's
 // dtype; b1 (C1,), b2 (C2,) float32; y (N,H,W,C2) NHWC.  Any C0, C1, C2, H,
-// W; ragged edges are masked.
+// W; ragged edges are masked.  In bf16 x may come as two tensors, x and x2 (a
+// strided NHWC view), standing for their channel concatenation: upconv2
+// reads the upsampled tensor and the cropped skip tensor in place.
 //
 // What bounds it on an H100: every U-Net pair is far above the bf16 ridge
 // point (e.g. bottleneck 128->256->256), so it is bound by operations, and
@@ -325,15 +327,14 @@ struct Cursor {
 // first window while this tile's last chunk is.
 template <int KC1, int KC2>
 __global__ void __launch_bounds__(conv::kThreads, 1)
-double_conv3x3_wgmma_kernel(const bf16* __restrict__ x,
-                            const bf16* __restrict__ w1,
+double_conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w1,
                             const float* __restrict__ b1,
                             const bf16* __restrict__ w2,
                             const float* __restrict__ b2,
-                            bf16* __restrict__ y, int H, int W, int C0, int C1,
-                            int C2, int C1p, int tiles_h, int tiles_w,
-                            int total_tiles, int vec_x, int vec_w1, int vec_w2,
-                            int pair_ok) {
+                            bf16* __restrict__ y, int H, int W, int C1, int C2,
+                            int C1p, int tiles_h, int tiles_w, int total_tiles,
+                            int vec_w1, int vec_w2, int pair_ok) {
+  const int C0 = in.a.C + in.b.C;
   constexpr int S = 2;
   constexpr int WB = stage_w_bytes(KC1, KC2);
   constexpr int XB = stage_x_bytes(KC1);
@@ -371,8 +372,8 @@ double_conv3x3_wgmma_kernel(const bf16* __restrict__ x,
       if (!ahead.conv2) {
         const int c0 = ahead.chunk * KC1;
         conv::load_window<KC1, kWin, kWin, conv::kProducers>(
-            xst + stage * XB, x + (size_t)ahead.n * H * W * C0, H, W, C0, c0,
-            ahead.y0 - 2, ahead.x0 - 2, vec_x, ptid);
+            xst + stage * XB, in.of(c0, ahead.n), H, W, in.local(c0),
+            ahead.y0 - 2, ahead.x0 - 2, ptid);
         conv::load_weights<KC1, conv::kProducers>(
             wst + stage * WB, w1, C0, C1, c0, ahead.pass * conv::kNB, vec_w1,
             ptid);
@@ -468,10 +469,9 @@ double_conv3x3_wgmma_kernel(const bf16* __restrict__ x,
 }
 
 template <int KC1, int KC2>
-cudaError_t launch_bf16(const bf16* x, const bf16* w1, const float* b1,
+cudaError_t launch_bf16(const conv::Input& in, const bf16* w1, const float* b1,
                         const bf16* w2, const float* b2, bf16* y, int n, int h,
-                        int wd, int c0, int c1, int c2, int c1p,
-                        cudaStream_t stream) {
+                        int wd, int c1, int c2, int c1p, cudaStream_t stream) {
   const int smem = (int)smem_bytes(KC1, KC2, c1p, c2);
   cudaError_t err = cudaFuncSetAttribute(
       double_conv3x3_wgmma_kernel<KC1, KC2>,
@@ -484,9 +484,9 @@ cudaError_t launch_bf16(const bf16* x, const bf16* w1, const float* b1,
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   double_conv3x3_wgmma_kernel<KC1, KC2>
       <<<grid, conv::kThreads, smem, stream>>>(
-          x, w1, b1, w2, b2, y, h, wd, c0, c1, c2, c1p, tiles_h, tiles_w,
-          (int)tiles, c0 % 8 == 0 && conv::aligned16(x),
-          c1 % 8 == 0 && conv::aligned16(w1), c2 % 8 == 0 && conv::aligned16(w2),
+          in, w1, b1, w2, b2, y, h, wd, c1, c2, c1p, tiles_h, tiles_w,
+          (int)tiles, c1 % 8 == 0 && conv::aligned16(w1),
+          c2 % 8 == 0 && conv::aligned16(w2),
           c2 % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0);
   return cudaGetLastError();
 }
@@ -494,11 +494,23 @@ cudaError_t launch_bf16(const bf16* x, const bf16* w1, const float* b1,
 // The widest chunks whose two stages fit beside the intermediate tile; a C1
 // too wide for one block's shared memory is refused, and the error comes
 // back to the wrapper.
-cudaError_t dispatch_bf16(const void* xv, const void* w1v, const void* b1v,
-                          const void* w2v, const void* b2v, void* yv, int n,
-                          int h, int wd, int c0, int c1, int c2,
-                          cudaStream_t s) {
-  const bf16* x = static_cast<const bf16*>(xv);
+// x2 (may be null): a second input of cb channels, concatenated behind x's
+// ca; its strides in elements.  The first input must end on a 32-channel
+// chunk boundary; the wrapper concatenates otherwise.
+cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* w1v,
+                          const void* b1v, const void* w2v, const void* b2v,
+                          void* yv, int n, int h, int wd, int ca, int cb,
+                          int c1, int c2, long long x2_sn, long long x2_sh,
+                          long long x2_sw, cudaStream_t s) {
+  if (x2v != nullptr &&
+      (ca % 32 != 0 || cb < 1 || !conv::strides_fit(x2_sh, x2_sw)))
+    return cudaErrorInvalidValue;
+  if (!conv::strides_fit((long long)wd * ca, ca)) return cudaErrorInvalidValue;
+  const int c0 = ca + cb;
+  const conv::Input in{
+      conv::dense_image(static_cast<const bf16*>(xv), h, wd, ca),
+      conv::strided_image(static_cast<const bf16*>(x2v), cb, x2_sn, x2_sh,
+                          x2_sw)};
   const bf16* w1 = static_cast<const bf16*>(w1v);
   const bf16* w2 = static_cast<const bf16*>(w2v);
   const float* b1 = static_cast<const float*>(b1v);
@@ -507,8 +519,8 @@ cudaError_t dispatch_bf16(const void* xv, const void* w1v, const void* b1v,
   const int c1p = pad64(c1);
 #define CID_TRY(KC1, KC2)                                                    \
   if (smem_bytes(KC1, KC2, c1p, c2) <= conv::kMaxSmem)                       \
-    return launch_bf16<KC1, KC2>(x, w1, b1, w2, b2, y, n, h, wd, c0, c1, c2, \
-                                 c1p, s);
+    return launch_bf16<KC1, KC2>(in, w1, b1, w2, b2, y, n, h, wd, c1, c2, c1p, \
+                                 s);
   if (c0 % 32 == 0) CID_TRY(32, 32)
   CID_TRY(16, 32)
   CID_TRY(16, 16)
@@ -518,15 +530,18 @@ cudaError_t dispatch_bf16(const void* xv, const void* w1v, const void* b1v,
 
 }  // namespace
 
-extern "C" int cid_double_conv3x3_relu(const void* x, const void* w1,
-                                       const void* b1, const void* w2,
-                                       const void* b2, void* y, int n, int h,
-                                       int wd, int c0, int c1, int c2,
+extern "C" int cid_double_conv3x3_relu(const void* x, const void* x2,
+                                       const void* w1, const void* b1,
+                                       const void* w2, const void* b2, void* y,
+                                       int n, int h, int wd, int ca, int cb,
+                                       int c1, int c2, long long x2_sn,
+                                       long long x2_sh, long long x2_sw,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == cid::kDtypeF32)
-    return (int)launch_f32(x, w1, b1, w2, b2, y, n, h, wd, c0, c1, c2, s);
+  if (dtype == cid::kDtypeF32 && x2 == nullptr)
+    return (int)launch_f32(x, w1, b1, w2, b2, y, n, h, wd, ca, c1, c2, s);
   if (dtype == cid::kDtypeBF16)
-    return (int)dispatch_bf16(x, w1, b1, w2, b2, y, n, h, wd, c0, c1, c2, s);
+    return (int)dispatch_bf16(x, x2, w1, b1, w2, b2, y, n, h, wd, ca, cb, c1,
+                              c2, x2_sn, x2_sh, x2_sw, s);
   return (int)cudaErrorInvalidValue;
 }

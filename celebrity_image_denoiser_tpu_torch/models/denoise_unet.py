@@ -68,6 +68,15 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).contiguous()
 
 
+def _nhwc_view(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """NCHW tensor (or None) -> NHWC view with contiguous channels: no copy
+    for a crop of channels_last memory, a copy otherwise."""
+    if t is None:
+        return None
+    v = t.permute(0, 2, 3, 1)
+    return v if v.stride(3) == 1 else v.contiguous()
+
+
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC -> NCHW view in channels_last memory."""
     return t.permute(0, 3, 1, 2)
@@ -133,9 +142,15 @@ class DenoiseGenerator(nn.Module):
             self._kparams[(name, dtype)] = hit
         return hit[1], hit[2]
 
-    def _pair(self, name: str, x: torch.Tensor, route: str) -> torch.Tensor:
+    def _pair(self, name: str, x: torch.Tensor, route: str,
+              skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv pair ``name`` on x, or on cat([x, skip]) (channels): the
+        kernel and plain routes take the two halves apart, so that the
+        kernel can read them in place."""
         seq = getattr(self, name)
         if route == "autograd":
+            if skip is not None:
+                x = torch.cat([x, skip], dim=1)
             h = torch.relu(conv2d_layer(x, seq[0].weight, seq[0].bias,
                                         padding=1))
             return torch.relu(conv2d_layer(h, seq[2].weight, seq[2].bias,
@@ -144,18 +159,20 @@ class DenoiseGenerator(nn.Module):
         w2, b2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
         fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
               else double_conv.double_conv3x3_relu)
-        return _nchw(fn(_nhwc(x), w1, b1, w2, b2))
+        return _nchw(fn(_nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip)))
 
-    def _single(self, idx: int, x: torch.Tensor, relu: bool,
-                route: str) -> torch.Tensor:
+    def _single(self, idx: int, x: torch.Tensor, relu: bool, route: str,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         conv = self.upconv1[idx]
         if route == "autograd":
+            if skip is not None:
+                x = torch.cat([x, skip], dim=1)
             y = conv2d_layer(x, conv.weight, conv.bias, padding=1)
             return torch.relu(y) if relu else y
         w, b = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
         fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
               else conv3x3.conv3x3_bias_relu)
-        return _nchw(fn(_nhwc(x), w, b, relu=relu))
+        return _nchw(fn(_nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
 
     def _up(self, up: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
         return conv2d_transpose(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
@@ -175,13 +192,12 @@ class DenoiseGenerator(nn.Module):
         d2 = self._up(self.up2, b)
         if d2.shape[2:] != e2.shape[2:]:  # skip-crop, JAX :62-63
             e2 = e2[:, :, : d2.shape[2], : d2.shape[3]]
-        d2 = self._pair("upconv2", torch.cat([d2, e2], dim=1), route)
+        d2 = self._pair("upconv2", d2, route, skip=e2)
 
         d1 = self._up(self.up1, d2)
         if d1.shape[2:] != e1.shape[2:]:  # skip-crop, JAX :68-69
             e1 = e1[:, :, : d1.shape[2], : d1.shape[3]]
-        d1 = torch.cat([d1, e1], dim=1)
-        d1 = self._single(0, d1, relu=True, route=route)
+        d1 = self._single(0, d1, relu=True, route=route, skip=e1)
         d1 = self._single(2, d1, relu=False, route=route)
         return torch.tanh(d1)
 

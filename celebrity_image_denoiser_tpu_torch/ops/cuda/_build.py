@@ -113,16 +113,17 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every C entry
     point's ``argtypes``/``restype`` declared: pointers and the stream as
     ``c_void_p`` (a bare int would be cut to 32 bits), ints as ``c_int``,
-    element counts and seeds as 64-bit integers."""
+    element counts, strides and seeds as 64-bit integers."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build().path))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.cid_conv3x3_bias_relu.argtypes = [P, P, P, P] + [I] * 7 + [P]
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.cid_conv3x3_bias_relu.argtypes = (
+                [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_conv3x3_bias_relu.restype = I
             lib.cid_double_conv3x3_relu.argtypes = (
-                [P] * 6 + [I] * 7 + [P])
+                [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.restype = I
             lib.cid_normalize_gaussian_noise.argtypes = [
                 P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,

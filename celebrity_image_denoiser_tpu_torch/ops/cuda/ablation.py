@@ -116,7 +116,9 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    calls = {}  # layer -> (C function name, pointer arguments, int arguments)
+    # layer -> (C function name, pointers, ints); one input each: the null
+    # second input and its zero channel count and strides are filled in below
+    calls = {}
     for layer, (n, h, w, c0, c1, c2) in K3.items():
         ts = (rnd((n, h, w, c0)), rnd((3, 3, c0, c1), (9 * c0) ** -0.5),
               rnd((c1,), 0.1, torch.float32),
@@ -141,14 +143,17 @@ def main() -> int:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
             lib = ctypes.CDLL(str(Path(tmp) / f"v{i}" / "lib.so"))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.cid_conv3x3_bias_relu.argtypes = [P] * 4 + [I] * 7 + [P]
-            lib.cid_double_conv3x3_relu.argtypes = [P] * 6 + [I] * 7 + [P]
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.cid_conv3x3_bias_relu.argtypes = (
+                [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
+            lib.cid_double_conv3x3_relu.argtypes = (
+                [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
             row = []
             for fn_name, ts, ints in calls.values():
                 fn = getattr(lib, fn_name)
-                args = [t.data_ptr() for t in ts] + list(ints) + [
-                    _build.dtype_code(torch.bfloat16), None]
+                ptrs = [t.data_ptr() for t in ts]
+                args = [ptrs[0], None, *ptrs[1:], *ints[:4], 0, *ints[4:],
+                        0, 0, 0, _build.dtype_code(torch.bfloat16), None]
                 _build.check(fn(*args), f"{fn_name} ({name})")
                 row.append(_time_ms(lambda: fn(*args)))
             print(f"{name:34s}" + "".join(f"{ms:12.3f}" for ms in row),

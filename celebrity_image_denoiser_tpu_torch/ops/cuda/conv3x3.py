@@ -16,9 +16,18 @@ trainer differentiates through XLA's convs, never through a Pallas call).
 So with autograd recording and an argument that requires a gradient the
 entry points raise — on either device — instead of returning a tensor cut
 off from the graph; a trainer uses the model's ``route="autograd"``.
+
+Every entry point takes an optional second input ``x2``: the conv then runs
+on ``torch.cat([x, x2], dim=3)``.  ``x2`` may be a strided view with
+contiguous channels (the U-Net's cropped skip tensor).  Where the bf16
+kernel can read the two channel ranges through two pointers (its wgmma path,
+``x``'s channels a multiple of 32) the concatenation is never written to
+device memory; everywhere else the wrapper concatenates first.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,10 +39,30 @@ LAUNCHES = 0  # launches of csrc/conv3x3_bias_relu.cu, from either entry point
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
+def check_second_input(x: torch.Tensor, x2: torch.Tensor) -> None:
+    """``x2`` must match ``x`` in all but channels and strides."""
+    if x.dim() != 4 or x2.dim() != 4 or x2.shape[:3] != x.shape[:3]:
+        raise ValueError(f"x2 must be (N, H, W, C2) like x {tuple(x.shape)}, "
+                         f"got {tuple(x2.shape)}")
+    if x2.dtype != x.dtype or x2.device != x.device:
+        raise TypeError("x and x2 must share dtype and device, got "
+                        f"{x.dtype}/{x.device} and {x2.dtype}/{x2.device}")
+    if x2.shape[3] < 1 or x2.stride(3) != 1:
+        raise ValueError("x2 must have contiguous channels (stride "
+                         f"{x2.stride()})")
+
+
+def two_pointer_ok(x: torch.Tensor, x2: torch.Tensor) -> bool:
+    """Whether the bf16 kernels read ``x`` and ``x2`` in place (see the
+    module docstring); the alternative is to concatenate first."""
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and x.shape[3] % 32 == 0)
+
+
+def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+           cin: int) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
-    cin = x.shape[3]
     if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, cin):
         raise ValueError(f"kernel must be (3, 3, {cin}, Cout), got "
                          f"{tuple(kernel.shape)}")
@@ -53,10 +82,13 @@ def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
 
 
 def conv3x3_bias_relu_plain(x: torch.Tensor, kernel: torch.Tensor,
-                            bias: torch.Tensor, *, relu: bool = True
+                            bias: torch.Tensor, *, relu: bool = True,
+                            x2: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Plain PyTorch version: f32 conv (products of x's dtype, f32 sums),
     + bias, ReLU if asked, cast to x's dtype.  NHWC in, NHWC out."""
+    if x2 is not None:
+        x = torch.cat([x, x2], dim=3)
     y = conv2d(x.permute(0, 3, 1, 2).float(),
                kernel.permute(3, 2, 0, 1).float(), bias.float(), padding=1)
     if relu:
@@ -74,15 +106,23 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             "through the model's route='autograd'")
 
 
-def _run(x, kernel, bias, relu: bool) -> torch.Tensor:
-    _check(x, kernel, bias)
-    refuse_grad("conv3x3_bias_relu", x, kernel, bias)
+def _run(x, kernel, bias, relu: bool, x2) -> torch.Tensor:
+    if x2 is not None:
+        check_second_input(x, x2)
+        # the narrow-output kernel (Cout <= 8) takes one input
+        if not two_pointer_ok(x, x2) or kernel.shape[-1] <= 8:
+            x, x2 = torch.cat([x, x2], dim=3), None
+    _check(x, kernel, bias, x.shape[-1] + (0 if x2 is None else x2.shape[3]))
+    refuse_grad("conv3x3_bias_relu", x, kernel, bias,
+                *(() if x2 is None else (x2,)))
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, kernel, bias, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     global LAUNCHES
-    n, h, w, cin = x.shape
+    n, h, w, ca = x.shape
+    cb = 0 if x2 is None else x2.shape[3]
+    cin = ca + cb
     cout = kernel.shape[3]
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0 or cin == 0:
@@ -92,24 +132,28 @@ def _run(x, kernel, bias, relu: bool) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.cid_conv3x3_bias_relu(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            n, h, w, cin, cout, int(relu), _build.dtype_code(x.dtype), stream)
+            x.data_ptr(), None if x2 is None else x2.data_ptr(),
+            kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), n, h, w, ca, cb,
+            cout, int(relu), *((0, 0, 0) if x2 is None else x2.stride()[:3]),
+            _build.dtype_code(x.dtype), stream)
     _build.check(rc, "conv3x3_bias_relu")
     LAUNCHES += 1
     return y
 
 
 def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
-                      bias: torch.Tensor, *, relu: bool = True
-                      ) -> torch.Tensor:
+                      bias: torch.Tensor, *, relu: bool = True,
+                      x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Port of ``conv_fused.conv3x3_bias_relu`` (K2).  x (N,H,W,Cin) f32 or
-    bf16; kernel (3,3,Cin,Cout) in x's dtype; bias (Cout,) f32.  Any H, W."""
-    return _run(x, kernel, bias, relu)
+    bf16; kernel (3,3,Cin,Cout) in x's dtype; bias (Cout,) f32.  Any H, W.
+    With ``x2`` (N,H,W,C2) the input is ``cat([x, x2], 3)`` and the kernel
+    (3,3,Cin+C2,Cout)."""
+    return _run(x, kernel, bias, relu, x2)
 
 
 def conv3x3_bias_relu_v2(x: torch.Tensor, kernel: torch.Tensor,
-                         bias: torch.Tensor, *, relu: bool = True
-                         ) -> torch.Tensor:
+                         bias: torch.Tensor, *, relu: bool = True,
+                         x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Port of ``conv_fused.conv3x3_bias_relu_v2`` (K1): the same function
     and the same CUDA kernel as ``conv3x3_bias_relu``."""
-    return _run(x, kernel, bias, relu)
+    return _run(x, kernel, bias, relu, x2)

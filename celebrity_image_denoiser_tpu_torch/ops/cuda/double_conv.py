@@ -11,25 +11,34 @@ CPU tensor it runs ``double_conv3x3_relu_plain``.  ``LAUNCHES`` counts the
 kernel's launches.  The kernel has no backward, as its Pallas original has
 none: with autograd recording and an argument that requires a gradient the
 entry point raises on either device (``conv3x3.refuse_grad``).
+
+An optional second input ``x2`` makes the input ``torch.cat([x, x2], dim=3)``
+(``conv3x3``'s docstring has the rules): the U-Net's ``upconv2`` pair reads
+the upsampled tensor and the cropped skip tensor through two pointers.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from celebrity_image_denoiser_tpu_torch.ops.conv import conv2d
 from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
-from celebrity_image_denoiser_tpu_torch.ops.cuda.conv3x3 import refuse_grad
+from celebrity_image_denoiser_tpu_torch.ops.cuda.conv3x3 import (
+    check_second_input,
+    refuse_grad,
+    two_pointer_ok,
+)
 
 LAUNCHES = 0  # launches of csrc/double_conv3x3_relu.cu
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(x, w1, b1, w2, b2) -> None:
+def _check(x, w1, b1, w2, b2, c0: int) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C0), got {tuple(x.shape)}")
-    c0 = x.shape[3]
     if w1.dim() != 4 or tuple(w1.shape[:3]) != (3, 3, c0):
         raise ValueError(f"w1 must be (3, 3, {c0}, C1), got {tuple(w1.shape)}")
     c1 = w1.shape[3]
@@ -50,10 +59,15 @@ def _check(x, w1, b1, w2, b2) -> None:
         raise ValueError("x, w1, b1, w2, b2 must be contiguous (NHWC / HWIO)")
 
 
-def double_conv3x3_relu_plain(x, w1, b1, w2, b2) -> torch.Tensor:
+def double_conv3x3_relu_plain(x, w1, b1, w2, b2,
+                              x2: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Plain PyTorch version: conv1 in f32 + b1, ReLU, cast to x's dtype (the
     intermediate's storage type; conv2d's zero padding is the 'zero
     outside the image' rule), then conv2 in f32 + b2, ReLU, cast."""
+    if x2 is not None:
+        x = torch.cat([x, x2], dim=3)
+
     def conv(t, w, b):
         return torch.relu(conv2d(t.float(), w.permute(3, 2, 0, 1).float(),
                                  b.float(), padding=1))
@@ -64,17 +78,27 @@ def double_conv3x3_relu_plain(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+                        w2: torch.Tensor, b2: torch.Tensor,
+                        x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (N,H,W,C0) f32 or bf16; w1 (3,3,C0,C1), w2 (3,3,C1,C2) in x's
-    dtype; b1, b2 f32.  Any C0 (3 included) and any H, W."""
-    _check(x, w1, b1, w2, b2)
-    refuse_grad("double_conv3x3_relu", x, w1, b1, w2, b2)
+    dtype; b1, b2 f32.  Any C0 (3 included) and any H, W.  With ``x2``
+    (N,H,W,Cb) the input is ``cat([x, x2], 3)`` and w1 (3,3,C0+Cb,C1)."""
+    if x2 is not None:
+        check_second_input(x, x2)
+        if not two_pointer_ok(x, x2):
+            x, x2 = torch.cat([x, x2], dim=3), None
+    _check(x, w1, b1, w2, b2,
+           x.shape[-1] + (0 if x2 is None else x2.shape[3]))
+    refuse_grad("double_conv3x3_relu", x, w1, b1, w2, b2,
+                *(() if x2 is None else (x2,)))
     if x.device.type == "cpu":
         return double_conv3x3_relu_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     global LAUNCHES
-    n, h, w, c0 = x.shape
+    n, h, w, ca = x.shape
+    cb = 0 if x2 is None else x2.shape[3]
+    c0 = ca + cb
     c1, c2 = w1.shape[3], w2.shape[3]
     y = torch.empty((n, h, w, c2), dtype=x.dtype, device=x.device)
     if y.numel() == 0 or c0 == 0 or c1 == 0:
@@ -85,8 +109,10 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.cid_double_conv3x3_relu(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), n, h, w, c0, c1, c2, code, stream)
+            x.data_ptr(), None if x2 is None else x2.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), n, h, w, ca, cb, c1, c2,
+            *((0, 0, 0) if x2 is None else x2.stride()[:3]), code, stream)
     _build.check(rc, "double_conv3x3_relu")
     LAUNCHES += 1
     return y

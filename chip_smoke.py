@@ -18,7 +18,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              the U-Net launches at 128² batch 8, at a ragged 132×100 input
              (tiles straddle every edge), at 12×20 (an image smaller than a
              16×16 tile) and at 40×36 (W not a multiple of 8), in f32 and
-             bf16, TF32 off; then, as a control, the f32 plain versions with
+             bf16, TF32 off; ``upconv2`` and ``upconv1.0`` also with their
+             input given as two tensors, the second a cropped strided view
+             (in bf16 the kernels read the two through two pointers, in f32
+             the wrapper concatenates); then, as a control, the f32 plain versions with
              TF32 on must fail the f32 check at 128² batch 8;
 4. serve   — the port's ``ServeState`` on the shipped weights behind the
              stdlib HTTP server on 127.0.0.1; three ``/enhance`` requests
@@ -35,7 +38,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              never calls) and its bound: the larger of its operations at 989
              TFLOP/s (dense bf16) and its bytes (each input read once, each
              output written once) at 3.35 TB/s; per layer the useful TFLOP/s
-             and the share of the bound reached;
+             and the share of the bound reached; the two layers behind a
+             skip concat timed with two inputs beside torch.cat + one input;
 6. batch   — one bf16 forward at the JAX bench's batch of 2048, where
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
@@ -184,6 +188,26 @@ def pair_inputs(gen, shape, dtype):
             rnd(gen, (c2,), torch.float32, 0.1))
 
 
+def split_input(gen, x):
+    """x's shape as the U-Net gives it to a conv behind a skip concat: the
+    first half of the channels contiguous, the second half a crop (a strided
+    view) of a larger tensor."""
+    n, h, w, c = x.shape
+    xa = rnd(gen, (n, h, w, c // 2), x.dtype)
+    xb = rnd(gen, (n, h + 1, w + 2, c - c // 2), x.dtype)[:, :h, :w]
+    return xa, xb
+
+
+def halves(x):
+    """x as the U-Net hands it over behind a skip concat (see split_input),
+    with x's own values: cat(halves(x), 3) equals x."""
+    n, h, w, c = x.shape
+    big = torch.empty((n, h + 1, w + 2, c - c // 2), dtype=x.dtype,
+                      device=x.device)
+    big[:, :h, :w] = x[..., c // 2:]
+    return x[..., : c // 2].contiguous(), big[:, :h, :w]
+
+
 def phase_device():
     say("== phase 1: device")
     smi = subprocess.run(
@@ -211,7 +235,7 @@ def phase_build(_build):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             short = re.search(r".*\d((?:conv3x3|double_conv3x3|normalize|probe)"
-                              r"[a-z_0-9]*?_kernel)(I\w*?E)?Ev?P", m.group(1))
+                              r"[a-z_0-9]*?_kernel)(I\w*?E)?Ev?[PN]", m.group(1))
             name = (short.group(1) + (short.group(2) or "")) if short \
                 else m.group(1)[-60:]
         elif "spill" in line:
@@ -299,6 +323,16 @@ def phase_kernels(_build, conv3x3, double_conv):
                 if control:
                     controls.append((layer, shape, functools.partial(
                         double_conv.double_conv3x3_relu_plain, *args), ref))
+                if layer == "upconv2":  # the skip concat as two inputs
+                    xa, xb = split_input(gen, args[0])
+                    worst["double_conv3x3_relu"] = max(
+                        worst["double_conv3x3_relu"],
+                        check("double_conv3x3_relu", layer + " 2 in", shape,
+                              dtype,
+                              double_conv.double_conv3x3_relu(
+                                  xa, *args[1:], x2=xb),
+                              double_conv.double_conv3x3_relu_plain(
+                                  xa, *args[1:], x2=xb)))
             for layer, shape in single_shapes(n, h, w).items():
                 args, relu = single_inputs(gen, shape, dtype)
                 ref = conv3x3.conv3x3_bias_relu_plain(*args, relu=relu)
@@ -312,6 +346,16 @@ def phase_kernels(_build, conv3x3, double_conv):
                     controls.append((layer, shape, functools.partial(
                         conv3x3.conv3x3_bias_relu_plain, *args, relu=relu),
                         ref))
+                if layer == "upconv1.0":  # the skip concat as two inputs
+                    xa, xb = split_input(gen, args[0])
+                    worst["conv3x3_bias_relu"] = max(
+                        worst["conv3x3_bias_relu"],
+                        check("conv3x3_bias_relu", layer + " 2 in", shape,
+                              dtype,
+                              conv3x3.conv3x3_bias_relu(
+                                  xa, *args[1:], relu=relu, x2=xb),
+                              conv3x3.conv3x3_bias_relu_plain(
+                                  xa, *args[1:], relu=relu, x2=xb)))
     say("kernels: conv3x3_bias_relu, conv3x3_bias_relu_v2, "
         "double_conv3x3_relu")
     # control: the f32 check must reject TF32 in the kernels' place
@@ -485,12 +529,15 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         x, w1, b1, w2, b2 = pair_inputs(gen, shape, dt)
         _, hh, ww, c0, c1, c2 = shape
         k1, k2, bb1, bb2 = oihw(w1), oihw(w2), b1.to(dt), b2.to(dt)
+        # upconv2 takes its input as the model gives it: two tensors
+        xa, xb = halves(x) if layer == "upconv2" else (x, None)
         worst["double_conv3x3_relu"] = max(
             worst["double_conv3x3_relu"],
             check("double_conv3x3_relu", layer, shape, dt,
-                  double_conv.double_conv3x3_relu(x, w1, b1, w2, b2),
+                  double_conv.double_conv3x3_relu(xa, w1, b1, w2, b2, x2=xb),
                   double_conv.double_conv3x3_relu_plain(x, w1, b1, w2, b2)))
-        ms = time_ms(lambda: double_conv.double_conv3x3_relu(x, w1, b1, w2, b2))
+        ms = time_ms(lambda: double_conv.double_conv3x3_relu(
+            xa, w1, b1, w2, b2, x2=xb))
         plain = time_ms(lambda: double_conv.double_conv3x3_relu_plain(
             x, w1, b1, w2, b2))
         lib = time_ms(lambda: F.relu(F.conv2d(
@@ -499,6 +546,11 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + n * hh * ww * c2) \
             + 4 * (c1 + c2)
         add("double_conv3x3_relu", ms, plain, lib, flops, nbytes)
+        if xb is not None:
+            cat = time_ms(lambda: double_conv.double_conv3x3_relu(
+                torch.cat([xa, xb], dim=3), w1, b1, w2, b2))
+            say(f"  double_conv3x3_relu {layer:10s} two inputs {ms:.3f} ms; "
+                f"torch.cat + one input {cat:.3f} ms")
         bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         say(f"  double_conv3x3_relu {layer:10s} {str(shape):30s} kernel "
             f"{ms:.3f} ms plain {plain:.3f} ms cudnn {lib:.3f} ms bound "
@@ -509,18 +561,26 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         _, hh, ww, cin, cout, _ = shape
         ko, bb = oihw(k), b.to(dt)
         act = F.relu if relu else (lambda t: t)
+        # upconv1.0 takes its input as the model gives it: two tensors
+        xa, xb = halves(x) if layer == "upconv1.0" else (x, None)
         worst["conv3x3_bias_relu"] = max(
             worst["conv3x3_bias_relu"],
             check("conv3x3_bias_relu", layer, shape, dt,
-                  conv3x3.conv3x3_bias_relu(x, k, b, relu=relu),
+                  conv3x3.conv3x3_bias_relu(xa, k, b, relu=relu, x2=xb),
                   conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)))
-        ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, k, b, relu=relu))
+        ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(
+            xa, k, b, relu=relu, x2=xb))
         plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
             x, k, b, relu=relu))
         lib = time_ms(lambda: act(F.conv2d(nchw(x), ko, bb, padding=1)))
         flops = 2 * n * hh * ww * 9 * cin * cout
         nbytes = 2 * (x.numel() + k.numel() + n * hh * ww * cout) + 4 * cout
         add("conv3x3_bias_relu", ms, plain, lib, flops, nbytes)
+        if xb is not None:
+            cat = time_ms(lambda: conv3x3.conv3x3_bias_relu(
+                torch.cat([xa, xb], dim=3), k, b, relu=relu))
+            say(f"  conv3x3_bias_relu   {layer:10s} two inputs {ms:.3f} ms; "
+                f"torch.cat + one input {cat:.3f} ms")
         bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         say(f"  conv3x3_bias_relu   {layer:10s} {str(shape):30s} kernel "
             f"{ms:.3f} ms plain {plain:.3f} ms cudnn {lib:.3f} ms bound "
