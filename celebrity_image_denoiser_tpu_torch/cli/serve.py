@@ -1,12 +1,13 @@
 """Serving CLI of the port: the /enhance API on the stdlib server, on the
 card by default.
 
-    python -m celebrity_image_denoiser_tpu_torch.cli.serve --quantize off
+    python -m celebrity_image_denoiser_tpu_torch.cli.serve
 
 Port of ``celebrity_image_denoiser_tpu/cli/serve.py``.  ``--quantize``
-keeps the JAX CLI's default of int8, which is not ported yet: without
-``--quantize off`` the command stops with an error rather than serving
-float under an int8 flag.  ``--framework``, ``--precompile``,
+keeps the JAX CLI's default of int8: the denoise family is served through
+the s8 skip-storage program on the int8 kernels, behind the runtime
+agreement gate and its ladder (``serve/handlers.py``); ``--quantize off``
+serves the float32 forward.  ``--framework``, ``--precompile``,
 ``--spatial-shard`` and micro-batching are not ported yet.
 """
 
@@ -27,9 +28,10 @@ def build_parser():
                    help="inputs taller or wider than this are refused (400): "
                         "tiled inference is not ported yet")
     p.add_argument("--quantize", default="int8", choices=["off", "int8"],
-                   help="'off': float32 forwards (the ported path).  'int8' "
-                        "(the JAX CLI's default) is not ported yet and "
-                        "stops with an error")
+                   help="'int8' (default, as in the JAX CLI): the int8 "
+                        "ladder — s8 skip-storage program, then the generic "
+                        "transform, then float, behind a 40 dB agreement "
+                        "gate; 'off': float32 forwards")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) raises when no card "
                         "is visible, 'cpu' runs the plain PyTorch versions")

@@ -48,6 +48,11 @@
 //     blocks per SM) brings the windows; results are staged in shared memory
 //     and written as contiguous runs (a tile row of 16 pixels x Cout
 //     channels).
+//   * s8 out (cid_conv3x3_bias_relu_q8, the first conv of the int8 U-Net,
+//     ops/quant_unet.py:73,182-183): the same wgmma path with another
+//     epilogue, in the JAX program's order: the conv rounded to bf16, the
+//     bias added in bf16, ReLU, then s8 = clamp(rint(h / s[c]), -127, 127).
+//     The 64-channel bf16 activation is never written to device memory.
 // float32 keeps f32 FMA on the CUDA cores (no tensor-core type holds f32's
 // tolerance; TF32 must fail it):
 //   * one block computes a TH x TW output tile for COT output channels from
@@ -60,6 +65,7 @@
 
 #include "common.cuh"
 #include "conv_mma.cuh"
+#include "conv_s8.cuh"
 
 namespace {
 
@@ -241,6 +247,18 @@ struct Cursor {
   }
 };
 
+// The s8 program's first conv (quant_unet.py::_conv_f, then _q): the f32
+// sum rounded to bf16, the bias rounded to bf16 and added in bf16, ReLU,
+// then quantized at s.
+__device__ __forceinline__ int8_t q8_of(float acc, float bias, float s,
+                                        bool relu) {
+  namespace s8 = cid::s8;
+  float h = s8::bf16_round(acc);
+  h = s8::bf16_round(__fadd_rn(h, s8::bf16_round(bias)));
+  if (relu) h = cid::relu_f32(h);
+  return s8::quantize(h, s);
+}
+
 // Cout > 8.  One work item = (tile, 64-channel output pass, KC-channel chunk);
 // a block walks the items of tiles blockIdx.x, blockIdx.x + gridDim.x, ...
 // resident: all the weights (one slot per chunk) are loaded with the first
@@ -251,7 +269,8 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
                      const float* __restrict__ bias, bf16* __restrict__ y,
                      int H, int W, int Cout, int relu, int tiles_h,
                      int tiles_w, int total_tiles, int vec_w, int pair_ok,
-                     int resident) {
+                     int resident, const float* __restrict__ qscale,
+                     int8_t* __restrict__ yq) {
   const int Cin = in.a.C + in.b.C;
   constexpr int WB = conv::weight_stage_bytes(KC);
   constexpr int XB = kWin * kWin * 2 * KC;
@@ -268,6 +287,9 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
   unsigned char* xst = smem_mma + (resident ? nchunks : S) * WB;  // [S][XB]
   float* bs = reinterpret_cast<float*>(xst + S * XB);  // [npass * 64]
   conv::load_bias(bs, bias, Cout, npass * conv::kNB, tid, conv::kThreads);
+  float* qs = bs + npass * conv::kNB;  // s8 out: the scales, [npass * 64]
+  if (qscale != nullptr)
+    conv::load_bias(qs, qscale, Cout, npass * conv::kNB, tid, conv::kThreads);
 
   if (tid >= conv::kConsumers) {
     mma::setmaxnreg_dec<conv::kProducerRegs>();
@@ -312,7 +334,21 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
         for (int hf = 0; hf < 2; ++hf) {
           const int gx = at.x0 + lane / 4 + 8 * hf;
           if (gy >= H || gx >= W) continue;
-          bf16* out = y + ((size_t)at.n * H * W + (size_t)gy * W + gx) * Cout;
+          const size_t pix = (size_t)at.n * H * W + (size_t)gy * W + gx;
+          if (yq != nullptr) {
+            int8_t* out = yq + pix * Cout;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int co = n0 + 8 * i + 2 * (lane % 4);
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (co + e < Cout)
+                  out[co + e] = q8_of(acc[mt][4 * i + 2 * hf + e],
+                                      bs[co + e], qs[co + e], relu);
+            }
+            continue;
+          }
+          bf16* out = y + pix * Cout;
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int co = n0 + 8 * i + 2 * (lane % 4);
@@ -458,11 +494,12 @@ constexpr int wide_ring_bytes(int weight_slots) {
 template <int KC, int S>
 cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
                         bf16* y, int n, int h, int wd, int cout, int relu,
-                        bool resident, cudaStream_t stream) {
+                        bool resident, const float* qscale, int8_t* yq,
+                        cudaStream_t stream) {
   const int cin = in.a.C + in.b.C;
   const int nchunks = (cin + KC - 1) / KC;
-  const int smem =
-      wide_ring_bytes<KC, S>(resident ? nchunks : S) + bias_bytes(cout);
+  const int smem = wide_ring_bytes<KC, S>(resident ? nchunks : S) +
+                   bias_bytes(cout) * (qscale ? 2 : 1);
   cudaError_t err = cudaFuncSetAttribute(
       conv3x3_wgmma_kernel<KC, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -475,7 +512,8 @@ cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
   conv3x3_wgmma_kernel<KC, S><<<grid, conv::kThreads, smem, stream>>>(
       in, w, b, y, h, wd, cout, relu, tiles_h, tiles_w, (int)tiles,
       cout % 8 == 0 && conv::aligned16(w),
-      cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident);
+      cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident,
+      qscale, yq);
   return cudaGetLastError();
 }
 
@@ -505,7 +543,9 @@ cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* b,
 cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
                           const void* bv, void* yv, int n, int h, int wd,
                           int ca, int cb, int cout, int relu, long long x2_sn,
-                          long long x2_sh, long long x2_sw, cudaStream_t s) {
+                          long long x2_sh, long long x2_sw, cudaStream_t s,
+                          const float* qscale = nullptr,
+                          int8_t* yq = nullptr) {
   const bf16* x = static_cast<const bf16*>(xv);
   const bf16* w = static_cast<const bf16*>(wv);
   const float* b = static_cast<const float*>(bv);
@@ -515,6 +555,8 @@ cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
                          !conv::strides_fit(x2_sh, x2_sw)))
     return cudaErrorInvalidValue;
   if (!conv::strides_fit((long long)wd * cin, cin))
+    return cudaErrorInvalidValue;
+  if (qscale != nullptr && (x2v != nullptr || cout <= 8 || yq == nullptr))
     return cudaErrorInvalidValue;
   if (cout <= 8) {
     if (cin % 64 == 0)
@@ -530,11 +572,15 @@ cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
   // 32 channels at a time through three stages, or 16 through four where Cin
   // is ragged.
   if (cin % 32 == 0 && cout <= conv::kNB &&
-      wide_ring_bytes<32, 4>(cin / 32) + bias_bytes(cout) <= conv::kMaxSmem)
-    return launch_wide<32, 4>(in, w, b, y, n, h, wd, cout, relu, true, s);
+      wide_ring_bytes<32, 4>(cin / 32) + 2 * bias_bytes(cout) <=
+          conv::kMaxSmem)
+    return launch_wide<32, 4>(in, w, b, y, n, h, wd, cout, relu, true, qscale,
+                              yq, s);
   if (cin % 32 == 0)
-    return launch_wide<32, 3>(in, w, b, y, n, h, wd, cout, relu, false, s);
-  return launch_wide<16, 4>(in, w, b, y, n, h, wd, cout, relu, false, s);
+    return launch_wide<32, 3>(in, w, b, y, n, h, wd, cout, relu, false,
+                              qscale, yq, s);
+  return launch_wide<16, 4>(in, w, b, y, n, h, wd, cout, relu, false, qscale,
+                            yq, s);
 }
 
 }  // namespace
@@ -552,6 +598,20 @@ extern "C" int cid_conv3x3_bias_relu(const void* x, const void* x2,
     return (int)dispatch_bf16(x, x2, w, b, y, n, h, wd, ca, cb, cout, relu,
                               x2_sn, x2_sh, x2_sw, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 x (N,H,W,Cin) -> s8 y (N,H,W,Cout) at the per-channel scales qscale
+// (Cout,) f32, Cout > 8, one input; the epilogue of q8_of.
+extern "C" int cid_conv3x3_bias_relu_q8(const void* x, const void* w,
+                                        const void* b, const void* qscale,
+                                        void* y, int n, int h, int wd,
+                                        int cin, int cout, int relu,
+                                        void* stream) {
+  if (qscale == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_bf16(x, nullptr, w, b, nullptr, n, h, wd, cin, 0, cout,
+                            relu, 0, 0, 0, static_cast<cudaStream_t>(stream),
+                            static_cast<const float*>(qscale),
+                            static_cast<int8_t*>(y));
 }
 
 extern "C" const char* cid_error_string(int err) {

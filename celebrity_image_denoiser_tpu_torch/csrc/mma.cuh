@@ -1,8 +1,8 @@
-// The PTX the bf16 conv kernels need, and nothing else: asynchronous 16-byte
-// copies into shared memory, ldmatrix, the warp matrix instruction
-// (mma.sync m16n8k16), the warpgroup one (wgmma m64n64k16 with A in
-// registers and B read from shared memory through a descriptor) and
-// setmaxnreg.
+// The PTX the conv kernels need, and nothing else: asynchronous 16-byte
+// copies into shared memory, ldmatrix (x4 and x2), the warp matrix
+// instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
+// accumulation), the warpgroup one (wgmma m64n64k16 with A in registers and
+// B read from shared memory through a descriptor) and setmaxnreg.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -23,6 +23,15 @@
 //     16 bytes at row (l % 8) + 8 * ((l / 8) % 2), k = 8 * (l / 16).
 //   B of mma.sync, 16 k x 8 n: b[0] = B[2q..2q+1][g], b[1] = B[2q+8..2q+9][g].
 //   C/D of mma.sync, 16 x 8 f32: d[0..1] = D[g][2q..2q+1], d[2..3] = D[g+8][..].
+//   s8 (m16n8k32), four s8 to a register, the lowest k in the lowest byte:
+//     A, 16 rows x 32 k: a[0] = A[g][4q..4q+3]   a[1] = A[g+8][4q..4q+3]
+//                        a[2] = A[g][4q+16..]    a[3] = A[g+8][4q+16..]
+//     i.e. byte for byte the bf16 A tile (16 rows of 32 bytes), so the same
+//     ldmatrix_x4 addressing gives it.  B, 32 k x 8 n, "col" (k contiguous
+//     for each n): b[0] = B[4q..4q+3][g], b[1] = B[4q+16..4q+19][g]; with B
+//     stored as 8 rows n of 32 bytes, ldmatrix_x2 gives it when lane l
+//     (< 16) passes row l % 8, bytes 16 * (l / 8).  D, 16 x 8 s32, as the f32
+//     D above.
 //   D of wgmma, 64 x 64 f32: warp w of the warpgroup owns rows 16w..16w+15,
 //     and for each 8-column block i: d[4i..4i+1] = D[16w+g][8i+2q..8i+2q+1],
 //     d[4i+2..4i+3] = D[16w+g+8][...].  Its A is the A above, per warp.
@@ -87,6 +96,25 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr)
       : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += A (16x32, row) * B (32x8, col), s8 in, s32 accumulate (exact: the
+// conv sums stay far below 2^31).
+__device__ __forceinline__ void mma_m16n8k32_s8(int (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // d += A (16x16, row) * B (16x8, col), bf16 in, f32 accumulate.
@@ -164,6 +192,9 @@ inline float bf16_at(uint32_t word, int half) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline int s8_at(uint32_t word, int byte) {
+  return (int)(int8_t)((word >> (8 * byte)) & 0xFFu);
+}
 // element (row, k) of a 16x16 A tile whose fragments lie at frag[lane][4]
 inline float a_at(const uint32_t* frag, int row, int k) {
   const int lane = (row % 8) * 4 + (k % 8) / 2;
@@ -196,6 +227,37 @@ inline void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   for (int i = 0; i < 4; ++i)
     std::memcpy(&r[i],
                 ::mock::smem_base() + s[i * 8 + lane / 4] + (lane % 4) * 4, 4);
+  ::mock::warp_sync();
+}
+
+inline void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  uint32_t* s = ::mock::warp_scratch();
+  const int lane = threadIdx.x % 32;
+  s[lane] = addr;
+  ::mock::warp_sync();
+  for (int i = 0; i < 2; ++i)
+    std::memcpy(&r[i],
+                ::mock::smem_base() + s[i * 8 + lane / 4] + (lane % 4) * 4, 4);
+  ::mock::warp_sync();
+}
+
+inline void mma_m16n8k32_s8(int (&d)[4], const uint32_t (&a)[4],
+                            const uint32_t (&b)[2]) {
+  uint32_t* sa = ::mock::warp_scratch();  // [32][4]
+  uint32_t* sb = sa + 128;                // [32][2]
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) sa[lane * 4 + i] = a[i];
+  for (int i = 0; i < 2; ++i) sb[lane * 2 + i] = b[i];
+  ::mock::warp_sync();
+  for (int e = 0; e < 4; ++e) {
+    const int row = lane / 4 + 8 * (e / 2), col = 2 * (lane % 4) + e % 2;
+    int acc = d[e];
+    for (int k = 0; k < 32; ++k)
+      acc += emu::s8_at(sa[((row % 8) * 4 + (k % 16) / 4) * 4 + row / 8 +
+                           2 * (k / 16)], k % 4) *
+             emu::s8_at(sb[(col * 4 + (k % 16) / 4) * 2 + k / 16], k % 4);
+    d[e] = acc;
+  }
   ::mock::warp_sync();
 }
 

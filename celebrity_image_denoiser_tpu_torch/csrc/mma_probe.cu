@@ -1,6 +1,7 @@
 // Probes of mma.cuh: each computes one small matrix product through the
 // wrappers exactly as the conv kernels use them (cp.async into the swizzled
-// shared-memory layouts of conv_mma.cuh, ldmatrix, then mma.sync or wgmma)
+// shared-memory layouts of conv_mma.cuh and conv_s8.cuh, ldmatrix, then
+// mma.sync in bf16 or s8, or wgmma)
 // and writes the result out by the documented fragment layout.  The CPU
 // tests run them under the g++ emulation and chip_smoke.py runs them on the
 // card, both against a plain product, so the emulation's layouts are held
@@ -10,6 +11,7 @@
 
 #include "common.cuh"
 #include "conv_mma.cuh"
+#include "conv_s8.cuh"
 
 namespace {
 
@@ -84,7 +86,47 @@ __global__ void probe_wgmma_kernel(const bf16* __restrict__ a,
   }
 }
 
+// s8: d (16 x 24 s32) = a (16 x 32, row-major) * b^T with b (16 x 32) given
+// as the kernels stage weights, [n][k]; columns 0..15 through ldmatrix_x4
+// (two n8 blocks, as the conv kernels load B), columns 16..23 again n8
+// block 1 through ldmatrix_x2 (the Cout <= 8 path).  32-byte rows, swizzled
+// as conv_s8.cuh lays them out; one warp.
+__global__ void probe_mma_s8_kernel(const int8_t* __restrict__ a,
+                                    const int8_t* __restrict__ b,
+                                    int* __restrict__ d) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  namespace s8 = cid::s8;
+  const int lane = threadIdx.x, g = lane / 4, q = lane % 4;
+  const uint32_t as = mma::smem_u32(smem_mma), bs = as + 16 * 32;
+  mma::cp_async16(s8::row_addr(as, lane / 2, lane % 2), a + lane * 16, true);
+  mma::cp_async16(s8::row_addr(bs, lane / 2, lane % 2), b + lane * 16, true);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t fa[4], b4[4], b2[2];
+  mma::ldmatrix_x4(fa, s8::row_addr(as, conv::ldm_row(), conv::ldm_khalf()));
+  mma::ldmatrix_x4(b4, s8::row_addr(bs, s8::b_row(), s8::b_piece()));
+  mma::ldmatrix_x2(b2, s8::row_addr(bs, 8 + lane % 8, s8::b_piece()));
+  int acc[3][4] = {};
+  const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+  mma::mma_m16n8k32_s8(acc[0], fa, b0);
+  mma::mma_m16n8k32_s8(acc[1], fa, b1);
+  mma::mma_m16n8k32_s8(acc[2], fa, b2);
+  for (int nb = 0; nb < 3; ++nb)
+    for (int e = 0; e < 4; ++e)
+      d[(g + 8 * (e / 2)) * 24 + nb * 8 + 2 * q + e % 2] = acc[nb][e];
+}
+
 }  // namespace
+
+extern "C" int cid_probe_mma_s8(const void* a, const void* b, void* d,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_mma_s8_kernel<<<1, 32, 1024, s>>>(static_cast<const int8_t*>(a),
+                                          static_cast<const int8_t*>(b),
+                                          static_cast<int*>(d));
+  return (int)cudaGetLastError();
+}
 
 extern "C" int cid_probe_mma_sync(const void* a, const void* b, void* d,
                                   void* stream) {

@@ -9,11 +9,14 @@ per-image amplitude in [0, 0.12] coupled to luminance, and a radial vignette
 of strength in [0, 0.35]; clipped to [0, 1].  The images differ from the JAX
 package's for the same seed (another generator, and PyTorch's cubic kernel
 has a = −0.75 where JAX's has −0.5); the statistics a denoiser needs — flat
-regions, sharp edges, fine texture — are the same.  The calibration and
-low-resolution batches wait for int8 and SRGAN.
+regions, sharp edges, fine texture — are the same.  ``calibration_batch``
+(:93) is the int8 calibration batch; the low-resolution batch waits for
+SRGAN.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,3 +71,22 @@ def synth_clean_batch(gen: torch.Generator, n: int, size: int = 128,
     strength = _uniform(gen, (n, 1, 1), 0.0, 0.35, dev)
     img = img * (1.0 - strength * r2).unsqueeze(-1)
     return torch.clamp(img, 0.0, 1.0)
+
+
+def calibration_batch(tanh: bool, size: int = 128, sigmas=(0.12,), *,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """Int8-PTQ calibration batch (``calibration_batch:93``): for each σ in
+    ``sigmas``, 8 clean synthetic images plus σ·N(0, 1), clipped to [0, 1];
+    mapped to [-1, 1] when ``tanh``.  (8·len(sigmas), size, size, 3) float32
+    on ``generator``'s device, drawn from it (default: a CPU generator seeded
+    0).  Shared by serving and the bench, so the benchmarked int8 program is
+    the served one."""
+    gen = generator or torch.Generator().manual_seed(0)
+    parts = []
+    for sigma in sigmas:
+        clean01 = synth_clean_batch(gen, 8, size)
+        noise = torch.randn(clean01.shape, generator=gen, device=gen.device)
+        parts.append(torch.clamp(clean01 + sigma * noise, 0.0, 1.0))
+    batch01 = torch.cat(parts, dim=0)
+    return batch01 * 2.0 - 1.0 if tanh else batch01

@@ -28,11 +28,13 @@ kernel wrapper runs its plain version.
   ``chip_smoke.py`` holds the kernel route against on the card.  Both run
   detached kernel-layout weights and have no backward: with autograd
   recording and a trainable parameter or input they raise;
-* ``"autograd"`` — the module's own parameters through ``ops/conv.py``
-  (PyTorch's differentiable convs), weights cast to the activation dtype at
-  use and the bias added in that dtype, as the JAX layers run under AD
-  (``ops/conv.py:76-101``).  The trainer's step takes this route, as the JAX
-  trainer differentiates through XLA's convs and no Pallas kernel.
+* ``"autograd"`` — the module's own conv modules, each computing through
+  ``ops/conv.py`` (PyTorch's differentiable convs), weights cast to the
+  activation dtype at use and the bias added in that dtype, as the JAX
+  layers run under AD (``ops/conv.py:76-101``).  The trainer's step takes
+  this route, as the JAX trainer differentiates through XLA's convs and no
+  Pallas kernel; so do int8 calibration (forward hooks on those modules)
+  and the generic int8 transform (``ops/quant.py``).
 
 ``DenoiseDiscriminator`` (:75-101) is the trainer's critic: 4 convs with
 BatchNorm and LeakyReLU(0.2), a global average pool, a 1×1 conv and a
@@ -50,8 +52,9 @@ import torch.nn as nn
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.ops.activations import leaky_relu
 from celebrity_image_denoiser_tpu_torch.ops.conv import (
+    Conv2d,
+    ConvTranspose2d,
     conv2d_layer,
-    conv2d_transpose,
 )
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3, double_conv
 from celebrity_image_denoiser_tpu_torch.ops.norm import batch_norm
@@ -103,22 +106,22 @@ class DenoiseGenerator(nn.Module):
     def __init__(self, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.down1 = nn.Sequential(
-            nn.Conv2d(3, 64, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(64, 64, 3, padding=1), nn.ReLU())
+            Conv2d(3, 64, 3, padding=1), nn.ReLU(),
+            Conv2d(64, 64, 3, padding=1), nn.ReLU())
         self.down2 = nn.Sequential(
-            nn.Conv2d(64, 128, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(128, 128, 3, padding=1), nn.ReLU())
+            Conv2d(64, 128, 3, padding=1), nn.ReLU(),
+            Conv2d(128, 128, 3, padding=1), nn.ReLU())
         self.bottleneck = nn.Sequential(
-            nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(256, 256, 3, padding=1), nn.ReLU())
-        self.up2 = nn.ConvTranspose2d(256, 128, 2, stride=2)
+            Conv2d(128, 256, 3, padding=1), nn.ReLU(),
+            Conv2d(256, 256, 3, padding=1), nn.ReLU())
+        self.up2 = ConvTranspose2d(256, 128, 2, stride=2)
         self.upconv2 = nn.Sequential(
-            nn.Conv2d(256, 128, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(128, 128, 3, padding=1), nn.ReLU())
-        self.up1 = nn.ConvTranspose2d(128, 64, 2, stride=2)
+            Conv2d(256, 128, 3, padding=1), nn.ReLU(),
+            Conv2d(128, 128, 3, padding=1), nn.ReLU())
+        self.up1 = ConvTranspose2d(128, 64, 2, stride=2)
         self.upconv1 = nn.Sequential(
-            nn.Conv2d(128, 64, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(64, 3, 3, padding=1))
+            Conv2d(128, 64, 3, padding=1), nn.ReLU(),
+            Conv2d(64, 3, 3, padding=1))
         # kernel-layout weights (HWIO in the activation dtype, f32 bias),
         # made once per loaded weights; not part of the state_dict
         self._kparams: Dict[Tuple[str, torch.dtype], tuple] = {}
@@ -151,10 +154,7 @@ class DenoiseGenerator(nn.Module):
         if route == "autograd":
             if skip is not None:
                 x = torch.cat([x, skip], dim=1)
-            h = torch.relu(conv2d_layer(x, seq[0].weight, seq[0].bias,
-                                        padding=1))
-            return torch.relu(conv2d_layer(h, seq[2].weight, seq[2].bias,
-                                           padding=1))
+            return torch.relu(seq[2](torch.relu(seq[0](x))))
         w1, b1 = self._kernel_params(f"{name}.0", seq[0], x.dtype)
         w2, b2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
         fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
@@ -167,16 +167,12 @@ class DenoiseGenerator(nn.Module):
         if route == "autograd":
             if skip is not None:
                 x = torch.cat([x, skip], dim=1)
-            y = conv2d_layer(x, conv.weight, conv.bias, padding=1)
+            y = conv(x)
             return torch.relu(y) if relu else y
         w, b = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
         fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
               else conv3x3.conv3x3_bias_relu)
         return _nchw(fn(_nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
-
-    def _up(self, up: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_transpose(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
-                                stride=2)
 
     def forward(self, x: torch.Tensor, *, route: str = "kernel"
                 ) -> torch.Tensor:
@@ -189,12 +185,12 @@ class DenoiseGenerator(nn.Module):
         e2 = self._pair("down2", max_pool2d(e1), route)
         b = self._pair("bottleneck", max_pool2d(e2), route)
 
-        d2 = self._up(self.up2, b)
+        d2 = self.up2(b)
         if d2.shape[2:] != e2.shape[2:]:  # skip-crop, JAX :62-63
             e2 = e2[:, :, : d2.shape[2], : d2.shape[3]]
         d2 = self._pair("upconv2", d2, route, skip=e2)
 
-        d1 = self._up(self.up1, d2)
+        d1 = self.up1(d2)
         if d1.shape[2:] != e1.shape[2:]:  # skip-crop, JAX :68-69
             e1 = e1[:, :, : d1.shape[2], : d1.shape[3]]
         d1 = self._single(0, d1, relu=True, route=route, skip=e1)

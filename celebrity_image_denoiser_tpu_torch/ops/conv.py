@@ -8,6 +8,11 @@ run the hand-written kernels in ``ops/cuda/``, whose plain versions use
 Pallas kernel), so it stays a library call.  Training differentiates through
 these functions (``conv2d_layer``), as the JAX trainer differentiates through
 XLA's convs and never through a Pallas kernel.
+
+``conv2d_layer`` and ``conv2d_transpose`` consult ``ops/quant.py::
+conv_hook`` before their float conv, as the JAX package's ``ops.conv2d``
+does: under the generic int8 transform's replay the hook returns the int8
+path's output, and the layer adds its bias to that instead.
 """
 
 from __future__ import annotations
@@ -15,7 +20,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
+
+from celebrity_image_denoiser_tpu_torch.ops import quant
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -32,7 +40,13 @@ def conv2d_layer(x: torch.Tensor, weight: torch.Tensor,
     output in that dtype, then ``bias`` added in that dtype (for bfloat16
     that is a second rounding, where a fused bias would round once).
     Differentiable in x, weight and bias."""
-    y = F.conv2d(x, weight.to(x.dtype), None, stride=stride, padding=padding)
+    y = quant.conv_hook(
+        x, weight,
+        lambda xq, wq, ws: quant.int8_conv2d(xq, wq, ws, stride, padding),
+        lambda xf, wf: F.conv2d(xf, wf, None, stride=stride, padding=padding))
+    if y is None:
+        y = F.conv2d(x, weight.to(x.dtype), None, stride=stride,
+                     padding=padding)
     if bias is not None:
         y = y + bias.to(y.dtype).view(1, -1, 1, 1)
     return y
@@ -43,4 +57,29 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
                      ) -> torch.Tensor:
     """``nn.ConvTranspose2d`` semantics, no padding; weight (C_in, C_out,
     kH, kW); output size (in - 1) * stride + k, as in the JAX op."""
-    return F.conv_transpose2d(x, weight, bias, stride=stride)
+    y = quant.conv_hook(
+        x, weight,
+        lambda xq, wq, ws: quant.int8_conv_transpose2d(xq, wq, ws, stride),
+        lambda xf, wf: F.conv_transpose2d(xf, wf, None, stride=stride))
+    if y is None:
+        return F.conv_transpose2d(x, weight, bias, stride=stride)
+    return y if bias is None else y + bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs as the JAX conv layer runs: ``conv2d_layer``
+    (weights cast to x's dtype, bias added in that dtype, the int8 replay
+    consulted first)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_layer(x, self.weight, self.bias, stride=self.stride,
+                            padding=self.padding)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no padding) with its parameters cast to x's
+    dtype at use, through ``conv2d_transpose``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_transpose(x, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), stride=self.stride)

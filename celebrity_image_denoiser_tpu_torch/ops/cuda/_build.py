@@ -29,8 +29,9 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
-           "normalize_gaussian_noise.cu", "mma_probe.cu")
-HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh")
+           "normalize_gaussian_noise.cu", "conv3x3_s8.cu", "convt2x2_s8.cu",
+           "mma_probe.cu")
+HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh", "conv_s8.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,6 +123,12 @@ def library() -> ctypes.CDLL:
             lib.cid_conv3x3_bias_relu.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_conv3x3_bias_relu.restype = I
+            lib.cid_conv3x3_bias_relu_q8.argtypes = [P] * 5 + [I] * 6 + [P]
+            lib.cid_conv3x3_bias_relu_q8.restype = I
+            lib.cid_conv3x3_s8.argtypes = [P] * 7 + [I] * 8 + [L] * 3 + [P]
+            lib.cid_conv3x3_s8.restype = I
+            lib.cid_convt2x2_s8.argtypes = [P] * 6 + [I] * 6 + [P]
+            lib.cid_convt2x2_s8.restype = I
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.restype = I
@@ -133,6 +140,8 @@ def library() -> ctypes.CDLL:
             lib.cid_probe_mma_sync.restype = I
             lib.cid_probe_wgmma.argtypes = [P] * 3 + [I, P]
             lib.cid_probe_wgmma.restype = I
+            lib.cid_probe_mma_s8.argtypes = [P] * 4
+            lib.cid_probe_mma_s8.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -7,7 +7,8 @@ Builds variants of ``csrc/conv3x3_bias_relu.cu`` and
 ``csrc/double_conv3x3_relu.cu`` in which one or more parts are patched out
 of the source text (the matrix instructions, the ldmatrix loads, the
 producers' copies, the epilogues), and times each variant at the bench
-shapes (bf16, 128², batch 256) on the card.  A variant's results are wrong;
+shapes (bf16, 128², batch 256) on the card, and K2's s8-out mode at the int8
+step's first conv (``down1.0 q8``).  A variant's results are wrong;
 only its time is read: what a part costs is the time that goes away with
 it, and what is left when everything is out is the ring's skeleton (barriers
 and bookkeeping).  Where ncu and nsys cannot run, this takes the place of
@@ -34,6 +35,7 @@ K3 = {"down1": (BATCH, 128, 128, 3, 64, 64),
       "bottleneck": (BATCH, 32, 32, 128, 256, 256),
       "upconv2": (BATCH, 64, 64, 256, 128, 128)}
 K2 = {"upconv1.0": (BATCH, 128, 128, 128, 64, 1)}
+Q8 = {"down1.0 q8": (BATCH, 128, 128, 3, 64, 1)}  # K2, s8 out
 
 # part -> [(file, text, replacement)]; every text must occur in its file
 PARTS = {
@@ -116,22 +118,31 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    # layer -> (C function name, pointers, ints); one input each: the null
-    # second input and its zero channel count and strides are filled in below
+    # layer -> (C function name, its arguments; tensors stand for their
+    # pointers); one input each: a null second input, zero channels
+    code = _build.dtype_code(torch.bfloat16)
     calls = {}
     for layer, (n, h, w, c0, c1, c2) in K3.items():
-        ts = (rnd((n, h, w, c0)), rnd((3, 3, c0, c1), (9 * c0) ** -0.5),
-              rnd((c1,), 0.1, torch.float32),
-              rnd((3, 3, c1, c2), (9 * c1) ** -0.5),
-              rnd((c2,), 0.1, torch.float32),
-              torch.empty((n, h, w, c2), dtype=torch.bfloat16, device="cuda"))
-        calls[layer] = ("cid_double_conv3x3_relu", ts, (n, h, w, c0, c1, c2))
+        calls[layer] = ("cid_double_conv3x3_relu", [
+            rnd((n, h, w, c0)), None, rnd((3, 3, c0, c1), (9 * c0) ** -0.5),
+            rnd((c1,), 0.1, torch.float32),
+            rnd((3, 3, c1, c2), (9 * c1) ** -0.5),
+            rnd((c2,), 0.1, torch.float32),
+            torch.empty((n, h, w, c2), dtype=torch.bfloat16, device="cuda"),
+            n, h, w, c0, 0, c1, c2, 0, 0, 0, code, None])
     for layer, (n, h, w, cin, cout, relu) in K2.items():
-        ts = (rnd((n, h, w, cin)), rnd((3, 3, cin, cout), (9 * cin) ** -0.5),
-              rnd((cout,), 0.1, torch.float32),
-              torch.empty((n, h, w, cout), dtype=torch.bfloat16,
-                          device="cuda"))
-        calls[layer] = ("cid_conv3x3_bias_relu", ts, (n, h, w, cin, cout, relu))
+        calls[layer] = ("cid_conv3x3_bias_relu", [
+            rnd((n, h, w, cin)), None, rnd((3, 3, cin, cout), (9 * cin) ** -0.5),
+            rnd((cout,), 0.1, torch.float32),
+            torch.empty((n, h, w, cout), dtype=torch.bfloat16, device="cuda"),
+            n, h, w, cin, 0, cout, relu, 0, 0, 0, code, None])
+    for layer, (n, h, w, cin, cout, relu) in Q8.items():
+        calls[layer] = ("cid_conv3x3_bias_relu_q8", [
+            rnd((n, h, w, cin)), rnd((3, 3, cin, cout), (9 * cin) ** -0.5),
+            rnd((cout,), 0.1, torch.float32),
+            torch.full((cout,), 3.0 / 127, device="cuda"),
+            torch.empty((n, h, w, cout), dtype=torch.int8, device="cuda"),
+            n, h, w, cin, cout, relu, None])
 
     with tempfile.TemporaryDirectory(prefix="cid_ablation_") as tmp:
         procs = {name: _build_variant(Path(tmp) / f"v{i}", parts)
@@ -148,12 +159,12 @@ def main() -> int:
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
+            lib.cid_conv3x3_bias_relu_q8.argtypes = [P] * 5 + [I] * 6 + [P]
             row = []
-            for fn_name, ts, ints in calls.values():
+            for fn_name, spec in calls.values():
                 fn = getattr(lib, fn_name)
-                ptrs = [t.data_ptr() for t in ts]
-                args = [ptrs[0], None, *ptrs[1:], *ints[:4], 0, *ints[4:],
-                        0, 0, 0, _build.dtype_code(torch.bfloat16), None]
+                args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                        for a in spec]
                 _build.check(fn(*args), f"{fn_name} ({name})")
                 row.append(_time_ms(lambda: fn(*args)))
             print(f"{name:34s}" + "".join(f"{ms:12.3f}" for ms in row),

@@ -23,6 +23,13 @@ contiguous channels (the U-Net's cropped skip tensor).  Where the bf16
 kernel can read the two channel ranges through two pointers (its wgmma path,
 ``x``'s channels a multiple of 32) the concatenation is never written to
 device memory; everywhere else the wrapper concatenates first.
+
+``conv3x3_bias_relu_q8`` is K2 with an s8 output, the first conv of the int8
+U-Net (``ops/quant_unet.py:73,182-183``): bf16 in, and the JAX program's
+order instead of the fused f32 bias — the conv rounded to bf16, the bias
+added in bf16, ReLU, then ``clamp(round(h / scale), ±127)`` — so that the
+64-channel bf16 activation is never written.  Same kernel, same
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -149,6 +156,56 @@ def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
     With ``x2`` (N,H,W,C2) the input is ``cat([x, x2], 3)`` and the kernel
     (3,3,Cin+C2,Cout)."""
     return _run(x, kernel, bias, relu, x2)
+
+
+def conv3x3_bias_relu_q8_plain(x: torch.Tensor, kernel: torch.Tensor,
+                               bias: torch.Tensor, scale: torch.Tensor, *,
+                               relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of ``conv3x3_bias_relu_q8`` (``_conv_f`` then
+    ``_q``)."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda.conv3x3_s8 import (
+        quantize_s8,
+    )
+
+    y = conv2d(x.permute(0, 3, 1, 2).float(),
+               kernel.permute(3, 2, 0, 1).float(), padding=1)
+    h = y.to(torch.bfloat16).permute(0, 2, 3, 1) + bias.to(torch.bfloat16)
+    return quantize_s8(torch.relu(h) if relu else h, scale).contiguous()
+
+
+def conv3x3_bias_relu_q8(x: torch.Tensor, kernel: torch.Tensor,
+                         bias: torch.Tensor, scale: torch.Tensor, *,
+                         relu: bool = True) -> torch.Tensor:
+    """x (N,H,W,Cin) bf16, kernel (3,3,Cin,Cout) bf16 with Cout > 8, bias
+    (Cout,) f32 (added as bf16), scale (Cout,) f32 → (N,H,W,Cout) s8."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    _check(x, kernel, bias, x.shape[-1])
+    cout = kernel.shape[3]
+    if cout <= 8:
+        raise ValueError(f"the s8 output needs Cout > 8, got {cout}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (cout,) \
+            or scale.device != x.device or not scale.is_contiguous():
+        raise ValueError(f"scale must be contiguous ({cout},) float32 on "
+                         f"{x.device}")
+    refuse_grad("conv3x3_bias_relu_q8", x, kernel, bias)
+    if x.device.type == "cpu":
+        return conv3x3_bias_relu_q8_plain(x, kernel, bias, scale, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    global LAUNCHES
+    n, h, w, cin = x.shape
+    y = torch.empty((n, h, w, cout), dtype=torch.int8, device=x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.cid_conv3x3_bias_relu_q8(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+            scale.data_ptr(), y.data_ptr(), n, h, w, cin, cout, int(relu),
+            stream)
+    _build.check(rc, "conv3x3_bias_relu_q8")
+    LAUNCHES += 1
+    return y
 
 
 def conv3x3_bias_relu_v2(x: torch.Tensor, kernel: torch.Tensor,

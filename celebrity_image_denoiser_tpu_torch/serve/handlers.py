@@ -1,12 +1,13 @@
-"""Serving logic — the ``POST /enhance`` contract, denoise family, float.
+"""Serving logic — the ``POST /enhance`` contract, denoise family, float
+and int8.
 
 Port of ``celebrity_image_denoiser_tpu/serve/handlers.py`` (``EnhanceError:60``,
 ``run_enhance:69``, ``_as01:115``, ``ServeState``): the same contract —
 unknown model → 400 listing what is served, content type must be image/*
 (400), uploads capped at 50 MB (400), undecodable image → 500, response
 ``{denoised_image_base64, noise_graph_base64, backend}``, tolerant weight
-loading that warns and keeps the random init — for the one family this
-slice ports, ``denoise``, in float32.
+loading that warns and keeps the random init — for the one family ported
+so far, ``denoise``.
 
 The float forward is ``_build_forward``'s with no quantizer (:290-297):
 forward, ``clip(y*0.5+0.5)``, then **truncate** ``y01*255`` to uint8 (the
@@ -14,15 +15,34 @@ bench step rounds instead; that belongs to ``models.denoise_unet.
 serve_step``).  Inputs are padded to a multiple of 4 (``get_padding``) and
 the output cropped back (:820-824).
 
-Not ported yet, and refused rather than served some other way:
-``quantize="int8"`` raises ``NotImplementedError``; inputs above
-``tile_threshold_rows`` on either axis are a 400 (tiling is not ported);
-the other four families are a 400.  There is no micro-batching and no mesh.
+``quantize="int8"`` (``_maybe_quantize:409-550``) builds, once per model
+when the state is made, the first rung of the ladder that passes the
+runtime agreement gate (≥ 40 dB against the float forward on
+``calib[:2, :32, :32]``, :448-468): the s8 skip-storage program
+(``ops/quant_unet.py``, rung ``int8-s8skip``), then the generic transform
+with bias correction and the default skip policy (``ops/quant.py``, rung
+``int8-generic``), then float.  The calibration batch is
+``data/synthetic.py::calibration_batch`` (8 noisy images at σ 0.12, [-1,
+1]).  A rung is left only for a ``ValueError`` from its builder (a model
+whose conv sequence is not the U-Net's) or a failed gate; an error of a
+kernel's build or launch propagates, so the card never quietly serves
+float in place of a kernel.  The served input is f32 in [-1, 1]; the int8
+program casts it to bf16 at conv 0 and its tanh output back to f32, which is
+truncated to uint8 as on the float path.  Each request is labelled ``int8``
+or ``float`` in the log line and in ``ServeStats`` (``last_compute_backend``
+reads it, per thread).
+
+Not ported yet, and refused rather than served some other way: inputs
+above ``tile_threshold_rows`` on either axis are a 400 (tiling is not
+ported); the other four families are a 400.  There is no micro-batching
+and no mesh.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -40,15 +60,20 @@ from celebrity_image_denoiser_tpu_torch.core.config import (
 )
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.data import imageio
+from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+    calibration_batch,
+)
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
 )
+from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
 from celebrity_image_denoiser_tpu_torch.serve.stats import ServeStats
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("cid_torch.serve")
 
 MAX_UPLOAD = 50 * 1024 * 1024  # app.py:374-375
+GATE_DB = 40.0  # the runtime agreement gate (handlers.py:448-468)
 
 # default checkpoint names, matching the reference weights dir layout: a
 # reference .pth first, else the native npz directory
@@ -99,17 +124,13 @@ def _as01(y_u8: np.ndarray) -> np.ndarray:
 
 
 class ServeState:
-    """Loaded model + float forward on ``device`` (the card by default)."""
+    """Loaded model + float or int8 forward on ``device`` (the card by
+    default)."""
 
     def __init__(self, weights_dir: Optional[str] = None, seed: int = 0,
                  tile_threshold_rows: int = 2048,
                  quantize: Optional[str] = None, device="cuda"):
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md queue 1, item 5: "
-                "int8 serving and its int8 conv kernel); serve float with "
-                "quantize=None / --quantize off")
-        if quantize is not None:
+        if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got "
                              f"{quantize!r}")
         self.device = resolve_device(device)
@@ -119,7 +140,7 @@ class ServeState:
             # run them in TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.quantize = None
+        self.quantize = quantize
         self.weights_dir = weights_dir or default_weights_dir()
         self.tile_threshold_rows = tile_threshold_rows
         gen = torch.Generator().manual_seed(seed)
@@ -130,6 +151,59 @@ class ServeState:
         self._load_weights()
         for m in self.models.values():
             m.to(self.device).eval()
+        self._path_note = threading.local()
+        # per model: the int8 forward (None: float) and the rung it came from
+        self._qapply: Dict[str, object] = {}
+        self.int8_rung: Dict[str, Optional[str]] = {}
+        if quantize == "int8":
+            for name in self.models:
+                self._maybe_quantize(name)
+
+    # -- int8: the ladder (_maybe_quantize:409-550) --------------------------
+    def _agreement_db(self, name: str, apply_q, calib: torch.Tensor) -> float:
+        """The runtime gate's dB of ``apply_q`` against the float forward on
+        a 2×32² crop of the calibration batch ([-1, 1] range)."""
+        probe = calib[:2, :32, :32, :].contiguous()
+        with torch.inference_mode():
+            yf = self.models[name](probe.permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1).float()
+            yq = apply_q(probe).float()
+        mse = float(torch.mean((yq - yf) ** 2))
+        return 10.0 * math.log10(4.0 / max(mse, 1e-12))
+
+    def _maybe_quantize(self, name: str) -> None:
+        model = self.models[name]
+        # drawn on the CPU from seed 0 whatever the device, so that the card
+        # serves the program the CPU tests hold against the JAX package
+        calib = calibration_batch(True).to(self.device)
+        builders = (
+            ("int8-s8skip",
+             lambda: quant_unet.quantize_apply_denoise_unet(model, calib)),
+            ("int8-generic",
+             lambda: quant.quantize_apply(model, calib, bias_correct=True)))
+        for rung, build in builders:
+            try:
+                cand = build()
+            except ValueError as e:  # e.g. not the U-Net's conv sequence
+                logger.warning("[%s] %s builder failed (%s); trying the next "
+                               "rung", name, rung, e)
+                continue
+            db = self._agreement_db(name, cand, calib)
+            if db >= GATE_DB:
+                logger.info("[%s] %s serving forward built, %.1f dB vs float",
+                            name, rung, db)
+                self._qapply[name], self.int8_rung[name] = cand, rung
+                return
+            logger.warning("[%s] %s FAILED the runtime agreement gate (%.1f "
+                           "dB < %.0f); trying the next rung", name, rung, db,
+                           GATE_DB)
+        logger.warning("[%s] no int8 rung passed; serving the float forward "
+                       "for this model", name)
+        self._qapply[name], self.int8_rung[name] = None, None
+
+    def last_compute_backend(self) -> str:
+        """``int8`` or ``float``: how this thread's last request ran."""
+        return getattr(self._path_note, "value", "n/a")
 
     # -- weight loading (warn-and-continue, app.py:327-345) -----------------
     def _load_weights(self):
@@ -171,17 +245,28 @@ class ServeState:
                 logger.warning("[%s] checkpoint failed to load (%s). Using "
                                "random init for that backend.", name, e)
 
-    # -- the float forward (_build_forward:290-297 with no quantizer) -------
+    # -- the forward (_build_forward:278-301) ---------------------------------
     def _forward(self, name: str, x: np.ndarray, plain: bool = False
                  ) -> np.ndarray:
-        """(1, H, W, 3) float32 in [-1, 1] → (1, H, W, 3) uint8, truncated."""
+        """(1, H, W, 3) float32 in [-1, 1] → (1, H, W, 3) uint8, truncated;
+        through the int8 forward where one was built."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        route = "plain" if plain else "kernel"
+        qapply = self._qapply.get(name)
         with torch.inference_mode():
-            y = self.models[name](xt.permute(0, 3, 1, 2),
-                                  route="plain" if plain else "kernel")
+            if qapply is None:
+                y = self.models[name](xt.permute(0, 3, 1, 2), route=route
+                                      ).permute(0, 2, 3, 1)
+            elif isinstance(qapply, quant_unet.QuantizedDenoiseUNet):
+                y = qapply(xt, route=route)
+            elif plain:
+                raise ValueError("the generic int8 rung has no plain route")
+            else:
+                y = qapply(xt)
             y01 = torch.clamp(y * 0.5 + 0.5, 0.0, 1.0)
             u8 = (y01 * 255.0).to(torch.uint8)
-        return u8.permute(0, 2, 3, 1).cpu().numpy()
+        self._path_note.value = "float" if qapply is None else "int8"
+        return u8.cpu().numpy()
 
     def denoise_image(self, image: np.ndarray, model: str = "denoise", *,
                       plain: bool = False) -> np.ndarray:
@@ -224,6 +309,7 @@ class ServeState:
             "models": list(self.models.keys()),
             "weights_loaded": sorted(self._weights_loaded),
             "quantize": self.quantize,
+            "int8_rungs": dict(self.int8_rung),
             "uptime_s": self.stats.uptime_s(),
         }
 
@@ -245,7 +331,8 @@ class ServeState:
                 self.stats.record_error(model_key, status)
                 _mark_recorded(e)
             raise
-        self.stats.record(model_key, time.perf_counter() - t_start, "float")
+        self.stats.record(model_key, time.perf_counter() - t_start,
+                          self.last_compute_backend())
         return result
 
     def _enhance_impl(self, model: str, file_bytes: bytes, content_type: str,
@@ -290,10 +377,11 @@ class ServeState:
             h, w = image.shape[:2]
             logger.info(
                 "[%s] %dx%d in %.0f ms (decode %.0f, forward+D2H %.0f, "
-                "figure %.0f, encode %.0f) compute=float device=%s", model, w,
+                "figure %.0f, encode %.0f) compute=%s device=%s", model, w,
                 h, (done - t_start) * 1e3, (t_decode - t_start) * 1e3,
                 (t_forward - t_decode) * 1e3, (t_graph - t_forward) * 1e3,
-                (done - t_graph) * 1e3, self.device)
+                (done - t_graph) * 1e3, self.last_compute_backend(),
+                self.device)
             return {
                 "denoised_image_base64": out_b64,
                 "noise_graph_base64": graph_b64,

@@ -23,6 +23,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              (in bf16 the kernels read the two through two pointers, in f32
              the wrapper concatenates); then, as a control, the f32 plain versions with
              TF32 on must fail the f32 check at 128² batch 8;
+3b. int8   — the s8 probe (mma.sync m16n8k32 with ldmatrix x4 and x2 from
+             the 32-byte swizzled rows) against an exact integer product;
+             the int8 kernels against their plain versions (exact in
+             integers): K5 ``conv3x3_s8`` at the U-Net's nine int8 convs
+             and K6 ``convt2x2_s8`` at its two transpose convs (batch 256,
+             128²), at ragged shapes (odd H and W, a cropped strided second
+             input, Cout = 3) and in each output mode — every s8, bf16 and
+             f32 output bit equal; K2's s8-out mode (the first conv) within
+             one s8 step on ≥ 99.9% (its f32 sums run in another order);
 4. serve   — the port's ``ServeState`` on the shipped weights behind the
              stdlib HTTP server on 127.0.0.1; three ``/enhance`` requests
              (256×256, 130×98, 64×64) whose pixels must match the plain-path
@@ -30,8 +39,22 @@ Phases, each printing its own lines; any failure exits non-zero:
              counts must be exactly 4 (double conv) + 2 (single conv) each;
              then 100 more 256×256 requests from one client for p50/p90
              latency;
-5. bench   — the port's bench line at batch 256, whose kernel launch counts
-             must be exactly 4 (double conv) + 2 (single conv) per step; then
+4b. int8 serve — the s8 skip-storage program on the shipped weights with
+             exactly K2 ×1, K5 ×9, K6 ×2 and no K3 per forward, its kernel
+             route against its plain route on the card: conv 0 (K2's s8
+             mode) within one step, the rest of the program bit-equal from
+             the same conv-0 output, and end to end (each route its own
+             conv 0) the differing pixels and counts printed and held to
+             ≥ 40 dB; then ``ServeState(quantize="int8")`` (the CLI's
+             default): the ladder must pick ``int8-s8skip``, three
+             ``/enhance`` requests counted ``int8`` with those launch
+             counts and ≥ 40 dB of the plain route, and 100 requests for
+             p50/p90 latency;
+5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
+             double conv + 2 single conv launches per step) and the int8
+             ladder, whose rungs, rates and dB are printed; the s8 rung must
+             pass the 40 dB gate and launch exactly K2 ×1, K5 ×9, K6 ×2 per
+             step; then
              each kernel at the bench shapes (bf16, 128², batch 256) checked
              against its plain version and timed beside it, beside one cuDNN
              call for the same function (``library_ms``, a yardstick the port
@@ -40,11 +63,17 @@ Phases, each printing its own lines; any failure exits non-zero:
              output written once) at 3.35 TB/s; per layer the useful TFLOP/s
              and the share of the bound reached; the two layers behind a
              skip concat timed with two inputs beside torch.cat + one input;
+5b. int8 times — each int8 kernel at the int8 step's shapes (batch 256,
+             128²): time beside its plain version, its useful TOP/s and its
+             bound (the larger of its operations at 1979 TOP/s, dense int8,
+             and its bytes at 3.35 TB/s), beside the bf16 kernel (K3 pair or
+             K2) of the same layers from phase 5 — no library call computes
+             an int8 conv;
 6. batch   — one bf16 forward at the JAX bench's batch of 2048, where
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
-7. profile — one bench step under torch.profiler: device time by kernel and
-             the device's busy share of the step;
+7. profile — one bf16 and one int8 bench step under torch.profiler: device
+             time by kernel and the device's busy share of the step;
 8. noise   — the fused normalise + Gaussian-noise kernel against its plain
              version on the card (same Philox stream, so the f32 outputs
              must agree within 1e-5 and the bf16 ones within one bf16 ulp
@@ -98,6 +127,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # × max|ref|.  f32: the kernels differ from the plain versions by summation
 # order only (≤ 1.5e-6 on the card); TF32 operands (10-bit mantissa) miss by
@@ -234,7 +264,8 @@ def phase_build(_build):
     for line in res.log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            short = re.search(r".*\d((?:conv3x3|double_conv3x3|normalize|probe)"
+            short = re.search(r".*\d((?:conv3x3|convt2x2|double_conv3x3|"
+                              r"normalize|probe)"
                               r"[a-z_0-9]*?_kernel)(I\w*?E)?Ev?[PN]", m.group(1))
             name = (short.group(1) + (short.group(2) or "")) if short \
                 else m.group(1)[-60:]
@@ -260,10 +291,11 @@ def phase_build(_build):
         return
     hgmma = len(re.findall(r"\bHGMMA\.", sass.stdout))
     hmma = len(re.findall(r"\bHMMA\.", sass.stdout))
+    imma = len(re.findall(r"\bIMMA\.", sass.stdout))
     say(f"  matrix instructions in {res.path.name}: HGMMA (wgmma) {hgmma}, "
-        f"HMMA (mma.sync) {hmma}")
-    if hgmma < 1 or hmma < 1:
-        fail("the built library holds no tensor-core matrix instruction")
+        f"HMMA (mma.sync bf16) {hmma}, IMMA (mma.sync s8) {imma}")
+    if hgmma < 1 or hmma < 1 or imma < 1:
+        fail("the built library lacks a tensor-core matrix instruction")
 
 
 def phase_mma_probes(_build):
@@ -299,6 +331,29 @@ def phase_mma_probes(_build):
             f"{16 * ksteps}: {'exact' if ok else 'FAIL'}")
         if not ok:
             fail("wgmma probe disagrees with the plain product")
+
+
+def phase_s8_probe(_build):
+    """mma.cuh's s8 mma.sync m16n8k32 with ldmatrix x4 and x2, over the whole
+    s8 range: an exact integer product (s32 sums far below 2^31)."""
+    lib = _build.library()
+    gen = make_gen()
+    for rep in range(3):
+        a = torch.randint(-128, 128, (16, 32), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (16, 32), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        d = torch.full((16, 24), -7, dtype=torch.int32, device="cuda")
+        _build.check(lib.cid_probe_mma_s8(a.data_ptr(), b.data_ptr(),
+                                          d.data_ptr(), None), "s8 probe")
+        torch.cuda.synchronize()
+        ref = a.double() @ b.double().T
+        ok = torch.equal(d[:, :16].double(), ref) and torch.equal(
+            d[:, 16:].double(), ref[:, 8:])
+        say(f"  mma.cuh cp.async + ldmatrix x4/x2 + mma.sync m16n8k32 s8 "
+            f"(draw {rep}): {'exact' if ok else 'FAIL'}")
+        if not ok:
+            fail("s8 mma.sync probe disagrees with the integer product")
 
 
 def phase_kernels(_build, conv3x3, double_conv):
@@ -371,6 +426,137 @@ def phase_kernels(_build, conv3x3, double_conv):
             f"{tol:.3e} {'rejected' if err > tol else 'ACCEPTED'}")
         if not err > tol:
             fail(f"the f32 check accepts TF32 for {layer} {shape}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the int8 slice
+def int8_layers(n, h, w):
+    """The int8 step's convs at an input of h×w, in call order: name →
+    (kernel, shape).  q8 (K2, s8 out): (N, H, W, Cin, Cout); k5: (N, H, W,
+    Ca, Cb, Cout, relu, out); k6: (N, H, W, Cin, Cout, out)."""
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    return {
+        "down1.0": ("q8", (n, h, w, 3, 64)),
+        "down1.2": ("k5", (n, h, w, 64, 0, 64, True, "s8")),
+        "down2.0": ("k5", (n, h2, w2, 64, 0, 128, True, "s8")),
+        "down2.2": ("k5", (n, h2, w2, 128, 0, 128, True, "s8")),
+        "bottleneck.0": ("k5", (n, h4, w4, 128, 0, 256, True, "s8")),
+        "bottleneck.2": ("k5", (n, h4, w4, 256, 0, 256, True, "s8")),
+        "up2": ("k6", (n, h4, w4, 256, 128, "s8")),
+        "upconv2.0": ("k5", (n, h2, w2, 128, 128, 128, True, "s8")),
+        "upconv2.2": ("k5", (n, h2, w2, 128, 0, 128, True, "s8")),
+        "up1": ("k6", (n, h2, w2, 128, 64, "s8")),
+        "upconv1.0": ("k5", (n, h, w, 64, 64, 64, True, "s8")),
+        "upconv1.2": ("k5", (n, h, w, 64, 0, 3, False, "bf16")),
+    }
+
+
+def s8_rand(gen, shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def epilogue_inputs(gen, cin, cout, out):
+    """w_scale, bias, out_scale of a layer: products of about unit size,
+    stored across the s8 range."""
+    ws = (torch.rand(cout, generator=gen, device="cuda") + 0.5) * 3.0 / (
+        (9 * cin) ** 0.5 * 127 * 127 / 3)
+    bias = (rnd(gen, (cout,), torch.float32, 0.1).to(torch.bfloat16)
+            if out != "f32" else None)
+    so = ((torch.rand(cout, generator=gen, device="cuda") + 0.5) * 3.0 / 127
+          if out == "s8" else None)
+    return ws, bias, so
+
+
+def int8_inputs(gen, kind, shape):
+    """(args, kwargs) of the kernel entry for a layer of int8_layers."""
+    if kind == "q8":
+        from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3
+        from celebrity_image_denoiser_tpu_torch.ops.quant import act_scale
+
+        n, h, w, cin, cout = shape
+        x = rnd(gen, (n, h, w, cin), torch.bfloat16)
+        k = rnd(gen, (3, 3, cin, cout), torch.bfloat16, (9 * cin) ** -.5)
+        b = rnd(gen, (cout,), torch.float32, 0.1)
+        # scales calibrated on the output as the program's are (amax / 127
+        # per channel): a bf16 ulp of h is then below one s8 step
+        hh = torch.relu(conv3x3.conv3x3_bias_relu_plain(
+            x, k, torch.zeros_like(b), relu=False) + b.to(torch.bfloat16))
+        return (x, k, b, act_scale(hh.float().amax(dim=(0, 1, 2)))), {}
+    if kind == "k5":
+        n, h, w, ca, cb, cout, relu, out = shape
+        x2 = (s8_rand(gen, (n, h + 1, w + 2, cb))[:, :h, :w] if cb else None)
+        ws, bias, so = epilogue_inputs(gen, ca + cb, cout, out)
+        return ((s8_rand(gen, (n, h, w, ca)),
+                 s8_rand(gen, (cout, 3, 3, ca + cb)), ws, bias),
+                {"relu": relu, "out_scale": so, "x2": x2})
+    n, h, w, cin, cout, out = shape
+    ws, bias, so = epilogue_inputs(gen, cin, cout, out)
+    return ((s8_rand(gen, (n, h, w, cin)), s8_rand(gen, (2, 2, cout, cin)),
+             ws, bias), {"out_scale": so})
+
+
+def int8_entry(kind, conv3x3, k5, k6, plain=False):
+    if kind == "q8":
+        return (conv3x3.conv3x3_bias_relu_q8_plain if plain
+                else conv3x3.conv3x3_bias_relu_q8)
+    if kind == "k5":
+        return k5.conv3x3_s8_plain if plain else k5.conv3x3_s8
+    return k6.convt2x2_s8_plain if plain else k6.convt2x2_s8
+
+
+def check_int8(kind, layer, shape, got, ref) -> float:
+    """K5/K6: every output bit equal.  K2's s8 mode: its f32 sums run in
+    another order than the plain version's, so a bf16 rounding of the conv
+    may fall the other way: at most one s8 step, on at most 0.1%."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"{kind} {layer}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(ref.shape)} {ref.dtype}")
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    equal = (diff == 0).float().mean().item()
+    ok = (err <= 1 and equal >= 0.999) if kind == "q8" else torch.equal(
+        got, ref)
+    say(f"  {kind} {layer:13s} {str(shape):42s} {str(got.dtype):15s} "
+        f"max_abs_err {err:.3e} equal {equal:.6%} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{kind} {layer} {shape} disagrees with its plain version")
+    return err
+
+
+def phase_int8_kernels(_build, conv3x3, k5, k6):
+    say("== phase 3b: int8 kernels vs plain (exact in integers)")
+    phase_s8_probe(_build)
+    gen = make_gen()
+    worst = {"q8": 0.0, "k5": 0.0, "k6": 0.0}
+    cases = [(layer, kind, shape) for layer, (kind, shape)
+             in int8_layers(BENCH_BATCH, 128, 128).items()]
+    # ragged: odd H and W on every tile edge, a cropped strided second
+    # input, Cout = 3 and 5 (one n8 block, odd), two output passes with a
+    # ragged last one, the generic transform's raw f32 product
+    cases += [
+        ("ragged", "q8", (2, 37, 45, 3, 64)),
+        ("ragged", "k5", (2, 37, 45, 64, 0, 128, True, "s8")),
+        ("ragged 2 in", "k5", (2, 33, 30, 128, 128, 128, True, "s8")),
+        ("ragged", "k5", (3, 19, 21, 64, 0, 3, False, "bf16")),
+        ("ragged 2 in", "k5", (1, 7, 9, 64, 32, 5, True, "s8")),
+        ("ragged", "k5", (2, 40, 36, 128, 0, 72, False, "bf16")),
+        ("generic", "k5", (2, 64, 64, 128, 0, 128, False, "f32")),
+        ("ragged", "k6", (2, 17, 23, 256, 128, "s8")),
+        ("ragged", "k6", (1, 9, 7, 128, 64, "bf16")),
+        ("generic", "k6", (2, 32, 32, 256, 128, "f32")),
+    ]
+    for layer, kind, shape in cases:
+        args, kw = int8_inputs(gen, kind, shape)
+        got = int8_entry(kind, conv3x3, k5, k6)(*args, **kw)
+        ref = int8_entry(kind, conv3x3, k5, k6, plain=True)(*args, **kw)
+        worst[kind] = max(worst[kind], check_int8(kind, layer, shape, got,
+                                                  ref))
+        del args, kw, got, ref
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -480,24 +666,169 @@ def phase_serve(conv3x3, double_conv):
     return totals
 
 
+def int8_counts(conv3x3, double_conv, k5, k6, reset=False):
+    """(K2, K3, K5, K6) launch counts; with ``reset`` set them to 0."""
+    if reset:
+        conv3x3.LAUNCHES = double_conv.LAUNCHES = k5.LAUNCHES = 0
+        k6.LAUNCHES = 0
+    return (conv3x3.LAUNCHES, double_conv.LAUNCHES, k5.LAUNCHES,
+            k6.LAUNCHES)
+
+
+INT8_PER_FORWARD = (1, 0, 9, 2)  # K2 (s8 out), K3, K5, K6
+
+
+def u8_of(y):
+    """The serving output map: clip(y·0.5+0.5) → truncate to uint8."""
+    return (torch.clamp(y.float() * 0.5 + 0.5, 0, 1) * 255).to(torch.uint8)
+
+
+def psnr_u8(diff) -> float:
+    """Agreement of two u8 images in dB (the serving gate's measure) from
+    their difference."""
+    mse = float((torch.as_tensor(diff).double() ** 2).mean())
+    return 10.0 * np.log10(255.0 ** 2 / max(mse, 1e-9))
+
+
+def phase_int8_serve(conv3x3, double_conv, k5, k6):
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        calibration_batch,
+    )
+    from celebrity_image_denoiser_tpu_torch.ops.quant_unet import (
+        quantize_apply_denoise_unet,
+    )
+    from celebrity_image_denoiser_tpu_torch.serve.app import make_server
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    say("== phase 4b: int8 serving (s8 skip-storage program, shipped "
+        "weights)")
+    st = ServeState(device="cuda", quantize="int8")
+    if "denoise" not in st.healthz()["weights_loaded"]:
+        fail("shipped denoise weights did not load")
+    rung = st.int8_rung.get("denoise")
+    say(f"  ladder: {rung}")
+    if rung != "int8-s8skip":
+        fail(f"the int8 ladder served {rung}, not int8-s8skip")
+    # the program alone, kernel route vs plain route, on a batch of noisy
+    # synthetic faces in the serving domain
+    prog = quantize_apply_denoise_unet(st.models["denoise"],
+                                       calibration_batch(True).cuda())
+    x = calibration_batch(True, 128, generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+    y = prog(x)
+    counts = int8_counts(conv3x3, double_conv, k5, k6)
+    say(f"  s8 program {tuple(x.shape)}: launches K2 {counts[0]} K3 "
+        f"{counts[1]} K5 {counts[2]} K6 {counts[3]}")
+    if counts != INT8_PER_FORWARD:
+        fail(f"s8 program launches {counts}, expected {INT8_PER_FORWARD}")
+    # after conv 0 the routes are integer sums and single IEEE roundings:
+    # from the same conv-0 output they must agree bit for bit
+    h0 = prog.first_conv(x)
+    h0p = prog.first_conv(x, route="plain")
+    same = torch.equal(prog.body(h0), prog.body(h0, route="plain"))
+    d0 = (h0.int() - h0p.int()).abs()
+    say(f"  conv 0 (K2 s8 mode) vs plain: {int((d0 > 0).sum())} of "
+        f"{d0.numel()} s8 values differ, max {d0.max().item()} step; the "
+        f"rest of the program from the same conv-0 output: "
+        f"{'bit-equal' if same else 'DIFFERS'}")
+    if not same or d0.max().item() > 1:
+        fail("the s8 program's kernel route disagrees with its plain route")
+    # end to end, each route with its own conv 0: those few rounding
+    # differences reach the output through the int8 output conv
+    diff = (u8_of(y).int() - u8_of(prog(x, route="plain")).int()).abs()
+    db = psnr_u8(diff)
+    say(f"  end to end u8 vs plain route: {int((diff > 0).sum())} of "
+        f"{diff.numel()} pixels differ, max {diff.max().item()} counts, "
+        f"{db:.2f} dB")
+    if db < 40.0:
+        fail("the s8 program's kernel route is below 40 dB of its plain "
+             "route")
+
+    srv = make_server("127.0.0.1", 0, state=st)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{srv.server_address[1]}"
+           "/enhance?model=denoise&graphs=false")
+    totals = [0, 0, 0, 0]
+    try:
+        for i, (h, w) in enumerate(((256, 256), (98, 130), (64, 64))):
+            img = test_image(h, w, seed=i)
+            int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+            t0 = time.perf_counter()
+            status, payload = post_enhance(url, imageio.encode_png(img))
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = int8_counts(conv3x3, double_conv, k5, k6)
+            totals = [a + b for a, b in zip(totals, counts)]
+            if status != 200 or payload.get("backend") != "torch":
+                fail(f"int8 /enhance {w}x{h}: HTTP {status} {sorted(payload)}")
+            out = imageio.decode_png(
+                base64.b64decode(payload["denoised_image_base64"]))
+            ref = st.denoise_image(img, plain=True)
+            d = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+            say(f"  int8 /enhance {w}x{h}: 200 in {dt:.1f} ms, launches K2 "
+                f"{counts[0]} K3 {counts[1]} K5 {counts[2]} K6 {counts[3]}, "
+                f"vs plain route {int((d > 0).sum())} of {d.size} differ, "
+                f"max {d.max()} counts, {psnr_u8(d):.2f} dB")
+            if counts != INT8_PER_FORWARD or out.shape != (h, w, 3):
+                fail(f"int8 /enhance {w}x{h}: launches {counts}, shape "
+                     f"{out.shape}")
+            if psnr_u8(d) < 40.0:
+                fail(f"int8 /enhance {w}x{h}: below 40 dB of the plain "
+                     "route")
+        backends = st.stats.snapshot()["compute_backends"]
+        say(f"  compute backends counted: {backends}")
+        if backends != {"int8": 3}:
+            fail(f"int8 serving counted {backends}")
+        png = imageio.encode_png(test_image(256, 256, seed=9))
+        lat = []
+        for _ in range(LATENCY_REQUESTS):
+            t0 = time.perf_counter()
+            status, _ = post_enhance(url, png)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                fail(f"int8 /enhance latency loop: HTTP {status}")
+        p50, p90 = np.percentile(lat, [50, 90])
+        say(f"  int8 /enhance 256x256 latency over {len(lat)} requests (one "
+            f"client, graphs=false): p50 {p50:.2f} ms p90 {p90:.2f} ms "
+            f"max {max(lat):.2f} ms")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    return totals
+
+
 def bound_ms(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
 
 
-def phase_bench(conv3x3, double_conv, bench, worst):
+def phase_bench(conv3x3, double_conv, k5, k6, bench, worst):
     import torch.nn.functional as F
 
     say(f"== phase 5: bench (batch {BENCH_BATCH}) and kernel times")
-    steps = 1 + bench.N_ITERS  # the warm-up step, then the timed ones
-    conv3x3.LAUNCHES = 0
-    double_conv.LAUNCHES = 0
-    bench.main(batch=BENCH_BATCH)
-    n1, n3 = conv3x3.LAUNCHES, double_conv.LAUNCHES
-    say(f"  bench launches over {steps} steps: double_conv {n3} conv3x3 {n1}")
-    if (n3, n1) != (4 * steps, 2 * steps):
-        fail(f"bench: launches double_conv {n3} conv3x3 {n1}, expected "
-             f"{4 * steps} and {2 * steps}")
-    launches = {"conv3x3_bias_relu": n1, "double_conv3x3_relu": n3}
+    # per step kind: the agreement probe, the warm-up step, the timed ones
+    steps = 2 + bench.N_ITERS
+    int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+    _, rungs = bench.main(batch=BENCH_BATCH)
+    n1, n3, n5, n6 = int8_counts(conv3x3, double_conv, k5, k6)
+    for r in rungs:
+        say(f"  rung {r['rung']:13s} " + (
+            f"builder failed: {r['error']}" if not r["built"] else
+            (f"gate {r['db']:.2f} dB, " if r["db"] is not None else "")
+            + (f"{r['rate']:.1f} images/s" if r["rate"] else "not measured")))
+    if len(rungs) < 2 or rungs[1]["rung"] != "int8-s8skip" \
+            or rungs[1]["rate"] is None:
+        fail("bench: the int8-s8skip rung did not pass its gate")
+    say(f"  bench launches over {steps} bf16 and {steps} int8 steps: "
+        f"double_conv {n3} conv3x3 {n1} conv3x3_s8 {n5} convt2x2_s8 {n6}")
+    want = (4 * steps, 2 * steps + steps, 9 * steps, 2 * steps)
+    if (n3, n1, n5, n6) != want:
+        fail(f"bench: launches {(n3, n1, n5, n6)}, expected {want}")
+    launches = {"conv3x3_bias_relu": n1, "double_conv3x3_relu": n3,
+                "conv3x3_s8": n5, "convt2x2_s8": n6}
+    layer_ms = {}  # bf16 kernel ms per layer, for phase 5b
     gen = make_gen()
     dt = torch.bfloat16
     n, h, w = BENCH_BATCH, bench.SIZE, bench.SIZE
@@ -546,6 +877,7 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         nbytes = 2 * (x.numel() + w1.numel() + w2.numel() + n * hh * ww * c2) \
             + 4 * (c1 + c2)
         add("double_conv3x3_relu", ms, plain, lib, flops, nbytes)
+        layer_ms[layer] = ms
         if xb is not None:
             cat = time_ms(lambda: double_conv.double_conv3x3_relu(
                 torch.cat([xa, xb], dim=3), w1, b1, w2, b2))
@@ -576,6 +908,7 @@ def phase_bench(conv3x3, double_conv, bench, worst):
         flops = 2 * n * hh * ww * 9 * cin * cout
         nbytes = 2 * (x.numel() + k.numel() + n * hh * ww * cout) + 4 * cout
         add("conv3x3_bias_relu", ms, plain, lib, flops, nbytes)
+        layer_ms[layer] = ms
         if xb is not None:
             cat = time_ms(lambda: conv3x3.conv3x3_bias_relu(
                 torch.cat([xa, xb], dim=3), k, b, relu=relu))
@@ -591,7 +924,85 @@ def phase_bench(conv3x3, double_conv, bench, worst):
             f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, cudnn "
             f"{s['library_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms per step "
             f"({s['bound_ms'] / s['ms']:.1%} of the bound)")
-    return stats, launches
+    return stats, launches, layer_ms
+
+
+def phase_int8_times(conv3x3, k5, k6, layer_ms):
+    """Each int8 kernel at the int8 step's shapes, beside its plain version
+    and its bound, and beside the bf16 kernel of the same layers."""
+    import torch.nn.functional as F
+
+    say(f"== phase 5b: int8 kernel times (batch {BENCH_BATCH}, 128²)")
+    gen = make_gen()
+    stats = {}
+    int8_ms = {}
+    for layer, (kind, shape) in int8_layers(BENCH_BATCH, 128, 128).items():
+        args, kw = int8_inputs(gen, kind, shape)
+        fn = int8_entry(kind, conv3x3, k5, k6)
+        plain_fn = int8_entry(kind, conv3x3, k5, k6, plain=True)
+        ms = time_ms(lambda: fn(*args, **kw), reps=10)
+        plain = time_ms(lambda: plain_fn(*args, **kw), reps=2, warmup=1)
+        x = args[0]
+        if kind == "q8":
+            n, h, w, cin, cout = shape
+            ops = 2 * n * h * w * 9 * cin * cout
+            nbytes = 2 * x.numel() + n * h * w * cout + 2 * args[1].numel()
+            peak = PEAK_BF16_FLOPS  # bf16 products
+        elif kind == "k5":
+            n, h, w, ca, cb, cout, _, out = shape
+            ops = 2 * n * h * w * 9 * (ca + cb) * cout
+            nbytes = (n * h * w * (ca + cb) + args[1].numel()
+                      + n * h * w * cout * (1 if out == "s8" else 2))
+            peak = PEAK_INT8_OPS
+        else:
+            n, h, w, cin, cout, _ = shape
+            ops = 2 * n * h * w * cin * 4 * cout
+            nbytes = x.numel() + args[1].numel() + n * 4 * h * w * cout
+            peak = PEAK_INT8_OPS
+        ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        name = {"q8": "conv3x3_bias_relu_q8", "k5": "conv3x3_s8",
+                "k6": "convt2x2_s8"}[kind]
+        s = stats.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                    "bound_ms": 0.0, "operations": 0.0,
+                                    "bytes": 0.0, "per_step": 0})
+        s["per_step"] += 1
+        s["ms"] += ms
+        s["plain_ms"] += plain
+        s["bound_ms"] += bound
+        s["operations" if ops_ms >= bytes_ms else "bytes"] += bound
+        int8_ms[layer] = ms
+        lib = ""
+        if kind == "k6":  # the bf16 step's transpose conv is a cuDNN call
+            xb = rnd(gen, (n, cin, h, w), torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wb = rnd(gen, (cin, cout, 2, 2), torch.bfloat16, cin ** -0.5)
+            bb = rnd(gen, (cout,), torch.bfloat16)
+            lib = (f"; bf16 step's cuDNN conv_transpose "
+                   f"{time_ms(lambda: F.conv_transpose2d(xb, wb, bb, stride=2)):.3f} ms")
+        say(f"  {name:20s} {layer:13s} {str(shape):42s} kernel {ms:.3f} ms "
+            f"plain {plain:.3f} ms bound {bound:.3f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}): "
+            f"{ops / ms / 1e9:.1f} TOP/s useful, {bound / ms:.1%} of the "
+            f"bound{lib}")
+        del args, kw
+    torch.cuda.empty_cache()
+    # beside the bf16 kernels of the same layers (phase 5, same shapes)
+    pairs = {"down1": ("down1.0", "down1.2"), "down2": ("down2.0", "down2.2"),
+             "bottleneck": ("bottleneck.0", "bottleneck.2"),
+             "upconv2": ("upconv2.0", "upconv2.2"),
+             "upconv1.0": ("upconv1.0",), "upconv1.2": ("upconv1.2",)}
+    for bf16_layer, convs in pairs.items():
+        i8 = sum(int8_ms[c] for c in convs)
+        say(f"  layer {bf16_layer:11s} int8 {i8:.3f} ms ({' + '.join(convs)})"
+            f" vs bf16 {layer_ms[bf16_layer]:.3f} ms: "
+            f"{layer_ms[bf16_layer] / i8:.2f}x")
+    for name, s in stats.items():
+        say(f"  {name}: {s['per_step']} launches per int8 step, kernel "
+            f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, bound "
+            f"{s['bound_ms']:.3f} ms per step ({s['bound_ms'] / s['ms']:.1%} "
+            "of the bound)")
+    return stats
 
 
 def phase_big_batch(bench):
@@ -644,20 +1055,33 @@ def phase_profile(bench):
         serve_step,
     )
 
-    say(f"== phase 7: profile of one bench step (batch {BENCH_BATCH})")
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        calibration_batch,
+    )
+    from celebrity_image_denoiser_tpu_torch.ops.quant_unet import (
+        quantize_apply_denoise_unet,
+    )
+
+    say(f"== phase 7: profile of one bench step, bf16 and int8 (batch "
+        f"{BENCH_BATCH})")
     model = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
-    model = model.to(device="cuda", dtype=torch.bfloat16).eval()
+    model = model.to(device="cuda").eval()
+    prog = quantize_apply_denoise_unet(model, calibration_batch(True).cuda())
+    model = model.to(torch.bfloat16)
     x = torch.randint(0, 256, (BENCH_BATCH, bench.SIZE, bench.SIZE, 3),
                       dtype=torch.uint8, device="cuda")
-    serve_step(model, x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve_step(model, x)
+    for label, step in (("bf16", lambda: serve_step(model, x)),
+                        ("int8-s8skip", lambda: bench.int8_step(prog, x))):
+        step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        say(f"  {label} step:")
+        report_profile(prof, wall, top=14)
 
 
 # ---------------------------------------------------------------------------
@@ -1017,6 +1441,8 @@ def main() -> int:
         double_conv,
         noise,
     )
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8 as k5
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import convt2x2_s8 as k6
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1030,8 +1456,12 @@ def main() -> int:
     card = phase_device()
     phase_build(_build)
     worst = phase_kernels(_build, conv3x3, double_conv)
+    worst8 = phase_int8_kernels(_build, conv3x3, k5, k6)
     launches = phase_serve(conv3x3, double_conv)
-    stats, bench_launches = phase_bench(conv3x3, double_conv, bench, worst)
+    int8_launches = phase_int8_serve(conv3x3, double_conv, k5, k6)
+    stats, bench_launches, layer_ms = phase_bench(conv3x3, double_conv, k5,
+                                                  k6, bench, worst)
+    stats8 = phase_int8_times(conv3x3, k5, k6, layer_ms)
     phase_big_batch(bench)
     phase_profile(bench)
     noise_err = phase_noise_kernel(noise)
@@ -1059,8 +1489,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            # both main paths: the /enhance requests and the bench run
-            "launches": launches[name] + bench_launches[name],
+            # the main paths: the float and int8 /enhance requests and the
+            # bench run (the int8 requests launch K2 in its s8 mode only)
+            "launches": (launches[name] + bench_launches[name]
+                         + (int8_launches[0] if name == "conv3x3_bias_relu"
+                            else int8_launches[1])),
             "max_abs_err": worst[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
@@ -1071,7 +1504,36 @@ def main() -> int:
         if name == "conv3x3_bias_relu":
             entry["also_replaces"] = (
                 "celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py:85")
+            # its s8-out mode, the int8 step's first conv (phases 3b, 5b)
+            q8 = stats8["conv3x3_bias_relu_q8"]
+            entry["q8"] = {"max_abs_err": worst8["q8"], "ms": q8["ms"],
+                           "plain_ms": q8["plain_ms"],
+                           "bound_ms": q8["bound_ms"]}
         kernels.append(entry)
+    # K5 and K6 have no Pallas original: the JAX package computes these
+    # convs in XLA; no library call computes an int8 conv on the card
+    for name, kind, where, n_launch in (
+            ("conv3x3_s8", "k5", "celebrity_image_denoiser_tpu/ops/"
+             "quant_unet.py:55 (_conv_q, an XLA conv)", int8_launches[2]),
+            ("convt2x2_s8", "k6", "celebrity_image_denoiser_tpu/ops/"
+             "quant_unet.py:62 (_convt_q, an XLA conv)", int8_launches[3])):
+        if n_launch < 1 or bench_launches[name] < 1:
+            fail(f"{name} was not launched on the main path")
+        s = stats8[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
+            "replaces": where,
+            # the int8 /enhance requests and the bench run
+            "launches": n_launch + bench_launches[name],
+            "max_abs_err": worst8[kind],
+            # per int8 bench step, summed over its launches (phase 5b)
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": ("operations" if s["operations"] >= s["bytes"]
+                         else "bytes"),
+            "library_ms": None,
+        })
     kernels.append({
         "name": "fused_normalize_gaussian_noise", "route": "cuda",
         "source": "celebrity_image_denoiser_tpu_torch/csrc/"

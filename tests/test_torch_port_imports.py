@@ -40,7 +40,10 @@ def test_port_has_modules_to_check():
                  "data.noise", "data.synthetic", "data.datasets",
                  "data.pipeline", "ckpt.checkpoint", "train.losses",
                  "train.optim", "train.gan_trainer", "metrics.psnr_ssim",
-                 "cli.train"):
+                 "cli.train",
+                 # the int8 serving slice
+                 "ops.quant", "ops.quant_unet", "ops.cuda.conv3x3_s8",
+                 "ops.cuda.convt2x2_s8"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 
@@ -104,8 +107,8 @@ def test_cli_serve_defaults_to_the_card(no_cuda):
 
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--quantize", "off", "--port", "0"])
-    with pytest.raises(NotImplementedError):  # the int8 default is refused
-        serve.main(["--device", "cpu", "--port", "0"])
+    with pytest.raises(RuntimeError, match="cuda"):  # the int8 default too
+        serve.main(["--port", "0"])
 
 
 def test_cli_train_defaults_to_the_card(no_cuda, tmp_path):

@@ -159,8 +159,14 @@ def test_oversized_input_is_refused_not_tiled():
 
 
 def test_int8_is_not_served_quietly():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeState(device="cpu", quantize="int8")
+    """Every request says how it ran (int8 or float) and which rung built the
+    int8 forward; a quantize mode that does not exist is refused."""
+    with pytest.raises(ValueError, match="quantize"):
+        ServeState(device="cpu", quantize="int4")
+    st = ServeState(device="cpu", quantize="int8")
+    st.enhance("denoise", imageio.encode_png(np.zeros((16, 16, 3), np.uint8)))
+    assert st.last_compute_backend() == "int8"
+    assert st.int8_rung == {"denoise": "int8-s8skip"}
 
 
 def test_pth_weights_load_with_reference_layout(tmp_path):
