@@ -1,14 +1,15 @@
-"""Where the bf16 conv kernels' time goes: the kernels timed with parts
-taken out.
+"""Where the conv kernels' time goes: the kernels timed with parts taken out.
 
-    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation
+    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation [--only bf16|s8]
 
-Builds variants of ``csrc/conv3x3_bias_relu.cu`` and
-``csrc/double_conv3x3_relu.cu`` in which one or more parts are patched out
-of the source text (the matrix instructions, the ldmatrix loads, the
-producers' copies, the epilogues), and times each variant at the bench
-shapes (bf16, 128², batch 256) on the card, and K2's s8-out mode at the int8
-step's first conv (``down1.0 q8``).  A variant's results are wrong;
+Builds variants of the conv sources in which one or more parts are patched
+out of the source text (the matrix instructions, the ldmatrix loads, the
+copies, the epilogues or only their arithmetic), and times each variant on
+the card: ``bf16``, the bf16 kernels (``csrc/conv3x3_bias_relu.cu``,
+``csrc/double_conv3x3_relu.cu``) at the bench shapes (128², batch 256) and
+K2's s8-out mode at the int8 step's first conv (``down1.0 q8``); ``s8``,
+the int8 kernels K5 (``csrc/conv3x3_s8.cu``) and K6
+(``csrc/convt2x2_s8.cu``) at the int8 step's layers.  A variant's results are wrong;
 only its time is read: what a part costs is the time that goes away with
 it, and what is left when everything is out is the ring's skeleton (barriers
 and bookkeeping).  Where ncu and nsys cannot run, this takes the place of
@@ -36,6 +37,19 @@ K3 = {"down1": (BATCH, 128, 128, 3, 64, 64),
       "upconv2": (BATCH, 64, 64, 256, 128, 128)}
 K2 = {"upconv1.0": (BATCH, 128, 128, 128, 64, 1)}
 Q8 = {"down1.0 q8": (BATCH, 128, 128, 3, 64, 1)}  # K2, s8 out
+# the int8 step's K5 convs, (N, H, W, Ca, Cb, Cout, relu, mode) with mode 0
+# s8 out, 1 bf16 out (chip_smoke.py's int8_layers), and its K6 transpose
+# convs, (N, H, W, Cin, Cout), s8 out
+K5 = {"down1.2": (BATCH, 128, 128, 64, 0, 64, 1, 0),
+      "down2.0": (BATCH, 64, 64, 64, 0, 128, 1, 0),
+      "down2.2": (BATCH, 64, 64, 128, 0, 128, 1, 0),
+      "bottleneck.0": (BATCH, 32, 32, 128, 0, 256, 1, 0),
+      "bottleneck.2": (BATCH, 32, 32, 256, 0, 256, 1, 0),
+      "upconv2.0": (BATCH, 64, 64, 128, 128, 128, 1, 0),
+      "upconv2.2": (BATCH, 64, 64, 128, 0, 128, 1, 0),
+      "upconv1.0": (BATCH, 128, 128, 64, 64, 64, 1, 0),
+      "upconv1.2": (BATCH, 128, 128, 64, 0, 3, 0, 1)}
+K6 = {"up2": (BATCH, 32, 32, 256, 128), "up1": (BATCH, 64, 64, 128, 64)}
 
 # part -> [(file, text, replacement)]; every text must occur in its file
 PARTS = {
@@ -58,8 +72,39 @@ PARTS = {
          "      const int n0 = cur.pass * conv::kNB;",
          "    if (cur.chunk == nchunks - 1 && H < 0) {\n"
          "      const int n0 = cur.pass * conv::kNB;")],
+    # the int8 kernels K5 (conv3x3_s8.cu) and K6 (convt2x2_s8.cu)
+    "s8 mma": [("mma.cuh",
+                "const uint32_t (&b)[2]) {\n  asm volatile(\n"
+                "      \"mma.sync.aligned.m16n8k32",
+                "const uint32_t (&b)[2]) {\n  d[0] += (int)(a[0] ^ b[0]);\n"
+                "  if (d[1] != 12345) return;\n  asm volatile(\n"
+                "      \"mma.sync.aligned.m16n8k32")],
+    "s8 ldmatrix": [
+        ("conv3x3_s8.cu",
+         "mma::ldmatrix_x4(a[mt], s8::row_addr(st, pbase[mt] + shift, khalf));",
+         "if (tap == 0) mma::ldmatrix_x4(a[mt], s8::row_addr(st, pbase[mt] "
+         "+ shift, khalf));"),
+        ("convt2x2_s8.cu", "      mma::ldmatrix_x4(a, s8::row_addr(",
+         "      if (c == 0) mma::ldmatrix_x4(a, s8::row_addr(")],
+    "s8 copies": [
+        (f, "if (item + 1 < nitems) fill(item + 1, stage ^ 1);",
+         "if (item + 1 < 0) fill(item + 1, stage ^ 1);")
+        for f in ("conv3x3_s8.cu", "convt2x2_s8.cu")],
+    "s8 epilogue": [
+        ("conv3x3_s8.cu", "if (item % nchunks == nchunks - 1) {",
+         "if (item % nchunks == nchunks - 1 && H < 0) {"),
+        ("convt2x2_s8.cu", "if (p >= pixels) continue;",
+         "if (p >= pixels || H > 0) continue;")],
+    # the epilogue's stores kept, its arithmetic taken out (s8 out)
+    "s8 epilogue arithmetic": [
+        ("conv_s8.cuh", "  if (c >= Cout) return;\n  const bool two",
+         "  if (c >= Cout) return;\n  if (mode == kOutS8) {\n"
+         "    *reinterpret_cast<char2*>(static_cast<int8_t*>(y) + off + c) =\n"
+         "        make_char2((int8_t)acc0, (int8_t)acc1);\n    return;\n  }\n"
+         "  const bool two")],
 }
-# what each timed variant leaves out
+# what each timed variant leaves out: the bf16 kernels (K2, K3) and K2's s8
+# mode
 VARIANTS = {
     "whole kernel": (),
     "no copies": ("copies",),
@@ -70,9 +115,23 @@ VARIANTS = {
     "skeleton (none of the four)": ("wgmma", "copies", "ldmatrix",
                                     "epilogues"),
 }
+# the int8 kernels K5 and K6
+S8_VARIANTS = {
+    "whole kernel": (),
+    "no copies": ("s8 copies",),
+    "no epilogue": ("s8 epilogue",),
+    "stores only (no epilogue arithmetic)": ("s8 epilogue arithmetic",),
+    "no matrix instructions": ("s8 mma",),
+    "no matrix instructions, no copies": ("s8 mma", "s8 copies"),
+    "no mma, no copies, no ldmatrix": ("s8 mma", "s8 copies", "s8 ldmatrix"),
+    "skeleton (none of the four)": ("s8 mma", "s8 copies", "s8 ldmatrix",
+                                    "s8 epilogue"),
+}
 
 
-def _build_variant(out_dir: Path, parts) -> subprocess.Popen:
+def patched_sources(parts) -> dict:
+    """file name -> text of ``csrc/`` with ``parts`` patched out; raises if
+    a patch no longer matches its source."""
     texts = {p.name: p.read_text() for p in _build.CSRC_DIR.iterdir()}
     for part in parts:
         for name, old, new in PARTS[part]:
@@ -80,13 +139,16 @@ def _build_variant(out_dir: Path, parts) -> subprocess.Popen:
                 raise RuntimeError(f"ablation patch for {part!r} no longer "
                                    f"matches {name}")
             texts[name] = texts[name].replace(old, new)
+    return texts
+
+
+def _build_variant(out_dir: Path, parts, sources) -> subprocess.Popen:
+    texts = patched_sources(parts)
     out_dir.mkdir(parents=True)
     for name, text in texts.items():
         (out_dir / name).write_text(text)
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared",
-           str(out_dir / "conv3x3_bias_relu.cu"),
-           str(out_dir / "double_conv3x3_relu.cu"), "-o",
-           str(out_dir / "lib.so")]
+           *(str(out_dir / s) for s in sources), "-o", str(out_dir / "lib.so")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -105,21 +167,10 @@ def _time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("ablation: needs an NVIDIA card", file=sys.stderr)
-        return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip(), flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * scale).to(dtype)
-
-    # layer -> (C function name, its arguments; tensors stand for their
-    # pointers); one input each: a null second input, zero channels
+def _bf16_calls(rnd):
+    """layer -> (C function name, its arguments; tensors stand for their
+    pointers) for the bf16 kernels and K2's s8 mode; one input each: a null
+    second input, zero channels."""
     code = _build.dtype_code(torch.bfloat16)
     calls = {}
     for layer, (n, h, w, c0, c1, c2) in K3.items():
@@ -143,33 +194,111 @@ def main() -> int:
             torch.full((cout,), 3.0 / 127, device="cuda"),
             torch.empty((n, h, w, cout), dtype=torch.int8, device="cuda"),
             n, h, w, cin, cout, relu, None])
+    return calls
 
+
+def _s8_calls(gen):
+    """The same for K5 and K6 at the int8 step's layers: s8 operands over
+    the whole range, scales that spread the products across the s8 range
+    (about half of them zero after ReLU, as in the program)."""
+    def s8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def consts(terms, cout):  # terms: products in one output's sum
+        ws = torch.full((cout,), 3.0 / (terms ** 0.5 * 127 * 127 / 3),
+                        device="cuda")
+        bias = (torch.randn((cout,), generator=gen, device="cuda")
+                * 0.1).to(torch.bfloat16)
+        return ws, bias, torch.full((cout,), 3.0 / 127, device="cuda")
+
+    calls = {}
+    for layer, (n, h, w, ca, cb, cout, relu, mode) in K5.items():
+        ws, bias, so = consts(9 * (ca + cb), cout)
+        x2 = s8((n, h, w, cb)) if cb else None
+        y = torch.empty((n, h, w, cout), device="cuda",
+                        dtype=torch.int8 if mode == 0 else torch.bfloat16)
+        calls[layer] = ("cid_conv3x3_s8", [
+            s8((n, h, w, ca)), x2, s8((cout, 3, 3, ca + cb)), ws, bias,
+            so if mode == 0 else None, y, n, h, w, ca, cb, cout, relu, mode,
+            *((0, 0, 0) if x2 is None else x2.stride()[:3]), None])
+    for layer, (n, h, w, cin, cout) in K6.items():
+        ws, bias, so = consts(cin, cout)
+        calls[layer] = ("cid_convt2x2_s8", [
+            s8((n, h, w, cin)), s8((2, 2, cout, cin)), ws, bias, so,
+            torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.int8,
+                        device="cuda"), n, h, w, cin, cout, 0, None])
+    return calls
+
+
+# group -> (its variants, the sources a variant library is built from)
+GROUPS = {"bf16": (VARIANTS, ("conv3x3_bias_relu.cu",
+                              "double_conv3x3_relu.cu")),
+          "s8": (S8_VARIANTS, ("conv3x3_s8.cu", "convt2x2_s8.cu"))}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=sorted(GROUPS),
+                    help="time one group of kernels (default: both)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ablation: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    groups = [args.only] if args.only else list(GROUPS)
     with tempfile.TemporaryDirectory(prefix="cid_ablation_") as tmp:
-        procs = {name: _build_variant(Path(tmp) / f"v{i}", parts)
-                 for i, (name, parts) in enumerate(VARIANTS.items())}
-        print(f"{'ms per launch':34s}" + "".join(f"{k:>12s}" for k in calls),
-              flush=True)
-        for i, (name, proc) in enumerate(procs.items()):
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
-            lib = ctypes.CDLL(str(Path(tmp) / f"v{i}" / "lib.so"))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # every variant of every group builds at once
+        procs = {(g, name): _build_variant(Path(tmp) / f"{g}{i}", parts,
+                                           GROUPS[g][1])
+                 for g in groups
+                 for i, (name, parts) in enumerate(GROUPS[g][0].items())}
+        for g in groups:
+            calls = _bf16_calls(rnd) if g == "bf16" else _s8_calls(gen)
+            _time_group(g, calls, procs, Path(tmp))
+            del calls
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _time_group(group, calls, procs, tmp: Path) -> None:
+    print(f"{'ms per launch':38s}" + "".join(f"{k:>13s}" for k in calls),
+          flush=True)
+    for i, name in enumerate(GROUPS[group][0]):
+        proc = procs[(group, name)]
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(tmp / f"{group}{i}" / "lib.so"))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if group == "bf16":
             lib.cid_conv3x3_bias_relu.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_conv3x3_bias_relu_q8.argtypes = [P] * 5 + [I] * 6 + [P]
-            row = []
-            for fn_name, spec in calls.values():
-                fn = getattr(lib, fn_name)
-                args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                        for a in spec]
-                _build.check(fn(*args), f"{fn_name} ({name})")
-                row.append(_time_ms(lambda: fn(*args)))
-            print(f"{name:34s}" + "".join(f"{ms:12.3f}" for ms in row),
-                  flush=True)
-    return 0
+        else:
+            lib.cid_conv3x3_s8.argtypes = [P] * 7 + [I] * 8 + [L] * 3 + [P]
+            lib.cid_convt2x2_s8.argtypes = [P] * 6 + [I] * 6 + [P]
+        row = []
+        for fn_name, spec in calls.values():
+            fn = getattr(lib, fn_name)
+            args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in spec]
+            _build.check(fn(*args), f"{fn_name} ({name})")
+            row.append(_time_ms(lambda: fn(*args)))
+        print(f"{name:38s}" + "".join(f"{ms:13.3f}" for ms in row),
+              flush=True)
 
 
 if __name__ == "__main__":
