@@ -249,14 +249,14 @@ struct Cursor {
 
 // The s8 program's first conv (quant_unet.py::_conv_f, then _q): the f32
 // sum rounded to bf16, the bias rounded to bf16 and added in bf16, ReLU,
-// then quantized at s.
-__device__ __forceinline__ int8_t q8_of(float acc, float bias, float s,
-                                        bool relu) {
+// then quantized at the scale q.
+__device__ __forceinline__ int8_t q8_of(float acc, float bias,
+                                        const cid::s8::QScale& q, bool relu) {
   namespace s8 = cid::s8;
   float h = s8::bf16_round(acc);
   h = s8::bf16_round(__fadd_rn(h, s8::bf16_round(bias)));
   if (relu) h = cid::relu_f32(h);
-  return s8::quantize(h, s);
+  return s8::quantize(h, q);
 }
 
 // Cout > 8.  One work item = (tile, 64-channel output pass, KC-channel chunk);
@@ -287,9 +287,12 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
   unsigned char* xst = smem_mma + (resident ? nchunks : S) * WB;  // [S][XB]
   float* bs = reinterpret_cast<float*>(xst + S * XB);  // [npass * 64]
   conv::load_bias(bs, bias, Cout, npass * conv::kNB, tid, conv::kThreads);
-  float* qs = bs + npass * conv::kNB;  // s8 out: the scales, [npass * 64]
+  // s8 out: the scales as s8::qscale_of gives them, [npass * 64] each
+  cid::s8::QScale* qs =
+      reinterpret_cast<cid::s8::QScale*>(bs + npass * conv::kNB);
   if (qscale != nullptr)
-    conv::load_bias(qs, qscale, Cout, npass * conv::kNB, tid, conv::kThreads);
+    for (int i = tid; i < npass * conv::kNB; i += conv::kThreads)
+      qs[i] = cid::s8::qscale_of(i < Cout ? qscale[i] : 1.f);
 
   if (tid >= conv::kConsumers) {
     mma::setmaxnreg_dec<conv::kProducerRegs>();
@@ -499,7 +502,7 @@ cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
   const int cin = in.a.C + in.b.C;
   const int nchunks = (cin + KC - 1) / KC;
   const int smem = wide_ring_bytes<KC, S>(resident ? nchunks : S) +
-                   bias_bytes(cout) * (qscale ? 2 : 1);
+                   bias_bytes(cout) * (qscale ? 4 : 1);
   cudaError_t err = cudaFuncSetAttribute(
       conv3x3_wgmma_kernel<KC, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -572,7 +575,7 @@ cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
   // 32 channels at a time through three stages, or 16 through four where Cin
   // is ragged.
   if (cin % 32 == 0 && cout <= conv::kNB &&
-      wide_ring_bytes<32, 4>(cin / 32) + 2 * bias_bytes(cout) <=
+      wide_ring_bytes<32, 4>(cin / 32) + 4 * bias_bytes(cout) <=
           conv::kMaxSmem)
     return launch_wide<32, 4>(in, w, b, y, n, h, wd, cout, relu, true, qscale,
                               yq, s);

@@ -11,27 +11,34 @@
 // Layout: x (N,H,W,Ca) s8 NHWC and optionally x2 (N,H,W,Cb), a strided view
 // with contiguous channels, standing for cat([x, x2], channels): the U-Net's
 // skip concats are read in place.  W (Cout,3,3,Cin) s8 ("OHWI": input
-// channels contiguous, as mma.sync's col-major B wants them), w_scale
+// channels contiguous, the K-major B that the s8 wgmma takes), w_scale
 // (Cout,) f32, bias (Cout,) bf16, s_next (Cout,) f32.  Output y (N,H,W,Cout)
 // dense: s8 at s_next, bf16, or the raw f32(acc) * w_scale (conv_s8.cuh).
-// Ca and Cb multiples of 32; any H, W, Cout; ragged tiles are masked.
+// Ca and Cb multiples of 32, Ca + Cb <= 256; any H, W, Cout; ragged tiles
+// are masked.
 //
 // What bounds it on an H100: the U-Net's convs do 2 * 9 * Cin * Cout
 // operations per pixel against Cin + Cout bytes, far above the card's int8
 // ridge (about 590 operations a byte at 1979 TOP/s and 3.35 TB/s), so the
 // tensor cores; the Cout = 3 output conv is bound by reading its input.
 //
-// Design, simple first: mma.sync m16n8k32 (s8 in, s32 accumulate) per 16x16
-// output tile, one work item = (tile, 64-channel output pass, 32-channel
-// chunk).  Eight warps, each two tile rows (two m16 position tiles) by the
-// pass's eight n8 blocks; A comes by ldmatrix_x4 from the 18x18 halo window
-// (a tap is a shift of the row addresses, no im2col), B by ldmatrix from the
-// chunk's [tap][n][32] weight rows.  Every thread starts 16-byte cp.async
-// copies of the next item into the other half of a two-stage ring.  Blocks
-// are persistent (two per SM).  Cout <= 8 (the output conv) runs one n8
-// block per pass.  Weights are re-read from L2 with every item.  (Four tile
-// rows a warp, a three-stage ring and one block per SM was tried and was
-// slower: PERF.md.)
+// Design (Cout > 8): an implicit GEMM per 16x16-pixel tile on the s8 wgmma
+// m64n64k32, in the shape of the bf16 kernels (conv_mma.cuh).  A
+// persistent block owns one 64-channel output block and walks its tiles, so
+// the block's weight slice (9 x Cin x 64 bytes: 36,864 at Cin 64, 147,456
+// at Cin 256) is copied into shared memory once, with the first tile, and
+// stays; only the 18x18x32 halo windows stream, through a four-stage ring.
+// Two producer warpgroups only start the cp.async copies (setmaxnreg hands
+// their registers to the consumers); two consumer warpgroups each own two
+// 64-position m-tiles (four tile rows each, a warp per row), take A by
+// ldmatrix_x4 from the window (a tap is a shift of the row addresses, no
+// im2col) and B, the tap's 64 x 32-byte K-major weight rows, through the
+// wgmma descriptor.  The epilogue (conv_s8.cuh) stages each warp's 32
+// pixels x 64 channels in shared memory and writes every pixel's channel
+// run with 16-byte stores; it overlaps the producers' copies of the next
+// tile.  Cout <= 8 (the output conv, bound by its input bytes) keeps
+// mma.sync m16n8k32 with one n8 block: eight warps of two tile rows each, a
+// two-stage ring that every thread feeds, two blocks per SM.
 
 #include <cstdint>
 
@@ -44,15 +51,10 @@ namespace conv = cid::conv;
 namespace mma = cid::mma;
 namespace s8 = cid::s8;
 
-constexpr int kThreads = 256;   // eight warps, two tile rows each
-constexpr int kTile = 16;       // output tile, pixels a side
+constexpr int kTile = 16;        // output tile, pixels a side
 constexpr int kWin = kTile + 2;  // its halo window
-constexpr int kWinBytes = kWin * kWin * s8::kRowBytes;
-
-template <int NT>  // n8 blocks per output pass
-__host__ __device__ constexpr int stage_bytes() {
-  return kWinBytes + 9 * NT * 8 * s8::kRowBytes;
-}
+constexpr int kWinBytes = kWin * kWin * s8::kRowBytes;  // 10,368
+constexpr int kMaxCin = 256;     // the weight slice stays in shared memory
 
 struct TileAt { int n, y0, x0; };
 __device__ __forceinline__ TileAt tile_at(int t, int tiles_h, int tiles_w) {
@@ -64,40 +66,293 @@ __device__ __forceinline__ TileAt tile_at(int t, int tiles_h, int tiles_w) {
   return r;
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
-                  const float* __restrict__ wscale,
-                  const conv::bf16* __restrict__ bias,
-                  const float* __restrict__ snext, void* __restrict__ y,
-                  int H, int W, int Cout, int relu, int mode, int tiles_h,
-                  int tiles_w, int total_tiles) {
-  constexpr int NB = NT * 8;  // output channels per pass
-  constexpr int SB = stage_bytes<NT>();
+// ---- Cout > 8: wgmma ------------------------------------------------------
+constexpr int kNB = 64;  // output channels of a block (the wgmma's N)
+constexpr int kTapBytes = kNB * s8::kRowBytes;  // B tile of one tap, chunk
+constexpr int kChunkWBytes = 9 * kTapBytes;     // a chunk's weights: 18,432
+constexpr int kStages = 4;                      // window ring
+constexpr int kMT = 2;  // m64 position tiles per consumer warpgroup
+constexpr int kWarpPix = kMT * kTile;  // pixels a consumer warp stores
+template <int ES>
+using WarpStaging = s8::Staging<ES, kWarpPix>;
+// staged outputs of the eight consumer warps (none for the f32 product)
+__host__ __device__ constexpr int out_bytes(int mode) {
+  return mode == s8::kOutS8 ? 8 * WarpStaging<1>::kBytes
+         : mode == s8::kOutBF16 ? 8 * WarpStaging<2>::kBytes
+                                : 0;
+}
+__host__ __device__ constexpr int wide_smem(int nchunks, int mode) {
+  return nchunks * kChunkWBytes + kStages * kWinBytes + out_bytes(mode) +
+         s8::consts_bytes(kNB);
+}
+
+// Where a block's walk over its (tile, chunk) items stands; producers and
+// consumers each carry their own along, so no item costs a division.
+struct Cursor {
+  int chunk, tile;
+  TileAt at;
+  __device__ __forceinline__ void start(int t, int tiles_h, int tiles_w) {
+    chunk = 0;
+    tile = t;
+    at = tile_at(tile, tiles_h, tiles_w);
+  }
+  __device__ __forceinline__ void advance(int nchunks, int step, int tiles_h,
+                                          int tiles_w) {
+    if (++chunk < nchunks) return;
+    chunk = 0;
+    tile += step;
+    at = tile_at(tile, tiles_h, tiles_w);
+  }
+};
+
+// acc (+)= the chunk's nine taps: A, the window at st, B, the chunk's
+// weights at wc.  The taps run in batches of three: a batch's A fragments
+// are loaded, then its wgmmas started under one fence and one commit; the
+// fragments are double-buffered, so a batch loads while the one before
+// runs.
+__device__ __forceinline__ void mma_chunk(int (&acc)[kMT][32], uint32_t st,
+                                          uint32_t wc,
+                                          const int (&pbase)[kMT], int khalf,
+                                          bool accumulate) {
+  constexpr int BATCH = 3;
+  uint32_t a[2][BATCH][kMT][4];
+#pragma unroll
+  for (int b0 = 0; b0 < 9; b0 += BATCH) {
+    const int par = (b0 / BATCH) & 1;
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int tap = b0 + i, shift = (tap / 3) * kWin + tap % 3;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        mma::ldmatrix_x4(a[par][i][mt],
+                         s8::row_addr(st, pbase[mt] + shift, khalf));
+    }
+    mma::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int tap = b0 + i;
+      const uint64_t desc = mma::wgmma_desc_k32(wc + tap * kTapBytes);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        mma::wgmma_m64n64k32_s8(acc[mt], a[par][i][mt], desc,
+                                accumulate || tap > 0);
+    }
+    mma::wgmma_commit();
+    mma::wgmma_wait<1>();  // the other buffer's products are done
+  }
+  mma::wgmma_wait<0>();
+}
+
+// A consumer warp's s8 or bf16 outputs: its two tile rows (row0, row0 + 4)
+// staged, then written as 16-byte chunks of each pixel's channel run.
+template <int ES>
+__device__ __forceinline__ void epilogue_staged(
+    const int (&acc)[kMT][32], const s8::Consts& k, unsigned char* buf,
+    bool relu, int row0, const TileAt& at, void* y, int H, int W, int Cout,
+    int n0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const WarpStaging<ES> stg{buf};
+  // channel pair by channel pair, so that only one pair's constants are
+  // live beside the accumulators
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * q;
+    const s8::Pair kc = s8::pair_at(k, c);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float h0, h1;
+        s8::dequant2(acc[mt][4 * i + 2 * hf], acc[mt][4 * i + 2 * hf + 1], kc,
+                     relu, h0, h1);
+        stg.put(mt * kTile + g + 8 * hf, c,
+                ES == 1 ? s8::quantize2(h0, h1, kc)
+                        : s8::pack_bf16x2(h0, h1));
+      }
+  }
+  mma::warp_sync();
+  const int valid = Cout - n0 < kNB ? Cout - n0 : kNB;
+  stg.flush(valid, (Cout * ES) % 16 == 0, [&](int p) -> unsigned char* {
+    const int gy = at.y0 + row0 + (p / kTile) * 4, gx = at.x0 + p % kTile;
+    if (gy >= H || gx >= W) return nullptr;
+    return static_cast<unsigned char*>(y) +
+           ((((long long)at.n * H + gy) * W + gx) * Cout + n0) * ES;
+  });
+  mma::warp_sync();  // the buffer is free again
+}
+
+// Block b computes output channels [64 * (b % npass), +64) of tiles
+// b / npass, + gridDim.x / npass, ...
+__global__ void __launch_bounds__(conv::kThreads, 1)
+conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
+                        const float* __restrict__ wscale,
+                        const conv::bf16* __restrict__ bias,
+                        const float* __restrict__ snext, void* __restrict__ y,
+                        int H, int W, int Cout, int relu, int mode,
+                        int tiles_h, int tiles_w, int total_tiles, int npass) {
+  extern __shared__ __align__(1024) unsigned char smem_s8[];
+  const int Cin = in.a.C + in.b.C;
+  const int tid = threadIdx.x;
+  const int nchunks = Cin / s8::kKC;
+  const int n0 = ((int)blockIdx.x % npass) * kNB;
+  const int tile0 = (int)blockIdx.x / npass, tstep = (int)gridDim.x / npass;
+  const int my_tiles =
+      tile0 < total_tiles ? (total_tiles - tile0 + tstep - 1) / tstep : 0;
+  const int nitems = my_tiles * nchunks;
+  unsigned char* wres = smem_s8;  // [nchunks][9 taps][64 rows][32 bytes]
+  unsigned char* xst = wres + nchunks * kChunkWBytes;  // [kStages][window]
+  unsigned char* outs = xst + kStages * kWinBytes;     // [8 warps][staging]
+  const s8::Consts k = s8::consts_at(outs + out_bytes(mode), kNB);
+  s8::load_consts(k, wscale + n0, bias ? bias + n0 : nullptr,
+                  snext ? snext + n0 : nullptr, Cout - n0, kNB, tid,
+                  conv::kThreads);
+
+  if (tid >= conv::kConsumers) {
+    mma::setmaxnreg_dec<conv::kProducerRegs>();
+    const int ptid = tid - conv::kConsumers;
+    Cursor ahead;
+    ahead.start(tile0, tiles_h, tiles_w);
+    conv::produce<kStages>(nitems, [&](int item, int stage) {
+      const int c0 = ahead.chunk * s8::kKC;
+      const uint32_t st = mma::smem_u32(xst + stage * kWinBytes);
+      const s8::Image im = in.of(c0, ahead.at.n);
+      const int cl = in.local(c0);
+      for (int i = ptid; i < kWin * kWin * 2; i += conv::kProducers) {
+        const int p = i / 2, j = i % 2;
+        const int gy = ahead.at.y0 - 1 + p / kWin;
+        const int gx = ahead.at.x0 - 1 + p % kWin;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int8_t* src =
+            ok ? im.p + ((long long)gy * im.sh + (long long)gx * im.sw + cl +
+                         16 * j)
+               : im.p;
+        mma::cp_async16(s8::row_addr(st, p, j), src, ok);
+      }
+      // the first tile brings each chunk's weights, which stay: rows
+      // (tap, n) of 32 input channels, the K-major B tile of each tap
+      if (item < nchunks) {
+        const uint32_t wst = mma::smem_u32(wres + item * kChunkWBytes);
+        for (int i = ptid; i < 9 * kNB * 2; i += conv::kProducers) {
+          const int r = i / 2, j = i % 2;
+          const int tap = r / kNB, co = n0 + r % kNB;
+          const bool ok = co < Cout;
+          const int8_t* src =
+              ok ? w + ((long long)co * 9 + tap) * Cin + c0 + 16 * j : w;
+          mma::cp_async16(s8::row_addr(wst, r, j), src, ok);
+        }
+      }
+      ahead.advance(nchunks, tstep, tiles_h, tiles_w);
+    });
+    return;
+  }
+  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid / 32) % 4;
+  int pbase[kMT];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+    pbase[mt] = ((wg * kMT + mt) * 4 + warp) * kWin + conv::ldm_row();
+  const int khalf = conv::ldm_khalf();
+  const int row0 = wg * kMT * 4 + warp;  // this warp's first tile row
+  unsigned char* buf =
+      outs + (tid / 32) * (mode == s8::kOutS8 ? WarpStaging<1>::kBytes
+                                              : WarpStaging<2>::kBytes);
+
+  Cursor cur;
+  cur.start(tile0, tiles_h, tiles_w);
+  int acc[kMT][32];
+  conv::consume<kStages>(nitems, [&](int, int stage) {
+    mma_chunk(acc, mma::smem_u32(xst + stage * kWinBytes),
+              mma::smem_u32(wres + cur.chunk * kChunkWBytes), pbase, khalf,
+              cur.chunk > 0);
+    if (cur.chunk == nchunks - 1) {
+      const TileAt at = cur.at;
+      if (mode == s8::kOutS8) {
+        epilogue_staged<1>(acc, k, buf, relu != 0, row0, at, y, H, W, Cout,
+                           n0);
+      } else if (mode == s8::kOutBF16) {
+        epilogue_staged<2>(acc, k, buf, relu != 0, row0, at, y, H, W, Cout,
+                           n0);
+      } else {
+        const int lane = tid % 32, g = lane / 4, q = lane % 4;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int gy = at.y0 + row0 + 4 * mt, gx = at.x0 + g + 8 * hf;
+            if (gy >= H || gx >= W) continue;
+            const long long off =
+                (((long long)at.n * H + gy) * W + gx) * Cout + n0;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              s8::store_pair(y, off, 8 * i + 2 * q, Cout - n0,
+                             acc[mt][4 * i + 2 * hf],
+                             acc[mt][4 * i + 2 * hf + 1], k, mode, false,
+                             Cout % 2 == 0);
+          }
+      }
+    }
+    cur.advance(nchunks, tstep, tiles_h, tiles_w);
+  });
+}
+
+cudaError_t launch_wide(const s8::Input& in, const int8_t* w, const float* ws,
+                        const conv::bf16* b, const float* sn, void* y, int n,
+                        int h, int wd, int cout, int relu, int mode,
+                        cudaStream_t stream) {
+  const int smem = wide_smem((in.a.C + in.b.C) / s8::kKC, mode);
+  if (smem > conv::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_s8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = conv::sm_count();
+  const int npass = (cout + kNB - 1) / kNB;
+  if (!cid::grid_fits(tiles * npass) || sms <= 0)
+    return cudaErrorInvalidConfiguration;
+  // one block per SM, as many for each output block
+  long long per_pass = sms / npass > 1 ? sms / npass : 1;
+  if (per_pass > tiles) per_pass = tiles;
+  conv3x3_s8_wgmma_kernel<<<(unsigned)(per_pass * npass), conv::kThreads,
+                            smem, stream>>>(in, w, ws, b, sn, y, h, wd, cout,
+                                            relu, mode, tiles_h, tiles_w,
+                                            (int)tiles, npass);
+  return cudaGetLastError();
+}
+
+// ---- Cout <= 8: mma.sync, one n8 block ------------------------------------
+constexpr int kNarrowThreads = 256;  // eight warps, two tile rows each
+constexpr int kNarrowStage = kWinBytes + 9 * 8 * s8::kRowBytes;
+
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+conv3x3_s8_narrow_kernel(s8::Input in, const int8_t* __restrict__ w,
+                         const float* __restrict__ wscale,
+                         const conv::bf16* __restrict__ bias,
+                         const float* __restrict__ snext,
+                         void* __restrict__ y, int H, int W, int Cout,
+                         int relu, int mode, int tiles_h, int tiles_w,
+                         int total_tiles) {
   extern __shared__ __align__(1024) unsigned char smem_s8[];
   const int Cin = in.a.C + in.b.C;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
   const int nchunks = Cin / s8::kKC;
-  const int npass = (Cout + NB - 1) / NB;
-  const int units = total_tiles * npass;  // (tile, pass)
-  const int my_units =
-      (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int nitems = my_units * nchunks;
+  const int my_tiles =
+      (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nitems = my_tiles * nchunks;
 
-  float* cbuf = reinterpret_cast<float*>(smem_s8 + 2 * SB);
-  const s8::Consts k{cbuf, cbuf + npass * NB, cbuf + 2 * npass * NB};
-  s8::load_consts(k, wscale, bias, snext, Cout, npass * NB, tid, kThreads);
+  const s8::Consts k = s8::consts_at(smem_s8 + 2 * kNarrowStage, 8);
+  s8::load_consts(k, wscale, bias, snext, Cout, 8, tid, kNarrowThreads);
 
   auto fill = [&](int item, int stage) {
-    const int u = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
+    const int t = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
     const int c0 = (item % nchunks) * s8::kKC;
-    const TileAt at = tile_at(u / npass, tiles_h, tiles_w);
-    const int n0 = (u % npass) * NB;
-    const uint32_t st = mma::smem_u32(smem_s8 + stage * SB);
+    const TileAt at = tile_at(t, tiles_h, tiles_w);
+    const uint32_t st = mma::smem_u32(smem_s8 + stage * kNarrowStage);
     const s8::Image im = in.of(c0, at.n);
     const int cl = in.local(c0);
-    for (int i = tid; i < kWin * kWin * 2; i += kThreads) {
+    for (int i = tid; i < kWin * kWin * 2; i += kNarrowThreads) {
       const int p = i / 2, j = i % 2;
       const int gy = at.y0 - 1 + p / kWin, gx = at.x0 - 1 + p % kWin;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
@@ -107,10 +362,10 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
              : im.p;
       mma::cp_async16(s8::row_addr(st, p, j), src, ok);
     }
-    const uint32_t wst = st + kWinBytes;  // rows (tap, n): [9][NB][32]
-    for (int i = tid; i < 9 * NB * 2; i += kThreads) {
+    const uint32_t wst = st + kWinBytes;  // rows (tap, n): [9][8][32]
+    for (int i = tid; i < 9 * 8 * 2; i += kNarrowThreads) {
       const int r = i / 2, j = i % 2;
-      const int tap = r / NB, co = n0 + r % NB;
+      const int tap = r / 8, co = r % 8;
       const bool ok = co < Cout;
       const int8_t* src =
           ok ? w + ((long long)co * 9 + tap) * Cin + c0 + 16 * j : w;
@@ -124,7 +379,7 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
     pbase[mt] = (warp * 2 + mt) * kWin + conv::ldm_row();
   const int khalf = conv::ldm_khalf();
 
-  int acc[2][NT][4];
+  int acc[2][4];
   if (nitems > 0) fill(0, 0);
   mma::cp_async_commit();
   for (int item = 0; item < nitems; ++item) {
@@ -137,11 +392,9 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nb = 0; nb < NT; ++nb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0;
+        for (int e = 0; e < 4; ++e) acc[mt][e] = 0;
     }
-    const uint32_t st = mma::smem_u32(smem_s8 + stage * SB);
+    const uint32_t st = mma::smem_u32(smem_s8 + stage * kNarrowStage);
     const uint32_t wst = st + kWinBytes;
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
@@ -150,31 +403,15 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
         mma::ldmatrix_x4(a[mt], s8::row_addr(st, pbase[mt] + shift, khalf));
-      if constexpr (NT == 1) {
-        uint32_t b[2];
-        mma::ldmatrix_x2(b, s8::row_addr(wst, tap * NB + lane % 8,
-                                         s8::b_piece()));
+      uint32_t b[2];
+      mma::ldmatrix_x2(b, s8::row_addr(wst, tap * 8 + lane % 8,
+                                       s8::b_piece()));
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma::mma_m16n8k32_s8(acc[mt][0], a[mt], b);
-      } else {
-#pragma unroll
-        for (int nb = 0; nb < NT; nb += 2) {
-          uint32_t b4[4];
-          mma::ldmatrix_x4(b4, s8::row_addr(wst, tap * NB + nb * 8 + s8::b_row(),
-                                            s8::b_piece()));
-          const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma::mma_m16n8k32_s8(acc[mt][nb], a[mt], b0);
-            mma::mma_m16n8k32_s8(acc[mt][nb + 1], a[mt], b1);
-          }
-        }
-      }
+      for (int mt = 0; mt < 2; ++mt) mma::mma_m16n8k32_s8(acc[mt], a[mt], b);
     }
     if (item % nchunks == nchunks - 1) {
-      const int u = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
-      const TileAt at = tile_at(u / npass, tiles_h, tiles_w);
-      const int n0 = (u % npass) * NB;
+      const int t = (int)blockIdx.x + (item / nchunks) * (int)gridDim.x;
+      const TileAt at = tile_at(t, tiles_h, tiles_w);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         const int gy = at.y0 + warp * 2 + mt;
@@ -184,11 +421,9 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
           if (gy >= H || gx >= W) continue;
           const long long off =
               (((long long)at.n * H + gy) * W + gx) * (long long)Cout;
-#pragma unroll
-          for (int nb = 0; nb < NT; ++nb)
-            s8::store_pair(y, off, n0 + nb * 8 + 2 * q, Cout,
-                           acc[mt][nb][2 * hf], acc[mt][nb][2 * hf + 1], k,
-                           mode, relu != 0, Cout % 2 == 0);
+          s8::store_pair(y, off, 2 * q, Cout, acc[mt][2 * hf],
+                         acc[mt][2 * hf + 1], k, mode, relu != 0,
+                         Cout % 2 == 0);
         }
       }
     }
@@ -196,27 +431,21 @@ conv3x3_s8_kernel(s8::Input in, const int8_t* __restrict__ w,
   }
 }
 
-template <int NT>
-cudaError_t launch(const s8::Input& in, const int8_t* w, const float* ws,
-                   const conv::bf16* b, const float* sn, void* y, int n,
-                   int h, int wd, int cout, int relu, int mode,
-                   cudaStream_t stream) {
-  constexpr int NB = NT * 8;
-  const int npass = (cout + NB - 1) / NB;
-  const int smem = 2 * stage_bytes<NT>() + 3 * npass * NB * 4;
-  if (smem > conv::kMaxSmem) return cudaErrorInvalidValue;
+cudaError_t launch_narrow(const s8::Input& in, const int8_t* w,
+                          const float* ws, const conv::bf16* b,
+                          const float* sn, void* y, int n, int h, int wd,
+                          int cout, int relu, int mode, cudaStream_t stream) {
+  const int smem = 2 * kNarrowStage + s8::consts_bytes(8);
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_s8_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_s8_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
   const long long tiles = (long long)n * tiles_h * tiles_w;
   const int sms = conv::sm_count();
-  if (!cid::grid_fits(tiles * npass) || sms <= 0)
-    return cudaErrorInvalidConfiguration;
-  const long long units = tiles * npass;
-  const unsigned grid = (unsigned)(units < 2 * sms ? units : 2 * sms);
-  conv3x3_s8_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < 2 * sms ? tiles : 2 * sms);
+  conv3x3_s8_narrow_kernel<<<grid, kNarrowThreads, smem, stream>>>(
       in, w, ws, b, sn, y, h, wd, cout, relu, mode, tiles_h, tiles_w,
       (int)tiles);
   return cudaGetLastError();
@@ -240,7 +469,8 @@ extern "C" int cid_conv3x3_s8(const void* x, const void* x2, const void* w,
                               int mode, long long x2_sn, long long x2_sh,
                               long long x2_sw, void* stream) {
   const long long sh = (long long)wd * ca, sn = sh * h;
-  if (n < 1 || h < 1 || wd < 1 || cout < 1 || ca < 1 ||
+  if (n < 1 || h < 1 || wd < 1 || cout < 1 || ca < 1 || ca + cb > kMaxCin ||
+      !conv::aligned16(y) ||
       !image_ok(x, sn, sh, ca, ca) || !conv::aligned16(w) ||
       (x2 != nullptr && (cb < 1 || !image_ok(x2, x2_sn, x2_sh, x2_sw, cb))) ||
       (x2 == nullptr && cb != 0) || mode < 0 || mode > 2 ||
@@ -258,6 +488,8 @@ extern "C" int cid_conv3x3_s8(const void* x, const void* x2, const void* w,
   const auto* sn8 = static_cast<const float*>(snext);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 8)
-    return (int)launch<1>(in, wq, ws, b, sn8, y, n, h, wd, cout, relu, mode, s);
-  return (int)launch<8>(in, wq, ws, b, sn8, y, n, h, wd, cout, relu, mode, s);
+    return (int)launch_narrow(in, wq, ws, b, sn8, y, n, h, wd, cout, relu,
+                              mode, s);
+  return (int)launch_wide(in, wq, ws, b, sn8, y, n, h, wd, cout, relu, mode,
+                          s);
 }

@@ -14,7 +14,7 @@
 // up1 (128 -> 64).
 //
 // Layout: x (N,H,W,Cin) s8 dense; W (2,2,Cout,Cin) s8, i.e. [4*Cout][Cin],
-// input channels contiguous as mma.sync's col-major B wants them; w_scale
+// input channels contiguous: the K-major B that the s8 wgmma takes; w_scale
 // (Cout,) f32, bias (Cout,) bf16, s_next (Cout,) f32; y (N,2H,2W,Cout)
 // dense, s8 / bf16 / raw f32 as in conv_s8.cuh.  Cin a multiple of 32, at
 // most 256.
@@ -23,14 +23,20 @@
 // byte at up2 (1024) and up1 (512), near or above the int8 ridge point
 // (about 590): the tensor cores at up2, the bytes at up1.
 //
-// Design, simple first: mma.sync m16n8k32; one work item = (128 input
-// pixels, 64 GEMM columns) with all of K (Cin <= 256) in one stage, so a
-// block meets its barriers once per tile and not once per 32 channels;
-// eight warps, each one m16 position tile by eight n8 blocks; A and B by
-// ldmatrix from 32-byte rows; a two-stage cp.async ring that every thread
-// feeds; persistent blocks.  (The whole weight resident in shared memory,
-// each input tile read once for all columns, was tried and was no faster:
-// PERF.md.)
+// Design: the GEMM reads each operand once.  A persistent block keeps the
+// whole weight in shared memory (131,072 bytes at up2, 32,768 at up1,
+// copied with its first tile) and walks 128-pixel tiles of A, each copied
+// once (all of K, up to 32 KB) through a two-stage cp.async ring by two
+// producer warpgroups.  Two consumer warpgroups each own 64 pixels: they
+// load the tile's A fragments for all of K once (ldmatrix_x4, 32-byte
+// swizzled rows) and sweep the 4 * Cout columns 64 at a time with the s8
+// wgmma m64n64k32, B read from the resident K-major weight rows by
+// descriptor.  Two accumulator sets alternate, so the epilogue of one
+// column block runs while the tensor cores compute the next.  The epilogue
+// (conv_s8.cuh) stages a warp's 16 pixels x 64 columns in shared memory
+// and writes them as 16-byte chunks of contiguous runs: where Cout is a
+// multiple of 64 a column block is one (a, b) output pixel's 64-channel
+// run.  Other Cout, and the raw f32 product, are stored from the fragments.
 
 #include <cstdint>
 
@@ -43,113 +49,213 @@ namespace conv = cid::conv;
 namespace mma = cid::mma;
 namespace s8 = cid::s8;
 
-constexpr int kThreads = 256;
-constexpr int kM = 128;  // input pixels per item (one m16 tile a warp)
-constexpr int kN = 64;   // GEMM columns per item
-constexpr int kChunkBytes = (kM + kN) * s8::kRowBytes;  // 32 channels
-constexpr int kMaxCin = 256;  // a stage holds all of K
+constexpr int kM = 128;      // pixels per tile: 64 per consumer warpgroup
+constexpr int kNB = 64;      // GEMM columns per wgmma
+constexpr int kStages = 2;   // A ring
+constexpr int kMaxCin = 256;  // a tile's A fragments cover all of K
+constexpr int kMaxChunks = kMaxCin / s8::kKC;
+template <int ES>
+using WarpStaging = s8::Staging<ES, 16>;  // a warp's 16 pixels x 64 columns
+constexpr int kOffBytes = 16 * 8;          // and their output offsets
+__host__ __device__ constexpr int warp_bytes(int mode) {
+  return kOffBytes + (mode == s8::kOutS8     ? WarpStaging<1>::kBytes
+                      : mode == s8::kOutBF16 ? WarpStaging<2>::kBytes
+                                             : 0);
+}
+__host__ __device__ constexpr int col_blocks(int cout) {
+  return (4 * cout + kNB - 1) / kNB;
+}
+__host__ __device__ constexpr int smem_bytes(int cin, int cout, int mode) {
+  return cin * col_blocks(cout) * kNB + kStages * kM * cin +
+         8 * warp_bytes(mode) + s8::consts_bytes((cout + 7) / 8 * 8);
+}
 
-__global__ void __launch_bounds__(kThreads, 2)
+// acc = the warpgroup's 64 pixels x columns [64 nb, +64): A from the
+// fragments a, B from the resident weights (chunk c at wbase + c * wchunk)
+__device__ __forceinline__ void issue(int (&acc)[32],
+                                      const uint32_t (&a)[kMaxChunks][4],
+                                      int nchunks, uint32_t wbase,
+                                      int wchunk, int nb) {
+  mma::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c)
+    if (c < nchunks)
+      mma::wgmma_m64n64k32_s8(
+          acc, a[c],
+          mma::wgmma_desc_k32(wbase + c * wchunk + nb * kNB * s8::kRowBytes),
+          c > 0);
+  mma::wgmma_commit();
+}
+
+// Column block nb of a warp's 16 pixels, whose output offsets (element of
+// the (a, b) = (0, 0) pixel's channel 0; -1 beyond the last pixel) lie at
+// off.
+template <int ES>
+__device__ __forceinline__ void epilogue(const int (&acc)[32],
+                                         const s8::Consts& k,
+                                         unsigned char* buf,
+                                         const long long* off, int nb,
+                                         int W, int Cout, int mode, void* y) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int ncols = 4 * Cout;
+  const int col0 = nb * kNB, ab0 = col0 / Cout, co0 = col0 - ab0 * Cout;
+  if (ES == 0 || Cout % kNB != 0) {  // from the fragments
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const long long o = off[g + 8 * hf];
+      if (o < 0) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (col0 + 8 * i + 2 * q >= ncols) continue;
+        int ab = ab0, co = co0 + 8 * i + 2 * q;
+        while (co >= Cout) {
+          co -= Cout;
+          ++ab;
+        }
+        s8::store_pair(y, o + ((ab / 2) * 2 * (long long)W + ab % 2) * Cout,
+                       co, Cout, acc[4 * i + 2 * hf], acc[4 * i + 2 * hf + 1],
+                       k, mode, false, true);
+      }
+    }
+    return;
+  }
+  // one (a, b) and a 64-channel run [co0, co0 + 64) of each pixel
+  const WarpStaging<ES == 0 ? 1 : ES> stg{buf};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * q;
+    const s8::Pair kc = s8::pair_at(k, co0 + c);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float h0, h1;
+      s8::dequant2(acc[4 * i + 2 * hf], acc[4 * i + 2 * hf + 1], kc, false,
+                   h0, h1);
+      stg.put(g + 8 * hf, c,
+              ES == 1 ? s8::quantize2(h0, h1, kc) : s8::pack_bf16x2(h0, h1));
+    }
+  }
+  mma::warp_sync();
+  const long long run = ((ab0 / 2) * 2 * (long long)W + ab0 % 2) * Cout + co0;
+  stg.flush(kNB, (Cout * ES) % 16 == 0, [&](int p) -> unsigned char* {
+    return off[p] < 0 ? nullptr
+                      : static_cast<unsigned char*>(y) + (off[p] + run) * ES;
+  });
+  mma::warp_sync();
+}
+
+__global__ void __launch_bounds__(conv::kThreads, 1)
 convt2x2_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ wscale,
                    const conv::bf16* __restrict__ bias,
                    const float* __restrict__ snext, void* __restrict__ y,
                    long long pixels, int H, int W, int Cin, int Cout,
-                   int mode, int mtiles, int ntiles) {
+                   int mode, int mtiles) {
   extern __shared__ __align__(1024) unsigned char smem_s8[];
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
-  const int ncols = 4 * Cout;
   const int nchunks = Cin / s8::kKC;
-  const int stage_bytes = nchunks * kChunkBytes;
-  const long long units = (long long)mtiles * ntiles;
-  const long long nitems =
-      (units - (long long)blockIdx.x + gridDim.x - 1) / gridDim.x;
-
+  const int ncols = 4 * Cout, ncb = col_blocks(Cout);
+  const int wchunk = ncb * kNB * s8::kRowBytes;  // weight bytes of a chunk
+  const int sbytes = nchunks * kM * s8::kRowBytes;  // an A stage
+  unsigned char* wres = smem_s8;            // [chunk][column][32 bytes]
+  unsigned char* xst = wres + nchunks * wchunk;  // [stage][chunk][pixel][32]
+  unsigned char* outs = xst + kStages * sbytes;  // [8 warps][warp_bytes]
   const int padded = (Cout + 7) / 8 * 8;
-  float* cbuf = reinterpret_cast<float*>(smem_s8 + 2 * stage_bytes);
-  const s8::Consts k{cbuf, cbuf + padded, cbuf + 2 * padded};
-  s8::load_consts(k, wscale, bias, snext, Cout, padded, tid, kThreads);
+  const s8::Consts k = s8::consts_at(outs + 8 * warp_bytes(mode), padded);
+  s8::load_consts(k, wscale, bias, snext, Cout, padded, tid, conv::kThreads);
+  const int nitems =
+      (mtiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 
-  // item = one (128-pixel, 64-column) output tile with all of K: chunk c of
-  // a stage holds 128 A rows then 64 B rows of 32 channels each
-  auto unit_of = [&](long long item) {
-    return (long long)blockIdx.x + item * (long long)gridDim.x;
-  };
-  auto fill = [&](long long item, int stage) {
-    const long long u = unit_of(item);
-    const long long m0 = (u / ntiles) * kM;
-    const int n0 = (int)(u % ntiles) * kN;
-    const uint32_t st = mma::smem_u32(smem_s8 + stage * stage_bytes);
-    for (int i = tid; i < nchunks * (kM + kN) * 2; i += kThreads) {
-      const int c = i / ((kM + kN) * 2), r = (i / 2) % (kM + kN), j = i % 2;
-      const int c0 = c * s8::kKC + 16 * j;
-      bool ok;
-      const int8_t* src;
-      if (r < kM) {
-        ok = m0 + r < pixels;
-        src = ok ? x + (m0 + r) * Cin + c0 : x;
-      } else {
-        ok = n0 + (r - kM) < ncols;
-        src = ok ? w + (long long)(n0 + r - kM) * Cin + c0 : w;
+  if (tid >= conv::kConsumers) {
+    mma::setmaxnreg_dec<conv::kProducerRegs>();
+    const int ptid = tid - conv::kConsumers;
+    const int pieces = Cin / 16;  // 16-byte pieces of a pixel or weight row
+    conv::produce<kStages>(nitems, [&](int item, int stage) {
+      const long long m0 =
+          ((long long)blockIdx.x + (long long)item * gridDim.x) * kM;
+      const uint32_t st = mma::smem_u32(xst + stage * sbytes);
+      // neighbouring threads copy neighbouring pieces of a pixel's row
+      for (int i = ptid; i < kM * pieces; i += conv::kProducers) {
+        const int r = i / pieces, pc = i % pieces;
+        const bool ok = m0 + r < pixels;
+        const int8_t* src = ok ? x + (m0 + r) * Cin + 16 * pc : x;
+        mma::cp_async16(
+            s8::row_addr(st + (pc / 2) * kM * s8::kRowBytes, r, pc % 2), src,
+            ok);
       }
-      mma::cp_async16(s8::row_addr(st + c * kChunkBytes, r, j), src, ok);
-    }
-  };
-
-  int acc[8][4];
-  if (nitems > 0) fill(0, 0);
-  mma::cp_async_commit();
-  for (long long item = 0; item < nitems; ++item) {
-    const int stage = (int)(item & 1);
-    if (item + 1 < nitems) fill(item + 1, stage ^ 1);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nb][e] = 0;
-    const uint32_t st0 = mma::smem_u32(smem_s8 + stage * stage_bytes);
-    for (int c = 0; c < nchunks; ++c) {
-      const uint32_t st = st0 + c * kChunkBytes;
-      uint32_t a[4];
-      mma::ldmatrix_x4(a, s8::row_addr(st, warp * 16 + conv::ldm_row(),
-                                       conv::ldm_khalf()));
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        uint32_t b4[4];
-        mma::ldmatrix_x4(b4, s8::row_addr(st, kM + nb * 8 + s8::b_row(),
-                                          s8::b_piece()));
-        const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
-        mma::mma_m16n8k32_s8(acc[nb], a, b0);
-        mma::mma_m16n8k32_s8(acc[nb + 1], a, b1);
+      if (item == 0) {  // the whole weight, which stays
+        const uint32_t wst = mma::smem_u32(wres);
+        for (int i = ptid; i < ncb * kNB * pieces; i += conv::kProducers) {
+          const int r = i / pieces, pc = i % pieces;
+          const bool ok = r < ncols;
+          const int8_t* src = ok ? w + (long long)r * Cin + 16 * pc : w;
+          mma::cp_async16(s8::row_addr(wst + (pc / 2) * wchunk, r, pc % 2),
+                          src, ok);
+        }
       }
-    }
-    const long long u = unit_of(item);
-    const long long m0 = (u / ntiles) * kM;
-    const int n0 = (int)(u % ntiles) * kN;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const long long p = m0 + warp * 16 + g + 8 * hf;
-      if (p >= pixels) continue;
-      const long long img = p / ((long long)H * W);
-      const int rem = (int)(p % ((long long)H * W));
-      const int i = rem / W, jx = rem % W;
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        const int col = n0 + nb * 8 + 2 * q;  // even; Cout is even
-        if (col >= ncols) continue;
-        const int ab = col / Cout, co = col % Cout;
-        const long long off =
-            ((img * 2 * H + 2 * i + ab / 2) * 2 * W + 2 * jx + ab % 2) *
-            (long long)Cout;
-        s8::store_pair(y, off, co, Cout, acc[nb][2 * hf],
-                       acc[nb][2 * hf + 1], k, mode, false, true);
-      }
-    }
-    __syncthreads();
+    });
+    return;
   }
+  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  unsigned char* wbuf = outs + (tid / 32) * warp_bytes(mode);
+  long long* off = reinterpret_cast<long long*>(wbuf);
+  unsigned char* buf = wbuf + kOffBytes;
+  const uint32_t wbase = mma::smem_u32(wres);
+  const long long hw = (long long)H * W;
+
+  uint32_t a[kMaxChunks][4];
+  int acc0[32], acc1[32];
+  conv::consume<kStages>(nitems, [&](int item, int stage) {
+    const long long m0 =
+        ((long long)blockIdx.x + (long long)item * gridDim.x) * kM;
+    const long long pw = m0 + wg * 64 + warp * 16;  // the warp's first pixel
+    if (lane < 16) {
+      const long long p = pw + lane;
+      long long o = -1;
+      if (p < pixels) {
+        const long long img = p / hw;
+        const int rem = (int)(p - img * hw), i = rem / W, jx = rem % W;
+        o = ((img * 2 * H + 2 * i) * 2 * W + 2 * jx) * (long long)Cout;
+      }
+      off[lane] = o;
+    }
+    const uint32_t st = mma::smem_u32(xst + stage * sbytes);
+#pragma unroll
+    for (int c = 0; c < kMaxChunks; ++c)
+      if (c < nchunks)
+        mma::ldmatrix_x4(a[c],
+                         s8::row_addr(st + c * kM * s8::kRowBytes,
+                                      wg * 64 + warp * 16 + conv::ldm_row(),
+                                      conv::ldm_khalf()));
+    mma::warp_sync();  // the offsets are written
+    auto finish = [&](const int (&acc)[32], int nb) {
+      if (mode == s8::kOutS8)
+        epilogue<1>(acc, k, buf, off, nb, W, Cout, mode, y);
+      else if (mode == s8::kOutBF16)
+        epilogue<2>(acc, k, buf, off, nb, W, Cout, mode, y);
+      else
+        epilogue<0>(acc, k, buf, off, nb, W, Cout, mode, y);
+    };
+    for (int nb = 0; nb < ncb; ++nb) {
+      if (nb % 2 == 0)
+        issue(acc0, a, nchunks, wbase, wchunk, nb);
+      else
+        issue(acc1, a, nchunks, wbase, wchunk, nb);
+      if (nb > 0) {
+        mma::wgmma_wait<1>();  // column block nb - 1 is done
+        if (nb % 2 == 0)
+          finish(acc1, nb - 1);
+        else
+          finish(acc0, nb - 1);
+      }
+    }
+    mma::wgmma_wait<0>();
+    if ((ncb - 1) % 2 == 0)
+      finish(acc0, ncb - 1);
+    else
+      finish(acc1, ncb - 1);
+    mma::warp_sync();  // the offsets are read
+  });
 }
 
 }  // namespace
@@ -162,7 +268,7 @@ extern "C" int cid_convt2x2_s8(const void* x, const void* w,
                                void* stream) {
   if (n < 1 || h < 1 || wd < 1 || cin < 1 || cin % s8::kKC != 0 ||
       cin > kMaxCin ||
-      cout < 2 || cout % 2 != 0 || !conv::aligned16(x) ||
+      cout < 2 || cout % 2 != 0 || !conv::aligned16(x) || !conv::aligned16(y) ||
       !conv::aligned16(w) || mode < 0 || mode > 2 ||
       (mode != s8::kOutF32 && bias == nullptr) ||
       (mode == s8::kOutS8 && snext == nullptr) ||
@@ -170,9 +276,7 @@ extern "C" int cid_convt2x2_s8(const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   const long long pixels = (long long)n * h * wd;
   const long long mtiles = (pixels + kM - 1) / kM;
-  const int ntiles = (4 * cout + kN - 1) / kN;
-  const int smem = 2 * (cin / s8::kKC) * kChunkBytes +
-                   3 * ((cout + 7) / 8 * 8) * 4;
+  const int smem = smem_bytes(cin, cout, mode);
   if (smem > conv::kMaxSmem || mtiles > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -180,13 +284,12 @@ extern "C" int cid_convt2x2_s8(const void* x, const void* w,
   if (err != cudaSuccess) return (int)err;
   const int sms = conv::sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidConfiguration;
-  const long long units = mtiles * ntiles;
-  const unsigned grid = (unsigned)(units < 2 * sms ? units : 2 * sms);
+  const unsigned grid = (unsigned)(mtiles < sms ? mtiles : sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  convt2x2_s8_kernel<<<grid, kThreads, smem, s>>>(
+  convt2x2_s8_kernel<<<grid, conv::kThreads, smem, s>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(wscale), static_cast<const conv::bf16*>(bias),
       static_cast<const float*>(snext), y, pixels, h, wd, cin, cout, mode,
-      (int)mtiles, ntiles);
+      (int)mtiles);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // The PTX the conv kernels need, and nothing else: asynchronous 16-byte
 // copies into shared memory, ldmatrix (x4 and x2), the warp matrix
 // instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
-// accumulation), the warpgroup one (wgmma m64n64k16 with A in registers and
-// B read from shared memory through a descriptor) and setmaxnreg.
+// accumulation), the warpgroup ones (wgmma m64n64k16 in bf16 and m64n64k32
+// in s8, A in registers and B read from shared memory through a
+// descriptor), setmaxnreg and a warp barrier.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -40,6 +41,13 @@
 //     start + (k / 8) * SBO + (k % 8) * 128, and the 16-byte piece j of a row
 //     sits at piece j ^ (address bits 7..9), i.e. j ^ (k % 8) when start is a
 //     multiple of 1024.
+//   s8 wgmma (m64n64k32, s32 accumulators laid out as the f32 D above): A,
+//     per warp, is the s8 mma.sync A tile (16 rows x 32 k).  B, 32 k x 64 n,
+//     is K-major (k contiguous for each n: the only form wgmma takes for
+//     8-bit types) with the 32-byte swizzle: column n is the 32 bytes at
+//     start + (n / 8) * SBO + (n % 8) * 32, and its 16-byte piece j sits at
+//     piece j ^ (address bit 7), i.e. j ^ ((n >> 2) & 1) when start is a
+//     multiple of 256 -- conv_s8.cuh's row layout, with SBO = 256.
 #pragma once
 
 #include <cstdint>
@@ -55,6 +63,7 @@ namespace cid {
 namespace mma {
 
 constexpr uint64_t kDescSwizzle128 = 1ull << 62;  // layout type B128
+constexpr uint64_t kDescSwizzle32 = 3ull << 62;   // layout type B32
 
 // Descriptor of a wgmma B tile as laid out above.  start: shared-memory
 // address (multiple of 1024); sbo_bytes: distance between 8-row groups of k.
@@ -63,6 +72,15 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t start,
                                                uint32_t sbo_bytes) {
   return kDescSwizzle128 | ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) |
          (1ull << 16) | (uint64_t)((start >> 4) & 0x3FFF);
+}
+
+// Descriptor of an s8 wgmma B tile (K-major, 32-byte swizzle) as laid out
+// above: start a multiple of 256, 8-column groups 256 bytes apart; the
+// leading-dimension offset is unused (one k32 step spans the swizzle's
+// width) and set to one unit.
+__device__ __forceinline__ uint64_t wgmma_desc_k32(uint32_t start) {
+  return kDescSwizzle32 | ((uint64_t)(256 >> 4) << 32) | (1ull << 16) |
+         (uint64_t)((start >> 4) & 0x3FFF);
 }
 
 #ifndef CID_EMULATE_MMA
@@ -174,6 +192,36 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+
+// d (64x64 s32, this warpgroup's) = A (64x32 s8, registers) * B (32x64 s8,
+// shared memory, K-major) + (accumulate ? d : 0).  Asynchronous as above.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc,
+                                                   bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"((int)accumulate));
+}
+
+// A barrier over the calling thread's warp (its shared-memory writes are
+// visible to the warp after it).
+__device__ __forceinline__ void warp_sync() { __syncwarp(); }
 
 #else
 // ---------------------------------------------------------- emulation ----
@@ -313,6 +361,35 @@ inline void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
   }
   ::mock::warpgroup_sync();
 }
+
+inline void wgmma_m64n64k32_s8(int (&d)[32], const uint32_t (&a)[4],
+                               uint64_t desc, bool accumulate) {
+  uint32_t* sa = ::mock::warpgroup_scratch();  // [4 warps][32][4]
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  for (int i = 0; i < 4; ++i) sa[t * 4 + i] = a[i];
+  ::mock::warpgroup_sync();
+  // only K-major B with the 32-byte swizzle and 256 bytes between 8-column
+  // groups is used
+  if ((desc >> 62) != 3 || ((desc >> 32) & 0x3FFF) != 16) std::abort();
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t* fa = sa + warp * 128;
+  for (int e = 0; e < 32; ++e) {
+    const int row = lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    int acc = accumulate ? d[e] : 0;
+    for (int k = 0; k < 32; ++k) {
+      uint32_t off = start + (col / 8) * 256 + (col % 8) * 32 + k;
+      off ^= ((off >> 7) & 1) << 4;
+      const int b = (int)(int8_t)::mock::smem_base()[off];
+      acc += emu::s8_at(fa[((row % 8) * 4 + (k % 16) / 4) * 4 + row / 8 +
+                           2 * (k / 16)], k % 4) * b;
+    }
+    d[e] = acc;
+  }
+  ::mock::warpgroup_sync();
+}
+
+inline void warp_sync() { ::mock::warp_sync(); }
 
 #endif  // CID_EMULATE_MMA
 

@@ -1,11 +1,13 @@
 // Probes of mma.cuh: each computes one small matrix product through the
 // wrappers exactly as the conv kernels use them (cp.async into the swizzled
 // shared-memory layouts of conv_mma.cuh and conv_s8.cuh, ldmatrix, then
-// mma.sync in bf16 or s8, or wgmma)
+// mma.sync in bf16 or s8, or wgmma in bf16 or s8)
 // and writes the result out by the documented fragment layout.  The CPU
 // tests run them under the g++ emulation and chip_smoke.py runs them on the
 // card, both against a plain product, so the emulation's layouts are held
-// to the hardware's.
+// to the hardware's.  A last probe runs the s8 epilogue's quantization
+// (conv_s8.cuh) over given values and scales, to be held against the IEEE
+// division it stands for.
 
 #include <cstdint>
 
@@ -117,7 +119,86 @@ __global__ void probe_mma_s8_kernel(const int8_t* __restrict__ a,
       d[(g + 8 * (e / 2)) * 24 + nb * 8 + 2 * q + e % 2] = acc[nb][e];
 }
 
+// s8 wgmma: d (64 x 64 s32) = a (64 x 32*ksteps, row-major) * b^T, b (64 x
+// 32*ksteps) given as the kernels stage weights, [n][k]: A by ldmatrix_x4
+// from 32-byte swizzled pixel rows, B as K-major 32-byte swizzled rows by
+// descriptor, one k32 step (2048 bytes of B) at a time; one warpgroup,
+// ksteps <= 4.
+__global__ void probe_wgmma_s8_kernel(const int8_t* __restrict__ a,
+                                      const int8_t* __restrict__ b,
+                                      int* __restrict__ d, int ksteps) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  namespace s8 = cid::s8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int K = 32 * ksteps;
+  const uint32_t bs = mma::smem_u32(smem_mma);  // [ks][64 n][32]
+  const uint32_t as = bs + 4 * 2048;            // [ks][64 rows][32]
+  for (int i = tid; i < 64 * 2 * ksteps; i += 128) {
+    const int ks = i / 128, r = (i / 2) % 64, j = i % 2;
+    mma::cp_async16(s8::row_addr(as + ks * 2048, r, j),
+                    a + r * K + ks * 32 + 16 * j, true);
+    mma::cp_async16(s8::row_addr(bs + ks * 2048, r, j),
+                    b + r * K + ks * 32 + 16 * j, true);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  int acc[32];
+  for (int e = 0; e < 32; ++e) acc[e] = -7;  // overwritten by the first step
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t fa[4];
+    mma::ldmatrix_x4(fa, s8::row_addr(as + ks * 2048,
+                                      warp * 16 + conv::ldm_row(),
+                                      conv::ldm_khalf()));
+    mma::wgmma_fence();
+    mma::wgmma_m64n64k32_s8(acc, fa, mma::wgmma_desc_k32(bs + ks * 2048),
+                            ks > 0);
+    mma::wgmma_commit();
+    mma::wgmma_wait<0>();
+  }
+  for (int e = 0; e < 32; ++e) {
+    const int row = warp * 16 + lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    d[row * 64 + col] = acc[e];
+  }
+}
+
+// out[j * nh + i] = the s8 epilogue's quantization of h[i] at scale s[j]
+constexpr int kQuantizeThreads = 256;
+__global__ void probe_quantize_kernel(const float* __restrict__ h, int nh,
+                                      const float* __restrict__ s, int ns,
+                                      int8_t* __restrict__ out) {
+  namespace s8 = cid::s8;
+  const long long total = (long long)nh * ns;
+  for (long long i = (long long)blockIdx.x * kQuantizeThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kQuantizeThreads) {
+    out[i] = s8::quantize(h[i % nh], s8::qscale_of(s[i / nh]));
+  }
+}
+
 }  // namespace
+
+extern "C" int cid_probe_wgmma_s8(const void* a, const void* b, void* d,
+                                  int ksteps, void* stream) {
+  if (ksteps < 1 || ksteps > 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_wgmma_s8_kernel<<<1, 128, 8 * 2048, s>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<int*>(d), ksteps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cid_probe_quantize(const void* h, int nh, const void* sc,
+                                  int ns, void* out, void* stream) {
+  if (nh < 1 || ns < 1) return (int)cudaErrorInvalidValue;
+  const int sms = cid::conv::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_quantize_kernel<<<4 * sms, kQuantizeThreads, 0, s>>>(
+      static_cast<const float*>(h), nh, static_cast<const float*>(sc), ns,
+      static_cast<int8_t*>(out));
+  return (int)cudaGetLastError();
+}
 
 extern "C" int cid_probe_mma_s8(const void* a, const void* b, void* d,
                                 void* stream) {

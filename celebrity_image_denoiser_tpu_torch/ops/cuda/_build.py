@@ -142,6 +142,10 @@ def library() -> ctypes.CDLL:
             lib.cid_probe_wgmma.restype = I
             lib.cid_probe_mma_s8.argtypes = [P] * 4
             lib.cid_probe_mma_s8.restype = I
+            lib.cid_probe_wgmma_s8.argtypes = [P] * 3 + [I, P]
+            lib.cid_probe_wgmma_s8.restype = I
+            lib.cid_probe_quantize.argtypes = [P, I, P, I, P, P]
+            lib.cid_probe_quantize.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -72,36 +72,73 @@ PARTS = {
          "      const int n0 = cur.pass * conv::kNB;",
          "    if (cur.chunk == nchunks - 1 && H < 0) {\n"
          "      const int n0 = cur.pass * conv::kNB;")],
-    # the int8 kernels K5 (conv3x3_s8.cu) and K6 (convt2x2_s8.cu)
+    # the int8 kernels K5 (conv3x3_s8.cu: wgmma, and mma.sync for Cout <= 8)
+    # and K6 (convt2x2_s8.cu)
     "s8 mma": [("mma.cuh",
+                "                                                   uint64_t desc,\n"
+                "                                                   bool accumulate) {\n"
+                "  asm volatile(",
+                "                                                   uint64_t desc,\n"
+                "                                                   bool accumulate) {\n"
+                "  d[0] += (int)(a[0] ^ (uint32_t)desc) + accumulate;\n"
+                "  if (d[1] != 12345) return;\n  asm volatile("),
+               ("mma.cuh",
                 "const uint32_t (&b)[2]) {\n  asm volatile(\n"
                 "      \"mma.sync.aligned.m16n8k32",
                 "const uint32_t (&b)[2]) {\n  d[0] += (int)(a[0] ^ b[0]);\n"
                 "  if (d[1] != 12345) return;\n  asm volatile(\n"
                 "      \"mma.sync.aligned.m16n8k32")],
     "s8 ldmatrix": [
+        ("conv3x3_s8.cu", "        mma::ldmatrix_x4(a[par][i][mt],",
+         "        if (b0 == 0) mma::ldmatrix_x4(a[par][i][mt],"),
         ("conv3x3_s8.cu",
          "mma::ldmatrix_x4(a[mt], s8::row_addr(st, pbase[mt] + shift, khalf));",
          "if (tap == 0) mma::ldmatrix_x4(a[mt], s8::row_addr(st, pbase[mt] "
          "+ shift, khalf));"),
-        ("convt2x2_s8.cu", "      mma::ldmatrix_x4(a, s8::row_addr(",
-         "      if (c == 0) mma::ldmatrix_x4(a, s8::row_addr(")],
+        ("convt2x2_s8.cu", "        mma::ldmatrix_x4(a[c],",
+         "        if (item < 0) mma::ldmatrix_x4(a[c],")],
     "s8 copies": [
-        (f, "if (item + 1 < nitems) fill(item + 1, stage ^ 1);",
-         "if (item + 1 < 0) fill(item + 1, stage ^ 1);")
-        for f in ("conv3x3_s8.cu", "convt2x2_s8.cu")],
+        ("conv_mma.cuh", "if (ahead < nitems) fill(ahead, ahead % S);",
+         "if (ahead < 0) fill(ahead, ahead % S);"),
+        ("conv3x3_s8.cu", "if (item + 1 < nitems) fill(item + 1, stage ^ 1);",
+         "if (item + 1 < 0) fill(item + 1, stage ^ 1);")],
     "s8 epilogue": [
+        ("conv3x3_s8.cu", "    if (cur.chunk == nchunks - 1) {",
+         "    if (cur.chunk == nchunks - 1 && H < 0) {"),
         ("conv3x3_s8.cu", "if (item % nchunks == nchunks - 1) {",
          "if (item % nchunks == nchunks - 1 && H < 0) {"),
-        ("convt2x2_s8.cu", "if (p >= pixels) continue;",
-         "if (p >= pixels || H > 0) continue;")],
-    # the epilogue's stores kept, its arithmetic taken out (s8 out)
+        ("convt2x2_s8.cu",
+         "    auto finish = [&](const int (&acc)[32], int nb) {\n",
+         "    auto finish = [&](const int (&acc)[32], int nb) {\n"
+         "      if (H > 0) return;\n")],
+    # K5's wgmma fences, commits and waits (the skeleton's bookkeeping)
+    "s8 wgmma syncs": [
+        ("conv3x3_s8.cu", "    mma::wgmma_fence();\n#pragma unroll\n"
+         "    for (int i = 0; i < BATCH; ++i) {\n      const int tap = b0 + i;",
+         "#pragma unroll\n"
+         "    for (int i = 0; i < BATCH; ++i) {\n      const int tap = b0 + i;"),
+        ("conv3x3_s8.cu", "    mma::wgmma_commit();\n"
+         "    mma::wgmma_wait<1>();  // the other buffer's products are done\n"
+         "  }\n  mma::wgmma_wait<0>();", "  }")],
+    # the ring's block barriers (two per item on each side)
+    "s8 barriers": [
+        ("conv_mma.cuh", "    mma::cp_async_wait<S - 2>();  // all but the S - 2 newest groups: item's\n"
+         "    __syncthreads();",
+         "    mma::cp_async_wait<S - 2>();  // all but the S - 2 newest groups: item's\n"),
+        ("conv_mma.cuh", "    mma::cp_async_commit();\n    __syncthreads();\n  }\n}",
+         "    mma::cp_async_commit();\n  }\n}"),
+        ("conv_mma.cuh", "    __syncthreads();\n    work(item, item % S);\n"
+         "    __syncthreads();", "    work(item, item % S);")],
+    # the epilogue's stores kept, its arithmetic taken out: h is the
+    # accumulator's bits and the s8 pair two of its bytes
     "s8 epilogue arithmetic": [
-        ("conv_s8.cuh", "  if (c >= Cout) return;\n  const bool two",
-         "  if (c >= Cout) return;\n  if (mode == kOutS8) {\n"
-         "    *reinterpret_cast<char2*>(static_cast<int8_t*>(y) + off + c) =\n"
-         "        make_char2((int8_t)acc0, (int8_t)acc1);\n    return;\n  }\n"
-         "  const bool two")],
+        ("conv_s8.cuh", "bool relu, float& h0, float& h1) {\n",
+         "bool relu, float& h0, float& h1) {\n"
+         "  h0 = bits_float(acc0);\n  h1 = bits_float(acc1);\n"
+         "  return;\n"),
+        ("conv_s8.cuh", "                                              const Pair& k) {\n",
+         "                                              const Pair& k) {\n"
+         "  return float_bits(h0) ^ (float_bits(h1) << 8);\n")],
 }
 # what each timed variant leaves out: the bf16 kernels (K2, K3) and K2's s8
 # mode
@@ -126,6 +163,11 @@ S8_VARIANTS = {
     "no mma, no copies, no ldmatrix": ("s8 mma", "s8 copies", "s8 ldmatrix"),
     "skeleton (none of the four)": ("s8 mma", "s8 copies", "s8 ldmatrix",
                                     "s8 epilogue"),
+    "skeleton, no wgmma syncs": ("s8 mma", "s8 copies", "s8 ldmatrix",
+                                 "s8 epilogue", "s8 wgmma syncs"),
+    "skeleton, no wgmma syncs, no barriers": (
+        "s8 mma", "s8 copies", "s8 ldmatrix", "s8 epilogue", "s8 wgmma syncs",
+        "s8 barriers"),
 }
 
 

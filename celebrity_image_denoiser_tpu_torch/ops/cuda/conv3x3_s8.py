@@ -20,7 +20,9 @@ epilogue rounds where ``_conv_q`` rounds:
 
 ``x2`` (optional) stands for ``cat([x, x2], 3)`` and may be a strided view
 with contiguous channels (the U-Net's cropped skip): the kernel reads both
-in place.  Every channel count must be a multiple of 32.
+in place.  Every channel count must be a multiple of 32, and the input's
+at most 256: the kernel keeps a 64-channel output block's weights in
+shared memory.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
 LAUNCHES = 0  # launches of csrc/conv3x3_s8.cu
 
 CHUNK = 32  # the kernel walks input channels 32 at a time
+MAX_CIN = 256  # its weight slice (9 x Cin x 64 bytes) stays in shared memory
 MODE_S8, MODE_BF16, MODE_F32 = 0, 1, 2
 
 
@@ -131,6 +134,9 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
             raise ValueError(f"x2 {tuple(x2.shape)} must match x "
                              f"{tuple(x.shape)} but for channels")
         cin += x2.shape[3]
+    if cin > MAX_CIN:
+        raise ValueError(f"the kernel takes at most {MAX_CIN} input "
+                         f"channels, got {cin}")
     if w.dtype != torch.int8 or w.dim() != 4 or tuple(w.shape[1:]) != (
             3, 3, cin) or not w.is_contiguous():
         raise ValueError(f"w must be contiguous s8 (Cout, 3, 3, {cin}), got "

@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              for sm_90a (one nvcc per source, started together); registers,
              spills and static shared memory of every kernel from ptxas, and
              which matrix instructions the library holds (``cuobjdump
-             -sass``: HGMMA is wgmma, HMMA is mma.sync);
+             -sass``: HGMMA is the bf16 wgmma, IGMMA the s8 one, HMMA and
+             IMMA mma.sync), with IGMMA required in K5's and K6's kernels;
 3. kernels — the wrappers of ``csrc/mma.cuh`` (cp.async, ldmatrix, mma.sync,
              wgmma with its descriptor) through ``csrc/mma_probe.cu``
              against an exact integer product; then every kernel entry point
@@ -23,8 +24,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              (in bf16 the kernels read the two through two pointers, in f32
              the wrapper concatenates); then, as a control, the f32 plain versions with
              TF32 on must fail the f32 check at 128² batch 8;
-3b. int8   — the s8 probe (mma.sync m16n8k32 with ldmatrix x4 and x2 from
-             the 32-byte swizzled rows) against an exact integer product;
+3b. int8   — the s8 probes against exact integer products: wgmma
+             m64n64k32 (A by ldmatrix, K-major B with the 32-byte swizzle by
+             descriptor, k = 32..128) and mma.sync m16n8k32 (ldmatrix x4 and
+             x2 from the 32-byte swizzled rows); the s8 epilogue's
+             quantization for all 65,536 bf16 values of h at 4368 scales
+             against the IEEE division on the card;
              the int8 kernels against their plain versions (exact in
              integers): K5 ``conv3x3_s8`` at the U-Net's nine int8 convs
              and K6 ``convt2x2_s8`` at its two transpose convs (batch 256,
@@ -68,7 +73,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              bound (the larger of its operations at 1979 TOP/s, dense int8,
              and its bytes at 3.35 TB/s), beside the bf16 kernel (K3 pair or
              K2) of the same layers from phase 5 — no library call computes
-             an int8 conv;
+             an int8 conv; as a yardstick, ``torch._int_mm`` at K5's im2col
+             and K6's GEMM shapes (the s8 GEMM without the epilogue);
 6. batch   — one bf16 forward at the JAX bench's batch of 2048, where
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
@@ -290,12 +296,23 @@ def phase_build(_build):
             f"({sass.stderr.strip()[:200]}): not checked")
         return
     hgmma = len(re.findall(r"\bHGMMA\.", sass.stdout))
+    igmma = len(re.findall(r"\bIGMMA\.", sass.stdout))
     hmma = len(re.findall(r"\bHMMA\.", sass.stdout))
     imma = len(re.findall(r"\bIMMA\.", sass.stdout))
-    say(f"  matrix instructions in {res.path.name}: HGMMA (wgmma) {hgmma}, "
-        f"HMMA (mma.sync bf16) {hmma}, IMMA (mma.sync s8) {imma}")
-    if hgmma < 1 or hmma < 1 or imma < 1:
+    say(f"  matrix instructions in {res.path.name}: HGMMA (bf16 wgmma) "
+        f"{hgmma}, IGMMA (s8 wgmma) {igmma}, HMMA (mma.sync bf16) {hmma}, "
+        f"IMMA (mma.sync s8) {imma}")
+    if hgmma < 1 or igmma < 1 or hmma < 1 or imma < 1:
         fail("the built library lacks a tensor-core matrix instruction")
+    # the int8 kernels K5 (its Cout > 8 path) and K6 on the s8 wgmma
+    funcs = re.split(r"\n\s*Function : ", sass.stdout)
+    for kernel in ("conv3x3_s8_wgmma_kernel", "convt2x2_s8_kernel"):
+        body = "".join(f for f in funcs if f.split("\n", 1)[0].find(kernel)
+                       >= 0)
+        n = len(re.findall(r"\bIGMMA\.", body))
+        say(f"  IGMMA in {kernel}: {n}")
+        if n < 1:
+            fail(f"{kernel} does not run on the s8 wgmma")
 
 
 def phase_mma_probes(_build):
@@ -333,11 +350,63 @@ def phase_mma_probes(_build):
             fail("wgmma probe disagrees with the plain product")
 
 
+QUANTIZE_SCALES = 4096  # log-uniform over 2^-40..2^40, plus the edges
+
+
 def phase_s8_probe(_build):
-    """mma.cuh's s8 mma.sync m16n8k32 with ldmatrix x4 and x2, over the whole
-    s8 range: an exact integer product (s32 sums far below 2^31)."""
+    """mma.cuh's s8 mma.sync m16n8k32 with ldmatrix x4 and x2 and its s8
+    wgmma m64n64k32 (K-major B, 32-byte swizzle), over the whole s8 range:
+    exact integer products (s32 sums far below 2^31); then the s8
+    epilogue's quantization (conv_s8.cuh) for every bf16 bit pattern of h
+    at 4096 log-uniform scales over 2^-40..2^40, 256 over the whole float
+    range and the edges of its scaling, against
+    clamp(rint(h / s), ±127) with torch's IEEE division on the card."""
     lib = _build.library()
     gen = make_gen()
+    for ksteps in (1, 2, 3, 4):
+        a = torch.randint(-128, 128, (64, 32 * ksteps), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        b = torch.randint(-128, 128, (64, 32 * ksteps), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        d = torch.full((64, 64), -7, dtype=torch.int32, device="cuda")
+        _build.check(lib.cid_probe_wgmma_s8(a.data_ptr(), b.data_ptr(),
+                                            d.data_ptr(), ksteps, None),
+                     "s8 wgmma probe")
+        torch.cuda.synchronize()
+        ok = torch.equal(d.double(), a.double() @ b.double().T)
+        say(f"  mma.cuh cp.async + ldmatrix + wgmma m64n64k32 s8, k = "
+            f"{32 * ksteps}: {'exact' if ok else 'FAIL'}")
+        if not ok:
+            fail("s8 wgmma probe disagrees with the integer product")
+    h = (torch.arange(1 << 16, dtype=torch.int32, device="cuda") << 16).view(
+        torch.float32)
+    scales = torch.cat([
+        torch.exp2(torch.rand(QUANTIZE_SCALES, generator=gen, device="cuda")
+                   * 80 - 40),
+        torch.exp2(torch.rand(256, generator=gen, device="cuda") * 277 - 149),
+        torch.tensor([1.0, 2.0 ** -149, 2.0 ** -130, 2.0 ** -126, 2.0 ** -125,
+                      2.0 ** -101, 2.0 ** -100, 0.99 * 2.0 ** -100,
+                      2.0 ** 100, 1.01 * 2.0 ** 100, 2.0 ** 125, 2.0 ** 126,
+                      2.0 ** 127, torch.finfo(torch.float32).max, 3.0 / 127,
+                      0.1], device="cuda")])
+    wrong = 0
+    for s in scales.split(1024):
+        out = torch.empty((s.numel(), h.numel()), dtype=torch.int8,
+                          device="cuda")
+        _build.check(lib.cid_probe_quantize(h.data_ptr(), h.numel(),
+                                            s.data_ptr(), s.numel(),
+                                            out.data_ptr(), None),
+                     "quantize probe")
+        q = torch.round(h[None, :] / s[:, None])
+        ref = torch.where(q.isnan(), -127.0, q.clamp(-127, 127)).to(
+            torch.int8)
+        wrong += int((out != ref).sum().item())
+        del out, q, ref
+    say(f"  conv_s8.cuh quantize, {h.numel()} bf16 patterns x "
+        f"{scales.numel()} scales: {wrong} differ from the IEEE division "
+        f"{'(exact)' if wrong == 0 else 'FAIL'}")
+    if wrong:
+        fail("the s8 epilogue's quantization differs from rint(h / s)")
     for rep in range(3):
         a = torch.randint(-128, 128, (16, 32), generator=gen, device="cuda",
                           dtype=torch.int8)
@@ -927,6 +996,39 @@ def phase_bench(conv3x3, double_conv, k5, k6, bench, worst):
     return stats, launches, layer_ms
 
 
+def int_mm_ms(kind, args, kw):
+    """A yardstick for K5/K6, where no PyTorch call computes the same
+    function: ``torch._int_mm`` (s8 x s8 -> s32, no epilogue) at the layer's
+    GEMM shape — K6's [N·H·W, Cin] x [Cin, 4·Cout], K5's im2col
+    [N·H·W, 9·Cin] x [9·Cin, Cout] with the im2col built before the timed
+    region.  None where _int_mm does not take the shape (Cout < 8) or for
+    K2.  The port never calls it."""
+    import torch.nn.functional as F
+
+    if kind == "k6":
+        x, w = args[0], args[1]
+        cin = x.shape[3]
+        a = x.reshape(-1, cin)
+        b = w.reshape(-1, cin).t()  # [Cin, 4·Cout], column-major
+    elif kind == "k5":
+        x, w = args[0], args[1]
+        if kw.get("x2") is not None:
+            x = torch.cat([x, kw["x2"]], dim=3)
+        n, h, wd, cin = x.shape
+        if w.shape[0] < 8:
+            return None
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        a = torch.cat([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3)
+                       for dx in range(3)], dim=3).reshape(-1, 9 * cin)
+        del xp
+        b = w.reshape(w.shape[0], -1).t()  # [9·Cin, Cout], (tap, cin) rows
+    else:
+        return None
+    ms = time_ms(lambda: torch._int_mm(a, b), reps=10)
+    del a, b
+    return ms
+
+
 def phase_int8_times(conv3x3, k5, k6, layer_ms):
     """Each int8 kernel at the int8 step's shapes, beside its plain version
     and its bound, and beside the bf16 kernel of the same layers."""
@@ -980,12 +1082,18 @@ def phase_int8_times(conv3x3, k5, k6, layer_ms):
             bb = rnd(gen, (cout,), torch.bfloat16)
             lib = (f"; bf16 step's cuDNN conv_transpose "
                    f"{time_ms(lambda: F.conv_transpose2d(xb, wb, bb, stride=2)):.3f} ms")
+            del xb, wb, bb
+        mm = int_mm_ms(kind, args, kw)
+        if mm is not None:
+            s["int_mm_ms"] = s.get("int_mm_ms", 0.0) + mm
+            lib += f"; s8 GEMM without epilogue (torch._int_mm) {mm:.3f} ms"
         say(f"  {name:20s} {layer:13s} {str(shape):42s} kernel {ms:.3f} ms "
             f"plain {plain:.3f} ms bound {bound:.3f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'}): "
             f"{ops / ms / 1e9:.1f} TOP/s useful, {bound / ms:.1%} of the "
             f"bound{lib}")
         del args, kw
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     # beside the bf16 kernels of the same layers (phase 5, same shapes)
     pairs = {"down1": ("down1.0", "down1.2"), "down2": ("down2.0", "down2.2"),
@@ -1001,7 +1109,8 @@ def phase_int8_times(conv3x3, k5, k6, layer_ms):
         say(f"  {name}: {s['per_step']} launches per int8 step, kernel "
             f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, bound "
             f"{s['bound_ms']:.3f} ms per step ({s['bound_ms'] / s['ms']:.1%} "
-            "of the bound)")
+            "of the bound)" + (f", torch._int_mm {s['int_mm_ms']:.3f} ms"
+                               if "int_mm_ms" in s else ""))
     return stats
 
 
@@ -1533,6 +1642,11 @@ def main() -> int:
             "bound_by": ("operations" if s["operations"] >= s["bytes"]
                          else "bytes"),
             "library_ms": None,
+            # a yardstick, not the same function: torch._int_mm at the
+            # layers' GEMM shapes without the epilogue (phase 5b; K5's
+            # Cout = 3 output conv has none); for K6 also the bf16 step's
+            # cuDNN transpose convs, printed in phase 5b
+            "int_mm_ms": s.get("int_mm_ms"),
         })
     kernels.append({
         "name": "fused_normalize_gaussian_noise", "route": "cuda",
