@@ -70,8 +70,17 @@ __device__ __forceinline__ TileAt tile_at(int t, int tiles_h, int tiles_w) {
 constexpr int kNB = 64;  // output channels of a block (the wgmma's N)
 constexpr int kTapBytes = kNB * s8::kRowBytes;  // B tile of one tap, chunk
 constexpr int kChunkWBytes = 9 * kTapBytes;     // a chunk's weights: 18,432
-constexpr int kStages = 4;                      // window ring
+constexpr int kSub = 2;  // 32-channel chunks per work item
+constexpr int kStageBytes = kSub * kWinBytes;  // an item's windows
 constexpr int kMT = 2;  // m64 position tiles per consumer warpgroup
+// two consumer warpgroups and the producers; their register split fills
+// the SM's file (setmaxnreg, conv_mma.cuh)
+constexpr int kConsumers = 256, kProducers = 256;
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kProducerRegs = 40, kConsumerRegs = 216;
+static_assert(kConsumers * kConsumerRegs + kProducers * kProducerRegs ==
+                  65536 / kThreads / 8 * 8 * kThreads,
+              "the register split must use the launch's registers exactly");
 constexpr int kWarpPix = kMT * kTile;  // pixels a consumer warp stores
 template <int ES>
 using WarpStaging = s8::Staging<ES, kWarpPix>;
@@ -81,15 +90,17 @@ __host__ __device__ constexpr int out_bytes(int mode) {
          : mode == s8::kOutBF16 ? 8 * WarpStaging<2>::kBytes
                                 : 0;
 }
-__host__ __device__ constexpr int wide_smem(int nchunks, int mode) {
-  return nchunks * kChunkWBytes + kStages * kWinBytes + out_bytes(mode) +
+__host__ __device__ constexpr int wide_smem(int nchunks, int mode,
+                                            int stages) {
+  return nchunks * kChunkWBytes + stages * kStageBytes + out_bytes(mode) +
          s8::consts_bytes(kNB);
 }
 
-// Where a block's walk over its (tile, chunk) items stands; producers and
-// consumers each carry their own along, so no item costs a division.
+// Where a block's walk over its (tile, step) items stands, step s covering
+// chunks kSub * s, ...; producers and consumers each carry their own along,
+// so no item costs a division.
 struct Cursor {
-  int chunk, tile;
+  int chunk, tile;  // chunk: the item's step within its tile
   TileAt at;
   __device__ __forceinline__ void start(int t, int tiles_h, int tiles_w) {
     chunk = 0;
@@ -105,42 +116,52 @@ struct Cursor {
   }
 };
 
-// acc (+)= the chunk's nine taps: A, the window at st, B, the chunk's
-// weights at wc.  The taps run in batches of three: a batch's A fragments
-// are loaded, then its wgmmas started under one fence and one commit; the
-// fragments are double-buffered, so a batch loads while the one before
-// runs.
-__device__ __forceinline__ void mma_chunk(int (&acc)[kMT][32], uint32_t st,
-                                          uint32_t wc,
-                                          const int (&pbase)[kMT], int khalf,
-                                          bool accumulate) {
-  constexpr int BATCH = 3;
-  uint32_t a[2][BATCH][kMT][4];
+// acc (+)= the item's nsub (1 or 2) chunks, nine taps each: A, the
+// chunk's window at st + s * kWinBytes, B, its weights at wc + s *
+// kChunkWBytes.  The (chunk, tap) steps run in batches of three: a batch's
+// A fragments are loaded into a, then its wgmmas started under one fence
+// and one commit; the fragments are double-buffered, so a batch loads
+// while the one before runs.  The wgmmas read only registers and the
+// resident weights, so the item's window is free once its fragments are
+// loaded: unless `drain` (the tile's last item, whose sums the epilogue
+// reads, or an odd number of batches), the last batch is left running
+// into the next item, and the tensor cores do not idle across the ring's
+// barriers.
+constexpr int kBatch = 3;
+__device__ __forceinline__ void mma_item(int (&acc)[kMT][32],
+                                         uint32_t (&a)[2][kBatch][kMT][4],
+                                         uint32_t st, uint32_t wc, int nsub,
+                                         const int (&pbase)[kMT], int khalf,
+                                         bool accumulate, bool drain) {
+  constexpr int BATCH = kBatch;
 #pragma unroll
-  for (int b0 = 0; b0 < 9; b0 += BATCH) {
-    const int par = (b0 / BATCH) & 1;
+  for (int b0 = 0; b0 < 9 * kSub; b0 += BATCH) {
+    const int par = (b0 / BATCH) & 1, s = b0 / 9;
+    if (s >= nsub) break;
+    const uint32_t sw = st + s * kWinBytes;
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      const int tap = b0 + i, shift = (tap / 3) * kWin + tap % 3;
+      const int tap = (b0 + i) % 9, shift = (tap / 3) * kWin + tap % 3;
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
         mma::ldmatrix_x4(a[par][i][mt],
-                         s8::row_addr(st, pbase[mt] + shift, khalf));
+                         s8::row_addr(sw, pbase[mt] + shift, khalf));
     }
     mma::wgmma_fence();
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      const int tap = b0 + i;
-      const uint64_t desc = mma::wgmma_desc_k32(wc + tap * kTapBytes);
+      const int tap = (b0 + i) % 9;
+      const uint64_t desc = mma::wgmma_desc_k32(wc + s * kChunkWBytes +
+                                                tap * kTapBytes);
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
         mma::wgmma_m64n64k32_s8(acc[mt], a[par][i][mt], desc,
-                                accumulate || tap > 0);
+                                accumulate || b0 + i > 0);
     }
     mma::wgmma_commit();
     mma::wgmma_wait<1>();  // the other buffer's products are done
   }
-  mma::wgmma_wait<0>();
+  if (drain) mma::wgmma_wait<0>();
 }
 
 // A consumer warp's s8 or bf16 outputs: its two tile rows (row0, row0 + 4)
@@ -182,8 +203,9 @@ __device__ __forceinline__ void epilogue_staged(
 }
 
 // Block b computes output channels [64 * (b % npass), +64) of tiles
-// b / npass, + gridDim.x / npass, ...
-__global__ void __launch_bounds__(conv::kThreads, 1)
+// b / npass, + gridDim.x / npass, ...; S window stages.
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
 conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
                         const float* __restrict__ wscale,
                         const conv::bf16* __restrict__ bias,
@@ -194,58 +216,64 @@ conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
   const int Cin = in.a.C + in.b.C;
   const int tid = threadIdx.x;
   const int nchunks = Cin / s8::kKC;
+  const int nsteps = (nchunks + kSub - 1) / kSub;  // items per tile
   const int n0 = ((int)blockIdx.x % npass) * kNB;
   const int tile0 = (int)blockIdx.x / npass, tstep = (int)gridDim.x / npass;
   const int my_tiles =
       tile0 < total_tiles ? (total_tiles - tile0 + tstep - 1) / tstep : 0;
-  const int nitems = my_tiles * nchunks;
+  const int nitems = my_tiles * nsteps;
   unsigned char* wres = smem_s8;  // [nchunks][9 taps][64 rows][32 bytes]
-  unsigned char* xst = wres + nchunks * kChunkWBytes;  // [kStages][window]
-  unsigned char* outs = xst + kStages * kWinBytes;     // [8 warps][staging]
+  unsigned char* xst = wres + nchunks * kChunkWBytes;  // [S][kSub windows]
+  unsigned char* outs = xst + S * kStageBytes;         // [8 warps][staging]
   const s8::Consts k = s8::consts_at(outs + out_bytes(mode), kNB);
   s8::load_consts(k, wscale + n0, bias ? bias + n0 : nullptr,
                   snext ? snext + n0 : nullptr, Cout - n0, kNB, tid,
-                  conv::kThreads);
+                  kThreads);
 
-  if (tid >= conv::kConsumers) {
-    mma::setmaxnreg_dec<conv::kProducerRegs>();
-    const int ptid = tid - conv::kConsumers;
+  if (tid >= kConsumers) {
+    mma::setmaxnreg_dec<kProducerRegs>();
+    const int ptid = tid - kConsumers;
     Cursor ahead;
     ahead.start(tile0, tiles_h, tiles_w);
-    conv::produce<kStages>(nitems, [&](int item, int stage) {
-      const int c0 = ahead.chunk * s8::kKC;
-      const uint32_t st = mma::smem_u32(xst + stage * kWinBytes);
-      const s8::Image im = in.of(c0, ahead.at.n);
-      const int cl = in.local(c0);
-      for (int i = ptid; i < kWin * kWin * 2; i += conv::kProducers) {
-        const int p = i / 2, j = i % 2;
-        const int gy = ahead.at.y0 - 1 + p / kWin;
-        const int gx = ahead.at.x0 - 1 + p % kWin;
-        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const int8_t* src =
-            ok ? im.p + ((long long)gy * im.sh + (long long)gx * im.sw + cl +
-                         16 * j)
-               : im.p;
-        mma::cp_async16(s8::row_addr(st, p, j), src, ok);
-      }
-      // the first tile brings each chunk's weights, which stay: rows
-      // (tap, n) of 32 input channels, the K-major B tile of each tap
-      if (item < nchunks) {
-        const uint32_t wst = mma::smem_u32(wres + item * kChunkWBytes);
-        for (int i = ptid; i < 9 * kNB * 2; i += conv::kProducers) {
-          const int r = i / 2, j = i % 2;
-          const int tap = r / kNB, co = n0 + r % kNB;
-          const bool ok = co < Cout;
+    conv::produce<S>(nitems, [&](int item, int stage) {
+      for (int s = 0; s < kSub; ++s) {
+        const int chunk = ahead.chunk * kSub + s;
+        if (chunk >= nchunks) break;
+        const int c0 = chunk * s8::kKC;
+        const uint32_t st =
+            mma::smem_u32(xst + stage * kStageBytes + s * kWinBytes);
+        const s8::Image im = in.of(c0, ahead.at.n);
+        const int cl = in.local(c0);
+        for (int i = ptid; i < kWin * kWin * 2; i += kProducers) {
+          const int p = i / 2, j = i % 2;
+          const int gy = ahead.at.y0 - 1 + p / kWin;
+          const int gx = ahead.at.x0 - 1 + p % kWin;
+          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
           const int8_t* src =
-              ok ? w + ((long long)co * 9 + tap) * Cin + c0 + 16 * j : w;
-          mma::cp_async16(s8::row_addr(wst, r, j), src, ok);
+              ok ? im.p + ((long long)gy * im.sh + (long long)gx * im.sw +
+                           cl + 16 * j)
+                 : im.p;
+          mma::cp_async16(s8::row_addr(st, p, j), src, ok);
+        }
+        // the first tile brings each chunk's weights, which stay: rows
+        // (tap, n) of 32 input channels, the K-major B tile of each tap
+        if (item < nsteps) {
+          const uint32_t wst = mma::smem_u32(wres + chunk * kChunkWBytes);
+          for (int i = ptid; i < 9 * kNB * 2; i += kProducers) {
+            const int r = i / 2, j = i % 2;
+            const int tap = r / kNB, co = n0 + r % kNB;
+            const bool ok = co < Cout;
+            const int8_t* src =
+                ok ? w + ((long long)co * 9 + tap) * Cin + c0 + 16 * j : w;
+            mma::cp_async16(s8::row_addr(wst, r, j), src, ok);
+          }
         }
       }
-      ahead.advance(nchunks, tstep, tiles_h, tiles_w);
+      ahead.advance(nsteps, tstep, tiles_h, tiles_w);
     });
     return;
   }
-  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  mma::setmaxnreg_inc<kConsumerRegs>();
   const int wg = tid / 128, warp = (tid / 32) % 4;
   int pbase[kMT];
 #pragma unroll
@@ -260,11 +288,14 @@ conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
   Cursor cur;
   cur.start(tile0, tiles_h, tiles_w);
   int acc[kMT][32];
-  conv::consume<kStages>(nitems, [&](int, int stage) {
-    mma_chunk(acc, mma::smem_u32(xst + stage * kWinBytes),
-              mma::smem_u32(wres + cur.chunk * kChunkWBytes), pbase, khalf,
-              cur.chunk > 0);
-    if (cur.chunk == nchunks - 1) {
+  uint32_t afrag[2][kBatch][kMT][4];
+  conv::consume<S>(nitems, [&](int, int stage) {
+    const int c = cur.chunk * kSub;  // the item's first chunk
+    const int nsub = nchunks - c < kSub ? nchunks - c : kSub;
+    mma_item(acc, afrag, mma::smem_u32(xst + stage * kStageBytes),
+             mma::smem_u32(wres + c * kChunkWBytes), nsub, pbase, khalf,
+             c > 0, cur.chunk == nsteps - 1 || (9 * nsub / kBatch) % 2 != 0);
+    if (cur.chunk == nsteps - 1) {
       const TileAt at = cur.at;
       if (mode == s8::kOutS8) {
         epilogue_staged<1>(acc, k, buf, relu != 0, row0, at, y, H, W, Cout,
@@ -291,7 +322,7 @@ conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
           }
       }
     }
-    cur.advance(nchunks, tstep, tiles_h, tiles_w);
+    cur.advance(nsteps, tstep, tiles_h, tiles_w);
   });
 }
 
@@ -299,11 +330,18 @@ cudaError_t launch_wide(const s8::Input& in, const int8_t* w, const float* ws,
                         const conv::bf16* b, const float* sn, void* y, int n,
                         int h, int wd, int cout, int relu, int mode,
                         cudaStream_t stream) {
-  const int smem = wide_smem((in.a.C + in.b.C) / s8::kKC, mode);
+  // as many window stages (up to four) as fit beside the weights
+  const int nchunks = (in.a.C + in.b.C) / s8::kKC;
+  int stages = 4;
+  while (stages > 2 && wide_smem(nchunks, mode, stages) > conv::kMaxSmem)
+    --stages;
+  const int smem = wide_smem(nchunks, mode, stages);
   if (smem > conv::kMaxSmem) return cudaErrorInvalidValue;
+  auto* kernel = stages == 4   ? conv3x3_s8_wgmma_kernel<4>
+                 : stages == 3 ? conv3x3_s8_wgmma_kernel<3>
+                               : conv3x3_s8_wgmma_kernel<2>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_s8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
   const long long tiles = (long long)n * tiles_h * tiles_w;
@@ -314,10 +352,9 @@ cudaError_t launch_wide(const s8::Input& in, const int8_t* w, const float* ws,
   // one block per SM, as many for each output block
   long long per_pass = sms / npass > 1 ? sms / npass : 1;
   if (per_pass > tiles) per_pass = tiles;
-  conv3x3_s8_wgmma_kernel<<<(unsigned)(per_pass * npass), conv::kThreads,
-                            smem, stream>>>(in, w, ws, b, sn, y, h, wd, cout,
-                                            relu, mode, tiles_h, tiles_w,
-                                            (int)tiles, npass);
+  kernel<<<(unsigned)(per_pass * npass), kThreads, smem, stream>>>(
+      in, w, ws, b, sn, y, h, wd, cout, relu, mode, tiles_h, tiles_w,
+      (int)tiles, npass);
   return cudaGetLastError();
 }
 

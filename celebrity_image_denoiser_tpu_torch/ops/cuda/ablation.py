@@ -103,32 +103,14 @@ PARTS = {
         ("conv3x3_s8.cu", "if (item + 1 < nitems) fill(item + 1, stage ^ 1);",
          "if (item + 1 < 0) fill(item + 1, stage ^ 1);")],
     "s8 epilogue": [
-        ("conv3x3_s8.cu", "    if (cur.chunk == nchunks - 1) {",
-         "    if (cur.chunk == nchunks - 1 && H < 0) {"),
+        ("conv3x3_s8.cu", "    if (cur.chunk == nsteps - 1) {",
+         "    if (cur.chunk == nsteps - 1 && H < 0) {"),
         ("conv3x3_s8.cu", "if (item % nchunks == nchunks - 1) {",
          "if (item % nchunks == nchunks - 1 && H < 0) {"),
         ("convt2x2_s8.cu",
          "    auto finish = [&](const int (&acc)[32], int nb) {\n",
          "    auto finish = [&](const int (&acc)[32], int nb) {\n"
          "      if (H > 0) return;\n")],
-    # K5's wgmma fences, commits and waits (the skeleton's bookkeeping)
-    "s8 wgmma syncs": [
-        ("conv3x3_s8.cu", "    mma::wgmma_fence();\n#pragma unroll\n"
-         "    for (int i = 0; i < BATCH; ++i) {\n      const int tap = b0 + i;",
-         "#pragma unroll\n"
-         "    for (int i = 0; i < BATCH; ++i) {\n      const int tap = b0 + i;"),
-        ("conv3x3_s8.cu", "    mma::wgmma_commit();\n"
-         "    mma::wgmma_wait<1>();  // the other buffer's products are done\n"
-         "  }\n  mma::wgmma_wait<0>();", "  }")],
-    # the ring's block barriers (two per item on each side)
-    "s8 barriers": [
-        ("conv_mma.cuh", "    mma::cp_async_wait<S - 2>();  // all but the S - 2 newest groups: item's\n"
-         "    __syncthreads();",
-         "    mma::cp_async_wait<S - 2>();  // all but the S - 2 newest groups: item's\n"),
-        ("conv_mma.cuh", "    mma::cp_async_commit();\n    __syncthreads();\n  }\n}",
-         "    mma::cp_async_commit();\n  }\n}"),
-        ("conv_mma.cuh", "    __syncthreads();\n    work(item, item % S);\n"
-         "    __syncthreads();", "    work(item, item % S);")],
     # the epilogue's stores kept, its arithmetic taken out: h is the
     # accumulator's bits and the s8 pair two of its bytes
     "s8 epilogue arithmetic": [
@@ -163,11 +145,6 @@ S8_VARIANTS = {
     "no mma, no copies, no ldmatrix": ("s8 mma", "s8 copies", "s8 ldmatrix"),
     "skeleton (none of the four)": ("s8 mma", "s8 copies", "s8 ldmatrix",
                                     "s8 epilogue"),
-    "skeleton, no wgmma syncs": ("s8 mma", "s8 copies", "s8 ldmatrix",
-                                 "s8 epilogue", "s8 wgmma syncs"),
-    "skeleton, no wgmma syncs, no barriers": (
-        "s8 mma", "s8 copies", "s8 ldmatrix", "s8 epilogue", "s8 wgmma syncs",
-        "s8 barriers"),
 }
 
 
