@@ -72,22 +72,27 @@ constexpr int kTapBytes = kNB * s8::kRowBytes;  // B tile of one tap, chunk
 constexpr int kChunkWBytes = 9 * kTapBytes;     // a chunk's weights: 18,432
 constexpr int kSub = 2;  // 32-channel chunks per work item
 constexpr int kStageBytes = kSub * kWinBytes;  // an item's windows
-constexpr int kMT = 2;  // m64 position tiles per consumer warpgroup
-// two consumer warpgroups and the producers; their register split fills
-// the SM's file (setmaxnreg, conv_mma.cuh)
-constexpr int kConsumers = 256, kProducers = 256;
+// Four consumer warpgroups, each one m64 position tile (four tile rows, a
+// warp per row), and one producer warpgroup: sixteen warps share the
+// epilogue, whose dependent steps want many warps in flight.
+constexpr int kConsumerWGs = 4;
+constexpr int kMT = 4 / kConsumerWGs;  // m64 position tiles per warpgroup
+constexpr int kConsumers = 128 * kConsumerWGs, kProducers = 128;
 constexpr int kThreads = kConsumers + kProducers;
-constexpr int kProducerRegs = 40, kConsumerRegs = 216;
-static_assert(kConsumers * kConsumerRegs + kProducers * kProducerRegs ==
-                  65536 / kThreads / 8 * 8 * kThreads,
-              "the register split must use the launch's registers exactly");
+// registers a thread: what the launch gives every thread (the compiler
+// uses all of it in a kernel with setmaxnreg), then the split
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kProducerRegs = 56, kConsumerRegs = 104;
+static_assert(kConsumers * kConsumerRegs + kProducers * kProducerRegs <=
+                  kLaunchRegs * kThreads,
+              "setmaxnreg.inc would wait for registers that never come");
 constexpr int kWarpPix = kMT * kTile;  // pixels a consumer warp stores
 template <int ES>
 using WarpStaging = s8::Staging<ES, kWarpPix>;
-// staged outputs of the eight consumer warps (none for the f32 product)
+// staged outputs of the consumer warps (none for the f32 product)
 __host__ __device__ constexpr int out_bytes(int mode) {
-  return mode == s8::kOutS8 ? 8 * WarpStaging<1>::kBytes
-         : mode == s8::kOutBF16 ? 8 * WarpStaging<2>::kBytes
+  return mode == s8::kOutS8     ? kConsumers / 32 * WarpStaging<1>::kBytes
+         : mode == s8::kOutBF16 ? kConsumers / 32 * WarpStaging<2>::kBytes
                                 : 0;
 }
 __host__ __device__ constexpr int wide_smem(int nchunks, int mode,
@@ -343,6 +348,14 @@ cudaError_t launch_wide(const s8::Input& in, const int8_t* w, const float* ws,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+#ifndef CID_EMULATE_MMA
+  // the register split assumes the compiler gave every thread kLaunchRegs:
+  // with fewer, setmaxnreg.inc would hang the kernel, so refuse instead
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs != kLaunchRegs) return cudaErrorInvalidConfiguration;
+#endif
   const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
   const long long tiles = (long long)n * tiles_h * tiles_w;
   const int sms = conv::sm_count();
