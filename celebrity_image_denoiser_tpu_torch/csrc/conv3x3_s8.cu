@@ -27,18 +27,21 @@
 // persistent block owns one 64-channel output block and walks its tiles, so
 // the block's weight slice (9 x Cin x 64 bytes: 36,864 at Cin 64, 147,456
 // at Cin 256) is copied into shared memory once, with the first tile, and
-// stays; only the 18x18x32 halo windows stream, through a four-stage ring.
-// Two producer warpgroups only start the cp.async copies (setmaxnreg hands
-// their registers to the consumers); two consumer warpgroups each own two
-// 64-position m-tiles (four tile rows each, a warp per row), take A by
-// ldmatrix_x4 from the window (a tap is a shift of the row addresses, no
-// im2col) and B, the tap's 64 x 32-byte K-major weight rows, through the
-// wgmma descriptor.  The epilogue (conv_s8.cuh) stages each warp's 32
+// stays; only the 18x18 halo windows stream, 64 channels (two 32-channel
+// windows) a work item, through a ring of as many stages (two to four) as
+// fit beside the weights.  One producer warpgroup only starts the cp.async
+// copies (setmaxnreg hands its registers to the consumers); four consumer
+// warpgroups each own one 64-position m-tile (four tile rows, a warp per
+// row), take A by ldmatrix_x4 from the window (a tap is a shift of the row
+// addresses, no im2col) and B, the tap's 64 x 32-byte K-major weight rows,
+// through the wgmma descriptor; a work item's last batch of wgmmas runs on
+// into the next item.  The epilogue (conv_s8.cuh) stages each warp's 16
 // pixels x 64 channels in shared memory and writes every pixel's channel
-// run with 16-byte stores; it overlaps the producers' copies of the next
-// tile.  Cout <= 8 (the output conv, bound by its input bytes) keeps
-// mma.sync m16n8k32 with one n8 block: eight warps of two tile rows each, a
-// two-stage ring that every thread feeds, two blocks per SM.
+// run with 16-byte stores; sixteen consumer warps rather than eight hide
+// its dependent steps' latency, and it overlaps the producer's copies of
+// the next tile.  Cout <= 8 (the output conv, bound by its input bytes)
+// keeps mma.sync m16n8k32 with one n8 block: eight warps of two tile rows
+// each, a two-stage ring that every thread feeds, two blocks per SM.
 
 #include <cstdint>
 
@@ -138,14 +141,13 @@ __device__ __forceinline__ void mma_item(int (&acc)[kMT][32],
                                          uint32_t st, uint32_t wc, int nsub,
                                          const int (&pbase)[kMT], int khalf,
                                          bool accumulate, bool drain) {
-  constexpr int BATCH = kBatch;
 #pragma unroll
-  for (int b0 = 0; b0 < 9 * kSub; b0 += BATCH) {
-    const int par = (b0 / BATCH) & 1, s = b0 / 9;
+  for (int b0 = 0; b0 < 9 * kSub; b0 += kBatch) {
+    const int par = (b0 / kBatch) & 1, s = b0 / 9;
     if (s >= nsub) break;
     const uint32_t sw = st + s * kWinBytes;
 #pragma unroll
-    for (int i = 0; i < BATCH; ++i) {
+    for (int i = 0; i < kBatch; ++i) {
       const int tap = (b0 + i) % 9, shift = (tap / 3) * kWin + tap % 3;
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -154,7 +156,7 @@ __device__ __forceinline__ void mma_item(int (&acc)[kMT][32],
     }
     mma::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < BATCH; ++i) {
+    for (int i = 0; i < kBatch; ++i) {
       const int tap = (b0 + i) % 9;
       const uint64_t desc = mma::wgmma_desc_k32(wc + s * kChunkWBytes +
                                                 tap * kTapBytes);
@@ -169,8 +171,8 @@ __device__ __forceinline__ void mma_item(int (&acc)[kMT][32],
   if (drain) mma::wgmma_wait<0>();
 }
 
-// A consumer warp's s8 or bf16 outputs: its two tile rows (row0, row0 + 4)
-// staged, then written as 16-byte chunks of each pixel's channel run.
+// A consumer warp's s8 or bf16 outputs: its tile rows (row0, row0 + 4,
+// ...) staged, then written as 16-byte chunks of each pixel's channel run.
 template <int ES>
 __device__ __forceinline__ void epilogue_staged(
     const int (&acc)[kMT][32], const s8::Consts& k, unsigned char* buf,
@@ -229,7 +231,7 @@ conv3x3_s8_wgmma_kernel(s8::Input in, const int8_t* __restrict__ w,
   const int nitems = my_tiles * nsteps;
   unsigned char* wres = smem_s8;  // [nchunks][9 taps][64 rows][32 bytes]
   unsigned char* xst = wres + nchunks * kChunkWBytes;  // [S][kSub windows]
-  unsigned char* outs = xst + S * kStageBytes;         // [8 warps][staging]
+  unsigned char* outs = xst + S * kStageBytes;  // [consumer warps][staging]
   const s8::Consts k = s8::consts_at(outs + out_bytes(mode), kNB);
   s8::load_consts(k, wscale + n0, bias ? bias + n0 : nullptr,
                   snext ? snext + n0 : nullptr, Cout - n0, kNB, tid,
