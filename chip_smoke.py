@@ -28,7 +28,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              m64n64k32 (A by ldmatrix, K-major B with the 32-byte swizzle by
              descriptor, k = 32..128) and mma.sync m16n8k32 (ldmatrix x4 and
              x2 from the 32-byte swizzled rows); the s8 epilogue's
-             quantization for all 65,536 bf16 values of h at 4368 scales
+             quantization for all 65,536 bf16 values of h at 7440 scales
              against the IEEE division on the card;
              the int8 kernels against their plain versions (exact in
              integers): K5 ``conv3x3_s8`` at the U-Net's nine int8 convs
@@ -359,7 +359,8 @@ def phase_s8_probe(_build):
     exact integer products (s32 sums far below 2^31); then the s8
     epilogue's quantization (conv_s8.cuh) for every bf16 bit pattern of h
     at 4096 log-uniform scales over 2^-40..2^40, 256 over the whole float
-    range and the edges of its scaling, against
+    range, the edges of its scaling and 3072 scales that put some h / s
+    within an ulp of a half-integer, against
     clamp(rint(h / s), ±127) with torch's IEEE division on the card."""
     lib = _build.library()
     gen = make_gen()
@@ -380,7 +381,16 @@ def phase_s8_probe(_build):
             fail("s8 wgmma probe disagrees with the integer product")
     h = (torch.arange(1 << 16, dtype=torch.int32, device="cuda") << 16).view(
         torch.float32)
+    # the hard cases: scales that put some h / s within an ulp of a
+    # half-integer, where a product by 1/s alone rounds the other way
+    hp = h[(h > 0.25) & (h < 256)]
+    pick = hp[torch.randint(0, hp.numel(), (1024,), generator=gen,
+                            device="cuda")]
+    half = torch.randint(0, 127, (1024,), generator=gen, device="cuda") + 0.5
+    near = (pick.double() / half).float()
     scales = torch.cat([
+        torch.nextafter(near, torch.zeros_like(near)), near,
+        torch.nextafter(near, torch.full_like(near, float("inf"))),
         torch.exp2(torch.rand(QUANTIZE_SCALES, generator=gen, device="cuda")
                    * 80 - 40),
         torch.exp2(torch.rand(256, generator=gen, device="cuda") * 277 - 149),
