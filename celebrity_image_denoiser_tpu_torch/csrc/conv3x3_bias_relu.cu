@@ -53,6 +53,14 @@
 //     epilogue, in the JAX program's order: the conv rounded to bf16, the
 //     bias added in bf16, ReLU, then s8 = clamp(rint(h / s[c]), -127, 127).
 //     The 64-channel bf16 activation is never written to device memory.
+//     Bound by its bytes (reading 3 bf16 channels, writing 64 s8 ones), it
+//     lost most of its time to a scalar epilogue: per value two bf16
+//     roundings and one byte store covering a sixteenth of its sector.  The
+//     epilogue works on channel pairs as K5's does (conv_s8.cuh): one packed
+//     rounding, one packed bf16x2 bias add, the division-free quantize, each
+//     pair's constants read once into registers; the bytes are staged per
+//     warp (2 tile rows x 16 pixels x 64 channels) and leave as 16-byte
+//     stores of each pixel's contiguous channel run.
 // float32 keeps f32 FMA on the CUDA cores (no tensor-core type holds f32's
 // tolerance; TF32 must fail it):
 //   * one block computes a TH x TW output tile for COT output channels from
@@ -247,16 +255,68 @@ struct Cursor {
   }
 };
 
-// The s8 program's first conv (quant_unet.py::_conv_f, then _q): the f32
-// sum rounded to bf16, the bias rounded to bf16 and added in bf16, ReLU,
-// then quantized at the scale q.
-__device__ __forceinline__ int8_t q8_of(float acc, float bias,
-                                        const cid::s8::QScale& q, bool relu) {
+// The s8 program's first conv (quant_unet.py::_conv_f, then _q) for the
+// channel pair c, c + 1 of one pixel: the f32 sums rounded to bf16, the
+// bias pair (bf16) added in bf16, ReLU, then quantized at the pair's
+// scales; the two s8 values as two bytes, c in the low one.  The JAX
+// program adds in f32 and rounds the sum to bf16; one packed bf16x2 add
+// rounds the exact sum once, which is the same value (a sum of two bf16
+// values rounded to f32, 24 bits, and then to bf16, 8 bits, is rounded
+// as if once: 24 >= 2 * 8 + 2).
+__device__ __forceinline__ uint32_t q8_pair(float acc0, float acc1,
+                                            const cid::s8::Pair& k,
+                                            bool relu) {
   namespace s8 = cid::s8;
-  float h = s8::bf16_round(acc);
-  h = s8::bf16_round(__fadd_rn(h, s8::bf16_round(bias)));
-  if (relu) h = cid::relu_f32(h);
-  return s8::quantize(h, q);
+  const uint32_t u = s8::add_bf16x2(s8::pack_bf16x2(acc0, acc1), k.bias2);
+  float h0 = s8::bf16_lo(u), h1 = s8::bf16_hi(u);
+  if (relu) {
+    h0 = cid::relu_f32(h0);
+    h1 = cid::relu_f32(h1);
+  }
+  return s8::quantize2(h0, h1, k);
+}
+
+// s8 out: a consumer warp's MT tile rows of 16 pixels x 64 channels,
+// staged, then written as 16-byte chunks of each pixel's channel run
+constexpr int kQ8WarpPix = 2 * kTile;
+using Q8Staging = cid::s8::Staging<1, kQ8WarpPix>;
+constexpr int kQ8StageBytes = conv::kConsumers / 32 * Q8Staging::kBytes;
+
+// The s8 epilogue of a consumer warp: rows row0 + 4 * mt of the tile, the
+// pass's 64 channels from n0.  Channel pair by channel pair, so that one
+// pair's constants (bias pair, two scales) sit in registers beside the
+// accumulators; the staged bytes go out as 16-byte stores (vec: Cout a
+// multiple of 16 and y 16-byte aligned, so every pixel's run is aligned).
+template <int MT>
+__device__ __forceinline__ void epilogue_q8(
+    const float (&acc)[MT][32], const float* bs, const cid::s8::QScale* qs,
+    unsigned char* buf, bool relu, int row0, const TileAt& at, int8_t* yq,
+    int H, int W, int Cout, int n0, bool vec) {
+  namespace s8 = cid::s8;
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const Q8Staging stg{buf};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * q;
+    const s8::Pair k{0.f, 0.f, s8::pack_bf16x2(bs[n0 + c], bs[n0 + c + 1]),
+                     qs[n0 + c], qs[n0 + c + 1]};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        stg.put(mt * kTile + g + 8 * hf, c,
+                q8_pair(acc[mt][4 * i + 2 * hf], acc[mt][4 * i + 2 * hf + 1],
+                        k, relu));
+  }
+  mma::warp_sync();
+  const int valid = Cout - n0 < conv::kNB ? Cout - n0 : conv::kNB;
+  stg.flush(valid, vec, [&](int p) -> unsigned char* {
+    const int gy = at.y0 + row0 + (p / kTile) * 4, gx = at.x0 + p % kTile;
+    if (gy >= H || gx >= W) return nullptr;
+    return reinterpret_cast<unsigned char*>(
+        yq + (((long long)at.n * H + gy) * W + gx) * Cout + n0);
+  });
+  mma::warp_sync();  // the buffer is free again
 }
 
 // Cout > 8.  One work item = (tile, 64-channel output pass, KC-channel chunk);
@@ -270,7 +330,7 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
                      int H, int W, int Cout, int relu, int tiles_h,
                      int tiles_w, int total_tiles, int vec_w, int pair_ok,
                      int resident, const float* __restrict__ qscale,
-                     int8_t* __restrict__ yq) {
+                     int8_t* __restrict__ yq, int q8_vec) {
   const int Cin = in.a.C + in.b.C;
   constexpr int WB = conv::weight_stage_bytes(KC);
   constexpr int XB = kWin * kWin * 2 * KC;
@@ -293,6 +353,9 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
   if (qscale != nullptr)
     for (int i = tid; i < npass * conv::kNB; i += conv::kThreads)
       qs[i] = cid::s8::qscale_of(i < Cout ? qscale[i] : 1.f);
+  // s8 out: the consumer warps' staging, [kConsumers / 32][Q8Staging]
+  unsigned char* q8stage =
+      reinterpret_cast<unsigned char*>(qs + npass * conv::kNB);
 
   if (tid >= conv::kConsumers) {
     mma::setmaxnreg_dec<conv::kProducerRegs>();
@@ -327,7 +390,11 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
     conv::mma_chunk<KC, MT>(
         acc, conv::WindowAddr<KC>{mma::smem_u32(xst + stage * XB)}, pbase,
         kWin, mma::smem_u32(wst + (resident ? cur.chunk : stage) * WB));
-    if (cur.chunk == nchunks - 1) {
+    if (cur.chunk == nchunks - 1 && yq != nullptr) {
+      epilogue_q8<MT>(acc, bs, qs, q8stage + (tid / 32) * Q8Staging::kBytes,
+                      relu, (wg * MT) * 4 + warp, cur.at, yq, H, W, Cout,
+                      cur.pass * conv::kNB, q8_vec);
+    } else if (cur.chunk == nchunks - 1) {
       const int n0 = cur.pass * conv::kNB;
       const TileAt at = cur.at;
 #pragma unroll
@@ -338,19 +405,6 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
           const int gx = at.x0 + lane / 4 + 8 * hf;
           if (gy >= H || gx >= W) continue;
           const size_t pix = (size_t)at.n * H * W + (size_t)gy * W + gx;
-          if (yq != nullptr) {
-            int8_t* out = yq + pix * Cout;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const int co = n0 + 8 * i + 2 * (lane % 4);
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                if (co + e < Cout)
-                  out[co + e] = q8_of(acc[mt][4 * i + 2 * hf + e],
-                                      bs[co + e], qs[co + e], relu);
-            }
-            continue;
-          }
           bf16* out = y + pix * Cout;
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
@@ -501,8 +555,10 @@ cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
                         cudaStream_t stream) {
   const int cin = in.a.C + in.b.C;
   const int nchunks = (cin + KC - 1) / KC;
+  // s8 out: QScales (12 bytes a channel) beside the f32 bias, and staging
   const int smem = wide_ring_bytes<KC, S>(resident ? nchunks : S) +
-                   bias_bytes(cout) * (qscale ? 4 : 1);
+                   bias_bytes(cout) * (qscale ? 4 : 1) +
+                   (qscale ? kQ8StageBytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
       conv3x3_wgmma_kernel<KC, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -516,7 +572,7 @@ cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
       in, w, b, y, h, wd, cout, relu, tiles_h, tiles_w, (int)tiles,
       cout % 8 == 0 && conv::aligned16(w),
       cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident,
-      qscale, yq);
+      qscale, yq, cout % 16 == 0 && conv::aligned16(yq));
   return cudaGetLastError();
 }
 
@@ -575,7 +631,8 @@ cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* wv,
   // 32 channels at a time through three stages, or 16 through four where Cin
   // is ragged.
   if (cin % 32 == 0 && cout <= conv::kNB &&
-      wide_ring_bytes<32, 4>(cin / 32) + 4 * bias_bytes(cout) <=
+      wide_ring_bytes<32, 4>(cin / 32) + 4 * bias_bytes(cout) +
+              (qscale ? kQ8StageBytes : 0) <=
           conv::kMaxSmem)
     return launch_wide<32, 4>(in, w, b, y, n, h, wd, cout, relu, true, qscale,
                               yq, s);
@@ -604,7 +661,7 @@ extern "C" int cid_conv3x3_bias_relu(const void* x, const void* x2,
 }
 
 // bf16 x (N,H,W,Cin) -> s8 y (N,H,W,Cout) at the per-channel scales qscale
-// (Cout,) f32, Cout > 8, one input; the epilogue of q8_of.
+// (Cout,) f32, Cout > 8, one input; the epilogue of q8_pair.
 extern "C" int cid_conv3x3_bias_relu_q8(const void* x, const void* w,
                                         const void* b, const void* qscale,
                                         void* y, int n, int h, int wd,

@@ -116,10 +116,32 @@ inline uint32_t pack_bf16x2(float lo, float hi) {
   return (uint32_t)__float2bfloat16(lo).bits |
          ((uint32_t)__float2bfloat16(hi).bits << 16);
 }
+// a + b rounded once to bf16 (nearest even), as fma.rn.bf16x2 by 1.0 does,
+// computed without any float rounding in between: TwoSum gives s + e = a + b
+// exactly (s the double nearest), and s is rounded to a multiple of the
+// bf16 ulp at its binade with e breaking a tie (s on a midpoint) and a
+// double's half ulp unable to cross one otherwise.
+inline uint16_t bf16_of_sum(float a, float b) {
+  const double x = a, y = b, s = x + y;
+  if (!std::isfinite(s)) return __float2bfloat16((float)s).bits;
+  const double z = s - x, e = (x - (s - z)) + (y - z);
+  const double m = std::fabs(s), em = s < 0 ? -e : e;  // e toward |s|
+  int ex;
+  std::frexp(m, &ex);  // m = f * 2^ex, 0.5 <= f < 1
+  const double ulp = std::ldexp(1.0, std::max(ex - 8, -133));
+  const double q = m / ulp, r = std::floor(q), frac = q - r;
+  const bool up = frac > 0.5 || (frac == 0.5 && (em > 0 || (em == 0 &&
+                                                 std::fmod(r, 2.0) != 0)));
+  const float v = (float)((r + (up ? 1.0 : 0.0)) * ulp);  // exact or inf
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  return (uint16_t)((u >> 16) | (s < 0 || (s == 0 && std::signbit(s))
+                                     ? 0x8000u : 0u));
+}
 inline uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  return pack_bf16x2(__fadd_rn(bits_float(a << 16), bits_float(b << 16)),
-                     __fadd_rn(bits_float(a & 0xFFFF0000u),
-                               bits_float(b & 0xFFFF0000u)));
+  return (uint32_t)bf16_of_sum(bits_float(a << 16), bits_float(b << 16)) |
+         ((uint32_t)bf16_of_sum(bits_float(a & 0xFFFF0000u),
+                                bits_float(b & 0xFFFF0000u)) << 16);
 }
 #endif
 __device__ __forceinline__ float bf16_lo(uint32_t u) {

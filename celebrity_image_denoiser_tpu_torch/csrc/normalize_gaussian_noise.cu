@@ -1,39 +1,75 @@
-// Fused uint8 -> [-1, 1] normalisation with additive Gaussian noise.
+// The training input stage in one launch: a uint8 NHWC batch in, its noisy
+// version and its clean target out, both float32 in [-1, 1].
 //
 // Replaces:
 //   celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py::fused_normalize_gaussian_noise (:46)
-// which is the training input stage: for every element of a uint8 NHWC
-// batch,
-//   out = clip(x * (1/255) + (sigma / 255) * n, 0, 1) * 2 - 1,  n ~ N(0, 1),
-// one read of a byte and one write of a float or bfloat16, nothing else in
-// device memory.  The normal is a Box-Muller transform of two 24-bit
-// uniforms, u1 in (0, 1] and u2 in [0, 1), as in the Pallas body (:33-38).
+// (uint8 -> clip(x / 255 + (sigma / 255) n, 0, 1) * 2 - 1 with n ~ N(0, 1))
+// and, around it, the rest of the JAX package's on-the-fly input stage,
+// celebrity_image_denoiser_tpu/data/noise.py::random_noise_batch (:207-229):
+// one compiled program in which every sample takes the noise kind it drew
+// (vmap + lax.switch), and the trainer's normalisation of the clean batch.
+// Each sample n takes kind codes[kinds[n]] of variant 1 (noise.py:47-86):
+//   gaussian     clip(x01 + (sigma / 255) n)                 sigma = 25
+//   salt_pepper  per pixel: 0 if up < 1 - e^(-0.02 C), else 1 if
+//                us < 1 - e^(-0.02 C), else x01 (pepper over salt)
+//   speckle      clip(x01 + x01 (0.1 n))
+//   poisson      clip(K / 255), K ~ Poisson(x), counts >= 255 alike
+//   uniform      clip(x01 + u (25 / 255))
+// then * 2 - 1; the clean target is x01 * 2 - 1.  x01 = x * RN(1/255): on
+// the card PyTorch divides by a scalar as a product with its reciprocal,
+// so this is the trainer's clean.to(float32) / 255.0 * 2.0 - 1.0 there.
 //
 // Random bits.  The TPU kernel reads its core's hardware generator, whose
 // stream no other machine can reproduce.  Here the bits come from
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 // 3", SC'11), written out below so that the plain PyTorch version in
-// ops/cuda/noise.py can reproduce the stream bit for bit:
-//   * i is the flat element index over the whole tensor, 64 bits;
+// ops/cuda/noise.py reproduces the stream bit for bit:
+//   * i is the flat element index over the whole batch, 64 bits;
 //   * counter = (lo32(i >> 1), hi32(i >> 1), 0, 0), key = (lo32(seed),
-//     hi32(seed));
+//     hi32(seed)); the seed is read from device memory (the trainer draws
+//     it on the card: nothing comes to the host) or given by value;
 //   * an even i takes output words 0, 1 as (a, b), an odd i words 2, 3;
-//   * u1 = (a >> 8) * 2^-24 + 2^-25,  u2 = (b >> 8) * 2^-24;
-//   * n = sqrt(-2 ln u1) * cos(2 pi u2).
-// So the output depends on (seed, index) only, never on the launch grid:
-// the same (seed, shape) gives the same tensor, as the original promises.
-// Every float operation that the compiler could contract into an FMA is
-// written with a round-to-nearest intrinsic, so the arithmetic is the
-// plain version's, operation for operation.
+//   * u1 = (a >> 8) 2^-24 + 2^-25, u2 = (b >> 8) 2^-24,
+//     n = sqrt(-2 ln u1) cos(2 pi u2) (gaussian, speckle); u = (a >> 8)
+//     2^-24 (uniform); salt & pepper take us, up from (a, b) of the
+//     pixel's channel-0 element; poisson takes the whole word a.
+// So a gaussian sample gets exactly what the gaussian-only kernel gives at
+// the same index, and the output depends on (seed, index, kinds) only,
+// never on the launch grid.  Every float operation the compiler could
+// contract into an FMA is written with a round-to-nearest intrinsic, and
+// logf / cosf / sqrtf are the precise ones torch.log / torch.cos /
+// torch.sqrt call on the card, so the arithmetic is the plain version's,
+// operation for operation.
 //
-// What bounds it on an H100: bytes (1 read + 2 or 4 written per element);
-// at the training batch (16 x 256 x 256 x 3) that is microseconds, below
-// the cost of a launch.  The design is therefore plain: a thread owns 16
-// consecutive elements (one 16-byte load, eight Philox blocks, two or four
-// 16-byte stores); the last, partial chunk and unaligned tensors take a
-// scalar loop over the same indices.  None of the Pallas version's VMEM
-// matters (one image per grid step, (rows, 128) lanes, a padded tail) is
-// carried over.
+// Poisson without a rejection loop.  lambda = x is an integer in 0..255 and
+// every count >= 255 gives the same output, so inversion against a table is
+// exact: row lambda holds T[k] = ceil(P(K <= k) 2^32) - 1 (float64 on the
+// host, 256 x 256 uint32 = 256 KB, which stays in L2), and K = #{k : T[k] <
+// a}, at most 255; P(K <= k) is then exact to 2^-32.  A guide holds K at
+// a = j 2^22 (1025 bytes a row, 256 KB): K lies between the counts at the
+// ends of a's bucket, which are equal for 94% of the words at random
+// lambda; a binary search between them costs 0.07 table reads a word on
+// average, the eight words of a thread searched in step.  A warp waits for
+// its longest search: about 3.4 steps at random lambda (6.5 with 256
+// buckets), mostly in the buckets at the ends, where the thresholds of the
+// tails crowd together.
+//
+// What bounds it on an H100.  Bytes: one read of a byte and two writes of
+// a float per element (3.1 MB + 25.2 MB at the train batch, 16 x 256 x 256
+// x 3, 8.4 us at 3.35 TB/s).  Operations: Philox's 40 multiplies per two
+// elements and, for the gaussian and speckle samples, the precise log, cos
+// and sqrt; chip_smoke.py counts the instructions every chunk of each kind
+// must issue (noise_issue_probe, in SASS) against the SMs' issue rate.
+// The design: a thread owns 8 consecutive elements of one sample (an
+// 8-byte load, four Philox blocks, 16-byte stores of the noisy and clean
+// floats): 393,216 threads at the train batch, more than the 270,336 the
+// card holds at once, so each SM keeps its four schedulers fed; the kind
+// is uniform over a chunk (a warp's 256 elements straddle two samples only
+// where a sample's size is not a multiple of 8), so a warp takes one
+// branch.  Chunks across a sample boundary, the batch's tail and
+// unaligned tensors take a scalar loop over the same indices.  None of
+// the Pallas version's VMEM matters (one image per grid step, (rows, 128)
+// lanes, a padded tail) is carried over.
 
 #include <cstdint>
 
@@ -42,7 +78,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;  // elements per thread
+constexpr int kChunk = 8;  // elements per thread
+
+// kind codes, as ops/cuda/noise.py's KIND_CODES
+constexpr int kGaussian = 0, kSaltPepper = 1, kSpeckle = 2, kPoisson = 3,
+              kUniform = 4;
+// poisson guide: 1025 counts per row, at a = j 2^22 for j = 0..1024
+constexpr int kGuideShift = 22, kGuideRow = 1025;
+constexpr float kInv255 = 0.00392156862745098f;  // RN(1 / 255)
+
+// the launch's constants (ops/cuda/noise.py computes them)
+struct Params {
+  float sigma01;  // gaussian: sigma / 255
+  float speckle;  // speckle: sigma
+  float uniform;  // uniform: (high - low) / 255
+  float salt, pepper;  // salt & pepper: 1 - e^(-p C), rounded to float
+};
 
 struct Philox4 {
   uint32_t w[4];
@@ -69,101 +120,424 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
   return Philox4{{c0, c1, c2, c3}};
 }
 
+// the block of element pair `pair` (elements 2 pair, 2 pair + 1)
+__device__ __forceinline__ Philox4 block_of(unsigned long long pair,
+                                            uint32_t k0, uint32_t k1) {
+  return philox4x32_10((uint32_t)pair, (uint32_t)(pair >> 32), 0u, 0u, k0,
+                       k1);
+}
+
+__device__ __forceinline__ float uniform24(uint32_t w) {
+  return __fmul_rn((float)(w >> 8), 1.0f / 16777216.0f);
+}
+
 // Box-Muller on the top 24 bits of a and b.
 __device__ __forceinline__ float normal_from_bits(uint32_t a, uint32_t b) {
-  const float u1 = __fadd_rn(
-      __fmul_rn((float)(a >> 8), 1.0f / 16777216.0f), 1.0f / 33554432.0f);
-  const float u2 = __fmul_rn((float)(b >> 8), 1.0f / 16777216.0f);
+  const float u1 = __fadd_rn(uniform24(a), 1.0f / 33554432.0f);
+  const float u2 = uniform24(b);
   const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
   return __fmul_rn(r, cosf(__fmul_rn(6.283185307179586f, u2)));
 }
 
-__device__ __forceinline__ float transform(uint8_t x, float sigma01, float n) {
-  const float x01 = __fmul_rn((float)x, 0.00392156862745098f);  // 1/255
-  float v = __fadd_rn(x01, __fmul_rn(sigma01, n));
-  v = fminf(fmaxf(v, 0.0f), 1.0f);
+__device__ __forceinline__ float clip01(float v) {
+  return fminf(fmaxf(v, 0.0f), 1.0f);
+}
+__device__ __forceinline__ float to_pm1(float v) {
   return __fadd_rn(__fmul_rn(v, 2.0f), -1.0f);
+}
+__device__ __forceinline__ float x01_of(uint8_t x) {
+  return __fmul_rn((float)x, kInv255);
+}
+
+// K ~ Poisson(lambda) from the word a: the thresholds it passes.  The
+// count lies between the guide's counts at the ends of a's bucket (a >>
+// 22), equal for 94% of the words; a binary search between them reads the
+// table the rest of the time.
+__device__ __forceinline__ int poisson_count(uint8_t lambda, uint32_t a,
+                                             const uint32_t* __restrict__ table,
+                                             const uint8_t* __restrict__ guide) {
+  const uint8_t* g = guide + lambda * kGuideRow + (a >> kGuideShift);
+  int lo = g[0], hi = g[1];
+  const uint32_t* row = table + lambda * 256;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row[mid] < a)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The noisy value of one element of a sample of kind KIND (not salt &
+// pepper), from its words (a, b).
+template <int KIND>
+__device__ __forceinline__ float noisy_of(uint8_t x, uint32_t a, uint32_t b,
+                                          const Params& p,
+                                          const uint32_t* __restrict__ table,
+                                          const uint8_t* __restrict__ guide) {
+  if (KIND == kGaussian) {
+    const float n = normal_from_bits(a, b);
+    return to_pm1(clip01(__fadd_rn(x01_of(x), __fmul_rn(p.sigma01, n))));
+  }
+  if (KIND == kSpeckle) {
+    const float img = x01_of(x), n = normal_from_bits(a, b);
+    return to_pm1(
+        clip01(__fadd_rn(img, __fmul_rn(img, __fmul_rn(p.speckle, n)))));
+  }
+  if (KIND == kUniform)
+    return to_pm1(
+        clip01(__fadd_rn(x01_of(x), __fmul_rn(uniform24(a), p.uniform))));
+  // poisson
+  return to_pm1(clip01(
+      __fmul_rn((float)poisson_count(x, a, table, guide), kInv255)));
+}
+
+// salt & pepper given the pixel's words
+__device__ __forceinline__ float salt_pepper_of(uint8_t x, uint32_t a,
+                                                uint32_t b, const Params& p) {
+  if (uniform24(b) < p.pepper) return -1.0f;
+  if (uniform24(a) < p.salt) return 1.0f;
+  return to_pm1(x01_of(x));
+}
+
+// the words (a, b) of element i
+__device__ __forceinline__ void words_of(long long i, uint32_t k0, uint32_t k1,
+                                         uint32_t& a, uint32_t& b) {
+  const Philox4 r = block_of((unsigned long long)i >> 1, k0, k1);
+  a = (i & 1) ? r.w[2] : r.w[0];
+  b = (i & 1) ? r.w[3] : r.w[1];
+}
+
+// The noisy values of the kChunk elements from i0 (even), all of one sample
+// of kind KIND; xs their bytes.  channels: the samples' C (salt & pepper).
+template <int KIND>
+__device__ __forceinline__ void chunk_of(const uint8_t (&xs)[kChunk],
+                                         long long i0, int channels,
+                                         uint32_t k0, uint32_t k1,
+                                         const Params& p,
+                                         const uint32_t* __restrict__ table,
+                                         const uint8_t* __restrict__ guide,
+                                         float (&out)[kChunk]) {
+  if (KIND == kPoisson) {
+    // the eight searches in step, so that their loads are in flight
+    // together (each a dependent read of L2 otherwise)
+    uint32_t a[kChunk];
+    int lo[kChunk], hi[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk / 2; ++q) {
+      const Philox4 r = block_of((unsigned long long)(i0 >> 1) + q, k0, k1);
+      a[2 * q] = r.w[0];
+      a[2 * q + 1] = r.w[2];
+    }
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) {
+      const uint8_t* g = guide + xs[e] * kGuideRow + (a[e] >> kGuideShift);
+      lo[e] = g[0];
+      hi[e] = g[1];
+    }
+    bool open = true;
+    while (open) {
+      open = false;
+#pragma unroll
+      for (int e = 0; e < kChunk; ++e)
+        if (lo[e] < hi[e]) {
+          const int mid = (lo[e] + hi[e]) >> 1;
+          if (table[xs[e] * 256 + mid] < a[e])
+            lo[e] = mid + 1;
+          else
+            hi[e] = mid;
+          open |= lo[e] < hi[e];
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      out[e] = to_pm1(clip01(__fmul_rn((float)lo[e], kInv255)));
+    return;
+  }
+  if (KIND == kSaltPepper) {
+    // pixel by pixel (a pixel's channels are consecutive elements): which
+    // elements turn to pepper or salt, as bit masks over the chunk
+    uint32_t pepper = 0, salt = 0;
+    for (long long q = i0 - i0 % channels; q < i0 + kChunk; q += channels) {
+      uint32_t a, b;
+      words_of(q, k0, k1, a, b);
+      const int lo = q > i0 ? (int)(q - i0) : 0;
+      const int hi = q + channels < i0 + kChunk ? (int)(q + channels - i0)
+                                                : kChunk;
+      const uint32_t bits = ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+      if (uniform24(b) < p.pepper)
+        pepper |= bits;
+      else if (uniform24(a) < p.salt)
+        salt |= bits;
+    }
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      out[e] = (pepper >> e) & 1u ? -1.0f
+               : (salt >> e) & 1u ? 1.0f
+                                  : to_pm1(x01_of(xs[e]));
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kChunk / 2; ++q) {
+    const Philox4 r = block_of((unsigned long long)(i0 >> 1) + q, k0, k1);
+    out[2 * q] = noisy_of<KIND>(xs[2 * q], r.w[0], r.w[1], p, table, guide);
+    out[2 * q + 1] =
+        noisy_of<KIND>(xs[2 * q + 1], r.w[2], r.w[3], p, table, guide);
+  }
+}
+
+__device__ __forceinline__ void load8(const uint8_t* __restrict__ x,
+                                      uint8_t (&xs)[kChunk]) {
+  const unsigned long long raw = *reinterpret_cast<const unsigned long long*>(x);
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) xs[e] = (uint8_t)(raw >> (8 * e));
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* __restrict__ dst,
+                                       const float (&v)[kChunk]) {
+  __align__(16) T vals[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) vals[j] = cid::from_f32<T>(v[j]);
+  constexpr int kStores = kChunk * (int)sizeof(T) / 16;
+  const uint4* src = reinterpret_cast<const uint4*>(vals);
+  uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int s = 0; s < kStores; ++s) out[s] = src[s];
+}
+
+// the clean target of the chunk
+__device__ __forceinline__ void store_clean(float* __restrict__ dst,
+                                            const uint8_t (&xs)[kChunk]) {
+  float v[kChunk];
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e) v[e] = to_pm1(x01_of(xs[e]));
+  store8<float>(dst, v);
+}
+
+// codes: 4 bits per entry of `types`; kinds: the entry each sample drew (a
+// null kinds: every sample entry 0).  A code beyond the five gives NaN.
+__device__ __forceinline__ int kind_of(const long long* __restrict__ kinds,
+                                       uint32_t codes, long long s) {
+  const long long t = kinds == nullptr ? 0 : kinds[s];
+  return t >= 0 && t < 8 ? (int)((codes >> (4 * t)) & 0xFu) : 0xF;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-normalize_gaussian_noise_kernel(const uint8_t* __restrict__ x,
-                                T* __restrict__ y, long long total,
-                                uint32_t k0, uint32_t k1, float sigma01,
-                                int aligned) {
-  const long long chunk =
-      (long long)blockIdx.x * kThreads + (long long)threadIdx.x;
-  const long long i0 = chunk * kChunk;  // even, so pairs never straddle
+noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
+                   float* __restrict__ clean,
+                   const long long* __restrict__ kinds, uint32_t codes,
+                   const unsigned long long* __restrict__ seed_ptr,
+                   unsigned long long seed, long long total,
+                   long long per_sample, int channels,
+                   const uint32_t* __restrict__ table,
+                   const uint8_t* __restrict__ guide, Params p, int aligned) {
+  const long long i0 =
+      ((long long)blockIdx.x * kThreads + (long long)threadIdx.x) * kChunk;
   if (i0 >= total) return;
+  if (seed_ptr != nullptr) seed = *seed_ptr;
+  const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  const long long s0 = i0 / per_sample;
 
-  if (aligned && i0 + kChunk <= total) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(x + i0);
-    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+  if (aligned && i0 + kChunk <= total && i0 + kChunk <= (s0 + 1) * per_sample) {
+    uint8_t xs[kChunk];
+    load8(x + i0, xs);
     float out[kChunk];
+    switch (kind_of(kinds, codes, s0)) {
+      case kGaussian:
+        chunk_of<kGaussian>(xs, i0, channels, k0, k1, p, table, guide, out);
+        break;
+      case kSaltPepper:
+        chunk_of<kSaltPepper>(xs, i0, channels, k0, k1, p, table, guide, out);
+        break;
+      case kSpeckle:
+        chunk_of<kSpeckle>(xs, i0, channels, k0, k1, p, table, guide, out);
+        break;
+      case kPoisson:
+        chunk_of<kPoisson>(xs, i0, channels, k0, k1, p, table, guide, out);
+        break;
+      case kUniform:
+        chunk_of<kUniform>(xs, i0, channels, k0, k1, p, table, guide, out);
+        break;
+      default:
 #pragma unroll
-    for (int p = 0; p < kChunk / 2; ++p) {
-      const unsigned long long pair = (unsigned long long)(i0 >> 1) + p;
-      const Philox4 r = philox4x32_10((uint32_t)pair, (uint32_t)(pair >> 32),
-                                      0u, 0u, k0, k1);
-      const uint32_t word = words[p / 2];
-      const uint8_t xe = (uint8_t)(word >> ((p % 2) * 16));
-      const uint8_t xo = (uint8_t)(word >> ((p % 2) * 16 + 8));
-      out[2 * p] = transform(xe, sigma01, normal_from_bits(r.w[0], r.w[1]));
-      out[2 * p + 1] =
-          transform(xo, sigma01, normal_from_bits(r.w[2], r.w[3]));
+        for (int e = 0; e < kChunk; ++e) out[e] = nanf("");
     }
-    __align__(16) T vals[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) vals[j] = cid::from_f32<T>(out[j]);
-    constexpr int kStores = kChunk * (int)sizeof(T) / 16;
-    const uint4* src = reinterpret_cast<const uint4*>(vals);
-    uint4* dst = reinterpret_cast<uint4*>(y + i0);
-#pragma unroll
-    for (int s = 0; s < kStores; ++s) dst[s] = src[s];
+    store8<T>(noisy + i0, out);
+    if (clean != nullptr) store_clean(clean + i0, xs);
     return;
   }
 
   const long long end = i0 + kChunk < total ? i0 + kChunk : total;
   for (long long i = i0; i < end; ++i) {
-    const unsigned long long pair = (unsigned long long)i >> 1;
-    const Philox4 r = philox4x32_10((uint32_t)pair, (uint32_t)(pair >> 32), 0u,
-                                    0u, k0, k1);
-    const float n = (i & 1) ? normal_from_bits(r.w[2], r.w[3])
-                            : normal_from_bits(r.w[0], r.w[1]);
-    y[i] = cid::from_f32<T>(transform(x[i], sigma01, n));
+    const uint8_t xe = x[i];
+    const int kind = kind_of(kinds, codes, i / per_sample);
+    uint32_t a, b;
+    words_of(kind == kSaltPepper ? i - i % channels : i, k0, k1, a, b);
+    float v;
+    switch (kind) {
+      case kGaussian: v = noisy_of<kGaussian>(xe, a, b, p, table, guide); break;
+      case kSaltPepper: v = salt_pepper_of(xe, a, b, p); break;
+      case kSpeckle: v = noisy_of<kSpeckle>(xe, a, b, p, table, guide); break;
+      case kPoisson: v = noisy_of<kPoisson>(xe, a, b, p, table, guide); break;
+      case kUniform: v = noisy_of<kUniform>(xe, a, b, p, table, guide); break;
+      default: v = nanf("");
+    }
+    noisy[i] = cid::from_f32<T>(v);
+    if (clean != nullptr) clean[i] = to_pm1(x01_of(xe));
   }
 }
 
+// One chunk of one kind per thread, the fast path alone (total a multiple
+// of kChunk, one sample): what chip_smoke.py counts in SASS for the
+// arithmetic floor of each kind, and times kind by kind.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+noise_issue_probe(const uint8_t* __restrict__ x, float* __restrict__ noisy,
+                  float* __restrict__ clean,
+                  const unsigned long long* __restrict__ seed_ptr,
+                  long long total, int channels,
+                  const uint32_t* __restrict__ table,
+                  const uint8_t* __restrict__ guide, Params p) {
+  const long long i0 =
+      ((long long)blockIdx.x * kThreads + (long long)threadIdx.x) * kChunk;
+  if (i0 >= total) return;
+  const unsigned long long seed = *seed_ptr;
+  uint8_t xs[kChunk];
+  load8(x + i0, xs);
+  float out[kChunk];
+  chunk_of<KIND>(xs, i0, channels, (uint32_t)seed, (uint32_t)(seed >> 32), p,
+                 table, guide, out);
+  store8<float>(noisy + i0, out);
+  store_clean(clean + i0, xs);
+}
+
+bool aligned_to(const void* ptr, uintptr_t n) {
+  return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % n == 0;
+}
+
 template <typename T>
-cudaError_t launch(const void* x, void* y, long long total,
-                   unsigned long long seed, float sigma01,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, void* noisy, float* clean,
+                   const long long* kinds, uint32_t codes,
+                   const unsigned long long* seed_ptr, unsigned long long seed,
+                   long long total, long long per_sample, int channels,
+                   const uint32_t* table, const uint8_t* guide,
+                   const Params& p, cudaStream_t stream) {
   const long long chunks = (total + kChunk - 1) / kChunk;
   const long long blocks = (chunks + kThreads - 1) / kThreads;
   if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
-  const int aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(y) % 16 == 0)
-                          ? 1
-                          : 0;
-  normalize_gaussian_noise_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<T*>(y), total,
-      (uint32_t)seed, (uint32_t)(seed >> 32), sigma01, aligned);
+  const int aligned =
+      aligned_to(x, 8) && aligned_to(noisy, 16) && aligned_to(clean, 16);
+  noise_batch_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<T*>(noisy), clean, kinds,
+      codes, seed_ptr, seed, total, per_sample, channels, table, guide, p,
+      aligned);
+  return cudaGetLastError();
+}
+
+template <int KIND>
+cudaError_t launch_probe(const void* x, float* noisy, float* clean,
+                         const unsigned long long* seed_ptr, long long total,
+                         int channels, const uint32_t* table,
+                         const uint8_t* guide, const Params& p,
+                         cudaStream_t stream) {
+  const long long blocks = (total / kChunk + kThreads - 1) / kThreads;
+  noise_issue_probe<KIND><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(x), noisy, clean, seed_ptr, total, channels,
+      table, guide, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: `total` uint8 values; y: `total` values of `dtype` (common.cuh codes).
+// x: `total` uint8 values, samples of `per_sample` elements (a multiple of
+// `channels`); noisy: `total` values of `dtype` (common.cuh codes); clean:
+// `total` floats or null; kinds: one int64 per sample, an index into the
+// 4-bit `codes`, or null (every sample entry 0); the seed from seed_ptr (8
+// bytes on the device) or, if that is null, `seed`; table (256 x 256
+// uint32) and guide (256 x 64 uint8): the poisson inversion, needed where a
+// code is poisson.
+extern "C" int cid_noise_batch(const void* x, void* noisy, void* clean,
+                               const void* kinds, unsigned int codes,
+                               const void* seed_ptr, unsigned long long seed,
+                               long long total, long long per_sample,
+                               int channels, const void* table,
+                               const void* guide, float sigma01,
+                               float speckle, float uniform, float salt,
+                               float pepper, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (total <= 0 || per_sample <= 0 || channels <= 0 ||
+      per_sample % channels != 0 || total % per_sample != 0)
+    return (int)cudaErrorInvalidValue;
+  for (uint32_t c = codes; c != 0; c >>= 4)
+    if ((c & 0xFu) == kPoisson && (table == nullptr || guide == nullptr))
+      return (int)cudaErrorInvalidValue;
+  const Params p{sigma01, speckle, uniform, salt, pepper};
+  const auto* k = static_cast<const long long*>(kinds);
+  const auto* sp = static_cast<const unsigned long long*>(seed_ptr);
+  const auto* t = static_cast<const uint32_t*>(table);
+  const auto* g = static_cast<const uint8_t*>(guide);
+  float* c = static_cast<float*>(clean);
+  if (dtype == cid::kDtypeF32)
+    return (int)launch<float>(x, noisy, c, k, codes, sp, seed, total,
+                              per_sample, channels, t, g, p, s);
+  if (dtype == cid::kDtypeBF16)
+    return (int)launch<__nv_bfloat16>(x, noisy, c, k, codes, sp, seed, total,
+                                      per_sample, channels, t, g, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gaussian-only entry of the Pallas original: every element gaussian,
+// no clean output, the seed by value.
 extern "C" int cid_normalize_gaussian_noise(const void* x, void* y,
                                             long long total,
                                             unsigned long long seed,
                                             float sigma01, int dtype,
                                             void* stream) {
+  return cid_noise_batch(x, y, nullptr, nullptr, (unsigned)kGaussian, nullptr,
+                         seed, total, total, 1, nullptr, nullptr, sigma01, 0.f,
+                         0.f, 0.f, 0.f, dtype, stream);
+}
+
+// noise_issue_probe of one kind (x, noisy, clean as for cid_noise_batch, f32;
+// total a multiple of 8, one sample).
+extern "C" int cid_noise_issue_probe(int kind, const void* x, void* noisy,
+                                     void* clean, const void* seed_ptr,
+                                     long long total, int channels,
+                                     const void* table, const void* guide,
+                                     float sigma01, float speckle,
+                                     float uniform, float salt, float pepper,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (total <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == cid::kDtypeF32)
-    return (int)launch<float>(x, y, total, seed, sigma01, s);
-  if (dtype == cid::kDtypeBF16)
-    return (int)launch<__nv_bfloat16>(x, y, total, seed, sigma01, s);
-  return (int)cudaErrorInvalidValue;
+  if (total <= 0 || total % kChunk != 0 || channels <= 0 ||
+      seed_ptr == nullptr || table == nullptr || guide == nullptr ||
+      !cid::grid_fits((total / kChunk + kThreads - 1) / kThreads))
+    return (int)cudaErrorInvalidValue;
+  const Params p{sigma01, speckle, uniform, salt, pepper};
+  const auto* sp = static_cast<const unsigned long long*>(seed_ptr);
+  const auto* t = static_cast<const uint32_t*>(table);
+  const auto* g = static_cast<const uint8_t*>(guide);
+  float* n = static_cast<float*>(noisy);
+  float* c = static_cast<float*>(clean);
+  switch (kind) {
+    case kGaussian:
+      return (int)launch_probe<kGaussian>(x, n, c, sp, total, channels, t, g,
+                                          p, s);
+    case kSaltPepper:
+      return (int)launch_probe<kSaltPepper>(x, n, c, sp, total, channels, t,
+                                            g, p, s);
+    case kSpeckle:
+      return (int)launch_probe<kSpeckle>(x, n, c, sp, total, channels, t, g,
+                                         p, s);
+    case kPoisson:
+      return (int)launch_probe<kPoisson>(x, n, c, sp, total, channels, t, g,
+                                         p, s);
+    case kUniform:
+      return (int)launch_probe<kUniform>(x, n, c, sp, total, channels, t, g,
+                                         p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

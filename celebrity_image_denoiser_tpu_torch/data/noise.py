@@ -11,13 +11,15 @@ the same draws through the ``*_from_draws`` halves.
 
 ``random_noise_batch`` is the input stage itself.  It differs from the JAX
 function (``noise.py:207-229``) in what crosses its boundary, because the
-fused kernel does: it takes the clean batch as **uint8** NHWC (what the
-pipeline puts on the device — a quarter of the float32 bytes) and returns
-the noisy batch as float32 in **[-1, 1]**.  The samples that draw
-``gaussian`` go together, as one uint8 sub-batch, through
-``ops/cuda/noise.py::fused_normalize_gaussian_noise`` (the hand-written
-kernel on the card) and its output is used as it is; the other kinds run
-the functions below on ``u8/255`` and are mapped with ``·2 − 1``.
+kernel does: it takes the clean batch as **uint8** NHWC (what the pipeline
+puts on the device — a quarter of the float32 bytes) and returns the noisy
+batch and the clean target, both float32 in **[-1, 1]**, with the kind each
+sample drew.  Like the JAX function it is one program on the device with no
+host read: the kinds and the stream's seed are drawn from the generator on
+the batch's device and go, with the batch, to one launch of
+``ops/cuda/noise.py::noise_batch`` (the hand-written kernel on the card;
+its plain version on the CPU), in which each sample takes its kind from
+the functions below fed with the stream's draws.
 
 Variants 2 and 3, ``blind_gaussian_batch`` and ``poisson_v3_exact`` belong to
 families that are not ported yet (ROADMAP.md queue 1 item 10).
@@ -26,7 +28,7 @@ families that are not ported yet (ROADMAP.md queue 1 item 10).
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -136,40 +138,28 @@ def add_noise(gen: torch.Generator, img: torch.Tensor, kind: str,
 
 def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
                        types: Sequence[str] = NOISE_TYPES, variant: int = 1
-                       ) -> Tuple[torch.Tensor, List[int]]:
-    """Per-sample random noise type over a uint8 NHWC batch; returns the
-    noisy batch, float32 NHWC in [-1, 1], and the kind index each sample
-    drew (into ``types``).
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-sample random noise kind over a uint8 NHWC batch; returns the
+    noisy batch and the clean target, float32 NHWC in [-1, 1], and the kind
+    index each sample drew (into ``types``), an int64 tensor on the
+    batch's device.
 
-    One draw of ``n + 1`` integers from ``gen`` gives the ``n`` kind indices
-    and the seed of the fused gaussian kernel; it comes to the host once
-    (the sub-batches' sizes depend on it).  Then the gaussian samples take
-    one launch of ``fused_normalize_gaussian_noise`` — none if no sample drew
-    gaussian — and the other kinds draw from ``gen`` in the order of
-    ``types``."""
+    The ``n`` kind indices (uniform over ``types``, as the JAX function's
+    ``randint``) and then the stream's seed are drawn from ``gen`` on the
+    batch's device; neither comes to the host, and the noise takes one
+    launch of ``noise_batch``."""
     if batch_uint8.dtype != torch.uint8 or batch_uint8.dim() != 4:
         raise ValueError(f"batch must be uint8 (N, H, W, C), got "
                          f"{batch_uint8.dtype} {tuple(batch_uint8.shape)}")
     if gen.device.type != batch_uint8.device.type:
         raise ValueError(f"generator on {gen.device}, batch on "
                          f"{batch_uint8.device}")
-    fns = [_kind_fn(t, variant) for t in types]
-    n = batch_uint8.shape[0]
-    draws = torch.randint(0, 1 << 62, (n + 1,), generator=gen,
-                          device=batch_uint8.device).tolist()
-    kinds, seed = [d % len(types) for d in draws[:n]], draws[n]
-    out = torch.empty(batch_uint8.shape, dtype=torch.float32,
-                      device=batch_uint8.device)
-    for k, (name, fn) in enumerate(zip(types, fns)):
-        rows = [i for i, kind in enumerate(kinds) if kind == k]
-        if not rows:
-            continue
-        idx = torch.tensor(rows, device=batch_uint8.device)
-        sub = batch_uint8.index_select(0, idx)
-        if name == "gaussian":
-            noisy = noise_kernel.fused_normalize_gaussian_noise(
-                seed, sub, sigma=25.0, out_dtype=torch.float32)
-        else:
-            noisy = fn(gen, sub.to(torch.float32) / 255.0) * 2.0 - 1.0
-        out.index_copy_(0, idx, noisy)
-    return out, kinds
+    for t in types:  # unknown kinds and the waiting variants raise here
+        _kind_fn(t, variant)
+    dev = batch_uint8.device
+    kinds = torch.randint(0, len(types), batch_uint8.shape[:1], generator=gen,
+                          device=dev)
+    seed = torch.randint(0, 1 << 62, (1,), generator=gen, device=dev)
+    noisy, clean = noise_kernel.noise_batch(kinds, seed, batch_uint8,
+                                            tuple(types), variant)
+    return noisy, clean, kinds

@@ -136,6 +136,14 @@ def library() -> ctypes.CDLL:
                 P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                 I, P]
             lib.cid_normalize_gaussian_noise.restype = I
+            F = ctypes.c_float
+            lib.cid_noise_batch.argtypes = (
+                [P] * 4 + [ctypes.c_uint, P, ctypes.c_ulonglong, L, L, I, P,
+                           P] + [F] * 5 + [I, P])
+            lib.cid_noise_batch.restype = I
+            lib.cid_noise_issue_probe.argtypes = (
+                [I] + [P] * 4 + [L, I, P, P] + [F] * 5 + [P])
+            lib.cid_noise_issue_probe.restype = I
             lib.cid_probe_mma_sync.argtypes = [P] * 4
             lib.cid_probe_mma_sync.restype = I
             lib.cid_probe_wgmma.argtypes = [P] * 3 + [I, P]

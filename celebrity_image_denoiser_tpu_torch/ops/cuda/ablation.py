@@ -68,10 +68,19 @@ PARTS = {
          "if (cur.chunk == nchunks1 - 1 && H < 0) {"),
         ("double_conv3x3_relu.cu", "if (cur.chunk == nchunks2 - 1) {",
          "if (cur.chunk == nchunks2 - 1 && H < 0) {"),
-        ("conv3x3_bias_relu.cu", "    if (cur.chunk == nchunks - 1) {\n"
-         "      const int n0 = cur.pass * conv::kNB;",
-         "    if (cur.chunk == nchunks - 1 && H < 0) {\n"
-         "      const int n0 = cur.pass * conv::kNB;")],
+        ("conv3x3_bias_relu.cu",
+         "    if (cur.chunk == nchunks - 1 && yq != nullptr) {",
+         "    if (cur.chunk == nchunks - 1 && yq != nullptr && H < 0) {"),
+        ("conv3x3_bias_relu.cu", "    } else if (cur.chunk == nchunks - 1) {",
+         "    } else if (cur.chunk == nchunks - 1 && H < 0) {")],
+    # K2's s8 mode with its staged stores kept and its arithmetic taken
+    # out: the s8 pair is two bytes of the accumulators' bits
+    "q8 epilogue arithmetic": [
+        ("conv3x3_bias_relu.cu", "  namespace s8 = cid::s8;\n"
+         "  const uint32_t u = s8::add_bf16x2(",
+         "  namespace s8 = cid::s8;\n"
+         "  return s8::float_bits(acc0) ^ (s8::float_bits(acc1) << 8);\n"
+         "  const uint32_t u = s8::add_bf16x2(")],
     # the int8 kernels K5 (conv3x3_s8.cu: wgmma, and mma.sync for Cout <= 8)
     # and K6 (convt2x2_s8.cu)
     "s8 mma": [("mma.cuh",
@@ -128,6 +137,8 @@ VARIANTS = {
     "whole kernel": (),
     "no copies": ("copies",),
     "no epilogues": ("epilogues",),
+    "stores only (no epilogue arithmetic; q8 only)": (
+        "q8 epilogue arithmetic",),
     "no wgmma": ("wgmma",),
     "no wgmma, no copies": ("wgmma", "copies"),
     "no wgmma, no copies, no ldmatrix": ("wgmma", "copies", "ldmatrix"),

@@ -29,9 +29,11 @@ In PyTorch idiom:
   not follow it), so ``ops/conv.py``'s layer functions consult
   ``conv_hook`` first, as the JAX package's ``ops.conv2d`` does; the int8
   products run the hand-written kernels ``conv3x3_s8`` (3×3, stride 1,
-  padding 1) and ``convt2x2_s8`` (2×2, stride 2) on the card, and an exact
-  float64 product on the CPU for any other geometry.  On a card a geometry
-  with no kernel raises.
+  padding 1, at most ``conv3x3_s8.MAX_CIN`` input channels) and
+  ``convt2x2_s8`` (2×2, stride 2) on the card, and an exact float64 product
+  on the CPU for any other geometry.  On a card a geometry with no kernel
+  raises ``NoInt8Kernel``, a ``ValueError``: the serving ladder then moves
+  down a rung, while a kernel that fails stays loud.
 
 Replay is positional, so a model whose conv sequence changed since
 calibration fails loudly: over-consumed, a shape mismatch, under-consumed
@@ -190,7 +192,8 @@ def int8_conv2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
 
     c_in = int(x_i8.shape[1])
     if tuple(w_i8.shape[2:]) == (3, 3) and _pair(stride) == (1, 1) \
-            and _pair(padding) == (1, 1) and c_in % conv3x3_s8.CHUNK == 0:
+            and _pair(padding) == (1, 1) and c_in % conv3x3_s8.CHUNK == 0 \
+            and c_in <= conv3x3_s8.MAX_CIN:
         y = conv3x3_s8.conv3x3_s8(x_i8.permute(0, 2, 3, 1).contiguous(),
                                   w_i8.permute(0, 2, 3, 1).contiguous(),
                                   w_scale)
@@ -223,13 +226,20 @@ def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+class NoInt8Kernel(ValueError):
+    """No int8 kernel takes this conv's geometry on this device.  A
+    ``ValueError``, as a builder's other refusals are, so that the serving
+    ladder moves down a rung; a kernel that fails raises ``RuntimeError``."""
+
+
 def _no_kernel(x, what, shape, stride):
     if x.device.type != "cpu":
-        raise NotImplementedError(
+        raise NoInt8Kernel(
             f"no int8 kernel for a {what} of weight {tuple(shape)} at stride "
             f"{stride} on {x.device} (the kernels take 3x3 stride-1 padding-1 "
-            "convs and 2x2 stride-2 transpose convs, channels a multiple of "
-            "32; see ops/cuda/convt2x2_s8.py::fits)")
+            "convs of at most 256 input channels and 2x2 stride-2 transpose "
+            "convs, channels a multiple of 32; see ops/cuda/convt2x2_s8.py::"
+            "fits)")
 
 
 def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,

@@ -24,11 +24,13 @@ with bias correction and the default skip policy (``ops/quant.py``, rung
 ``int8-generic``), then float.  The calibration batch is
 ``data/synthetic.py::calibration_batch`` (8 noisy images at σ 0.12, [-1,
 1]).  A rung is left only for a ``ValueError`` from its builder (a model
-whose conv sequence is not the U-Net's) or a failed gate; an error of a
-kernel's build or launch propagates, so the card never quietly serves
-float in place of a kernel.  The served input is f32 in [-1, 1]; the int8
-program casts it to bf16 at conv 0 and its tanh output back to f32, which is
-truncated to uint8 as on the float path.  Each request is labelled ``int8``
+whose conv sequence is not the U-Net's, or ``quant.NoInt8Kernel``: a conv
+geometry no int8 kernel takes, raised while the builder or the gate runs)
+or a failed gate; an error of a kernel's build or launch propagates, so
+the card never quietly serves float in place of a kernel.  The served
+input is f32 in [-1, 1]; the int8 program casts it to bf16 at conv 0 and
+its tanh output back to f32, which is truncated to uint8 as on the float
+path.  Each request is labelled ``int8``
 or ``float`` in the log line and in ``ServeStats`` (``last_compute_backend``
 reads it, per thread).
 
@@ -188,7 +190,12 @@ class ServeState:
                 logger.warning("[%s] %s builder failed (%s); trying the next "
                                "rung", name, rung, e)
                 continue
-            db = self._agreement_db(name, cand, calib)
+            try:
+                db = self._agreement_db(name, cand, calib)
+            except quant.NoInt8Kernel as e:  # a kernel failure stays loud
+                logger.warning("[%s] %s has a conv with no int8 kernel (%s); "
+                               "trying the next rung", name, rung, e)
+                continue
             if db >= GATE_DB:
                 logger.info("[%s] %s serving forward built, %.1f dB vs float",
                             name, rung, db)

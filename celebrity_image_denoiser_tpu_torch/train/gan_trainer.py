@@ -24,8 +24,9 @@ What differs from the JAX step, and why:
   optimiser state, losses and metrics stay float32; the layers cast their
   weights to the activation dtype at use.
 * With ``on_the_fly_noise`` the step takes the clean batch as uint8 NHWC
-  and ``data/noise.py::random_noise_batch`` makes the noisy input, its
-  gaussian samples through the fused CUDA kernel (:189-208).
+  and ``data/noise.py::random_noise_batch`` makes the noisy input and the
+  clean target in one launch of the noise kernel, with no host read
+  (:189-208).
 
 PSNR/SSIM are computed on the device inside the step and returned as device
 scalars; the loop reads them once per epoch (:582-600).
@@ -110,7 +111,7 @@ def make_train_step(
     from the ``torch.Generator`` ``gen`` on the batch's device.  ``metrics``
     holds ``g_loss``, ``d_loss``, ``psnr`` and ``ssim`` as device scalars
     (no host sync) and, on the fly, ``noise_kinds``: the kind index each
-    sample drew, a list on the host."""
+    sample drew, an int64 tensor on the device."""
     _require_denoise(family)
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
@@ -133,9 +134,8 @@ def make_train_step(
         g_opt, d_opt = opt
         out: Dict[str, object] = {}
         if on_the_fly_noise:
-            noisy, out["noise_kinds"] = noise_lib.random_noise_batch(
+            noisy, clean, out["noise_kinds"] = noise_lib.random_noise_batch(
                 gen, clean, variant=noise_variant)
-            clean = clean.to(torch.float32) / 255.0 * 2.0 - 1.0
         x, y = _nchw(noisy), _nchw(clean)
         generator.train()
         discriminator.train()
@@ -226,14 +226,14 @@ class GANTrainer:
         # the noise stream: seeded cfg.seed + 1 like the JAX key stream
         self.noise_gen = torch.Generator(device=self.device)
         self.noise_gen.manual_seed(cfg.seed + 1)
-        # steps run, and how many samples of each step drew gaussian: that
-        # sub-batch, if not empty, takes one launch of the fused noise kernel
+        # steps run, and how many samples of each step drew gaussian (kept
+        # on the device during an epoch, read with its metrics)
         self.steps = 0
         self.gaussian_counts: List[int] = []
 
     @property
     def steps_with_gaussian(self) -> int:
-        """Steps in which a sample drew gaussian: the noise kernel's launches."""
+        """Steps in which a sample drew gaussian."""
         return sum(1 for c in self.gaussian_counts if c)
 
     # ---- checkpointing ------------------------------------------------------
@@ -352,7 +352,7 @@ class GANTrainer:
         for epoch in range(self.start_epoch, cfg.num_epochs):
             lr_g, lr_d = self.schedule_g(epoch), self.schedule_d(epoch)
             # metrics stay on the device during the epoch: no per-step sync
-            step_metrics = []
+            step_metrics, step_kinds = [], []
             t0 = time.perf_counter()
             for batch in self.pipeline:
                 noisy, clean = batch if isinstance(batch, tuple) \
@@ -362,8 +362,13 @@ class GANTrainer:
                 kinds = m.pop("noise_kinds", None)
                 self.steps += 1
                 if kinds is not None:
-                    self.gaussian_counts.append(kinds.count(gaussian))
+                    step_kinds.append(kinds)
                 step_metrics.append(m)
+            if step_kinds:  # one read for the epoch
+                hits = (torch.cat(step_kinds) == gaussian).tolist()
+                for k in step_kinds:
+                    self.gaussian_counts.append(sum(hits[:len(k)]))
+                    hits = hits[len(k):]
             n_batches = len(step_metrics)
             if n_batches == 0:
                 logger.warning("Epoch [%d/%d] No valid batches processed.",

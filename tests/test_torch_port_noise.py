@@ -13,7 +13,13 @@
   ``test_torch_port_kernels.py``.)
 * ``data/noise.py``: the five variant-1 kinds, by distribution as
   ``tests/test_noise.py`` holds the JAX functions, and exactly (1e-6) when
-  both sides are given the same draws; ``random_noise_batch``.
+  both sides are given the same draws; ``random_noise_batch``: one
+  ``noise_batch`` on kinds and a seed drawn on the device, read nowhere.
+* ``ops/cuda/noise.py::noise_batch`` (the whole input stage in one launch;
+  its plain version here): each kind equal to its ``*_from_draws`` function
+  on the stream's draws, the gaussian samples equal to the gaussian-only
+  entry, the clean target the trainer's normalisation, and the Poisson
+  inversion table against ``scipy.stats.poisson`` and JAX's ``poisson_v1``.
 """
 
 import numpy as np
@@ -303,44 +309,69 @@ def test_kinds_equal_jax_given_the_same_draws():
           jax_noise.uniform_v1(key, jimg))
 
 
-def test_random_noise_batch_routes_gaussian_through_k4():
-    """uint8 NHWC in, float32 [-1, 1] out; the samples that drew gaussian
-    equal K4's plain version on that sub-batch with the drawn seed, and the
-    rest are what the kinds' functions give from the same generator."""
+def _replay(seed, n, types=5):
+    """The kinds and the stream's seed ``random_noise_batch`` draws from a
+    generator seeded ``seed``, for a batch of ``n``."""
+    g = _gen(seed)
+    kinds = torch.randint(0, types, (n,), generator=g)
+    return kinds, torch.randint(0, 1 << 62, (1,), generator=g)
+
+
+def test_random_noise_batch_is_one_noise_batch_launch():
+    """uint8 NHWC in; the noisy batch and the clean target, float32 in
+    [-1, 1], and the kinds, an int64 tensor on the batch's device, out: the
+    kinds and seed drawn from the generator feed one ``noise_batch`` (its
+    plain version here; on the card its one launch).  A sample that drew
+    gaussian equals the gaussian-only entry at its indices; the clean
+    target is the trainer's ``clean.to(float32) / 255.0 * 2.0 - 1.0``."""
     rng = np.random.default_rng(5)
     batch = torch.from_numpy(rng.integers(0, 256, (16, 8, 8, 3),
                                           dtype=np.uint8))
-    out, kinds = port_noise.random_noise_batch(_gen(11), batch)
-    assert out.shape == batch.shape and out.dtype == torch.float32
-    assert out.min() >= -1 and out.max() <= 1
-    assert len(kinds) == 16 and set(kinds) <= set(range(5))
-    assert len(set(kinds)) > 1
-    # replay the generator
-    g = _gen(11)
-    draws = torch.randint(0, 1 << 62, (17,), generator=g).tolist()
-    assert kinds == [d % 5 for d in draws[:16]]
-    rows = [i for i, k in enumerate(kinds) if k == 0]
+    noisy, clean, kinds = port_noise.random_noise_batch(_gen(11), batch)
+    assert noisy.shape == clean.shape == batch.shape
+    assert noisy.dtype == clean.dtype == torch.float32
+    assert noisy.min() >= -1 and noisy.max() <= 1
+    assert kinds.dtype == torch.int64 and kinds.shape == (16,)
+    assert len(set(kinds.tolist())) > 1
+    want_kinds, seed = _replay(11, 16)
+    assert torch.equal(kinds, want_kinds)
+    want = k4.noise_batch_plain(want_kinds, seed, batch)
+    assert torch.equal(noisy, want[0]) and torch.equal(clean, want[1])
+    assert torch.equal(clean, batch.to(torch.float32) / 255.0 * 2.0 - 1.0)
+    rows = (kinds == 0).nonzero().flatten().tolist()
     assert rows, "seed 11 draws at least one gaussian sample"
-    want = k4.fused_normalize_gaussian_noise_plain(
-        draws[16], batch[rows].contiguous(), 25.0, torch.float32)
-    assert torch.equal(out[rows], want)
-    for k, name in enumerate(port_noise.NOISE_TYPES[1:], start=1):
-        rows = [i for i, kk in enumerate(kinds) if kk == k]
-        if rows:
-            sub = batch[rows].float() / 255.0
-            want = port_noise.add_noise(g, sub, name) * 2.0 - 1.0
-            assert torch.equal(out[rows], want), name
-    # types=("gaussian",): every sample through K4, as one sub-batch
-    out, kinds = port_noise.random_noise_batch(_gen(2), batch,
-                                               types=("gaussian",))
-    seed = torch.randint(0, 1 << 62, (17,), generator=_gen(2)).tolist()[16]
-    assert kinds == [0] * 16
-    assert torch.equal(out, k4.fused_normalize_gaussian_noise_plain(
-        seed, batch, 25.0, torch.float32))
+    per = batch[0].numel()
+    for r in rows:
+        assert torch.equal(noisy[r], k4.fused_normalize_gaussian_noise_plain(
+            int(seed), batch[r:r + 1].contiguous(), 25.0, torch.float32,
+            _index_offset=r * per)[0])
+    # types=("gaussian",): every sample the gaussian-only stream
+    noisy, _, kinds = port_noise.random_noise_batch(_gen(2), batch,
+                                                    types=("gaussian",))
+    assert kinds.tolist() == [0] * 16
+    assert torch.equal(noisy, k4.fused_normalize_gaussian_noise_plain(
+        int(_replay(2, 16, 1)[1]), batch, 25.0, torch.float32))
     with pytest.raises(ValueError):
         port_noise.random_noise_batch(_gen(), batch.float())
     with pytest.raises(NotImplementedError):
         port_noise.random_noise_batch(_gen(), batch, variant=2)
+    with pytest.raises(ValueError, match="unknown noise"):
+        port_noise.random_noise_batch(_gen(), batch, types=("perlin",))
+
+
+def test_input_stage_reads_nothing_back_to_the_host():
+    """Nothing on the on-the-fly path brings a value to the host: no
+    ``.tolist()``, ``.item()``, ``.cpu()`` or ``int(`` of a tensor in
+    ``random_noise_batch``, ``noise_batch`` or its plain version."""
+    import inspect
+
+    for fn in (port_noise.random_noise_batch, k4.noise_batch,
+               k4.noise_batch_plain, k4.uniform_bits, k4.poisson_counts,
+               k4.x01):
+        src = inspect.getsource(fn)
+        for bad in (".tolist(", ".item(", ".cpu(", "int(seed", "float(seed",
+                    ".numpy("):
+            assert bad not in src, (fn.__name__, bad)
 
 
 def test_random_noise_batch_kind_mix_matches_jax_rate():
@@ -348,9 +379,119 @@ def test_random_noise_batch_kind_mix_matches_jax_rate():
     share over many samples is 1/5 within 3 standard errors (n = 2000 →
     ±0.027), as the JAX function's is."""
     batch = torch.zeros((2000, 1, 1, 3), dtype=torch.uint8)
-    _, kinds = port_noise.random_noise_batch(_gen(0), batch)
-    share = np.bincount(kinds, minlength=5) / 2000
+    _, _, kinds = port_noise.random_noise_batch(_gen(0), batch)
+    share = np.bincount(kinds.numpy(), minlength=5) / 2000
     jidx = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (2000,), 0, 5))
     jshare = np.bincount(jidx, minlength=5) / 2000
     assert np.abs(share - 0.2).max() < 0.027
     assert np.abs(jshare - 0.2).max() < 0.027
+
+
+# ---------------------------------------------------------------------------
+# noise_batch, the whole input stage, on the CPU (its plain version)
+@pytest.mark.parametrize("kind", ["gaussian", "salt_pepper", "speckle",
+                                  "poisson", "uniform"])
+def test_noise_batch_kinds_equal_the_from_draws_functions(kind):
+    """A batch of one kind equals that kind's ``*_from_draws`` function (the
+    ones held against JAX above) fed with the stream's draws, taken here
+    from ``uniform_bits`` (the gaussian-only entry's stream, the seed a
+    Python int), then mapped with ``·2 − 1``; gaussian equals the
+    gaussian-only entry."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 7, 9, 3), dtype=np.uint8))
+    seed = 0x1234_5678_9ABC
+    kinds = torch.full((2,), k4.KIND_CODES[kind])
+    noisy, clean = k4.noise_batch(kinds, torch.tensor([seed]), x)
+    a, b = (w.reshape(x.shape) for w in k4.uniform_bits(seed, x.numel(),
+                                                        "cpu"))
+    img = x.float() / 255.0
+
+    def u24(w):
+        return (w >> 8).float() * 2.0 ** -24
+
+    if kind == "gaussian":
+        want = k4.fused_normalize_gaussian_noise_plain(seed, x, 25.0,
+                                                       torch.float32)
+    else:
+        if kind == "salt_pepper":
+            n01 = port_noise.salt_pepper_v1_from_draws(img, u24(a[..., :1]),
+                                                       u24(b[..., :1]))
+        elif kind == "speckle":
+            n01 = port_noise.speckle_v1_from_draws(
+                img, k4.normals_from_bits(a, b))
+        elif kind == "uniform":
+            n01 = port_noise.uniform_v1_from_draws(img, u24(a))
+        else:
+            n01 = port_noise.poisson_v1_from_draws(
+                img, k4.poisson_counts(x, a).float())
+        want = n01 * 2.0 - 1.0
+    assert torch.equal(noisy, want)
+    assert torch.equal(clean, img * 2.0 - 1.0)
+
+
+POISSON_LAMBDAS = [0, 1, 5, 30, 128, 255]
+
+
+@pytest.mark.parametrize("lam", POISSON_LAMBDAS)
+def test_poisson_table_is_the_poisson_distribution(lam):
+    """The inversion table: P(count ≤ k) equals scipy's Poisson CDF to
+    2⁻³² for every k < 255; 200,000 counts drawn through the stream pass a
+    chi-square test against ``scipy.stats.poisson`` (p > 1e-3) and a
+    two-sample chi-square test against JAX's ``poisson_v1`` at the same λ;
+    counts beyond 254 lumped (the output saturates at 255)."""
+    from scipy import stats
+
+    keys, table, _ = k4.poisson_tables("cpu")
+    t = (keys.view(256, 256)[lam] - (lam << 32)).double()
+    cdf = stats.poisson.cdf(np.arange(255), lam)
+    assert np.abs((t[:255].numpy() + 1) / 2.0 ** 32 - cdf).max() \
+        <= 2.0 ** -32 + 1e-12
+    n = 200_000
+    x = torch.full((1, 1, n, 1), lam, dtype=torch.uint8)
+    a, _ = k4.uniform_bits(99 + lam, n, "cpu")
+    counts = k4.poisson_counts(x, a.view(x.shape)).flatten().numpy()
+    # bins: each count with an expectation of at least 20, the tails lumped
+    pmf = np.diff(np.concatenate([[0.0], cdf, [1.0]]))
+    edges, acc = [0], 0.0
+    for k in range(255):
+        acc += pmf[k]
+        if acc * n >= 20 and (1 - cdf[k]) * n >= 20:
+            edges.append(k + 1)
+            acc = 0.0
+    edges.append(256)
+    obs = np.histogram(counts, bins=edges)[0]
+    exp = np.array([pmf[lo:hi].sum() for lo, hi in zip(edges, edges[1:])]) * n
+    if len(obs) > 1:
+        assert stats.chisquare(obs, exp).pvalue > 1e-3
+    else:
+        assert obs[0] == n  # lambda 0: always 0
+    jc = np.asarray(jax_noise.poisson_v1(jax.random.PRNGKey(lam),
+                                         jnp.full((n,), lam / 255.0,
+                                                  jnp.float32)) * 255.0)
+    jc = np.rint(jc).astype(np.int64)
+    jobs = np.histogram(np.minimum(jc, 255), bins=edges)[0]
+    if len(obs) > 1:
+        assert stats.chi2_contingency(np.stack([obs, jobs])).pvalue > 1e-3
+    else:
+        assert jobs[0] == n
+
+
+def test_noise_batch_refuses():
+    x = torch.zeros(2, 4, 6, 3, dtype=torch.uint8)
+    kinds, seed = torch.zeros(2, dtype=torch.int64), torch.tensor([1])
+    for bad in ((kinds.int(), seed, x), (kinds[:1], seed, x),
+                (kinds, seed.int(), x), (kinds, torch.tensor([1, 2]), x),
+                (kinds, seed, x.float()), (kinds, seed, x[0]),
+                (kinds, seed, x.transpose(1, 2)),
+                (kinds.to("meta"), seed.to("meta"), x.to("meta"))):
+        with pytest.raises((TypeError, ValueError)):
+            k4.noise_batch(*bad)
+    with pytest.raises(ValueError, match="unknown noise kind"):
+        k4.noise_batch(kinds, seed, x, types=("perlin",))
+    with pytest.raises(ValueError):
+        k4.noise_batch(kinds, seed, x, types=("gaussian",) * 9)
+    with pytest.raises(NotImplementedError):
+        k4.noise_batch(kinds, seed, x, variant=3)
+    before = k4.LAUNCHES
+    k4.noise_batch(kinds, seed, x)
+    assert k4.LAUNCHES == before  # the plain version launches nothing

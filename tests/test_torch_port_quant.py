@@ -276,6 +276,35 @@ def test_s8_program_matches_jax_given_the_same_amaxes(jax_model, params,
     assert (diff == 0).mean() >= 0.999 and (diff <= ulp).all()
 
 
+@pytest.mark.parametrize("which, shape", [("shipped", (2, 32, 32, 3)),
+                                          ("random", (1, 30, 34, 3))])
+def test_s8_program_float_output_conv_matches_jax(jax_model, params, which,
+                                                  shape):
+    """``quant_last=False`` (the output conv 64 → 3 in bf16, not s8): given
+    JAX's amaxes, the port's program equals JAX's
+    ``quantize_apply_denoise_unet(quant_last=False)`` run op by op, at the
+    bar of the ``quant_last=True`` test (≥ 99.9% equal, one bf16 ulp
+    elsewhere); it holds no s8 weight for conv 11."""
+    p = params[which]
+    rng = np.random.default_rng(6)
+    calib = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    x = rng.uniform(-1, 1, shape).astype(np.float32)
+    amaxes = _jax_amaxes(jax_model, p, calib)
+    qt = quant_unet.QuantizedDenoiseUNet(_port(p), amaxes, quant_last=False)
+    assert not hasattr(qt, "w11") and qt.wf11.dtype == BF16
+    qj = jquant_unet.quantize_apply_denoise_unet(
+        jax_model, p, {}, jnp.asarray(calib), quant_last=False)
+    want = np.asarray(qj(jnp.asarray(x)), np.float32)  # op by op
+    got = qt(_t(x)).numpy()
+    assert got.shape == want.shape
+    diff = np.abs(got - want)
+    ulp = np.abs(want) * 2.0 ** -8 + 1e-30
+    assert (diff == 0).mean() >= 0.999 and (diff <= ulp).all()
+    # and it is not the quant_last=True program
+    q8 = quant_unet.QuantizedDenoiseUNet(_port(p), amaxes)
+    assert not np.array_equal(q8(_t(x)).numpy(), got)
+
+
 def _xla_cpu_order(q: quant_unet.QuantizedDenoiseUNet, x):
     """The port's program with the three rewrites XLA's CPU compiler makes
     in the jitted JAX program: x / s by a constant as x · (1/s), the
@@ -580,3 +609,68 @@ def test_quantized_serving_quality_gate():
     mse = float(np.mean((yf - yq) ** 2))
     assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)) > 40.0
     assert psnr_u8(yq.astype(np.uint8), clean) - psnr_u8(noisy, clean) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# a conv geometry with no int8 kernel, and the kernel's input bound
+def _on_a_card(x):
+    """``x`` as ``_no_kernel`` sees a tensor on a card: only its device."""
+    return type("OnCard", (), {"device": torch.device("cuda")})()
+
+
+def test_no_int8_kernel_is_a_builder_value_error():
+    """Off the CPU a geometry no int8 kernel takes raises ``NoInt8Kernel``,
+    a ``ValueError`` naming the geometry; on the CPU it is not an error."""
+    x = torch.zeros(1, 64, 4, 4, dtype=torch.int8)
+    with pytest.raises(ValueError, match=r"weight \(128, 64, 4, 4\)") as e:
+        quant._no_kernel(_on_a_card(x), "conv", (128, 64, 4, 4), 2)
+    assert isinstance(e.value, quant.NoInt8Kernel)
+    assert quant._no_kernel(x, "conv", (128, 64, 4, 4), 2) is None
+
+
+@pytest.mark.parametrize("when", ["build", "gate"])
+def test_no_int8_kernel_moves_the_ladder_down(monkeypatch, when):
+    """A rung whose builder, or whose forward under the gate, meets a conv
+    with no int8 kernel is left for the next one (here every rung: float),
+    as the JAX ladder serves float for such a model; the server starts."""
+    def no_kernel():
+        quant._no_kernel(_on_a_card(None), "conv", (128, 64, 4, 4), 2)
+
+    def builder(model, calib, **kw):
+        if when == "build":
+            no_kernel()
+        return lambda x: no_kernel()
+
+    monkeypatch.setattr(quant_unet, "quantize_apply_denoise_unet", builder)
+    monkeypatch.setattr(quant, "quantize_apply", builder)
+    st = ServeState(weights_dir="/nonexistent-weights", seed=7,
+                    quantize="int8", device="cpu")
+    assert st.int8_rung["denoise"] is None
+    st.enhance("denoise", _png(np.zeros((16, 16, 3), np.uint8)),
+               "image/png", include_graph=False)
+    assert st.last_compute_backend() == "float"
+
+
+def test_int8_conv2d_checks_the_kernel_input_bound(monkeypatch):
+    """A 3×3 conv with more input channels than K5 takes (a multiple of 32
+    beyond ``MAX_CIN``) is not sent to K5: on the CPU it takes the exact
+    float64 product, on a card it raises ``NoInt8Kernel`` for the geometry,
+    not K5's wrapper error."""
+    g = torch.Generator().manual_seed(9)
+    cin = k5.MAX_CIN + k5.CHUNK
+    x = torch.randint(-127, 128, (1, cin, 5, 4), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (8, cin, 3, 3), generator=g,
+                      dtype=torch.int8)
+    ws = torch.rand(8, generator=g) * 1e-3
+    got = quant.int8_conv2d(x, w, ws, 1, 1)
+    want = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+    assert torch.equal(got, want.to(torch.int32).float()
+                       * ws.view(1, -1, 1, 1))
+
+    real = quant._no_kernel
+    monkeypatch.setattr(quant, "_no_kernel",
+                        lambda xx, *a: real(_on_a_card(xx), *a))
+    with pytest.raises(quant.NoInt8Kernel,
+                       match=rf"weight \(8, {cin}, 3, 3\)"):
+        quant.int8_conv2d(x, w, ws, 1, 1)

@@ -42,6 +42,7 @@ from celebrity_image_denoiser_tpu_torch.ckpt import convert
 from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
 from celebrity_image_denoiser_tpu_torch.core.config import TrainConfig
 from celebrity_image_denoiser_tpu_torch.data import imageio
+from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
 from celebrity_image_denoiser_tpu_torch.data.datasets import (
     CleanImageDataset,
     SizeMismatch,
@@ -391,10 +392,42 @@ def test_on_the_fly_step_is_finite(jax_nets):
     for _ in range(2):
         m = step_fn(opt, None, clean, gen, 1e-4, 1e-4)
     kinds = m.pop("noise_kinds")
-    assert len(kinds) == 8 and set(kinds) <= set(range(5))
+    assert len(kinds) == 8 and set(kinds.tolist()) <= set(range(5))
     vals = {k: float(v) for k, v in m.items()}
     assert all(np.isfinite(v) for v in vals.values()), vals
     assert vals["psnr"] > 5.0
+
+
+def test_on_the_fly_step_trains_on_the_trainer_normalisation(jax_nets,
+                                                             monkeypatch):
+    """One on-the-fly step: the clean target that the input stage's plain
+    version gives is bit-equal to ``clean.to(float32) / 255.0 * 2.0 - 1.0``,
+    and the step is the step on the (noisy, clean) pair it made."""
+    made = []
+    real = noise_lib.random_noise_batch
+
+    def spy(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(noise_lib, "random_noise_batch", spy)
+    clean_u8 = (synth_clean_batch(torch.Generator().manual_seed(3), 4, 16)
+                * 255).round().to(torch.uint8)
+    outs = []
+    for fly in (True, False):
+        pg, pd = _port_nets(jax_nets)
+        init_fn, step_fn = gan_trainer.make_train_step(
+            pg, pd, on_the_fly_noise=fly)
+        if fly:
+            m = step_fn(init_fn(), None, clean_u8,
+                        torch.Generator().manual_seed(4), 1e-4, 1e-4)
+            noisy, clean, _ = made[0]
+            assert torch.equal(
+                clean, clean_u8.to(torch.float32) / 255.0 * 2.0 - 1.0)
+        else:
+            m = step_fn(init_fn(), noisy, clean, None, 1e-4, 1e-4)
+        outs.append({k: float(m[k]) for k in ("g_loss", "d_loss", "psnr")})
+    assert len(made) == 1 and outs[0] == outs[1]
 
 
 def test_other_families_and_options_wait():
