@@ -322,8 +322,10 @@ __device__ __forceinline__ void epilogue_q8(
 // Cout > 8.  One work item = (tile, 64-channel output pass, KC-channel chunk);
 // a block walks the items of tiles blockIdx.x, blockIdx.x + gridDim.x, ...
 // resident: all the weights (one slot per chunk) are loaded with the first
-// tile and stay; else they are streamed with the windows (S slots).
-template <int KC, int S>
+// tile and stay; else they are streamed with the windows (S slots).  Q8:
+// the s8-out mode (qscale, yq), compiled apart, so that the bf16 mode's
+// code is the same as without it.
+template <int KC, int S, bool Q8>
 __global__ void __launch_bounds__(conv::kThreads, 1)
 conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
                      const float* __restrict__ bias, bf16* __restrict__ y,
@@ -350,7 +352,7 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
   // s8 out: the scales as s8::qscale_of gives them, [npass * 64] each
   cid::s8::QScale* qs =
       reinterpret_cast<cid::s8::QScale*>(bs + npass * conv::kNB);
-  if (qscale != nullptr)
+  if (Q8)
     for (int i = tid; i < npass * conv::kNB; i += conv::kThreads)
       qs[i] = cid::s8::qscale_of(i < Cout ? qscale[i] : 1.f);
   // s8 out: the consumer warps' staging, [kConsumers / 32][Q8Staging]
@@ -390,7 +392,7 @@ conv3x3_wgmma_kernel(conv::Input in, const bf16* __restrict__ w,
     conv::mma_chunk<KC, MT>(
         acc, conv::WindowAddr<KC>{mma::smem_u32(xst + stage * XB)}, pbase,
         kWin, mma::smem_u32(wst + (resident ? cur.chunk : stage) * WB));
-    if (cur.chunk == nchunks - 1 && yq != nullptr) {
+    if (Q8 && cur.chunk == nchunks - 1) {
       epilogue_q8<MT>(acc, bs, qs, q8stage + (tid / 32) * Q8Staging::kBytes,
                       relu, (wg * MT) * 4 + warp, cur.at, yq, H, W, Cout,
                       cur.pass * conv::kNB, q8_vec);
@@ -559,16 +561,17 @@ cudaError_t launch_wide(const conv::Input& in, const bf16* w, const float* b,
   const int smem = wide_ring_bytes<KC, S>(resident ? nchunks : S) +
                    bias_bytes(cout) * (qscale ? 4 : 1) +
                    (qscale ? kQ8StageBytes : 0);
+  const auto kernel = qscale ? conv3x3_wgmma_kernel<KC, S, true>
+                             : conv3x3_wgmma_kernel<KC, S, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma_kernel<KC, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
   const long long tiles = (long long)n * tiles_h * tiles_w;
   const int sms = conv::sm_count();
   if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  conv3x3_wgmma_kernel<KC, S><<<grid, conv::kThreads, smem, stream>>>(
+  kernel<<<grid, conv::kThreads, smem, stream>>>(
       in, w, b, y, h, wd, cout, relu, tiles_h, tiles_w, (int)tiles,
       cout % 8 == 0 && conv::aligned16(w),
       cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0, resident,

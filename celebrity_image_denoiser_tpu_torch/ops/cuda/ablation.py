@@ -69,8 +69,8 @@ PARTS = {
         ("double_conv3x3_relu.cu", "if (cur.chunk == nchunks2 - 1) {",
          "if (cur.chunk == nchunks2 - 1 && H < 0) {"),
         ("conv3x3_bias_relu.cu",
-         "    if (cur.chunk == nchunks - 1 && yq != nullptr) {",
-         "    if (cur.chunk == nchunks - 1 && yq != nullptr && H < 0) {"),
+         "    if (Q8 && cur.chunk == nchunks - 1) {",
+         "    if (Q8 && cur.chunk == nchunks - 1 && H < 0) {"),
         ("conv3x3_bias_relu.cu", "    } else if (cur.chunk == nchunks - 1) {",
          "    } else if (cur.chunk == nchunks - 1 && H < 0) {")],
     # K2's s8 mode with its staged stores kept and its arithmetic taken
