@@ -292,6 +292,8 @@ __device__ __forceinline__ void epilogue_q8(
     const float (&acc)[MT][32], const float* bs, const cid::s8::QScale* qs,
     unsigned char* buf, bool relu, int row0, const TileAt& at, int8_t* yq,
     int H, int W, int Cout, int n0, bool vec) {
+  static_assert(MT * kTile <= kQ8WarpPix,
+                "a warp's MT tile rows overrun its Q8Staging");
   namespace s8 = cid::s8;
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
   const Q8Staging stg{buf};

@@ -7,7 +7,10 @@ Port of ``celebrity_image_denoiser_tpu/data/noise.py`` for **variant 1**
 (NHWC or HWC) like their JAX counterparts; randomness comes from an explicit
 ``torch.Generator`` on the image's device instead of a ``jax.random`` key, so
 the streams differ and the tests compare distributions, or feed both sides
-the same draws through the ``*_from_draws`` halves.
+the same draws through the ``*_from_draws`` halves.  Those halves, the
+variant's parameters and the kind codes are the noise kernel's
+(``ops/cuda/noise.py``, whose plain version is made of them); they are
+imported from there.
 
 ``random_noise_batch`` is the input stage itself.  It differs from the JAX
 function (``noise.py:207-229``) in what crosses its boundary, because the
@@ -27,20 +30,25 @@ families that are not ported yet (ROADMAP.md queue 1 item 10).
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
 import torch
 
 from celebrity_image_denoiser_tpu_torch.ops.cuda import noise as noise_kernel
+from celebrity_image_denoiser_tpu_torch.ops.cuda.noise import (
+    GAUSSIAN_SIGMA,
+    PEPPER_PROB,
+    SALT_PROB,
+    SPECKLE_SIGMA,
+    UNIFORM_HIGH,
+    gaussian_v1_from_draws,
+    poisson_v1_from_draws,
+    salt_pepper_v1_from_draws,
+    speckle_v1_from_draws,
+    uniform_v1_from_draws,
+)
 
-NOISE_TYPES = ("gaussian", "salt_pepper", "speckle", "poisson", "uniform")
-_WAITING = ("variants 2 and 3 of the noise functions are not ported yet "
-            "(ROADMAP.md queue 1 item 10)")
-
-
-def _clip01(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 1.0)
+NOISE_TYPES = tuple(noise_kernel.KIND_CODES)
 
 
 def _randn(gen, img):
@@ -54,24 +62,11 @@ def _rand(gen, shape, img):
 
 # ---- variant 1: each kind as (draw, then a pure function of the draws) -----
 
-def gaussian_v1_from_draws(img, normal, mean=0.0, sigma=25.0):
-    return _clip01(img + (mean / 255.0 + (sigma / 255.0) * normal))
-
-
-def gaussian_v1(gen, img, mean=0.0, sigma=25.0):
+def gaussian_v1(gen, img, mean=0.0, sigma=GAUSSIAN_SIGMA):
     return gaussian_v1_from_draws(img, _randn(gen, img), mean, sigma)
 
 
-def salt_pepper_v1_from_draws(img, u_salt, u_pepper, salt_prob=0.02,
-                              pepper_prob=0.02):
-    c = img.shape[-1]
-    p_salt = 1.0 - math.exp(-salt_prob * c)
-    p_pepper = 1.0 - math.exp(-pepper_prob * c)
-    out = torch.where(u_salt < p_salt, torch.ones_like(img), img)
-    return torch.where(u_pepper < p_pepper, torch.zeros_like(img), out)
-
-
-def salt_pepper_v1(gen, img, salt_prob=0.02, pepper_prob=0.02):
+def salt_pepper_v1(gen, img, salt_prob=SALT_PROB, pepper_prob=PEPPER_PROB):
     """Per-pixel (all channels) salt/pepper at the reference's *effective*
     density: it draws p·H·W·C pixel coordinates with replacement over the
     H·W grid, so a pixel flips with probability 1 − e^(−p·C) per polarity,
@@ -82,16 +77,8 @@ def salt_pepper_v1(gen, img, salt_prob=0.02, pepper_prob=0.02):
                                      pepper_prob)
 
 
-def speckle_v1_from_draws(img, normal, sigma=0.1):
-    return _clip01(img + img * (sigma * normal))
-
-
-def speckle_v1(gen, img, sigma=0.1):
+def speckle_v1(gen, img, sigma=SPECKLE_SIGMA):
     return speckle_v1_from_draws(img, _randn(gen, img), sigma)
-
-
-def poisson_v1_from_draws(img, counts):
-    return _clip01(counts.to(img.dtype) / 255.0)
 
 
 def poisson_v1(gen, img):
@@ -100,11 +87,7 @@ def poisson_v1(gen, img):
                                                     generator=gen))
 
 
-def uniform_v1_from_draws(img, u, low=0.0, high=25.0):
-    return _clip01(img + (low / 255.0 + u * ((high - low) / 255.0)))
-
-
-def uniform_v1(gen, img, low=0.0, high=25.0):
+def uniform_v1(gen, img, low=0.0, high=UNIFORM_HIGH):
     return uniform_v1_from_draws(img, _rand(gen, img.shape, img), low, high)
 
 
@@ -120,14 +103,12 @@ _VARIANTS = {
 
 
 def _kind_fn(kind: str, variant: int):
-    if variant in (2, 3):
-        raise NotImplementedError(_WAITING)
+    noise_kernel.check_variant(variant)
     try:
         return _VARIANTS[variant][kind]
     except KeyError:
-        raise ValueError(
-            f"unknown noise kind/variant: {kind!r}/{variant} "
-            f"(kinds: {NOISE_TYPES}, variants: 1|2|3)") from None
+        raise ValueError(f"unknown noise kind {kind!r} (kinds: "
+                         f"{NOISE_TYPES})") from None
 
 
 def add_noise(gen: torch.Generator, img: torch.Tensor, kind: str,
@@ -147,15 +128,14 @@ def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
     The ``n`` kind indices (uniform over ``types``, as the JAX function's
     ``randint``) and then the stream's seed are drawn from ``gen`` on the
     batch's device; neither comes to the host, and the noise takes one
-    launch of ``noise_batch``."""
+    launch of ``noise_batch`` (which refuses unknown kinds and the variants
+    not ported)."""
     if batch_uint8.dtype != torch.uint8 or batch_uint8.dim() != 4:
         raise ValueError(f"batch must be uint8 (N, H, W, C), got "
                          f"{batch_uint8.dtype} {tuple(batch_uint8.shape)}")
     if gen.device.type != batch_uint8.device.type:
         raise ValueError(f"generator on {gen.device}, batch on "
                          f"{batch_uint8.device}")
-    for t in types:  # unknown kinds and the waiting variants raise here
-        _kind_fn(t, variant)
     dev = batch_uint8.device
     kinds = torch.randint(0, len(types), batch_uint8.shape[:1], generator=gen,
                           device=dev)

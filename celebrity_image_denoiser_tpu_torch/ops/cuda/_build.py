@@ -31,7 +31,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
            "normalize_gaussian_noise.cu", "conv3x3_s8.cu", "convt2x2_s8.cu",
            "mma_probe.cu")
-HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh", "conv_s8.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh", "conv_s8.cuh",
+           "noise.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,38 +63,39 @@ def find_nvcc() -> str:
                        "toolkit is installed")
 
 
-def _digest() -> str:
+def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> BuildResult:
-    """Compile ``csrc/`` into ``_build/libcid_kernels_<hash>.so`` unless that
-    file exists; raise ``RuntimeError`` with nvcc's output on failure."""
+def build(sources=SOURCES, name: str = "cid_kernels") -> BuildResult:
+    """Compile ``sources`` (in ``csrc/``; the kernel library's by default)
+    into ``_build/lib<name>_<hash>.so`` unless that file exists; raise
+    ``RuntimeError`` with nvcc's output on failure."""
     t0 = time.perf_counter()
-    out = BUILD_DIR / f"libcid_kernels_{_digest()}.so"
+    out = BUILD_DIR / f"lib{name}_{_digest(sources)}.so"
     if out.exists():
         return BuildResult(out, time.perf_counter() - t0, True, "")
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}_{threading.get_ident()}"
     objs, procs = [], []
-    for name in SOURCES:
-        obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)]
-        procs.append((name, subprocess.Popen(
+    for src in sources:
+        obj = BUILD_DIR / f"{Path(src).stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", str(obj)]
+        procs.append((src, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
         objs.append(obj)
     logs, failed = [], []
-    for name, proc in procs:
+    for src, proc in procs:
         text, _ = proc.communicate()
-        logs.append(f"== {name}\n{text}")
+        logs.append(f"== {src}\n{text}")
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(src)
     try:
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
@@ -141,9 +143,6 @@ def library() -> ctypes.CDLL:
                 [P] * 4 + [ctypes.c_uint, P, ctypes.c_ulonglong, L, L, I, P,
                            P] + [F] * 5 + [I, P])
             lib.cid_noise_batch.restype = I
-            lib.cid_noise_issue_probe.argtypes = (
-                [I] + [P] * 4 + [L, I, P, P] + [F] * 5 + [P])
-            lib.cid_noise_issue_probe.restype = I
             lib.cid_probe_mma_sync.argtypes = [P] * 4
             lib.cid_probe_mma_sync.restype = I
             lib.cid_probe_wgmma.argtypes = [P] * 3 + [I, P]

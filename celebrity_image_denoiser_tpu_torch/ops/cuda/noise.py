@@ -44,7 +44,12 @@ gives at that index.  The output depends on (seed, index, kinds) only.
 On a CUDA tensor each entry launches the kernel or raises; on a CPU tensor
 it runs its plain version (``noise_batch_plain``,
 ``fused_normalize_gaussian_noise_plain``).  ``LAUNCHES`` counts the
-kernel's launches by either entry.
+kernel's launches by ``noise_batch``, ``GAUSSIAN_LAUNCHES`` those by
+``fused_normalize_gaussian_noise``.
+
+The variant-1 parameters, the kind codes and the per-kind functions of the
+draws (``*_from_draws``) are defined here, once: the plain version is made
+of them, and ``data/noise.py`` draws from a generator and calls them.
 """
 
 from __future__ import annotations
@@ -56,17 +61,22 @@ import torch
 
 from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
 
-LAUNCHES = 0  # launches of csrc/normalize_gaussian_noise.cu
+LAUNCHES = 0  # launches of csrc/normalize_gaussian_noise.cu by noise_batch
+GAUSSIAN_LAUNCHES = 0  # ... by fused_normalize_gaussian_noise
 
-# the kernel's kind codes (csrc/normalize_gaussian_noise.cu), in the order
-# of data/noise.py's NOISE_TYPES
+# the kernel's kind codes (csrc/noise.cuh); their order is data/noise.py's
+# NOISE_TYPES
 KIND_CODES = {"gaussian": 0, "salt_pepper": 1, "speckle": 2, "poisson": 3,
               "uniform": 4}
 MAX_TYPES = 8  # 4 bits a type in the kernel's code word
-GAUSSIAN_SIGMA = 25.0  # noise v1 (data/noise.py), the 0-255 scale
+# noise variant 1 (the JAX package's data/noise.py:47-86): uint8-domain
+# parameters, gaussian and uniform on the 0-255 scale
+GAUSSIAN_SIGMA = 25.0
 SPECKLE_SIGMA = 0.1
 UNIFORM_HIGH = 25.0
 SALT_PROB = PEPPER_PROB = 0.02
+_WAITING = ("variants 2 and 3 of the noise functions are not ported yet "
+            "(ROADMAP.md queue 1 item 10)")
 POISSON_GUIDE_SHIFT = 22  # the guide's buckets: a >> 22
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -184,7 +194,7 @@ def fused_normalize_gaussian_noise(
                                                     out_dtype)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
-    global LAUNCHES
+    global GAUSSIAN_LAUNCHES
     y = torch.empty(x_uint8.shape, dtype=out_dtype, device=x_uint8.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x_uint8.device).cuda_stream
@@ -193,8 +203,49 @@ def fused_normalize_gaussian_noise(
             x_uint8.data_ptr(), y.data_ptr(), x_uint8.numel(), seed,
             float(sigma) / 255.0, _build.dtype_code(out_dtype), stream)
     _build.check(rc, "fused_normalize_gaussian_noise")
-    LAUNCHES += 1
+    GAUSSIAN_LAUNCHES += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# variant 1: each kind as a pure function of its draws; images float in
+# [0, 1], any leading dims
+def check_variant(variant: int) -> None:
+    """Raise unless ``variant`` is 1, the one that is ported."""
+    if variant in (2, 3):
+        raise NotImplementedError(_WAITING)
+    if variant != 1:
+        raise ValueError(f"unknown noise variant {variant!r} (variants: "
+                         "1|2|3)")
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def gaussian_v1_from_draws(img, normal, mean=0.0, sigma=GAUSSIAN_SIGMA):
+    return _clip01(img + (mean / 255.0 + (sigma / 255.0) * normal))
+
+
+def salt_pepper_v1_from_draws(img, u_salt, u_pepper, salt_prob=SALT_PROB,
+                              pepper_prob=PEPPER_PROB):
+    c = img.shape[-1]
+    p_salt = 1.0 - math.exp(-salt_prob * c)
+    p_pepper = 1.0 - math.exp(-pepper_prob * c)
+    out = torch.where(u_salt < p_salt, torch.ones_like(img), img)
+    return torch.where(u_pepper < p_pepper, torch.zeros_like(img), out)
+
+
+def speckle_v1_from_draws(img, normal, sigma=SPECKLE_SIGMA):
+    return _clip01(img + img * (sigma * normal))
+
+
+def poisson_v1_from_draws(img, counts):
+    return _clip01(counts.to(img.dtype) / 255.0)
+
+
+def uniform_v1_from_draws(img, u, low=0.0, high=UNIFORM_HIGH):
+    return _clip01(img + (low / 255.0 + u * ((high - low) / 255.0)))
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +325,7 @@ def _codes(types: tuple) -> int:
 def _check_batch(kinds, seed, x, types, variant) -> int:
     """The code word of ``types``, once the arguments are checked (on the
     training path every step: the common case is a few comparisons)."""
-    if variant != 1:
-        raise NotImplementedError(f"noise variant {variant}: only variant 1 "
-                                  "has a kernel")
+    check_variant(variant)
     if x.dtype != torch.uint8 or x.dim() != 4 or x.numel() == 0 \
             or not x.is_contiguous():
         raise ValueError(f"x must be non-empty contiguous uint8 (N, H, W, C), "
@@ -298,12 +347,10 @@ def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
                       x_uint8: torch.Tensor, types=tuple(KIND_CODES),
                       variant: int = 1):
     """Plain PyTorch version of ``noise_batch``: the stream's words fed into
-    the variant-1 functions of ``data/noise.py`` that the CPU tests hold
-    against JAX (``*_from_draws``), every kind computed for the whole batch
-    and each sample's picked; ``x / 255`` as PyTorch computes it on x's
-    device.  No host sync either."""
-    from celebrity_image_denoiser_tpu_torch.data import noise as data_noise
-
+    the variant-1 functions above that the CPU tests hold against JAX
+    (``*_from_draws``), every kind computed for the whole batch and each
+    sample's picked; ``x / 255`` as PyTorch computes it on x's device.  No
+    host sync either."""
     _check_batch(kinds, seed, x_uint8, types, variant)
     shape = x_uint8.shape
     a, b = (w.reshape(shape) for w in uniform_bits(
@@ -317,8 +364,8 @@ def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
 
     def salt_pepper():
         # the words of each pixel's channel-0 element
-        return data_noise.salt_pepper_v1_from_draws(
-            img, u24(a[..., :1]), u24(b[..., :1]), SALT_PROB, PEPPER_PROB)
+        return salt_pepper_v1_from_draws(img, u24(a[..., :1]),
+                                         u24(b[..., :1]))
 
     def one(kind):
         if kind == "gaussian":
@@ -327,14 +374,11 @@ def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
         if kind == "salt_pepper":
             noisy01 = salt_pepper()
         elif kind == "speckle":
-            noisy01 = data_noise.speckle_v1_from_draws(img, normal,
-                                                       SPECKLE_SIGMA)
+            noisy01 = speckle_v1_from_draws(img, normal)
         elif kind == "uniform":
-            noisy01 = data_noise.uniform_v1_from_draws(img, u24(a), 0.0,
-                                                       UNIFORM_HIGH)
+            noisy01 = uniform_v1_from_draws(img, u24(a))
         else:
-            noisy01 = data_noise.poisson_v1_from_draws(
-                img, poisson_counts(x_uint8, a))
+            noisy01 = poisson_v1_from_draws(img, poisson_counts(x_uint8, a))
         return noisy01 * 2.0 - 1.0
 
     noisy = torch.full(shape, float("nan"), device=x_uint8.device)

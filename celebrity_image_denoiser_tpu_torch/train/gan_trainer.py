@@ -365,10 +365,8 @@ class GANTrainer:
                     step_kinds.append(kinds)
                 step_metrics.append(m)
             if step_kinds:  # one read for the epoch
-                hits = (torch.cat(step_kinds) == gaussian).tolist()
-                for k in step_kinds:
-                    self.gaussian_counts.append(sum(hits[:len(k)]))
-                    hits = hits[len(k):]
+                self.gaussian_counts.extend(torch.stack(
+                    [(k == gaussian).sum() for k in step_kinds]).tolist())
             n_batches = len(step_metrics)
             if n_batches == 0:
                 logger.warning("Epoch [%d/%d] No valid batches processed.",

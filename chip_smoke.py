@@ -13,7 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              -sass``: HGMMA is the bf16 wgmma, IGMMA the s8 one, HMMA and
              IMMA mma.sync), with IGMMA required in K5's and K6's kernels;
              and, for each noise kind, the instructions one chunk must issue
-             (the SASS of ``noise_issue_probe``: the blocks on every path
+             (the SASS of ``csrc/noise_issue_probe.cu``, built beside the
+             library into a library of its own: the blocks on every path
              from entry to exit), for the noise kernel's issue floor;
 3. kernels — the wrappers of ``csrc/mma.cuh`` (cp.async, ldmatrix, mma.sync,
              wgmma with its descriptor) through ``csrc/mma_probe.cu``
@@ -107,8 +108,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. train  — 80 synthetic 256×256 PNGs, then ``cli.train`` at full width
              (batch 16, 256², one epoch = 4 steps) in bfloat16 and in
              float32: finite losses, PSNR > 5 dB, the noise kernel launched
-             exactly once in every step (the whole input stage), no conv
-             kernel launched while training, the checkpoint
+             exactly once in every step through ``noise_batch`` (the whole
+             input stage) and never through the gaussian-only entry (each
+             entry counts its own launches), no conv kernel launched while
+             training, the checkpoint
              resumed with identical parameters, a held-out evaluation that
              launches exactly 4 + 2 conv kernels per forward; steps/s and
              images/s over three windows of about 5 s each, with their
@@ -164,9 +167,8 @@ TRAIN_BATCH, TRAIN_SIZE, TRAIN_IMAGES = 16, 256, 80  # 64 train images: 4 steps
 TIMED_STEPS = {"bfloat16": 200, "float32": 30}
 # more than 2^31 elements; the last image straddles element 2^31
 BIG_NOISE_SHAPE = (683, 1024, 1024, 3)
-# the noise kernel's kind codes (ops/cuda/noise.py KIND_CODES)
-NOISE_KINDS = {"gaussian": 0, "salt_pepper": 1, "speckle": 2, "poisson": 3,
-               "uniform": 4}
+# the noise kernel's one-kind kernels, built on their own (phase 2)
+NOISE_PROBE_SOURCES = ("noise_issue_probe.cu",)
 NOISE_CHUNK = 8  # elements a thread of the noise kernel owns
 PHILOX_KAT = [  # Random123 kat_vectors: counter, key, output
     ((0, 0, 0, 0), (0, 0),
@@ -277,15 +279,37 @@ def phase_device():
     return card
 
 
-def phase_build(_build):
+def phase_build(_build, noise):
+    """Build the kernel library and, at the same time, the noise kernel's
+    one-kind probes (not part of the library: only this script calls
+    them); return the probes' library and the instructions a chunk of each
+    kind issues."""
+    import ctypes
+
     say("== phase 2: build")
+    built = {}
+
+    def build_probes():
+        try:
+            built["probes"] = _build.build(NOISE_PROBE_SOURCES,
+                                           "cid_noise_probes")
+        except Exception as e:  # noqa: BLE001 - reported below
+            built["error"] = e
+
+    probes_thread = threading.Thread(target=build_probes)
+    probes_thread.start()
     res = _build.build()
-    say(f"built {res.path.name} in {res.seconds:.1f} s"
-        f"{' (cached)' if res.cached else ''}")
+    probes_thread.join()
+    if "error" in built:
+        fail(f"the noise probes did not build: {built['error']}")
+    pres = built["probes"]
+    for r in (res, pres):
+        say(f"built {r.path.name} in {r.seconds:.1f} s"
+            f"{' (cached)' if r.cached else ''}")
     # ptxas: one line per kernel (dynamic shared memory is set at launch and
     # not shown here; the sources' headers give it)
     name = None
-    for line in res.log.splitlines():
+    for line in (res.log + "\n" + pres.log).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             short = re.search(r".*\d((?:conv3x3|convt2x2|double_conv3x3|"
@@ -300,29 +324,43 @@ def phase_build(_build):
             say(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
             name = None
     _build.library()
+    probes = ctypes.CDLL(str(pres.path))
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    probes.cid_noise_issue_probe.argtypes = (
+        [I] + [P] * 4 + [L, I, P, P] + [F] * 5 + [P])
+    probes.cid_noise_issue_probe.restype = I
     # which matrix instructions were compiled in
     tool = shutil.which("cuobjdump") or str(
         _build.find_nvcc()).replace("nvcc", "cuobjdump")
-    try:
-        sass = subprocess.run([tool, "-sass", str(res.path)],
-                              capture_output=True, text=True, timeout=300)
-    except OSError as e:
-        fail(f"could not run cuobjdump ({e}): the matrix instructions and "
-             "the noise kernel's issue floor need its SASS")
-    if sass.returncode != 0:
-        fail(f"cuobjdump failed ({sass.stderr.strip()[:200]}): the matrix "
-             "instructions and the noise kernel's issue floor need its SASS")
-    hgmma = len(re.findall(r"\bHGMMA\.", sass.stdout))
-    igmma = len(re.findall(r"\bIGMMA\.", sass.stdout))
-    hmma = len(re.findall(r"\bHMMA\.", sass.stdout))
-    imma = len(re.findall(r"\bIMMA\.", sass.stdout))
+
+    def sass_of(path):
+        try:
+            out = subprocess.run([tool, "-sass", str(path)],
+                                 capture_output=True, text=True, timeout=300)
+        except OSError as e:
+            fail(f"could not run cuobjdump ({e}): the matrix instructions "
+                 "and the noise kernel's issue floor need its SASS")
+        if out.returncode != 0:
+            fail(f"cuobjdump failed ({out.stderr.strip()[:200]}): the matrix "
+                 "instructions and the noise kernel's issue floor need its "
+                 "SASS")
+        return out.stdout
+
+    sass = sass_of(res.path)
+    if "noise_issue_probe" in sass:
+        fail("the kernel library holds the noise probes")
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    igmma = len(re.findall(r"\bIGMMA\.", sass))
+    hmma = len(re.findall(r"\bHMMA\.", sass))
+    imma = len(re.findall(r"\bIMMA\.", sass))
     say(f"  matrix instructions in {res.path.name}: HGMMA (bf16 wgmma) "
         f"{hgmma}, IGMMA (s8 wgmma) {igmma}, HMMA (mma.sync bf16) {hmma}, "
         f"IMMA (mma.sync s8) {imma}")
     if hgmma < 1 or igmma < 1 or hmma < 1 or imma < 1:
         fail("the built library lacks a tensor-core matrix instruction")
     # the int8 kernels K5 (its Cout > 8 path) and K6 on the s8 wgmma
-    funcs = re.split(r"\n\s*Function : ", sass.stdout)
+    funcs = re.split(r"\n\s*Function : ", sass)
     for kernel in ("conv3x3_s8_wgmma_kernel", "convt2x2_s8_kernel"):
         body = "".join(f for f in funcs if f.split("\n", 1)[0].find(kernel)
                        >= 0)
@@ -331,8 +369,9 @@ def phase_build(_build):
         if n < 1:
             fail(f"{kernel} does not run on the s8 wgmma")
     # the instructions a chunk of each noise kind must issue (phase 11)
+    funcs = re.split(r"\n\s*Function : ", sass_of(pres.path))
     issue = {}
-    for kind, code in NOISE_KINDS.items():
+    for kind, code in noise.KIND_CODES.items():
         body = [f for f in funcs
                 if f"noise_issue_probeILi{code}E" in f.split("\n", 1)[0]]
         if len(body) != 1:
@@ -343,7 +382,7 @@ def phase_build(_build):
         + ", ".join(f"{k} {v}" for k, v in issue.items()))
     if min(issue.values()) < 20:
         fail("the noise probes' SASS was not read")
-    return issue
+    return probes, issue
 
 
 def sass_issue_count(body: str) -> int:
@@ -1349,7 +1388,7 @@ def noise_inputs(gen, n, types=5):
 
 
 def check_noise_batch(noise, label, kinds, seed, x, types=None) -> float:
-    types = tuple(NOISE_KINDS) if types is None else types
+    types = tuple(noise.KIND_CODES) if types is None else types
     got = noise.noise_batch(kinds, seed, x, types)
     ref = noise.noise_batch_plain(kinds, seed, x, types)
     err = check_noise(f"noise_batch noisy {label}", torch.float32, got[0],
@@ -1466,7 +1505,7 @@ def noise_distributions(noise, gen) -> None:
     seed = torch.randint(0, 1 << 62, (1,), generator=gen, device="cuda")
 
     def run(kind, xx=x):
-        k = torch.full((shape[0],), NOISE_KINDS[kind], device="cuda")
+        k = torch.full((shape[0],), noise.KIND_CODES[kind], device="cuda")
         return ((noise.noise_batch(k, seed, xx)[0] + 1) / 2).double()
 
     img = v / 255
@@ -1594,7 +1633,7 @@ def phase_train(conv3x3, double_conv, noise):
 
     say(f"== phase 10: cli.train at batch {TRAIN_BATCH}, {TRAIN_SIZE}x"
         f"{TRAIN_SIZE}, one epoch")
-    launches = 0
+    launches = gaussian_launches = 0
     step_sec = {}
     trainers = {}
     with tempfile.TemporaryDirectory(prefix="cid_train_") as tmp:
@@ -1608,19 +1647,21 @@ def phase_train(conv3x3, double_conv, noise):
                     str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
                     str(TRAIN_BATCH), "--num-epochs", "1", "--compute-dtype",
                     cdt, "--checkpoint-dir", f"{tmp}/ckpt_{cdt}"]
-            noise.LAUNCHES = conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+            noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
+            conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
             t0 = time.perf_counter()
             tr = cli_train.run(argv)
             wall = time.perf_counter() - t0
-            k4, k2, k3 = (noise.LAUNCHES, conv3x3.LAUNCHES,
-                          double_conv.LAUNCHES)
+            k4, k4g, k2, k3 = (noise.LAUNCHES, noise.GAUSSIAN_LAUNCHES,
+                               conv3x3.LAUNCHES, double_conv.LAUNCHES)
             hist = {k: v[-1] for k, v in tr.metric_history.items() if v}
             say(f"  {cdt}: {tr.steps} steps in {wall:.2f} s (first-use "
                 f"set-up included), g_loss {hist.get('g_loss')} d_loss "
                 f"{hist.get('d_loss')} psnr {hist.get('psnr')} ssim "
-                f"{hist.get('ssim')}; noise kernel launches {k4} (steps "
-                f"with a gaussian sample {tr.steps_with_gaussian}); conv "
-                f"kernel launches {k2 + k3}")
+                f"{hist.get('ssim')}; noise kernel launches: noise_batch "
+                f"{k4}, gaussian-only entry {k4g} (steps with a gaussian "
+                f"sample {tr.steps_with_gaussian}); conv kernel launches "
+                f"{k2 + k3}")
             if tr.steps != 4 or len(tr.metric_history["g_loss"]) != 1:
                 fail(f"train {cdt}: expected 4 steps and one finite epoch")
             if not all(np.isfinite(v) for v in hist.values()):
@@ -1628,11 +1669,15 @@ def phase_train(conv3x3, double_conv, noise):
             if not hist["psnr"] > 5.0:
                 fail(f"train {cdt}: PSNR {hist['psnr']} not above 5 dB")
             if k4 != tr.steps:
-                fail(f"train {cdt}: noise kernel launches {k4}, expected one "
+                fail(f"train {cdt}: noise_batch launches {k4}, expected one "
                      f"per step ({tr.steps})")
+            if k4g:
+                fail(f"train {cdt}: the gaussian-only entry launched {k4g} "
+                     "times while training")
             if k2 or k3:
                 fail(f"train {cdt}: conv kernels launched while training")
             launches += k4
+            gaussian_launches += k4g
             # the checkpoint resumes with identical parameters
             again = cli_train.build_trainer(
                 cli_train.build_parser().parse_args(argv + ["--resume"]))
@@ -1683,17 +1728,21 @@ def phase_train(conv3x3, double_conv, noise):
     # of its own: these launches are not the training path's
     batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
     gen = make_gen()
-    noise.LAUNCHES = 0
+    noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
     for _ in range(3):
         out, _, kinds = noise_lib.random_noise_batch(gen, batch,
                                                      types=("gaussian",))
     torch.cuda.synchronize()
-    say(f"  random_noise_batch(types=('gaussian',)) x3: noise kernel "
-        f"launches {noise.LAUNCHES}")
-    if noise.LAUNCHES != 3 or kinds.tolist() != [0] * TRAIN_BATCH \
+    say(f"  random_noise_batch(types=('gaussian',)) x3: noise_batch "
+        f"launches {noise.LAUNCHES}, gaussian-only entry "
+        f"{noise.GAUSSIAN_LAUNCHES}")
+    if noise.LAUNCHES != 3 or noise.GAUSSIAN_LAUNCHES \
+            or kinds.tolist() != [0] * TRAIN_BATCH \
             or not bool(torch.isfinite(out).all()):
-        fail("gaussian-only input stage: expected one launch per call")
-    return launches, trainers["bfloat16"], batch, step_sec["bfloat16"]
+        fail("gaussian-only input stage: expected one noise_batch launch "
+             "per call")
+    return (launches, gaussian_launches, trainers["bfloat16"], batch,
+            step_sec["bfloat16"])
 
 
 @functools.lru_cache(maxsize=1)
@@ -1736,13 +1785,14 @@ def issue_floor_ms(issue, kinds, x) -> float:
     the instructions its kind's chunk issues (phase 2), over 4 warp
     instructions a clock on every SM at the card's highest SM clock."""
     per_warp = x[0].numel() / (NOISE_CHUNK * 32)
-    names = list(NOISE_KINDS)
-    warp_ins = sum(per_warp * issue[names[k]] for k in kinds.tolist())
+    per_kind = list(issue.values())  # in the order of the kind codes
+    warp_ins = sum(per_warp * per_kind[k] for k in kinds.tolist())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return warp_ins / (4 * sms * max_sm_clock_hz()) * 1e3
 
 
-def phase_train_profile(_build, noise, trainer, batch, step_sec, issue):
+def phase_train_profile(_build, probes, noise, trainer, batch, step_sec,
+                        issue):
     from torch.profiler import ProfilerActivity, profile
 
     from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
@@ -1797,14 +1847,13 @@ def phase_train_profile(_build, noise, trainer, batch, step_sec, issue):
             f"{g_bytes:.4f} ms, issue {g_ops:.4f} ms (its chunks as "
             "noise_batch's gaussian ones)")
     # each kind alone (the probes, f32 noisy and clean): where the time goes
-    lib = _build.library()
     _, table, guide = noise.poisson_tables(x.device)
     y, z = torch.empty(x.shape, device="cuda"), torch.empty(x.shape,
                                                             device="cuda")
     p = 1 - np.exp(-0.06)
-    for kind, code in NOISE_KINDS.items():
+    for kind, code in noise.KIND_CODES.items():
         def probe():
-            _build.check(lib.cid_noise_issue_probe(
+            _build.check(probes.cid_noise_issue_probe(
                 code, x.data_ptr(), y.data_ptr(), z.data_ptr(),
                 seed.data_ptr(), x.numel(), 3, table.data_ptr(),
                 guide.data_ptr(), 25.0 / 255.0, 0.1, 25.0 / 255.0, p, p,
@@ -1876,7 +1925,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device()
-    issue = phase_build(_build)
+    probes, issue = phase_build(_build, noise)
     worst = phase_kernels(_build, conv3x3, double_conv)
     worst8 = phase_int8_kernels(_build, conv3x3, k5, k6)
     launches = phase_serve(conv3x3, double_conv)
@@ -1888,11 +1937,11 @@ def main() -> int:
     phase_profile(bench)
     noise_err = phase_noise_kernel(noise)
     phase_train_check(conv3x3, double_conv)
-    noise_launches, trainer, batch, step_sec = phase_train(
-        conv3x3, double_conv, noise)
+    noise_launches, gaussian_launches, trainer, batch, step_sec = \
+        phase_train(conv3x3, double_conv, noise)
     if noise_launches < 1:
         fail("noise_batch was not launched on the training path")
-    noise_stats = phase_train_profile(_build, noise, trainer, batch,
+    noise_stats = phase_train_profile(_build, probes, noise, trainer, batch,
                                       step_sec, issue)
 
     replaces = {
@@ -1978,10 +2027,11 @@ def main() -> int:
         "bound_by": noise_stats["bound_by"],
         "library_ms": None,
         # the same kernel through the Pallas function's counterpart (every
-        # element gaussian, one f32 output), at the same batch; not on the
-        # main path
+        # element gaussian, one f32 output), at the same batch; its own
+        # count over the same cli.train runs (0: not on the main path)
         "gaussian_only": {
-            "entry": "fused_normalize_gaussian_noise", "launches": 0,
+            "entry": "fused_normalize_gaussian_noise",
+            "launches": gaussian_launches,
             "max_abs_err": noise_err, "ms": g["ms"],
             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"], "library_ms": None},

@@ -216,10 +216,10 @@ def test_k4_wrapper_refuses(bad, exc):
 
 def test_k4_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     x = torch.arange(2 * 4 * 6 * 3, dtype=torch.uint8).view(2, 4, 6, 3)
-    before = k4.LAUNCHES
+    before = k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES
     assert torch.equal(k4.fused_normalize_gaussian_noise(5, x),
                        k4.fused_normalize_gaussian_noise_plain(5, x))
-    assert k4.LAUNCHES == before
+    assert (k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +274,36 @@ def test_unknown_kind_and_waiting_variants():
             port_noise.add_noise(_gen(), IMG, "gaussian", variant=variant)
     for name in ("blind_gaussian_batch", "poisson_v3_exact"):
         assert not hasattr(port_noise, name)
+
+
+def test_variant1_parameters_are_defined_once():
+    """The kernel module holds the variant's parameters, kind codes and
+    ``*_from_draws`` functions and imports nothing of the data layer above
+    it; ``data/noise.py`` uses those very objects, so one edit changes the
+    kernel, its plain version and the generator-driven kinds together."""
+    import inspect
+
+    src = inspect.getsource(k4)
+    assert "celebrity_image_denoiser_tpu_torch.data" not in src
+    assert port_noise.NOISE_TYPES == tuple(k4.KIND_CODES)
+    for kind in port_noise.NOISE_TYPES:
+        fn = f"{kind}_v1_from_draws"
+        assert getattr(port_noise, fn) is getattr(k4, fn)
+    defaults = {
+        port_noise.gaussian_v1: {"sigma": k4.GAUSSIAN_SIGMA},
+        port_noise.salt_pepper_v1: {"salt_prob": k4.SALT_PROB,
+                                    "pepper_prob": k4.PEPPER_PROB},
+        port_noise.speckle_v1: {"sigma": k4.SPECKLE_SIGMA},
+        port_noise.uniform_v1: {"high": k4.UNIFORM_HIGH},
+    }
+    for fn, want in defaults.items():
+        params = inspect.signature(fn).parameters
+        assert {k: params[k].default for k in want} == want
+    batch = torch.zeros(2, 4, 4, 3, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port_noise.random_noise_batch(_gen(), batch, variant=3)
+    with pytest.raises(ValueError, match="unknown noise variant"):
+        port_noise.random_noise_batch(_gen(), batch, variant=4)
 
 
 def test_kinds_equal_jax_given_the_same_draws():
@@ -492,6 +522,7 @@ def test_noise_batch_refuses():
         k4.noise_batch(kinds, seed, x, types=("gaussian",) * 9)
     with pytest.raises(NotImplementedError):
         k4.noise_batch(kinds, seed, x, variant=3)
-    before = k4.LAUNCHES
+    before = k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES
     k4.noise_batch(kinds, seed, x)
-    assert k4.LAUNCHES == before  # the plain version launches nothing
+    # the plain version launches nothing
+    assert (k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES) == before

@@ -685,6 +685,9 @@ def test_cli_train_on_the_cpu(png_dir, tmp_path):
     assert tr.start_epoch == 1
     tr.train()
     assert tr.steps == 2 and 0 <= tr.steps_with_gaussian <= 2
+    # one count per step (batch 4), read once at the epoch's end
+    assert len(tr.gaussian_counts) == 2
+    assert all(type(c) is int and 0 <= c <= 4 for c in tr.gaussian_counts)
     assert len(tr.metric_history["psnr"]) == 2
     for flag in ("--remat", "--tensor-cache", "--no-on-the-fly"):
         with pytest.raises(SystemExit):  # absent, not accepted and ignored
