@@ -38,6 +38,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# Held by every kernel wrapper around its launcher's call and around its
+# launch count.  The server's request threads launch kernels at the same
+# time: a launcher sets its kernel's dynamic shared-memory limit for this
+# launch and then launches, and another thread's launch of the same kernel
+# in between runs against the wrong limit (CUDA error 701, "too many
+# resources requested for launch"); and a bare ``+= 1`` on a module global
+# can lose a count.
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(module_globals: dict, name: str) -> None:
+    """Add one to a kernel module's launch counter ``name``."""
+    with LAUNCH_LOCK:
+        module_globals[name] += 1
 
 
 @dataclasses.dataclass

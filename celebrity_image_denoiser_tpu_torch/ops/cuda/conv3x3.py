@@ -126,7 +126,6 @@ def _run(x, kernel, bias, relu: bool, x2) -> torch.Tensor:
         return conv3x3_bias_relu_plain(x, kernel, bias, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global LAUNCHES
     n, h, w, ca = x.shape
     cb = 0 if x2 is None else x2.shape[3]
     cin = ca + cb
@@ -137,14 +136,14 @@ def _run(x, kernel, bias, relu: bool, x2) -> torch.Tensor:
                          f"{tuple(kernel.shape)}")
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_conv3x3_bias_relu(
             x.data_ptr(), None if x2 is None else x2.data_ptr(),
             kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), n, h, w, ca, cb,
             cout, int(relu), *((0, 0, 0) if x2 is None else x2.stride()[:3]),
             _build.dtype_code(x.dtype), stream)
     _build.check(rc, "conv3x3_bias_relu")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y
 
 
@@ -193,18 +192,17 @@ def conv3x3_bias_relu_q8(x: torch.Tensor, kernel: torch.Tensor,
         return conv3x3_bias_relu_q8_plain(x, kernel, bias, scale, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global LAUNCHES
     n, h, w, cin = x.shape
     y = torch.empty((n, h, w, cout), dtype=torch.int8, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_conv3x3_bias_relu_q8(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
             scale.data_ptr(), y.data_ptr(), n, h, w, cin, cout, int(relu),
             stream)
     _build.check(rc, "conv3x3_bias_relu_q8")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y
 
 

@@ -151,14 +151,13 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                                 out_scale=out_scale, x2=x2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global LAUNCHES
     n, h, wd, ca = x.shape
     dtype = {MODE_S8: torch.int8, MODE_BF16: torch.bfloat16,
              MODE_F32: torch.float32}[mode]
     y = torch.empty((n, h, wd, cout), dtype=dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_conv3x3_s8(
             x.data_ptr(), None if x2 is None else x2.data_ptr(), w.data_ptr(),
             w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -166,5 +165,5 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
             n, h, wd, ca, 0 if x2 is None else x2.shape[3], cout, int(relu),
             mode, *((0, 0, 0) if x2 is None else x2.stride()[:3]), stream)
     _build.check(rc, "conv3x3_s8")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y

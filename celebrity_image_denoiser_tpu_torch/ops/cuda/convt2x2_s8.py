@@ -83,19 +83,18 @@ def convt2x2_s8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
         return convt2x2_s8_plain(x, w, w_scale, bias, out_scale=out_scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global LAUNCHES
     n, h, wd, _ = x.shape
     dtype = {MODE_S8: torch.int8, MODE_BF16: torch.bfloat16,
              MODE_F32: torch.float32}[mode]
     y = torch.empty((n, 2 * h, 2 * wd, cout), dtype=dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_convt2x2_s8(
             x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if out_scale is None else out_scale.data_ptr(), y.data_ptr(),
             n, h, wd, cin, cout, mode, stream)
     _build.check(rc, "convt2x2_s8")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y

@@ -95,7 +95,6 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return double_conv3x3_relu_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    global LAUNCHES
     n, h, w, ca = x.shape
     cb = 0 if x2 is None else x2.shape[3]
     c0 = ca + cb
@@ -107,12 +106,12 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     lib = _build.library()
     code = _build.dtype_code(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_double_conv3x3_relu(
             x.data_ptr(), None if x2 is None else x2.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             y.data_ptr(), n, h, w, ca, cb, c1, c2,
             *((0, 0, 0) if x2 is None else x2.stride()[:3]), code, stream)
     _build.check(rc, "double_conv3x3_relu")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return y

@@ -7,19 +7,21 @@ Port of ``celebrity_image_denoiser_tpu/serve/app.py::make_server`` (:58) and
     POST /enhance?model=...&graphs=...  multipart: file, [label]
                     → {"denoised_image_base64", "noise_graph_base64",
                        "backend"} | {"detail"} with 400/500
+    GET  /ui        → the web UI (``serve/static/index.html``)
     GET  /healthz   → liveness/readiness (device, loaded weights)
     GET  /stats     → request counters / latency quantiles (serve/stats.py)
     GET  /metrics   → the same in Prometheus text format
 
 The model name is lowercased at the top of the POST handler, so errors
 counted before ``run_enhance`` share the canonical stats series.  The
-FastAPI variant and the ``/ui`` page are not ported yet.  CORS is open like
-the reference.
+FastAPI variant is not ported (fastapi is not a dependency of the port).
+CORS is open like the reference.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -41,6 +43,18 @@ _CORS = {
     "Access-Control-Allow-Headers": "*",
     "Access-Control-Allow-Credentials": "true",
 }
+
+
+class _Server(ThreadingHTTPServer):
+    # the default listen backlog of 5 drops connections of a burst of
+    # concurrent clients: with 64 at once, some waited more than 10 s
+    request_queue_size = 128
+
+
+def _ui_html() -> str:
+    path = os.path.join(os.path.dirname(__file__), "static", "index.html")
+    with open(path) as f:
+        return f.read()
 
 
 def make_server(host: str = "0.0.0.0", port: int = 8000,
@@ -78,6 +92,8 @@ def make_server(host: str = "0.0.0.0", port: int = 8000,
             elif parsed.path == "/metrics":
                 self._send(200, st.stats.prometheus(),
                            content_type="text/plain; version=0.0.4")
+            elif parsed.path == "/ui":
+                self._send(200, _ui_html(), content_type="text/html")
             else:
                 self._send(404, {"detail": "Not Found"})
 
@@ -136,12 +152,17 @@ def make_server(host: str = "0.0.0.0", port: int = 8000,
             # response lands got a successful enhancement, not a 500
             self._send(200, result)
 
-    server = ThreadingHTTPServer((host, port), Handler)
+    server = _Server((host, port), Handler)
     server.state = st
     return server
 
 
-def run_server(host: str, port: int, state: ServeState) -> None:
+def run_server(host: str, port: int, state: ServeState,
+               precompile=None) -> None:
+    """Serve until interrupted; ``precompile``: (H, W) sizes to warm first
+    (``ServeState.warmup``)."""
+    if precompile:
+        state.warmup(tuple(precompile))
     server = make_server(host, port, state=state)
     logger.info("Unified GAN API (torch port, %s) listening on %s:%d",
                 state.device, host, port)

@@ -30,14 +30,30 @@ or a failed gate; an error of a kernel's build or launch propagates, so
 the card never quietly serves float in place of a kernel.  The served
 input is f32 in [-1, 1]; the int8 program casts it to bf16 at conv 0 and
 its tanh output back to f32, which is truncated to uint8 as on the float
-path.  Each request is labelled ``int8``
-or ``float`` in the log line and in ``ServeStats`` (``last_compute_backend``
-reads it, per thread).
+path.  Each request is labelled ``int8`` or ``float`` (``+tiled`` for a
+big input, below) in the log line and in ``ServeStats``
+(``last_compute_backend`` reads it, per thread).
 
-Not ported yet, and refused rather than served some other way: inputs
-above ``tile_threshold_rows`` on either axis are a 400 (tiling is not
-ported); the other four families are a 400.  There is no micro-batching
-and no mesh.
+Big inputs (``_dispatch_forward:303-401``): a padded input taller or
+wider than ``tile_threshold_rows`` runs through exact single-device tiling
+(``parallel/tiling.py``, halo 32, tiles of ``tile_threshold_rows``), along
+the axis that is over, or with a width tiler nested inside the height
+tiler when both are; under ``quantize="int8"`` every tile runs the int8
+forward the ladder built.  Such a request is labelled ``float+tiled`` or
+``int8+tiled``.
+
+Micro-batching (``microbatch_window_ms``, ``serve/batching.py``):
+concurrent batch-1 requests of one padded shape under the threshold share
+one forward of a pow2-padded batch, whose uint8 output comes back to the
+host in one copy.  The label is set in the requesting thread, since the
+batch may run in another.  ``warmup`` runs each padded size once (its tile
+shapes when it is over the threshold) and, with micro-batching on, every
+batch size the batcher can dispatch, so that the kernels are built and
+each shape launched before the first request.
+
+Not ported yet: the other four families are a 400; there is no mesh
+(spatial sharding and data-parallel batches, ``ROADMAP.md`` queue 1, item
+7).
 """
 
 from __future__ import annotations
@@ -69,6 +85,13 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
 )
 from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
+from celebrity_image_denoiser_tpu_torch.parallel.tiling import (
+    tiled_apply_single_device,
+)
+from celebrity_image_denoiser_tpu_torch.serve.batching import (
+    BatcherPool,
+    _pow2_at_least,
+)
 from celebrity_image_denoiser_tpu_torch.serve.stats import ServeStats
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
 
@@ -76,6 +99,7 @@ logger = get_logger("cid_torch.serve")
 
 MAX_UPLOAD = 50 * 1024 * 1024  # app.py:374-375
 GATE_DB = 40.0  # the runtime agreement gate (handlers.py:448-468)
+TILE_HALO = 32  # covers the U-Net's receptive field (parallel/tiling.py)
 
 # default checkpoint names, matching the reference weights dir layout: a
 # reference .pth first, else the native npz directory
@@ -127,10 +151,21 @@ def _as01(y_u8: np.ndarray) -> np.ndarray:
 
 class ServeState:
     """Loaded model + float or int8 forward on ``device`` (the card by
-    default)."""
+    default).  Big inputs route through exact tiling automatically.
+
+    ``bucket_divisor`` (e.g. 64): pad to a multiple of this instead of the
+    family's divisor alone, so that request sizes fall on fewer shapes (off
+    by default: the extra zero border can move values near the edge against
+    the reference's divisor-4 padding).  ``use_tiling=False`` runs a big
+    input as one untiled forward.  ``microbatch_window_ms``: coalesce
+    concurrent same-shape requests into batches of up to ``microbatch_max``
+    (off by default: it adds up to that much latency)."""
 
     def __init__(self, weights_dir: Optional[str] = None, seed: int = 0,
-                 tile_threshold_rows: int = 2048,
+                 tile_threshold_rows: int = 2048, use_tiling: bool = True,
+                 bucket_divisor: Optional[int] = None,
+                 microbatch_window_ms: Optional[float] = None,
+                 microbatch_max: int = 16,
                  quantize: Optional[str] = None, device="cuda"):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got "
@@ -145,6 +180,10 @@ class ServeState:
         self.quantize = quantize
         self.weights_dir = weights_dir or default_weights_dir()
         self.tile_threshold_rows = tile_threshold_rows
+        self.use_tiling = use_tiling
+        self.bucket_divisor = bucket_divisor
+        self.batchers = (None if microbatch_window_ms is None else
+                         BatcherPool(microbatch_window_ms, microbatch_max))
         gen = torch.Generator().manual_seed(seed)
         self.models: Dict[str, DenoiseGenerator] = {
             "denoise": DenoiseGenerator(generator=gen)}
@@ -154,6 +193,7 @@ class ServeState:
         for m in self.models.values():
             m.to(self.device).eval()
         self._path_note = threading.local()
+        self._tilers: Dict[tuple, object] = {}
         # per model: the int8 forward (None: float) and the rung it came from
         self._qapply: Dict[str, object] = {}
         self.int8_rung: Dict[str, Optional[str]] = {}
@@ -252,28 +292,85 @@ class ServeState:
                 logger.warning("[%s] checkpoint failed to load (%s). Using "
                                "random init for that backend.", name, e)
 
-    # -- the forward (_build_forward:278-301) ---------------------------------
+    # -- the forward (_build_forward:278-301, _dispatch_forward:303-407) ----
+    def _apply(self, name: str, route: str):
+        """The model's forward on NHWC f32 in [-1, 1] → NHWC (tanh domain):
+        the int8 forward where the ladder built one, else the float model."""
+        qapply = self._qapply.get(name)
+        if qapply is None:
+            model = self.models[name]
+            return lambda x: model(x.permute(0, 3, 1, 2), route=route
+                                   ).permute(0, 2, 3, 1)
+        if isinstance(qapply, quant_unet.QuantizedDenoiseUNet):
+            return lambda x: qapply(x, route=route)
+        if route == "plain":
+            raise ValueError("the generic int8 rung has no plain route")
+        return qapply
+
+    @staticmethod
+    def _to_u8(y: torch.Tensor) -> torch.Tensor:
+        """The served output map: clip(y·0.5+0.5), ×255, truncated."""
+        return (torch.clamp(y * 0.5 + 0.5, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+    def _tiler(self, name: str, over_h: bool, over_w: bool, route: str):
+        """The memoized tiled forward for inputs over the threshold on these
+        axes: a width tiler nested inside the height tiler when both are."""
+        key = ("tiled", name, over_h, over_w, route)
+        fn = self._tilers.get(key)
+        if fn is None:
+            fn = self._apply(name, route)
+            for axis, over in ((2, over_w), (1, over_h)):
+                if over:
+                    fn = tiled_apply_single_device(
+                        tile_h=self.tile_threshold_rows, halo=TILE_HALO,
+                        scale=MODEL_CFG[name].get("scale", 1), apply_fn=fn,
+                        axis=axis)
+            # two threads may build one at once: both are the same function
+            fn = self._tilers.setdefault(key, fn)
+        return fn
+
+    def _batched_dispatch(self, name: str):
+        """How the micro-batcher runs a coalesced batch: the forward and the
+        output map on the card (the batcher's fence copies it back)."""
+        apply = self._apply(name, "kernel")
+
+        def dispatch(xs: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return self._to_u8(apply(xs))
+        return dispatch
+
     def _forward(self, name: str, x: np.ndarray, plain: bool = False
                  ) -> np.ndarray:
-        """(1, H, W, 3) float32 in [-1, 1] → (1, H, W, 3) uint8, truncated;
-        through the int8 forward where one was built."""
+        """(N, H, W, 3) float32 in [-1, 1] → (N, H, W, 3) uint8, truncated;
+        through the int8 forward where one was built; tiled when H or W is
+        over ``tile_threshold_rows``; through the micro-batcher for a batch-1
+        input under it when micro-batching is on."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         route = "plain" if plain else "kernel"
-        qapply = self._qapply.get(name)
+        label = "float" if self._qapply.get(name) is None else "int8"
+        over_h = x.shape[1] > self.tile_threshold_rows
+        over_w = x.shape[2] > self.tile_threshold_rows
+        tiled = (over_h or over_w) and self.use_tiling
+        # the label is this thread's: a micro-batch may run in another
+        self._path_note.value = label + ("+tiled" if tiled else "")
+        if not tiled and not plain and self.batchers is not None \
+                and x.shape[0] == 1:
+            batcher = self.batchers.get((name, tuple(x.shape[1:])),
+                                        self._batched_dispatch(name))
+            return batcher(xt)
+        fn = (self._tiler(name, over_h, over_w, route) if tiled
+              else self._apply(name, route))
         with torch.inference_mode():
-            if qapply is None:
-                y = self.models[name](xt.permute(0, 3, 1, 2), route=route
-                                      ).permute(0, 2, 3, 1)
-            elif isinstance(qapply, quant_unet.QuantizedDenoiseUNet):
-                y = qapply(xt, route=route)
-            elif plain:
-                raise ValueError("the generic int8 rung has no plain route")
-            else:
-                y = qapply(xt)
-            y01 = torch.clamp(y * 0.5 + 0.5, 0.0, 1.0)
-            u8 = (y01 * 255.0).to(torch.uint8)
-        self._path_note.value = "float" if qapply is None else "int8"
+            u8 = self._to_u8(fn(xt))
         return u8.cpu().numpy()
+
+    def _padding(self, name: str, h: int, w: int):
+        """(left, top, right, bottom) padding of an (h, w) input."""
+        cfg = MODEL_CFG[name]
+        divisor = cfg["pad_divisor"]
+        if self.bucket_divisor:
+            divisor = max(divisor, self.bucket_divisor)
+        return get_padding((w, h), divisor, cfg.get("scale", 1))
 
     def denoise_image(self, image: np.ndarray, model: str = "denoise", *,
                       plain: bool = False) -> np.ndarray:
@@ -281,22 +378,46 @@ class ServeState:
         to the family's divisor, normalize, forward, crop back.  ``plain``
         runs the kernels' plain versions (the reference on the card)."""
         h, w = image.shape[:2]
-        cfg = MODEL_CFG[model]
-        pl_, pt_, pr_, pb_ = get_padding((w, h), cfg["pad_divisor"],
-                                         cfg.get("scale", 1))
-        hh, ww = h + pt_ + pb_, w + pl_ + pr_
-        if max(hh, ww) > self.tile_threshold_rows:
-            raise EnhanceError(
-                400, f"Input {w}x{h} exceeds tile_threshold_rows="
-                     f"{self.tile_threshold_rows}; tiled inference is not "
-                     "ported to this server yet")
+        pl_, pt_, pr_, pb_ = self._padding(model, h, w)
         padded = np.pad(image, ((pt_, pb_), (pl_, pr_), (0, 0)))
-        mean, std = cfg["normalize"]
-        xin = imageio.normalize(imageio.to_float01(padded), mean[0],
-                                std[0])[None]
+        mean, std = MODEL_CFG[model]["normalize"]
+        # expand_dims, not [None]: a [None] view has a batch stride of 0,
+        # and PyTorch's CPU convolution then sums conv 0 in another order
+        # than for the same image inside a batch (one s8 step in int8)
+        xin = np.expand_dims(imageio.normalize(imageio.to_float01(padded),
+                                               mean[0], std[0]), 0)
         y01 = _as01(self._forward(model, xin, plain=plain))
         y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
         return y_u8[pt_:pt_ + h, pl_:pl_ + w]
+
+    def warmup(self, sizes=((256, 256),), models=None) -> None:
+        """Run each (H, W) input size once per model (sizes before padding)
+        so that first requests do not pay for the kernels' build (nvcc at
+        first use) or a first launch at their shapes: a size over the
+        threshold runs its tile shapes.  With micro-batching on, also every
+        batch size the batcher can dispatch at that padded shape (the pow2
+        series up to ``microbatch_max``, the cap included), for the sizes
+        the batcher serves (not those that are tiled).  ``models``: only
+        these families."""
+        for h, w in sizes:
+            for name in self.models:
+                if models is not None and name not in models:
+                    continue
+                pl_, pt_, pr_, pb_ = self._padding(name, h, w)
+                hh, ww = h + pt_ + pb_, w + pl_ + pr_
+                t0 = time.perf_counter()
+                self._forward(name, np.zeros((1, hh, ww, 3), np.float32))
+                tiled = self.use_tiling and max(hh, ww) > \
+                    self.tile_threshold_rows
+                if self.batchers is not None and not tiled:
+                    dispatch = self._batched_dispatch(name)
+                    mb = self.batchers.max_batch
+                    for b in sorted({_pow2_at_least(n, mb)
+                                     for n in range(2, mb + 1)}):
+                        dispatch(torch.zeros((b, hh, ww, 3),
+                                             device=self.device)).cpu()
+                logger.info("warmed %s at %dx%d (%.1fs)", name, hh, ww,
+                            time.perf_counter() - t0)
 
     # -- info routes ---------------------------------------------------------
     def info(self) -> dict:

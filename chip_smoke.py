@@ -58,7 +58,29 @@ Phases, each printing its own lines; any failure exits non-zero:
              default): the ladder must pick ``int8-s8skip``, three
              ``/enhance`` requests counted ``int8`` with those launch
              counts and ≥ 40 dB of the plain route, and 100 requests for
-             p50/p90 latency;
+             p50/p90 latency; phases 4 and 4b end with the quality gate:
+             the fixture gain (``serve/quality.py``) of the f32 and the
+             int8 server on the shipped weights must reach 70% of the gain
+             recorded in ``weights/denoise/meta.json``;
+4c. tiling — the f32 and the int8 server (threshold 2048) answer a tall
+             4097×1001, a wide 1001×4097 and a 3072×4096 (H×W) request over
+             HTTP, labelled ``float+tiled`` / ``int8+tiled``, with exactly
+             tiles × (2 K2 + 4 K3) or tiles × (1 K2 + 9 K5 + 2 K6)
+             launches, against the same input served untiled on the kernel
+             route by a server whose threshold is above it: f32 within 1
+             count (the exact share printed), int8 bit-equal; the
+             3072×4096 request timed three times, its median and stage
+             split (decode, forward, encode) printed;
+4d. micro-batching — ``ServeState(quantize="int8",
+             microbatch_window_ms=2, microbatch_max=16)`` warmed at 256² and
+             2048² (seconds printed); one 16×2048² batch through the batched
+             dispatch (s8 tensors of 4.29e9 elements) bit-equal image by
+             image to batch-1 forwards; then 32 concurrent clients × 8
+             requests of 256² PNGs over HTTP with micro-batching off and on,
+             on the int8 and the f32 server: requests/s, p50/p90, forwards
+             and mean occupancy, launches exactly forwards × the per-forward
+             counts, and every micro-batched response equal to the same
+             request served alone (int8 bit-equal, f32 within 1 count);
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -835,6 +857,24 @@ def post_enhance(url, png: bytes):
         return r.status, json.loads(r.read())
 
 
+def quality_gate(st, label: str) -> None:
+    """The serving quality gate: the fixture gain through ``st.enhance``
+    must reach 70% of the gain recorded with the shipped weights."""
+    from celebrity_image_denoiser_tpu_torch.serve import quality
+
+    if quality.recorded_margin(st.weights_dir, "denoise") is None:
+        fail("weights/denoise/meta.json records no fixture_gain_db")
+    floor = quality.recorded_gate_floor(st.weights_dir, "denoise",
+                                        default=1.0)
+    gain = quality.fixture_gain_db(st, "denoise")
+    say(f"  {label} fixture gain {gain:.3f} dB, floor {floor:.3f} dB "
+        f"({quality.GATE_FRACTION:.0%} of the recorded "
+        f"{quality.recorded_margin(st.weights_dir, 'denoise')} dB)")
+    if gain < floor:
+        fail(f"{label} server: fixture gain {gain:.3f} dB below the floor "
+             f"{floor:.3f} dB")
+
+
 def phase_serve(conv3x3, double_conv):
     from celebrity_image_denoiser_tpu_torch.data import imageio
     from celebrity_image_denoiser_tpu_torch.serve.app import make_server
@@ -894,6 +934,7 @@ def phase_serve(conv3x3, double_conv):
         say(f"  /enhance 256x256 latency over {len(lat)} requests (one "
             f"client, graphs=false): p50 {p50:.2f} ms p90 {p90:.2f} ms "
             f"max {max(lat):.2f} ms")
+        quality_gate(st, "f32")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1028,10 +1069,289 @@ def phase_int8_serve(conv3x3, double_conv, k5, k6):
         say(f"  int8 /enhance 256x256 latency over {len(lat)} requests (one "
             f"client, graphs=false): p50 {p50:.2f} ms p90 {p90:.2f} ms "
             f"max {max(lat):.2f} ms")
+        quality_gate(st, "int8")
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=30)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# big inputs and micro-batching
+TILED_SIZES = (("tall", 4097, 1001), ("wide", 1001, 4097),
+               ("both", 3072, 4096))  # (name, H, W)
+PER_FORWARD = {"float": (2, 4, 0, 0), "int8": INT8_PER_FORWARD}
+MB_CLIENTS, MB_REQUESTS, MB_SIZE = 32, 8, 256  # phase 4d's HTTP load
+
+
+class StageLog:
+    """Collects the request log lines of ``serve/handlers.py`` (their
+    arguments: model, w, h, total, decode, forward, figure, encode ms,
+    compute, device) from whichever thread served them."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger("cid_torch.serve")
+
+    def _emit(self, record):
+        if record.msg.startswith("[%s] %dx%d in"):
+            self.records.append(record.args)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def n_tiles(h: int, w: int, threshold: int = 2048) -> int:
+    """Tiles of a padded (multiple of 4) input over ``threshold``."""
+    hh, ww = -(-h // 4) * 4, -(-w // 4) * 4
+    per = [-(-e // threshold) if e > threshold else 1 for e in (hh, ww)]
+    return per[0] * per[1]
+
+
+def serve_in_thread(st):
+    from celebrity_image_denoiser_tpu_torch.serve.app import make_server
+
+    srv = make_server("127.0.0.1", 0, state=st)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{srv.server_address[1]}"
+           "/enhance?model=denoise&graphs=false")
+    return srv, thread, url
+
+
+def stop_server(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=30)
+    if thread.is_alive():
+        fail("the HTTP server thread did not stop")
+
+
+def backends_after(st, before: dict) -> dict:
+    now = st.stats.snapshot()["compute_backends"]
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def phase_tiling(conv3x3, double_conv, k5, k6):
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    say("== phase 4c: big inputs, tiled (shipped weights, threshold 2048)")
+    images = {name: test_image(h, w, seed=40 + i)
+              for i, (name, h, w) in enumerate(TILED_SIZES)}
+    pngs = {name: imageio.encode_png(img) for name, img in images.items()}
+    totals = [0, 0, 0, 0]
+    for kind, quantize in (("float", None), ("int8", "int8")):
+        st = ServeState(device="cuda", quantize=quantize)
+        # the same requests served untiled on the kernel route
+        ref = ServeState(device="cuda", quantize=quantize,
+                         tile_threshold_rows=8192)
+        if quantize and (st.int8_rung.get("denoise") != "int8-s8skip"
+                         or ref.int8_rung.get("denoise") != "int8-s8skip"):
+            fail(f"the int8 ladder served {st.int8_rung}, {ref.int8_rung}")
+        srv, thread, url = serve_in_thread(st)
+        try:
+            for name, h, w in TILED_SIZES:
+                before = st.stats.snapshot()["compute_backends"]
+                int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+                t0 = time.perf_counter()
+                status, payload = post_enhance(url, pngs[name])
+                dt = (time.perf_counter() - t0) * 1e3
+                counts = int8_counts(conv3x3, double_conv, k5, k6)
+                totals = [a + b for a, b in zip(totals, counts)]
+                labels = backends_after(st, before)
+                if status != 200:
+                    fail(f"{kind} /enhance {w}x{h}: HTTP {status} {payload}")
+                out = imageio.decode_png(
+                    base64.b64decode(payload["denoised_image_base64"]))
+                tiles = n_tiles(h, w)
+                expect = tuple(tiles * c for c in PER_FORWARD[kind])
+                y_ref = ref.denoise_image(images[name])
+                if ref.last_compute_backend() != kind:
+                    fail(f"the untiled reference ran "
+                         f"{ref.last_compute_backend()}")
+                d = np.abs(out.astype(np.int16) - y_ref.astype(np.int16))
+                say(f"  {kind} /enhance {name} {w}x{h}: 200 in {dt:.1f} ms, "
+                    f"labels {labels}, {tiles} tiles, launches K2 "
+                    f"{counts[0]} K3 {counts[1]} K5 {counts[2]} K6 "
+                    f"{counts[3]} (expected {expect}), vs untiled max diff "
+                    f"{d.max()} exact {np.mean(d == 0):.6%}")
+                if out.shape != (h, w, 3):
+                    fail(f"{kind} {name}: output shape {out.shape}")
+                if labels != {f"{kind}+tiled": 1}:
+                    fail(f"{kind} {name}: labelled {labels}")
+                if counts != expect:
+                    fail(f"{kind} {name}: launches {counts}, expected "
+                         f"{expect}")
+                if d.max() > (1 if kind == "float" else 0):
+                    fail(f"{kind} {name}: tiled differs from untiled by "
+                         f"{d.max()}")
+            # the both-axes request, timed three times
+            lat = []
+            with StageLog() as log:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    status, _ = post_enhance(url, pngs["both"])
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    if status != 200:
+                        fail(f"{kind} both-axes timing: HTTP {status}")
+            if len(log.records) != 3:
+                fail(f"expected 3 request log lines, got {len(log.records)}")
+            i = int(np.argsort(lat)[1])
+            rec = log.records[i]
+            say(f"  {kind} 3072x4096 (H x W) over 3 requests: median "
+                f"{lat[i]:.1f} ms (all {', '.join(f'{v:.1f}' for v in lat)});"
+                f" its stages: server {rec[3]:.1f} ms = decode {rec[4]:.1f} "
+                f"+ forward+D2H {rec[5]:.1f} + encode {rec[7]:.1f} ms, "
+                f"compute={rec[8]}")
+        finally:
+            stop_server(srv, thread)
+        del st, ref
+        torch.cuda.empty_cache()
+    return totals
+
+
+def run_load(url, pngs):
+    """MB_CLIENTS closed-loop clients, each sending its MB_REQUESTS PNGs in
+    turn; returns (wall s, latencies ms, response images in request
+    order)."""
+    import concurrent.futures
+
+    out = [None] * len(pngs)
+    lat = [0.0] * len(pngs)
+
+    def client(c):
+        for r in range(MB_REQUESTS):
+            i = c * MB_REQUESTS + r
+            t0 = time.perf_counter()
+            status, payload = post_enhance(url, pngs[i])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            if status != 200:
+                raise RuntimeError(f"request {i}: HTTP {status}")
+            out[i] = payload["denoised_image_base64"]
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(MB_CLIENTS) as ex:
+        for f in [ex.submit(client, c) for c in range(MB_CLIENTS)]:
+            f.result()
+    wall = time.perf_counter() - t0
+    return wall, lat, out
+
+
+def batcher_totals(st) -> tuple:
+    stats = st.batchers.stats()
+    return (sum(v["batches"] for v in stats.values()),
+            sum(v["requests"] for v in stats.values()))
+
+
+def phase_microbatch(conv3x3, double_conv, k5, k6):
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        calibration_batch,
+    )
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    say("== phase 4d: micro-batching (shipped weights)")
+    st8 = ServeState(device="cuda", quantize="int8", microbatch_window_ms=2,
+                     microbatch_max=16)
+    if st8.int8_rung.get("denoise") != "int8-s8skip":
+        fail(f"the int8 ladder served {st8.int8_rung}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st8.warmup(((256, 256), (2048, 2048)))
+    warm = time.perf_counter() - t0
+    say(f"  int8 warmup((256,256),(2048,2048)), batches 1-16: {warm:.2f} s")
+    # one 16 x 2048^2 batch: s8 tensors of 4.29e9 elements (down1, up1,
+    # upconv1), each image against its own batch-1 forward
+    x = calibration_batch(True, 2048, sigmas=(0.12, 0.2),
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(3))
+    dispatch = st8._batched_dispatch("denoise")
+    torch.cuda.reset_peak_memory_stats()
+    int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+    yb = dispatch(x)
+    torch.cuda.synchronize()
+    counts = int8_counts(conv3x3, double_conv, k5, k6)
+    if counts != INT8_PER_FORWARD:
+        fail(f"the 16x2048^2 batch launched {counts}")
+    differ = 0
+    for i in range(x.shape[0]):
+        differ += int((dispatch(x[i:i + 1]) != yb[i:i + 1]).sum())
+    say(f"  int8 batch {tuple(x.shape)}: launches K2 {counts[0]} K5 "
+        f"{counts[2]} K6 {counts[3]}; vs 16 batch-1 forwards {differ} of "
+        f"{yb.numel()} bytes differ; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if differ:
+        fail("the 16x2048^2 int8 batch is not bit-equal to batch-1 forwards")
+    del x, yb
+
+    n = MB_CLIENTS * MB_REQUESTS
+    pngs = [imageio.encode_png(test_image(MB_SIZE, MB_SIZE, seed=100 + i))
+            for i in range(n)]
+    totals = [0, 0, 0, 0]
+    for kind, quantize in (("int8", "int8"), ("float", None)):
+        if quantize:
+            st_on = st8
+        else:
+            st_on = ServeState(device="cuda", microbatch_window_ms=2,
+                               microbatch_max=16)
+            st_on.warmup(((MB_SIZE, MB_SIZE),))
+        st_off = ServeState(device="cuda", quantize=quantize)
+        st_off.warmup(((MB_SIZE, MB_SIZE),))
+        outs = {}
+        for mode, st in (("off", st_off), ("on", st_on)):
+            srv, thread, url = serve_in_thread(st)
+            try:
+                before = st.stats.snapshot()["compute_backends"]
+                b0 = batcher_totals(st) if mode == "on" else (0, 0)
+                int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+                wall, lat, outs[mode] = run_load(url, pngs)
+                counts = int8_counts(conv3x3, double_conv, k5, k6)
+                labels = backends_after(st, before)
+            finally:
+                stop_server(srv, thread)
+            totals = [a + b for a, b in zip(totals, counts)]
+            batches, reqs = (n, n) if mode == "off" else tuple(
+                a - b for a, b in zip(batcher_totals(st), b0))
+            p50, p90 = np.percentile(lat, [50, 90])
+            say(f"  {kind} micro-batching {mode}: {n} requests "
+                f"({MB_CLIENTS} clients x {MB_REQUESTS}, {MB_SIZE}^2 PNG) "
+                f"in {wall:.2f} s: {n / wall:.1f} requests/s, p50 "
+                f"{p50:.2f} ms p90 {p90:.2f} ms; forwards {batches}, mean "
+                f"occupancy {reqs / batches:.2f}; labels {labels}; launches "
+                f"K2 {counts[0]} K3 {counts[1]} K5 {counts[2]} K6 "
+                f"{counts[3]}")
+            if labels != {kind: n} or reqs != n:
+                fail(f"{kind} {mode}: labels {labels}, {reqs} requests "
+                     "batched")
+            expect = tuple(batches * c for c in PER_FORWARD[kind])
+            if counts != expect:
+                fail(f"{kind} {mode}: launches {counts}, expected {expect} "
+                     f"for {batches} forwards")
+        worst, exact = 0, 0
+        for a, b in zip(outs["off"], outs["on"]):
+            ya = imageio.decode_png(base64.b64decode(a)).astype(np.int16)
+            yb = imageio.decode_png(base64.b64decode(b)).astype(np.int16)
+            worst = max(worst, int(np.abs(ya - yb).max()))
+            exact += int((ya == yb).sum())
+        share = exact / (n * MB_SIZE * MB_SIZE * 3)
+        say(f"  {kind}: micro-batched responses vs the same requests served "
+            f"alone: max diff {worst}, exact {share:.6%}")
+        if worst > (1 if kind == "float" else 0):
+            fail(f"{kind}: a micro-batched response differs from the same "
+                 f"request served alone by {worst}")
+        del st_on, st_off
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -1930,6 +2250,11 @@ def main() -> int:
     worst8 = phase_int8_kernels(_build, conv3x3, k5, k6)
     launches = phase_serve(conv3x3, double_conv)
     int8_launches = phase_int8_serve(conv3x3, double_conv, k5, k6)
+    tiled_launches = phase_tiling(conv3x3, double_conv, k5, k6)
+    mb_launches = phase_microbatch(conv3x3, double_conv, k5, k6)
+    # (K2, K3, K5, K6) launched by the serving phases 4b-4d
+    served = [a + b + c for a, b, c in zip(int8_launches, tiled_launches,
+                                           mb_launches)]
     stats, bench_launches, layer_ms = phase_bench(conv3x3, double_conv, k5,
                                                   k6, bench, worst)
     stats8 = phase_int8_times(conv3x3, k5, k6, layer_ms)
@@ -1959,11 +2284,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            # the main paths: the float and int8 /enhance requests and the
-            # bench run (the int8 requests launch K2 in its s8 mode only)
+            # the main paths: the float and int8 /enhance requests (single,
+            # tiled and micro-batched) and the bench run (the int8 requests
+            # launch K2 in its s8 mode only)
             "launches": (launches[name] + bench_launches[name]
-                         + (int8_launches[0] if name == "conv3x3_bias_relu"
-                            else int8_launches[1])),
+                         + (served[0] if name == "conv3x3_bias_relu"
+                            else served[1])),
             "max_abs_err": worst[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
@@ -1984,9 +2310,9 @@ def main() -> int:
     # convs in XLA; no library call computes an int8 conv on the card
     for name, kind, where, n_launch in (
             ("conv3x3_s8", "k5", "celebrity_image_denoiser_tpu/ops/"
-             "quant_unet.py:55 (_conv_q, an XLA conv)", int8_launches[2]),
+             "quant_unet.py:55 (_conv_q, an XLA conv)", served[2]),
             ("convt2x2_s8", "k6", "celebrity_image_denoiser_tpu/ops/"
-             "quant_unet.py:62 (_convt_q, an XLA conv)", int8_launches[3])):
+             "quant_unet.py:62 (_convt_q, an XLA conv)", served[3])):
         if n_launch < 1 or bench_launches[name] < 1:
             fail(f"{name} was not launched on the main path")
         s = stats8[name]
@@ -1994,7 +2320,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": where,
-            # the int8 /enhance requests and the bench run
+            # the int8 /enhance requests (single, tiled and micro-batched)
+            # and the bench run
             "launches": n_launch + bench_launches[name],
             "max_abs_err": worst8[kind],
             # per int8 bench step, summed over its launches (phase 5b)

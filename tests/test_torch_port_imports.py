@@ -43,7 +43,10 @@ def test_port_has_modules_to_check():
                  "cli.train",
                  # the int8 serving slice
                  "ops.quant", "ops.quant_unet", "ops.cuda.conv3x3_s8",
-                 "ops.cuda.convt2x2_s8"):
+                 "ops.cuda.convt2x2_s8",
+                 # big inputs, micro-batching and the quality gate
+                 "parallel", "parallel.tiling", "serve.batching",
+                 "serve.quality"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 

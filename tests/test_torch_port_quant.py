@@ -35,10 +35,6 @@ from celebrity_image_denoiser_tpu import models as jax_models
 from celebrity_image_denoiser_tpu.ckpt import load_checkpoint
 from celebrity_image_denoiser_tpu.ops import quant as jquant
 from celebrity_image_denoiser_tpu.ops import quant_unet as jquant_unet
-from celebrity_image_denoiser_tpu.serve.quality import (
-    psnr_u8,
-    structured_clean,
-)
 from celebrity_image_denoiser_tpu_torch.ckpt.convert import (
     jax_params_to_state_dict,
     state_dict_to_jax_params,
@@ -55,7 +51,12 @@ from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8 as k5
 from celebrity_image_denoiser_tpu_torch.ops.cuda import convt2x2_s8 as k6
+from celebrity_image_denoiser_tpu_torch.serve import quality
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from celebrity_image_denoiser_tpu_torch.serve.quality import (
+    psnr_u8,
+    structured_clean,
+)
 
 WEIGHTS = "weights/denoise"
 BF16 = torch.bfloat16
@@ -591,8 +592,10 @@ def test_serve_cli_defaults_to_int8():
 
 def test_quantized_serving_quality_gate():
     """The shipped weights through /enhance under quantize='int8': ≥ 40 dB
-    against the float server's pixels, and still a denoiser (gain > 1 dB),
-    on the s8 rung — the gate must bite, not pass on a float fallback."""
+    against the float server's pixels, and still a denoiser (gain > 1 dB,
+    and the fixture gain at least 70% of the one recorded with the
+    weights), on the s8 rung — the gate must bite, not pass on a float
+    fallback."""
     clean = structured_clean(128)
     rng = np.random.default_rng(4)
     noisy = np.clip(clean.astype(np.float64) + rng.normal(0, 25, clean.shape),
@@ -609,6 +612,10 @@ def test_quantized_serving_quality_gate():
     mse = float(np.mean((yf - yq) ** 2))
     assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-9)) > 40.0
     assert psnr_u8(yq.astype(np.uint8), clean) - psnr_u8(noisy, clean) > 1.0
+    floor = quality.recorded_gate_floor(st_q.weights_dir, "denoise",
+                                        default=1.0)
+    assert quality.fixture_gain_db(st_q, "denoise") >= floor > 5.0
+    assert st_q.last_compute_backend() == "int8"
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,7 @@ from celebrity_image_denoiser_tpu.serve.handlers import ServeState as JaxState
 from celebrity_image_denoiser_tpu_torch.ckpt.convert import load_npz_state_dict
 from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.serve.app import make_server
-from celebrity_image_denoiser_tpu_torch.serve.handlers import (
-    EnhanceError,
-    ServeState,
-)
+from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
 
 BOUNDARY = "portparityboundary"
 
@@ -142,20 +139,39 @@ def test_unknown_model_lists_the_served_families(servers):
     assert status == 400 and "denoise" in payload["detail"]
 
 
+def test_ui_served(servers):
+    with urllib.request.urlopen(servers["port"] + "/ui") as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"] == "text/html"
+        html = r.read().decode()
+    assert "Run Full Pipeline" in html and "/enhance" in html
+
+
+def test_bursts_of_concurrent_clients_are_accepted(servers):
+    """Bursts of 64 clients that connect at once; with the default listen
+    backlog of 5, some connections of the later bursts stalled past the
+    timeout."""
+    import concurrent.futures
+
+    n = 64
+    barrier = threading.Barrier(n)
+
+    def one(_):
+        barrier.wait(timeout=60)
+        with urllib.request.urlopen(servers["port"] + "/", timeout=8) as r:
+            return r.status
+
+    with concurrent.futures.ThreadPoolExecutor(n) as ex:
+        for _ in range(4):
+            assert list(ex.map(one, range(n))) == [200] * n
+
+
 def test_stats_count_errors_under_the_canonical_name(servers):
     _post(servers["port"], "model=DENOISE", b"--x", ctype="multipart/form-"
           "data; boundary=zzz")
     with urllib.request.urlopen(servers["port"] + "/stats") as r:
         errors = json.loads(r.read())["errors"]
     assert "denoise:400" in errors and "DENOISE:400" not in errors
-
-
-def test_oversized_input_is_refused_not_tiled():
-    st = ServeState(device="cpu", tile_threshold_rows=16)
-    with pytest.raises(EnhanceError) as e:
-        st.enhance("denoise", imageio.encode_png(np.zeros((20, 8, 3),
-                                                          np.uint8)))
-    assert e.value.status == 400 and "tiled" in e.value.detail
 
 
 def test_int8_is_not_served_quietly():
