@@ -48,12 +48,6 @@ _lib: Optional[ctypes.CDLL] = None
 LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(module_globals: dict, name: str) -> None:
-    """Add one to a kernel module's launch counter ``name``."""
-    with LAUNCH_LOCK:
-        module_globals[name] += 1
-
-
 @dataclasses.dataclass
 class BuildResult:
     path: Path

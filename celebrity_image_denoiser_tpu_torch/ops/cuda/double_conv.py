@@ -95,6 +95,7 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return double_conv3x3_relu_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    global LAUNCHES
     n, h, w, ca = x.shape
     cb = 0 if x2 is None else x2.shape[3]
     c0 = ca + cb
@@ -112,6 +113,6 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             y.data_ptr(), n, h, w, ca, cb, c1, c2,
             *((0, 0, 0) if x2 is None else x2.stride()[:3]), code, stream)
-    _build.check(rc, "double_conv3x3_relu")
-    _build.count_launch(globals(), "LAUNCHES")
+        _build.check(rc, "double_conv3x3_relu")
+        LAUNCHES += 1
     return y

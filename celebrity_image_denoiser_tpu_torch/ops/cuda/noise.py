@@ -194,6 +194,7 @@ def fused_normalize_gaussian_noise(
                                                     out_dtype)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
+    global GAUSSIAN_LAUNCHES
     y = torch.empty(x_uint8.shape, dtype=out_dtype, device=x_uint8.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x_uint8.device).cuda_stream
@@ -201,8 +202,8 @@ def fused_normalize_gaussian_noise(
         rc = lib.cid_normalize_gaussian_noise(
             x_uint8.data_ptr(), y.data_ptr(), x_uint8.numel(), seed,
             float(sigma) / 255.0, _build.dtype_code(out_dtype), stream)
-    _build.check(rc, "fused_normalize_gaussian_noise")
-    _build.count_launch(globals(), "GAUSSIAN_LAUNCHES")
+        _build.check(rc, "fused_normalize_gaussian_noise")
+        GAUSSIAN_LAUNCHES += 1
     return y
 
 
@@ -410,6 +411,7 @@ def noise_batch(kinds: torch.Tensor, seed: torch.Tensor,
         return noise_batch_plain(kinds, seed, x_uint8, types, variant)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
+    global LAUNCHES
     # one allocation for both outputs: the host's time is the step's
     noisy, clean = torch.empty((2, *x_uint8.shape), dtype=torch.float32,
                                device=x_uint8.device).unbind(0)
@@ -423,6 +425,6 @@ def noise_batch(kinds: torch.Tensor, seed: torch.Tensor,
             kinds.data_ptr(), codes, seed.data_ptr(), 0, n * h * w * c,
             h * w * c, c, table.data_ptr(), guide.data_ptr(),
             *_constants(c), _build.dtype_code(torch.float32), stream)
-    _build.check(rc, "noise_batch")
-    _build.count_launch(globals(), "LAUNCHES")
+        _build.check(rc, "noise_batch")
+        LAUNCHES += 1
     return noisy, clean

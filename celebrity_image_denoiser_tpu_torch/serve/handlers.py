@@ -153,17 +153,12 @@ class ServeState:
     """Loaded model + float or int8 forward on ``device`` (the card by
     default).  Big inputs route through exact tiling automatically.
 
-    ``bucket_divisor`` (e.g. 64): pad to a multiple of this instead of the
-    family's divisor alone, so that request sizes fall on fewer shapes (off
-    by default: the extra zero border can move values near the edge against
-    the reference's divisor-4 padding).  ``use_tiling=False`` runs a big
-    input as one untiled forward.  ``microbatch_window_ms``: coalesce
-    concurrent same-shape requests into batches of up to ``microbatch_max``
-    (off by default: it adds up to that much latency)."""
+    ``microbatch_window_ms``: coalesce concurrent same-shape requests into
+    batches of up to ``microbatch_max`` (off by default: it adds up to that
+    much latency)."""
 
     def __init__(self, weights_dir: Optional[str] = None, seed: int = 0,
-                 tile_threshold_rows: int = 2048, use_tiling: bool = True,
-                 bucket_divisor: Optional[int] = None,
+                 tile_threshold_rows: int = 2048,
                  microbatch_window_ms: Optional[float] = None,
                  microbatch_max: int = 16,
                  quantize: Optional[str] = None, device="cuda"):
@@ -180,8 +175,6 @@ class ServeState:
         self.quantize = quantize
         self.weights_dir = weights_dir or default_weights_dir()
         self.tile_threshold_rows = tile_threshold_rows
-        self.use_tiling = use_tiling
-        self.bucket_divisor = bucket_divisor
         self.batchers = (None if microbatch_window_ms is None else
                          BatcherPool(microbatch_window_ms, microbatch_max))
         gen = torch.Generator().manual_seed(seed)
@@ -193,7 +186,6 @@ class ServeState:
         for m in self.models.values():
             m.to(self.device).eval()
         self._path_note = threading.local()
-        self._tilers: Dict[tuple, object] = {}
         # per model: the int8 forward (None: float) and the rung it came from
         self._qapply: Dict[str, object] = {}
         self.int8_rung: Dict[str, Optional[str]] = {}
@@ -313,20 +305,15 @@ class ServeState:
         return (torch.clamp(y * 0.5 + 0.5, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     def _tiler(self, name: str, over_h: bool, over_w: bool, route: str):
-        """The memoized tiled forward for inputs over the threshold on these
-        axes: a width tiler nested inside the height tiler when both are."""
-        key = ("tiled", name, over_h, over_w, route)
-        fn = self._tilers.get(key)
-        if fn is None:
-            fn = self._apply(name, route)
-            for axis, over in ((2, over_w), (1, over_h)):
-                if over:
-                    fn = tiled_apply_single_device(
-                        tile_h=self.tile_threshold_rows, halo=TILE_HALO,
-                        scale=MODEL_CFG[name].get("scale", 1), apply_fn=fn,
-                        axis=axis)
-            # two threads may build one at once: both are the same function
-            fn = self._tilers.setdefault(key, fn)
+        """The tiled forward for inputs over the threshold on these axes: a
+        width tiler nested inside the height tiler when both are."""
+        fn = self._apply(name, route)
+        for axis, over in ((2, over_w), (1, over_h)):
+            if over:
+                fn = tiled_apply_single_device(
+                    tile_h=self.tile_threshold_rows, halo=TILE_HALO,
+                    scale=MODEL_CFG[name].get("scale", 1), apply_fn=fn,
+                    axis=axis)
         return fn
 
     def _batched_dispatch(self, name: str):
@@ -350,7 +337,7 @@ class ServeState:
         label = "float" if self._qapply.get(name) is None else "int8"
         over_h = x.shape[1] > self.tile_threshold_rows
         over_w = x.shape[2] > self.tile_threshold_rows
-        tiled = (over_h or over_w) and self.use_tiling
+        tiled = over_h or over_w
         # the label is this thread's: a micro-batch may run in another
         self._path_note.value = label + ("+tiled" if tiled else "")
         if not tiled and not plain and self.batchers is not None \
@@ -367,10 +354,7 @@ class ServeState:
     def _padding(self, name: str, h: int, w: int):
         """(left, top, right, bottom) padding of an (h, w) input."""
         cfg = MODEL_CFG[name]
-        divisor = cfg["pad_divisor"]
-        if self.bucket_divisor:
-            divisor = max(divisor, self.bucket_divisor)
-        return get_padding((w, h), divisor, cfg.get("scale", 1))
+        return get_padding((w, h), cfg["pad_divisor"], cfg.get("scale", 1))
 
     def denoise_image(self, image: np.ndarray, model: str = "denoise", *,
                       plain: bool = False) -> np.ndarray:
@@ -407,8 +391,7 @@ class ServeState:
                 hh, ww = h + pt_ + pb_, w + pl_ + pr_
                 t0 = time.perf_counter()
                 self._forward(name, np.zeros((1, hh, ww, 3), np.float32))
-                tiled = self.use_tiling and max(hh, ww) > \
-                    self.tile_threshold_rows
+                tiled = max(hh, ww) > self.tile_threshold_rows
                 if self.batchers is not None and not tiled:
                     dispatch = self._batched_dispatch(name)
                     mb = self.batchers.max_batch

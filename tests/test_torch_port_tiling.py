@@ -244,12 +244,22 @@ def test_tiled_labels_are_counted(servers):
                                                        "float+tiled": 1}
 
 
-def test_use_tiling_off_runs_one_forward():
-    st = ServeState(device="cpu", tile_threshold_rows=THRESHOLD,
-                    use_tiling=False)
-    out = st.denoise_image(_image(*BIG["tall"], seed=3))
-    assert st.last_compute_backend() == "float"
-    assert out.shape == BIG["tall"] + (3,)
+@pytest.mark.parametrize("case", list(BIG))
+def test_big_input_never_runs_one_untiled_forward(servers, case):
+    """Each forward a big request makes is one tile: no wider than the
+    threshold plus a halo on each side, one forward per tile."""
+    st = servers["tiled"]
+    shapes = []
+    hook = st.models["denoise"].register_forward_pre_hook(
+        lambda mod, args: shapes.append(tuple(args[0].shape[2:])))
+    try:
+        _served(st, _image(*BIG[case], seed=30 + len(case)))
+    finally:
+        hook.remove()
+    hh, ww = (-(-e // 4) * 4 for e in BIG[case])
+    tiles = [-(-e // THRESHOLD) if e > THRESHOLD else 1 for e in (hh, ww)]
+    assert len(shapes) == tiles[0] * tiles[1], shapes
+    assert max(max(s) for s in shapes) <= THRESHOLD + 2 * 32, shapes
 
 
 @pytest.fixture(scope="module")
