@@ -9,13 +9,21 @@ exporter maps both to torch with the permutation (3, 2, 0, 1)
 A BatchNorm layer's params ``scale`` / ``bias`` become ``weight`` / ``bias``
 and its state ``mean`` / ``var`` become ``running_mean`` / ``running_var``
 (``nn/layers.py`` BatchNorm2d); torch's ``num_batches_tracked`` has no JAX
-counterpart and keeps the module's own value (``load_jax_trees``).  The
-Linear case comes with the families that have one.
+counterpart and keeps the module's own value (``load_jax_trees``).  A PReLU's
+slope ``alpha`` becomes ``weight`` too (``ckpt/torch_import.py:83-86``), so
+a torch ``weight`` of one dimension is a BatchNorm's ``scale`` in one module
+and a PReLU's ``alpha`` in another: the module's type decides.  Given the
+``module`` the weights are for, both ways check each leaf against the type
+of the module it lands in (a BatchNorm ``scale`` never loads into a PReLU);
+``alpha`` is carried only with the module.  The Linear case comes with the
+families that have one.
 
 ``state_dict_to_jax_params`` is the way back — torch → a numpy tree in the
 JAX layout, kernels HWIO again (the permutation's inverse, (2, 3, 1, 0), is
 the same for both conv kinds) — used to write checkpoints that the JAX
-package can resume from.
+package can resume from.  Reference ``.pth`` files (``initial.1.weight``,
+``residuals.N.block.2.weight``, …) need no renaming: the port's modules
+carry the reference's child names.
 
 ``load_npz_state_dict`` reads the native checkpoint layout of
 ``ckpt/checkpoint.py::load_checkpoint`` (:101): ``<dir>/arrays.npz`` with
@@ -39,18 +47,38 @@ from celebrity_image_denoiser_tpu_torch.utils import tree as treelib
 _KERNEL_PERM = (3, 2, 0, 1)
 _KERNEL_PERM_BACK = (2, 3, 1, 0)
 # JAX leaf name -> torch name, for the leaves that are carried as they are
-_LEAF_TO_TORCH = {"bias": "bias", "scale": "weight", "mean": "running_mean",
-                  "var": "running_var"}
+_LEAF_TO_TORCH = {"bias": "bias", "scale": "weight", "alpha": "weight",
+                  "mean": "running_mean", "var": "running_var"}
+
+
+def _submodule(module: torch.nn.Module, path: str, key: str):
+    try:
+        return module.get_submodule(path)
+    except AttributeError:
+        raise ValueError(f"{key}: {type(module).__name__} has no module "
+                         f"{path!r}") from None
+
+
+_CONVS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d)
+_BNS = (torch.nn.BatchNorm2d,)
+_PRELUS = (torch.nn.PReLU,)
+# the module kinds each JAX leaf may land in
+_LEAF_KINDS = {"kernel": _CONVS, "scale": _BNS, "mean": _BNS, "var": _BNS,
+               "alpha": _PRELUS, "bias": _CONVS + _BNS}
 
 
 def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
-                             section: str = "generator"
+                             section: str = "generator",
+                             module: Optional[torch.nn.Module] = None
                              ) -> Dict[str, torch.Tensor]:
     """A JAX param tree (nested dicts of arrays) or a flat dotted-key dict
     (the ``arrays.npz`` layout, ``<section>.`` prefixes allowed) → a torch
     state_dict of float32 tensors.  Takes a params tree or a BatchNorm state
-    tree (``mean`` / ``var``).  Raises ``ValueError`` on a leaf it does not
-    know how to carry."""
+    tree (``mean`` / ``var``).  With ``module``, every leaf must land in a
+    module of its kind (a conv's ``kernel``, a BatchNorm's ``scale``, a
+    PReLU's ``alpha``).  Raises ``ValueError`` on a leaf it does not know
+    how to carry, on a PReLU slope without ``module``, and on a leaf that
+    lands in a module of another kind."""
     flat = treelib.flatten(dict(tree_or_flat))
     prefix = section + "."
     if any(k.startswith(prefix) for k in flat):
@@ -60,16 +88,23 @@ def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
     for key, value in flat.items():
         path, _, leaf = key.rpartition(".")
         arr = np.asarray(value, dtype=np.float32)
+        if leaf not in _LEAF_KINDS:
+            raise ValueError(f"{key}: no torch counterpart for leaf {leaf!r}")
+        if leaf == "alpha" and module is None:
+            raise ValueError(f"{key}: a PReLU slope is carried only with the "
+                             "module it is for (module=)")
+        if module is not None:
+            sub = _submodule(module, path, key)
+            if not isinstance(sub, _LEAF_KINDS[leaf]):
+                raise ValueError(f"{key}: lands in a {type(sub).__name__}")
         if leaf == "kernel":
             if arr.ndim != 4:
                 raise ValueError(f"{key}: only 4-D conv kernels are carried "
                                  f"across, got shape {arr.shape}")
             arr = np.transpose(arr, _KERNEL_PERM)
             leaf = "weight"
-        elif leaf in _LEAF_TO_TORCH:
-            leaf = _LEAF_TO_TORCH[leaf]
         else:
-            raise ValueError(f"{key}: no torch counterpart for leaf {leaf!r}")
+            leaf = _LEAF_TO_TORCH[leaf]
         sd[f"{path}.{leaf}" if path else leaf] = torch.from_numpy(
             np.array(arr, copy=True, order="C"))
     return sd
@@ -81,9 +116,9 @@ def load_jax_trees(module: torch.nn.Module, params: Mapping[str, Any],
     parameter and running statistic of the module must be given and every
     given leaf must have a place.  ``num_batches_tracked`` buffers keep the
     module's values."""
-    sd = jax_params_to_state_dict(params)
+    sd = jax_params_to_state_dict(params, module=module)
     if state:
-        sd.update(jax_params_to_state_dict(state))
+        sd.update(jax_params_to_state_dict(state, module=module))
     own = module.state_dict()
     need = {k for k in own if not k.endswith("num_batches_tracked")}
     if set(sd) != need:
@@ -92,13 +127,17 @@ def load_jax_trees(module: torch.nn.Module, params: Mapping[str, Any],
     module.load_state_dict({**own, **sd}, strict=True)
 
 
-def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]
+def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor],
+                             module: Optional[torch.nn.Module] = None
                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A torch state_dict (or any dict keyed like one: gradients, optimiser
     moments) → ``(params, state)`` as nested dicts of float32 numpy arrays in
-    the JAX layout: 4-D ``weight`` → HWIO ``kernel``, 1-D ``weight`` →
-    ``scale``, ``running_mean`` / ``running_var`` → state ``mean`` / ``var``;
-    ``num_batches_tracked`` is dropped."""
+    the JAX layout: 4-D ``weight`` → HWIO ``kernel``, ``running_mean`` /
+    ``running_var`` → state ``mean`` / ``var``; ``num_batches_tracked`` is
+    dropped.  A 1-D ``weight`` is a PReLU's ``alpha`` or a BatchNorm's
+    ``scale`` by the type of ``module``'s submodule at its path; without
+    ``module`` it is taken for a BatchNorm's (the denoise family has no
+    PReLU)."""
     params: Dict[str, Any] = {}
     state: Dict[str, Any] = {}
     for key, value in sd.items():
@@ -111,6 +150,13 @@ def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]
             arr, leaf = np.transpose(arr, _KERNEL_PERM_BACK), "kernel"
         elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
+            if module is not None:
+                sub = _submodule(module, path, key)
+                if isinstance(sub, _PRELUS):
+                    leaf = "alpha"
+                elif not isinstance(sub, _BNS):
+                    raise ValueError(f"{key}: a 1-D weight of a "
+                                     f"{type(sub).__name__}")
         elif leaf in ("running_mean", "running_var"):
             leaf, target = leaf[len("running_"):], state
         elif leaf != "bias":
@@ -121,14 +167,24 @@ def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]
     return params, state
 
 
-def load_npz_state_dict(npz_dir: str, section: str = "generator"
+def load_npz_state_dict(npz_dir: str, section: str = "generator",
+                        module: Optional[torch.nn.Module] = None
                         ) -> Dict[str, torch.Tensor]:
-    """``<npz_dir>/arrays.npz`` → the ``section``'s torch state_dict."""
+    """``<npz_dir>/arrays.npz`` → the ``section``'s torch state_dict, with
+    the BatchNorm statistics of ``<section>_state`` when the file holds
+    them; with ``module``, each leaf checked against the module it lands
+    in."""
     with np.load(os.path.join(npz_dir, "arrays.npz")) as z:
         flat = {k: z[k] for k in z.files}
     if not any(k.startswith(section + ".") for k in flat):
         raise KeyError(f"{npz_dir}: no {section!r} section in arrays.npz")
-    return jax_params_to_state_dict(flat, section=section)
+    sd = {}
+    for sec in (section, section + "_state"):
+        part = {k: v for k, v in flat.items() if k.startswith(sec + ".")}
+        if part:
+            sd.update(jax_params_to_state_dict(part, section=sec,
+                                               module=module))
+    return sd
 
 
 def load_pth_state_dict(path: str,

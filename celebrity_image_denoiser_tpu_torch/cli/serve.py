@@ -3,15 +3,17 @@ card by default.
 
     python -m celebrity_image_denoiser_tpu_torch.cli.serve
 
-Port of ``celebrity_image_denoiser_tpu/cli/serve.py``.  ``--quantize``
-keeps the JAX CLI's default of int8: the denoise family is served through
-the s8 skip-storage program on the int8 kernels, behind the runtime
-agreement gate and its ladder (``serve/handlers.py``); ``--quantize off``
-serves the float32 forward.  Inputs taller or wider than
+Port of ``celebrity_image_denoiser_tpu/cli/serve.py``: ``POST
+/enhance?model=denoise|srgan|esrgan|dncnn``.  ``--quantize`` keeps the JAX
+CLI's default of int8: each family is served through the first rung of its
+ladder that passes the runtime agreement gate (denoise: the s8
+skip-storage program; every family: the generic transform; esrgan: then
+the trunk-float policy; ``serve/handlers.py``); ``--quantize off`` serves
+the float32 forwards.  Inputs taller or wider than
 ``--tile-threshold-rows`` are tiled exactly; ``--microbatch-ms`` coalesces
 concurrent same-shape requests into one batch; ``--precompile`` runs the
-given sizes (and, with micro-batching, every batch size) before the server
-listens.  Not ported: ``--spatial-shard`` (needs a mesh), ``--framework
+given sizes for every family (and, with micro-batching, every batch size)
+before the server listens, as the JAX ``warmup(models=None)`` does.  Not ported: ``--spatial-shard`` (needs a mesh), ``--framework
 fastapi`` and ``--compilation-cache`` (XLA's).
 """
 
@@ -29,10 +31,10 @@ def build_parser():
                    help="default: ./weights if it holds checkpoints, else "
                         "the repo's committed weights/")
     p.add_argument("--precompile", default=None,
-                   help="comma-separated HxW sizes to run at start-up (e.g. "
-                        "256x256,512x512): builds the kernels and launches "
-                        "every shape those sizes need before the first "
-                        "request")
+                   help="comma-separated HxW sizes to run at start-up for "
+                        "every family (e.g. 256x256,512x512): builds the "
+                        "kernels and launches every shape those sizes need "
+                        "before the first request")
     p.add_argument("--tile-threshold-rows", type=int, default=2048,
                    help="inputs taller or wider than this (after padding) "
                         "are served by exact tiling, in tiles of this many "
@@ -43,10 +45,11 @@ def build_parser():
     p.add_argument("--microbatch-max", type=int, default=16,
                    help="the largest micro-batch")
     p.add_argument("--quantize", default="int8", choices=["off", "int8"],
-                   help="'int8' (default, as in the JAX CLI): the int8 "
-                        "ladder — s8 skip-storage program, then the generic "
-                        "transform, then float, behind a 40 dB agreement "
-                        "gate; 'off': float32 forwards")
+                   help="'int8' (default, as in the JAX CLI): each "
+                        "family's int8 ladder — the s8 skip-storage program "
+                        "(denoise), the generic transform, the trunk-float "
+                        "policy (esrgan), then float, behind a 40 dB "
+                        "agreement gate; 'off': float32 forwards")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) raises when no card "
                         "is visible, 'cpu' runs the plain PyTorch versions")

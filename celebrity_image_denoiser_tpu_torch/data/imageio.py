@@ -12,6 +12,11 @@ the standard library's ``zlib`` and ``struct``:
 
 Other formats (JPEG, BMP, …) import PIL inside the branch that needs them;
 without PIL such a request fails like any undecodable upload.
+
+``resize_bicubic_u8`` is Pillow's ``Image.resize(size, BICUBIC)`` on 8-bit
+images, bit for bit, for the two places the JAX server and its quality
+fixture call it (srgan's analysis view, ``serve/handlers.py:825-828``, and
+its fixture, ``serve/quality.py:77-89``).
 """
 
 from __future__ import annotations
@@ -164,3 +169,67 @@ def to_float01(arr: np.ndarray) -> np.ndarray:
 def normalize(arr: np.ndarray, mean=0.5, std=0.5) -> np.ndarray:
     """[0,1] → [-1,1] with the reference's Normalize(0.5, 0.5)."""
     return (arr - mean) / std
+
+
+_PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow's Resample.c
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter, a = -0.5."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_coeffs(in_size: int, out_size: int):
+    """Per output sample: the first input sample and the fixed-point
+    weights (``precompute_coeffs`` and ``normalize_coeffs_8bpc``)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    k = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _pil_bicubic((np.arange(xmax) + xmin - center + 0.5)
+                         / filterscale)
+        ww = w.sum()
+        if ww != 0.0:
+            w = w / ww
+        f = w * (1 << _PIL_PRECISION_BITS)
+        k[xx, :xmax] = np.where(w < 0, -0.5 + f, 0.5 + f).astype(np.int64)
+        first[xx] = xmin
+    return first, k
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's separable resample along ``axis`` (uint8 in and
+    out: each pass rounds and clips)."""
+    in_size = img.shape[axis]
+    first, k = _pil_coeffs(in_size, out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    src = np.concatenate([src, np.zeros((k.shape[1],) + src.shape[1:],
+                                        np.int64)])
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1),
+                  np.int64)
+    for j in range(k.shape[1]):
+        acc += src[first + j] * k[:, j].reshape((-1,) + (1,) * (src.ndim - 1))
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic_u8(img: np.ndarray, size) -> np.ndarray:
+    """uint8 (H, W[, C]) → (h, w[, C]) for ``size`` = (w, h) (PIL's order),
+    as Pillow's ``Image.resize(size, Image.BICUBIC)``: the horizontal pass
+    first, then the vertical one, each in 22-bit fixed point."""
+    w, h = size
+    out = img
+    if out.shape[1] != w:
+        out = _pil_pass(out, w, 1)
+    if out.shape[0] != h:
+        out = _pil_pass(out, h, 0)
+    return out

@@ -24,8 +24,16 @@ the batch's device and go, with the batch, to one launch of
 its plain version on the CPU), in which each sample takes its kind from
 the functions below fed with the stream's draws.
 
-Variants 2 and 3, ``blind_gaussian_batch`` and ``poisson_v3_exact`` belong to
-families that are not ported yet (ROADMAP.md queue 1 item 10).
+**Variant 2** (``noise.py:89-117``, skimage style: gaussian σ=25, s&p
+amount 0.05 per element, poisson ``Pois(x·256)/256``, speckle σ=0.1,
+uniform [-50, 50)) is here as plain tensor functions with an explicit
+generator, for the srgan quality battery (``serve/quality.py``):
+``add_noise(..., variant=2)`` and ``random_noise_batch01``, which takes a
+float [0, 1] batch like the JAX function.  The input stage
+(``random_noise_batch``, one kernel launch) still takes variant 1 only; the
+srgan trainer decides whether K4 takes variant 2 (``ROADMAP.md`` queue 1,
+item 4).  Variant 3, ``blind_gaussian_batch`` and ``poisson_v3_exact``
+wait for their trainers (the same item).
 """
 
 from __future__ import annotations
@@ -91,6 +99,35 @@ def uniform_v1(gen, img, low=0.0, high=UNIFORM_HIGH):
     return uniform_v1_from_draws(img, _rand(gen, img.shape, img), low, high)
 
 
+# ---- variant 2: skimage style (plain tensor functions) ---------------------
+
+def gaussian_v2(gen, img):
+    return gaussian_v1(gen, img, 0.0, 25.0)
+
+
+def salt_pepper_v2(gen, img, amount=0.05):
+    """skimage ``random_noise(mode='s&p', amount)``: each *element* flips
+    with probability ``amount``, half of them to salt, half to pepper."""
+    flip = _rand(gen, img.shape, img) < amount
+    salted = _rand(gen, img.shape, img) < 0.5
+    out = torch.where(flip & salted, torch.ones_like(img), img)
+    return torch.where(flip & ~salted, torch.zeros_like(img), out)
+
+
+def speckle_v2(gen, img, sigma=SPECKLE_SIGMA):
+    return speckle_v1(gen, img, sigma)
+
+
+def poisson_v2(gen, img, vals=256.0):
+    """skimage poisson: ``Pois(img · vals) / vals``, vals = 2^bitdepth."""
+    return torch.clamp(torch.poisson(img * vals, generator=gen) / vals, 0.0,
+                       1.0)
+
+
+def uniform_v2(gen, img, low=-50.0, high=50.0):
+    return uniform_v1_from_draws(img, _rand(gen, img.shape, img), low, high)
+
+
 _VARIANTS = {
     1: {
         "gaussian": gaussian_v1,
@@ -99,11 +136,19 @@ _VARIANTS = {
         "poisson": poisson_v1,
         "uniform": uniform_v1,
     },
+    2: {
+        "gaussian": gaussian_v2,
+        "salt_pepper": salt_pepper_v2,
+        "speckle": speckle_v2,
+        "poisson": poisson_v2,
+        "uniform": uniform_v2,
+    },
 }
 
 
 def _kind_fn(kind: str, variant: int):
-    noise_kernel.check_variant(variant)
+    if variant not in _VARIANTS:
+        noise_kernel.check_variant(variant)
     try:
         return _VARIANTS[variant][kind]
     except KeyError:
@@ -115,6 +160,19 @@ def add_noise(gen: torch.Generator, img: torch.Tensor, kind: str,
               variant: int = 1) -> torch.Tensor:
     """Apply one named noise type; img float in [0, 1], any leading dims."""
     return _kind_fn(kind, variant)(gen, img)
+
+
+def random_noise_batch01(gen: torch.Generator, batch01: torch.Tensor,
+                         types: Sequence[str] = NOISE_TYPES,
+                         variant: int = 2) -> torch.Tensor:
+    """Per-sample random noise kind over a float [0, 1] NHWC batch, the JAX
+    ``random_noise_batch`` (``noise.py:207``) as plain tensor functions:
+    the kinds uniform over ``types``, then each sample's noise, all drawn
+    from ``gen`` in order.  Returns the noisy batch in [0, 1]."""
+    kinds = torch.randint(0, len(types), batch01.shape[:1], generator=gen,
+                          device=gen.device).tolist()
+    return torch.stack([add_noise(gen, img, types[k], variant)
+                        for k, img in zip(kinds, batch01)])
 
 
 def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,

@@ -10,8 +10,12 @@ of strength in [0, 0.35]; clipped to [0, 1].  The images differ from the JAX
 package's for the same seed (another generator, and PyTorch's cubic kernel
 has a = −0.75 where JAX's has −0.5); the statistics a denoiser needs — flat
 regions, sharp edges, fine texture — are the same.  ``calibration_batch``
-(:93) is the int8 calibration batch; the low-resolution batch waits for
-SRGAN.
+(:93) is the int8 calibration batch, ``lr_batch`` (:120) the low-resolution
+recipe (the ×4 bicubic downscale is ``ops/resize.py``'s, JAX's function)
+and ``srgan_calibration_batch`` (:135) SRGAN's calibration mix.  Every
+batch is drawn from a ``torch.Generator`` on the CPU (seeded as the JAX
+function seeds its keys) whatever the device, so the card calibrates on
+the batch the CPU tests see.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from celebrity_image_denoiser_tpu_torch.ops.resize import resize
 
 
 def _uniform(gen, shape, lo, hi, device):
@@ -90,3 +96,26 @@ def calibration_batch(tanh: bool, size: int = 128, sigmas=(0.12,), *,
         parts.append(torch.clamp(clean01 + sigma * noise, 0.0, 1.0))
     batch01 = torch.cat(parts, dim=0)
     return batch01 * 2.0 - 1.0 if tanh else batch01
+
+
+def lr_batch(seed: int, n: int, hw: int, sigma: float = 0.0) -> torch.Tensor:
+    """(n, hw, hw, 3) low-resolution images in [-1, 1] (``lr_batch:120``):
+    clean synthetics rendered at 4·hw and bicubic-downsized, with optional
+    mild sensor noise σ; drawn on the CPU from generators seeded ``seed``
+    (the images) and ``seed + 1`` (the noise)."""
+    clean01 = synth_clean_batch(torch.Generator().manual_seed(seed), n,
+                                4 * hw)
+    lr01 = torch.clamp(resize(clean01, (hw, hw), method="bicubic"), 0.0, 1.0)
+    if sigma:
+        noise = torch.randn(lr01.shape,
+                            generator=torch.Generator().manual_seed(seed + 1))
+        lr01 = torch.clamp(lr01 + sigma * noise, 0.0, 1.0)
+    return lr01 * 2.0 - 1.0
+
+
+def srgan_calibration_batch() -> torch.Tensor:
+    """SRGAN's int8 calibration batch (``srgan_calibration_batch:135``): its
+    serving inputs are low-resolution images, so 8 clean LR 64² + 4 LR with
+    σ 0.05 + 4 noisy full-resolution crops, (16, 64, 64, 3) in [-1, 1]."""
+    return torch.cat([lr_batch(0, 8, 64), lr_batch(20, 4, 64, sigma=0.05),
+                      calibration_batch(True)[:4, :64, :64, :]])

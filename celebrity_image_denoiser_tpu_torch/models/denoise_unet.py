@@ -66,7 +66,7 @@ from celebrity_image_denoiser_tpu_torch.ops.pool import (
 ROUTES = ("kernel", "plain", "autograd")
 
 
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
+def nhwc(t: torch.Tensor) -> torch.Tensor:
     """NCHW tensor -> contiguous NHWC (a free view for channels_last)."""
     return t.permute(0, 2, 3, 1).contiguous()
 
@@ -80,23 +80,24 @@ def _nhwc_view(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return v if v.stride(3) == 1 else v.contiguous()
 
 
-def _nchw(t: torch.Tensor) -> torch.Tensor:
+def nchw(t: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC -> NCHW view in channels_last memory."""
     return t.permute(0, 3, 1, 2)
 
 
 @torch.no_grad()
-def _reset_conv_parameters(module: nn.Module,
+def reset_conv_parameters(module: nn.Module,
                            generator: Optional[torch.Generator]) -> None:
-    """PyTorch's default conv init — U(±1/sqrt(fan_in)) for weight and bias,
-    fan_in from weight dim 1 (C_out for a transpose conv, the quirk
-    ``nn/layers.py:87-88`` keeps) — drawn from ``generator``."""
+    """PyTorch's default conv init — U(±1/sqrt(fan_in)) for weight and bias
+    (if any), fan_in from weight dim 1 (C_out for a transpose conv, the
+    quirk ``nn/layers.py:87-88`` keeps) — drawn from ``generator``."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             kh, kw = m.weight.shape[2:]
             bound = 1.0 / math.sqrt(m.weight.shape[1] * kh * kw)
             m.weight.uniform_(-bound, bound, generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
 
 
 class DenoiseGenerator(nn.Module):
@@ -128,7 +129,7 @@ class DenoiseGenerator(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv_parameters(self, generator)
+        reset_conv_parameters(self, generator)
 
     def _kernel_params(self, name: str, conv: nn.Conv2d, dtype: torch.dtype):
         """(HWIO weight in ``dtype``, f32 bias) for ``conv``, rebuilt only
@@ -159,7 +160,7 @@ class DenoiseGenerator(nn.Module):
         w2, b2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
         fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
               else double_conv.double_conv3x3_relu)
-        return _nchw(fn(_nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip)))
+        return nchw(fn(nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip)))
 
     def _single(self, idx: int, x: torch.Tensor, relu: bool, route: str,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -172,7 +173,7 @@ class DenoiseGenerator(nn.Module):
         w, b = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
         fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
               else conv3x3.conv3x3_bias_relu)
-        return _nchw(fn(_nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
+        return nchw(fn(nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
 
     def forward(self, x: torch.Tensor, *, route: str = "kernel"
                 ) -> torch.Tensor:
@@ -228,7 +229,7 @@ class DenoiseDiscriminator(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv_parameters(self, generator)
+        reset_conv_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.model:
@@ -272,6 +273,6 @@ def serve_step(model: DenoiseGenerator, x_uint8: torch.Tensor, *,
         raise ValueError(f"model must be bf16 on {dev}, got {p.dtype} on "
                          f"{p.device}")
     x = x_uint8.to(dev).to(torch.bfloat16) * _BF16_2_OVER_255 - 1.0
-    y = model(_nchw(x))
+    y = model(nchw(x))
     y01 = torch.clamp(y * 0.5 + 0.5, 0.0, 1.0)
-    return _nhwc(torch.round(y01 * 255.0).to(torch.uint8))
+    return nhwc(torch.round(y01 * 255.0).to(torch.uint8))

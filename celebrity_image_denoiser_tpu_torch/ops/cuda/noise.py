@@ -75,8 +75,8 @@ GAUSSIAN_SIGMA = 25.0
 SPECKLE_SIGMA = 0.1
 UNIFORM_HIGH = 25.0
 SALT_PROB = PEPPER_PROB = 0.02
-_WAITING = ("variants 2 and 3 of the noise functions are not ported yet "
-            "(ROADMAP.md queue 1 item 10)")
+_WAITING = ("the noise kernel takes variant 1 only, and variant 3 of the "
+            "noise functions is not ported yet (ROADMAP.md queue 1 item 10)")
 POISSON_GUIDE_SHIFT = 22  # the guide's buckets: a >> 22
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)

@@ -43,9 +43,11 @@ conv, the mean per-output-channel error of the int8 conv against the float
 conv on the quantized cascade's own inputs, and replays it as an additive
 constant.
 
+``make_indexed_skip`` / ``ESRGAN_TRUNK_CALLS`` are esrgan's second rung: the
+convs whose input is the residual trunk stay float.
+
 Not ported here: ``fake_quant`` / ``_FakeQuant`` (quantization-aware
-training) and ``make_indexed_skip`` / ``ESRGAN_TRUNK_CALLS`` (they come with
-the esrgan family); ``ROADMAP.md`` lists them.
+training, with the esrgan trainer); ``ROADMAP.md`` queue 1, item 5.
 """
 
 from __future__ import annotations
@@ -355,3 +357,23 @@ def quantized_fraction(model: nn.Module, calib_x: torch.Tensor,
         if not skip(weight):
             q += f
     return q / max(tot, 1.0)
+
+
+def make_indexed_skip(float_call_indices,
+                      base: Callable = default_skip_policy) -> Callable:
+    """A skip policy by call index (``make_indexed_skip:416``): ``base``, or
+    the conv's index in the call order is in ``float_call_indices``.  It
+    counts the calls it sees, so build a fresh one per ``quantize_apply``."""
+    float_set = set(int(i) for i in float_call_indices)
+    count = [-1]
+
+    def skip(weight: torch.Tensor) -> bool:
+        count[0] += 1
+        return bool(base(weight)) or count[0] in float_set
+    return skip
+
+
+# ESRGANGenerator(num_residuals=8) conv calls whose input is the residual
+# trunk: block b's first conv is call 1 + 2b; block 0's input is the head's
+# output and stays int8 (``ESRGAN_TRUNK_CALLS:447``)
+ESRGAN_TRUNK_CALLS = tuple(1 + 2 * b for b in range(1, 8))

@@ -16,6 +16,12 @@ the halo covers the receptive field: about 28 px for the denoise U-Net
 (3×3 conv pairs at strides 1, 2 and 4 through the encoder and decoder);
 the default halo is 32.
 
+The multiple of 4 is the U-Net's (and srgan's, whose serving pads to 16).
+dncnn and esrgan have no pooling and run unpadded, so any extent tiles
+exactly for them: ``multiple=1``.  The JAX tiler asks for a multiple of 4
+of every model, so the JAX server answers 500 to a dncnn or esrgan input
+over the threshold whose extent is not one (``ROADMAP.md`` queue 3).
+
 A tile taken along the height of a batch-1 NHWC tensor is contiguous; one
 taken along the width is not, and the kernel wrappers refuse such input, so
 every tile is made contiguous (a copy for width tiles) before it runs.
@@ -41,7 +47,8 @@ def tiled_apply_single_device(
         model: Optional[torch.nn.Module] = None, *, tile_h: int = 256,
         halo: int = 32, scale: int = 1,
         apply_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-        axis: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+        axis: int = 1, multiple: int = 4
+        ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``fn(x)``: ``x`` (N, H, W, C) → the stitched (N, H·scale,
     W·scale, C') output of the per-tile forward.
 
@@ -50,9 +57,12 @@ def tiled_apply_single_device(
     height tiler for an input too large on both axes.  Default: ``model``
     (an NCHW module) in eval mode.  ``scale`` is the model's spatial scale
     factor; the crop is scaled on the output side.  The tiled extent, ``tile_h``
-    and ``halo`` must be multiples of 4 (serving pads first)."""
+    and ``halo`` must be multiples of ``multiple``: 4 for a model with the
+    U-Net's two 2×2 pools (serving pads first), 1 for one without pooling."""
     if halo % 4 != 0 or tile_h % 4 != 0:
         raise ValueError("halo and tile_h must be divisible by 4")
+    if multiple not in (1, 4):
+        raise ValueError(f"multiple must be 1 or 4, got {multiple}")
     if axis not in (1, 2):
         raise ValueError(f"axis must be 1 (height) or 2 (width), got {axis}")
     if tile_h <= 0:
@@ -66,9 +76,9 @@ def tiled_apply_single_device(
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         h = x.shape[axis]
-        if h % 4 != 0:
-            raise ValueError(
-                f"axis-{axis} extent {h} must be divisible by 4 (pad first)")
+        if h % multiple != 0:
+            raise ValueError(f"axis-{axis} extent {h} must be divisible by "
+                             f"{multiple} (pad first)")
         outs = []
         for start in range(0, h, tile_h):
             stop = min(start + tile_h, h)

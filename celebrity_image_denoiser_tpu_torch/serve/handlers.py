@@ -1,43 +1,70 @@
-"""Serving logic — the ``POST /enhance`` contract, denoise family, float
-and int8.
+"""Serving logic — the ``POST /enhance`` contract for the denoise, srgan,
+esrgan and dncnn families, float and int8.
 
 Port of ``celebrity_image_denoiser_tpu/serve/handlers.py`` (``EnhanceError:60``,
 ``run_enhance:69``, ``_as01:115``, ``ServeState``): the same contract —
 unknown model → 400 listing what is served, content type must be image/*
 (400), uploads capped at 50 MB (400), undecodable image → 500, response
 ``{denoised_image_base64, noise_graph_base64, backend}``, tolerant weight
-loading that warns and keeps the random init — for the one family ported
-so far, ``denoise``.
+loading that warns and keeps the random init — for the four families
+ported (``self.models``: cgan and cgan_torch wait, ``ROADMAP.md`` queue 1,
+item 3, and answer a 400 that lists the four).
 
 The float forward is ``_build_forward``'s with no quantizer (:290-297):
-forward, ``clip(y*0.5+0.5)``, then **truncate** ``y01*255`` to uint8 (the
-bench step rounds instead; that belongs to ``models.denoise_unet.
-serve_step``).  Inputs are padded to a multiple of 4 (``get_padding``) and
-the output cropped back (:820-824).
+forward, then ``clip(y*0.5+0.5)`` for the tanh families (denoise, srgan)
+or ``clip(y)`` for the [0, 1] ones (dncnn, esrgan), then **truncate**
+``y01*255`` to uint8 (the bench step rounds instead; that belongs to
+``models.denoise_unet.serve_step``).  Each family's serving domain is the
+JAX server's (:761-828):
 
-``quantize="int8"`` (``_maybe_quantize:409-550``) builds, once per model
-when the state is made, the first rung of the ladder that passes the
+* denoise: normalized to [-1, 1], padded to a multiple of 4
+  (``get_padding``), the output cropped back;
+* srgan: normalized, padded to a multiple of 16 (divisor 4 × scale 4), the
+  output 4× the padded input and not cropped; its analysis view is the
+  input bicubic-upscaled to the output's size (Pillow's bicubic,
+  ``data/imageio.py::resize_bicubic_u8``);
+* dncnn: [0, 1], unpadded, not cropped;
+* esrgan: [0, 1], unpadded, then cropped at the padding offsets the JAX
+  server computes for it, as Pillow's ``crop`` does: shifted by (left,
+  top), zeros past the border (the JAX server's quirk, kept).
+
+On the card the float forward is each generator's kernel route
+(``models/folded.py``): K2/K3 for every 3×3 conv, the eval BatchNorm
+folded in.
+
+``quantize="int8"`` (``_maybe_quantize:409-550``) builds, once per family
+at its first use (``ladder``; a request, ``warmup``), as the JAX server
+builds its int8 forward at the family's first request (:267-276), the
+first rung of the ladder that passes the
 runtime agreement gate (≥ 40 dB against the float forward on
-``calib[:2, :32, :32]``, :448-468): the s8 skip-storage program
-(``ops/quant_unet.py``, rung ``int8-s8skip``), then the generic transform
-with bias correction and the default skip policy (``ops/quant.py``, rung
-``int8-generic``), then float.  The calibration batch is
-``data/synthetic.py::calibration_batch`` (8 noisy images at σ 0.12, [-1,
-1]).  A rung is left only for a ``ValueError`` from its builder (a model
+``calib[:2, :32, :32]``, peak-to-peak 2 for the tanh families and 1 for
+the [0, 1] ones, :448-468).  The rungs (:501-541): for denoise the s8
+skip-storage program (``ops/quant_unet.py``, rung ``int8-s8skip``); for
+every family the generic transform with bias correction and the default
+skip policy (``ops/quant.py``, rung ``int8-generic``); for esrgan then the
+trunk-float policy (``make_indexed_skip(ESRGAN_TRUNK_CALLS)``, rung
+``int8-trunkfloat``); then float.  The calibration batch, drawn on the CPU
+(``data/synthetic.py``): ``calibration_batch`` at σ 0.12 in the family's
+domain, at σ (0.05, 0.12, 0.25) for esrgan, and
+``srgan_calibration_batch`` for srgan.  A rung is left only for a
+``ValueError`` from its builder (a model
 whose conv sequence is not the U-Net's, or ``quant.NoInt8Kernel``: a conv
 geometry no int8 kernel takes, raised while the builder or the gate runs)
 or a failed gate; an error of a kernel's build or launch propagates, so
 the card never quietly serves float in place of a kernel.  The served
 input is f32 in [-1, 1]; the int8 program casts it to bf16 at conv 0 and
 its tanh output back to f32, which is truncated to uint8 as on the float
-path.  Each request is labelled ``int8`` or ``float`` (``+tiled`` for a
+path.  The generic rungs replay each generator's autograd route, whose 3×3
+convs of 64 input channels reach K5 (``ops/quant.py::int8_conv2d``).  Each
+request is labelled ``int8`` or ``float`` (``+tiled`` for a
 big input, below) in the log line and in ``ServeStats``
 (``last_compute_backend`` reads it, per thread).
 
 Big inputs (``_dispatch_forward:303-401``): a padded input taller or
 wider than ``tile_threshold_rows`` runs through exact single-device tiling
-(``parallel/tiling.py``, halo 32, tiles of ``tile_threshold_rows``), along
-the axis that is over, or with a width tiler nested inside the height
+(``parallel/tiling.py``, halo 32, tiles of ``tile_threshold_rows`` input
+rows, the output cropped at ``scale`` × the input offsets), along the axis
+that is over, or with a width tiler nested inside the height
 tiler when both are; under ``quantize="int8"`` every tile runs the int8
 forward the ladder built.  Such a request is labelled ``float+tiled`` or
 ``int8+tiled``.
@@ -51,9 +78,8 @@ shapes when it is over the threshold) and, with micro-batching on, every
 batch size the batcher can dispatch, so that the kernels are built and
 each shape launched before the first request.
 
-Not ported yet: the other four families are a 400; there is no mesh
-(spatial sharding and data-parallel batches, ``ROADMAP.md`` queue 1, item
-7).
+Not ported yet: cgan and cgan_torch (a 400); there is no mesh (spatial
+sharding and data-parallel batches, ``ROADMAP.md`` queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -80,10 +106,14 @@ from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.data.synthetic import (
     calibration_batch,
+    srgan_calibration_batch,
 )
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
 )
+from celebrity_image_denoiser_tpu_torch.models.dncnn import DnCNN
+from celebrity_image_denoiser_tpu_torch.models.esrgan import ESRGANGenerator
+from celebrity_image_denoiser_tpu_torch.models.srgan import SRGANGenerator
 from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
 from celebrity_image_denoiser_tpu_torch.parallel.tiling import (
     tiled_apply_single_device,
@@ -99,11 +129,18 @@ logger = get_logger("cid_torch.serve")
 
 MAX_UPLOAD = 50 * 1024 * 1024  # app.py:374-375
 GATE_DB = 40.0  # the runtime agreement gate (handlers.py:448-468)
-TILE_HALO = 32  # covers the U-Net's receptive field (parallel/tiling.py)
+# covers every family's receptive field (parallel/tiling.py): the U-Net's
+# about 28 px, esrgan's 24, srgan's 18 input px, dncnn's 17
+TILE_HALO = 32
 
-# default checkpoint names, matching the reference weights dir layout: a
-# reference .pth first, else the native npz directory
-_CKPT_CANDIDATES = {"denoise": ("denoise_epoch_499.pth", "denoise")}
+# default checkpoint names, matching the reference weights dir layout
+# (handlers.py:50-56): a reference .pth first, else the native npz directory
+_CKPT_CANDIDATES = {
+    "denoise": ("denoise_epoch_499.pth", "denoise"),
+    "srgan": ("srgan_epoch_499.pth", "srgan"),
+    "esrgan": ("esrgan_epoch_500.pth", "esrgan"),
+    "dncnn": ("dncnn_epoch_499.pth", "dncnn"),
+}
 
 
 class EnhanceError(Exception):
@@ -149,8 +186,21 @@ def _as01(y_u8: np.ndarray) -> np.ndarray:
     return np.asarray(y_u8)[0].astype(np.float32) / 255.0
 
 
+def _pil_crop(img: np.ndarray, box) -> np.ndarray:
+    """Pillow's ``Image.crop(box)`` on an (H, W, C) array: box = (left, top,
+    right, bottom); what lies outside the image is zero."""
+    left, top, right, bottom = box
+    out = np.zeros((bottom - top, right - left) + img.shape[2:], img.dtype)
+    h, w = img.shape[:2]
+    y0, x0 = max(top, 0), max(left, 0)
+    y1, x1 = min(bottom, h), min(right, w)
+    if y1 > y0 and x1 > x0:
+        out[y0 - top:y1 - top, x0 - left:x1 - left] = img[y0:y1, x0:x1]
+    return out
+
+
 class ServeState:
-    """Loaded model + float or int8 forward on ``device`` (the card by
+    """Loaded models + float or int8 forwards on ``device`` (the card by
     default).  Big inputs route through exact tiling automatically.
 
     ``microbatch_window_ms``: coalesce concurrent same-shape requests into
@@ -178,43 +228,81 @@ class ServeState:
         self.batchers = (None if microbatch_window_ms is None else
                          BatcherPool(microbatch_window_ms, microbatch_max))
         gen = torch.Generator().manual_seed(seed)
-        self.models: Dict[str, DenoiseGenerator] = {
-            "denoise": DenoiseGenerator(generator=gen)}
+        self.models: Dict[str, torch.nn.Module] = {
+            "denoise": DenoiseGenerator(generator=gen),
+            "srgan": SRGANGenerator(scale_factor=MODEL_CFG["srgan"]["scale"],
+                                    generator=gen),
+            "esrgan": ESRGANGenerator(num_residuals=8, generator=gen),
+            "dncnn": DnCNN(generator=gen),
+        }
         self.stats = ServeStats()
         self._weights_loaded = set()
         self._load_weights()
         for m in self.models.values():
             m.to(self.device).eval()
         self._path_note = threading.local()
-        # per model: the int8 forward (None: float) and the rung it came from
+        # per family whose ladder is built: the int8 forward (None: float),
+        # the gate's dB and the rung it came from (written last: the flag)
         self._qapply: Dict[str, object] = {}
+        self.int8_gate_db: Dict[str, Optional[float]] = {}
         self.int8_rung: Dict[str, Optional[str]] = {}
-        if quantize == "int8":
-            for name in self.models:
-                self._maybe_quantize(name)
+        self._ladder_lock = threading.Lock()
+
+    def ladder(self, name: str) -> Optional[str]:
+        """The int8 rung that serves ``name`` (None: float, or
+        ``quantize=None``), its ladder built on the first call."""
+        if self.quantize != "int8":
+            return None
+        if name not in self.int8_rung:
+            with self._ladder_lock:
+                if name not in self.int8_rung:
+                    self._maybe_quantize(name)
+        return self.int8_rung[name]
 
     # -- int8: the ladder (_maybe_quantize:409-550) --------------------------
+    @staticmethod
+    def _tanh(name: str) -> bool:
+        """Whether ``name`` serves in the tanh domain ([-1, 1])."""
+        return MODEL_CFG[name]["activation"] == "tanh"
+
     def _agreement_db(self, name: str, apply_q, calib: torch.Tensor) -> float:
         """The runtime gate's dB of ``apply_q`` against the float forward on
-        a 2×32² crop of the calibration batch ([-1, 1] range)."""
+        a 2×32² crop of the calibration batch (peak to peak 2 in the tanh
+        domain, 1 in [0, 1], :464)."""
         probe = calib[:2, :32, :32, :].contiguous()
         with torch.inference_mode():
             yf = self.models[name](probe.permute(0, 3, 1, 2)).permute(
                 0, 2, 3, 1).float()
             yq = apply_q(probe).float()
         mse = float(torch.mean((yq - yf) ** 2))
-        return 10.0 * math.log10(4.0 / max(mse, 1e-12))
+        rng = 2.0 if self._tanh(name) else 1.0
+        return 10.0 * math.log10(rng ** 2 / max(mse, 1e-12))
+
+    @classmethod
+    def calibration(cls, name: str) -> torch.Tensor:
+        """The family's calibration batch (:437-446), drawn on the CPU from
+        fixed seeds whatever the device, so that the card serves the
+        program the CPU tests hold against the JAX package."""
+        if name == "srgan":
+            return srgan_calibration_batch()
+        sigmas = (0.05, 0.12, 0.25) if name == "esrgan" else (0.12,)
+        return calibration_batch(cls._tanh(name), sigmas=sigmas)
 
     def _maybe_quantize(self, name: str) -> None:
         model = self.models[name]
-        # drawn on the CPU from seed 0 whatever the device, so that the card
-        # serves the program the CPU tests hold against the JAX package
-        calib = calibration_batch(True).to(self.device)
-        builders = (
-            ("int8-s8skip",
-             lambda: quant_unet.quantize_apply_denoise_unet(model, calib)),
-            ("int8-generic",
-             lambda: quant.quantize_apply(model, calib, bias_correct=True)))
+        calib = self.calibration(name).to(self.device)
+        builders = []
+        if name == "denoise":
+            builders.append(("int8-s8skip", lambda: quant_unet.
+                             quantize_apply_denoise_unet(model, calib)))
+        builders.append(("int8-generic", lambda: quant.quantize_apply(
+            model, calib, bias_correct=True)))
+        if name == "esrgan":
+            # the trunk's convs in float, for checkpoints whose residual
+            # trunk outgrew 8 bits (make_indexed_skip's receipt)
+            builders.append(("int8-trunkfloat", lambda: quant.quantize_apply(
+                model, calib, skip=quant.make_indexed_skip(
+                    quant.ESRGAN_TRUNK_CALLS), bias_correct=True)))
         for rung, build in builders:
             try:
                 cand = build()
@@ -231,14 +319,16 @@ class ServeState:
             if db >= GATE_DB:
                 logger.info("[%s] %s serving forward built, %.1f dB vs float",
                             name, rung, db)
-                self._qapply[name], self.int8_rung[name] = cand, rung
+                self._qapply[name], self.int8_gate_db[name] = cand, db
+                self.int8_rung[name] = rung
                 return
             logger.warning("[%s] %s FAILED the runtime agreement gate (%.1f "
                            "dB < %.0f); trying the next rung", name, rung, db,
                            GATE_DB)
         logger.warning("[%s] no int8 rung passed; serving the float forward "
                        "for this model", name)
-        self._qapply[name], self.int8_rung[name] = None, None
+        self._qapply[name], self.int8_gate_db[name] = None, None
+        self.int8_rung[name] = None
 
     def last_compute_backend(self) -> str:
         """``int8`` or ``float``: how this thread's last request ran."""
@@ -251,6 +341,8 @@ class ServeState:
             npz_dir = os.path.join(self.weights_dir, sub)
             model = self.models[name]
             own = model.state_dict()
+            # BatchNorm's batch counters have no JAX counterpart
+            need = {k for k in own if not k.endswith("num_batches_tracked")}
             try:
                 if os.path.exists(path):
                     # tolerant like the reference's load_state_safely: keys
@@ -266,9 +358,9 @@ class ServeState:
                 elif os.path.isdir(npz_dir):
                     # the native checkpoint is all or nothing, checked
                     # before any tensor is copied
-                    fit = load_npz_state_dict(npz_dir)
-                    if set(fit) != set(own) or any(
-                            fit[k].shape != own[k].shape for k in own):
+                    fit = load_npz_state_dict(npz_dir, module=model)
+                    if set(fit) != need or any(
+                            fit[k].shape != own[k].shape for k in need):
                         raise ValueError(f"{npz_dir} does not hold the "
                                          f"{name} generator")
                     src = npz_dir
@@ -286,8 +378,9 @@ class ServeState:
 
     # -- the forward (_build_forward:278-301, _dispatch_forward:303-407) ----
     def _apply(self, name: str, route: str):
-        """The model's forward on NHWC f32 in [-1, 1] → NHWC (tanh domain):
-        the int8 forward where the ladder built one, else the float model."""
+        """The model's forward on NHWC f32 in the family's domain: the int8
+        forward where the ladder built one, else the float model."""
+        self.ladder(name)
         qapply = self._qapply.get(name)
         if qapply is None:
             model = self.models[name]
@@ -299,21 +392,25 @@ class ServeState:
             raise ValueError("the generic int8 rung has no plain route")
         return qapply
 
-    @staticmethod
-    def _to_u8(y: torch.Tensor) -> torch.Tensor:
-        """The served output map: clip(y·0.5+0.5), ×255, truncated."""
-        return (torch.clamp(y * 0.5 + 0.5, 0.0, 1.0) * 255.0).to(torch.uint8)
+    def _to_u8(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        """The served output map: clip(y·0.5+0.5) in the tanh domain, clip(y)
+        in [0, 1]; ×255, truncated."""
+        y01 = y * 0.5 + 0.5 if self._tanh(name) else y
+        return (torch.clamp(y01, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     def _tiler(self, name: str, over_h: bool, over_w: bool, route: str):
         """The tiled forward for inputs over the threshold on these axes: a
         width tiler nested inside the height tiler when both are."""
         fn = self._apply(name, route)
+        cfg = MODEL_CFG[name]
+        # the unpadded families have no pooling: any extent tiles exactly
+        multiple = 1 if cfg["normalize"] is None else 4
         for axis, over in ((2, over_w), (1, over_h)):
             if over:
                 fn = tiled_apply_single_device(
                     tile_h=self.tile_threshold_rows, halo=TILE_HALO,
-                    scale=MODEL_CFG[name].get("scale", 1), apply_fn=fn,
-                    axis=axis)
+                    scale=cfg.get("scale", 1), apply_fn=fn, axis=axis,
+                    multiple=multiple)
         return fn
 
     def _batched_dispatch(self, name: str):
@@ -323,18 +420,19 @@ class ServeState:
 
         def dispatch(xs: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
-                return self._to_u8(apply(xs))
+                return self._to_u8(name, apply(xs))
         return dispatch
 
     def _forward(self, name: str, x: np.ndarray, plain: bool = False
                  ) -> np.ndarray:
-        """(N, H, W, 3) float32 in [-1, 1] → (N, H, W, 3) uint8, truncated;
+        """(N, H, W, 3) float32 in the family's domain → (N, H·s, W·s, 3)
+        uint8, truncated;
         through the int8 forward where one was built; tiled when H or W is
         over ``tile_threshold_rows``; through the micro-batcher for a batch-1
         input under it when micro-batching is on."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         route = "plain" if plain else "kernel"
-        label = "float" if self._qapply.get(name) is None else "int8"
+        label = "float" if self.ladder(name) is None else "int8"
         over_h = x.shape[1] > self.tile_threshold_rows
         over_w = x.shape[2] > self.tile_threshold_rows
         tiled = over_h or over_w
@@ -348,7 +446,7 @@ class ServeState:
         fn = (self._tiler(name, over_h, over_w, route) if tiled
               else self._apply(name, route))
         with torch.inference_mode():
-            u8 = self._to_u8(fn(xt))
+            u8 = self._to_u8(name, fn(xt))
         return u8.cpu().numpy()
 
     def _padding(self, name: str, h: int, w: int):
@@ -356,23 +454,57 @@ class ServeState:
         cfg = MODEL_CFG[name]
         return get_padding((w, h), cfg["pad_divisor"], cfg.get("scale", 1))
 
-    def denoise_image(self, image: np.ndarray, model: str = "denoise", *,
-                      plain: bool = False) -> np.ndarray:
-        """uint8 RGB (H, W, 3) → the served uint8 RGB output, same size: pad
-        to the family's divisor, normalize, forward, crop back.  ``plain``
-        runs the kernels' plain versions (the reference on the card)."""
+    def _input_shape(self, name: str, h: int, w: int):
+        """The forward's (H, W) for an (h, w) upload: padded, or as it is
+        for the [0, 1] families."""
+        if MODEL_CFG[name]["normalize"] is None:
+            return h, w
+        pl_, pt_, pr_, pb_ = self._padding(name, h, w)
+        return h + pt_ + pb_, w + pl_ + pr_
+
+    def _served_input(self, name: str, image: np.ndarray):
+        """(the forward's (1, H, W, 3) f32 input, its [0, 1] view, the crop
+        box of the original (left, top, right, bottom))."""
         h, w = image.shape[:2]
-        pl_, pt_, pr_, pb_ = self._padding(model, h, w)
-        padded = np.pad(image, ((pt_, pb_), (pl_, pr_), (0, 0)))
-        mean, std = MODEL_CFG[model]["normalize"]
+        pl_, pt_, pr_, pb_ = self._padding(name, h, w)
+        cfg = MODEL_CFG[name]
+        if cfg["normalize"] is None:  # dncnn, esrgan: [0, 1], unpadded
+            x01 = imageio.to_float01(image)
+            x = x01
+        else:
+            x01 = imageio.to_float01(np.pad(image, ((pt_, pb_), (pl_, pr_),
+                                                    (0, 0))))
+            mean, std = cfg["normalize"]
+            x = imageio.normalize(x01, mean[0], std[0])
         # expand_dims, not [None]: a [None] view has a batch stride of 0,
         # and PyTorch's CPU convolution then sums conv 0 in another order
         # than for the same image inside a batch (one s8 step in int8)
-        xin = np.expand_dims(imageio.normalize(imageio.to_float01(padded),
-                                               mean[0], std[0]), 0)
+        return np.expand_dims(x, 0), x01, (pl_, pt_, pl_ + w, pt_ + h)
+
+    def denoise_image(self, image: np.ndarray, model: str = "denoise", *,
+                      plain: bool = False) -> np.ndarray:
+        """uint8 RGB (H, W, 3) → the served uint8 RGB output, in the
+        family's serving domain (the module docstring): the input's size,
+        or 4× its padded size for srgan.  ``plain`` runs the kernels' plain
+        versions (the reference on the card)."""
+        xin, _, box = self._served_input(model, image)
         y01 = _as01(self._forward(model, xin, plain=plain))
         y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
-        return y_u8[pt_:pt_ + h, pl_:pl_ + w]
+        return _pil_crop(y_u8, box) if model in ("denoise", "esrgan") \
+            else y_u8
+
+    def _input_view(self, image: np.ndarray, model: str, out_hw):
+        """The analysis figure's view of the input beside an output of
+        ``out_hw`` (:770-828): cropped as the output is, or for srgan the
+        input bicubic-upscaled to the output's size."""
+        _, x01, box = self._served_input(model, image)
+        x_u8 = (np.clip(x01, 0, 1) * 255).astype(np.uint8)
+        if model in ("denoise", "esrgan"):
+            return _pil_crop(x_u8, box)
+        if model == "srgan":
+            return imageio.resize_bicubic_u8(_pil_crop(x_u8, box),
+                                             (out_hw[1], out_hw[0]))
+        return x_u8
 
     def warmup(self, sizes=((256, 256),), models=None) -> None:
         """Run each (H, W) input size once per model (sizes before padding)
@@ -382,13 +514,13 @@ class ServeState:
         batch size the batcher can dispatch at that padded shape (the pow2
         series up to ``microbatch_max``, the cap included), for the sizes
         the batcher serves (not those that are tiled).  ``models``: only
-        these families."""
+        these families (default: every family, as the JAX
+        ``warmup(models=None)``).  The [0, 1] families run unpadded."""
         for h, w in sizes:
             for name in self.models:
                 if models is not None and name not in models:
                     continue
-                pl_, pt_, pr_, pb_ = self._padding(name, h, w)
-                hh, ww = h + pt_ + pb_, w + pl_ + pr_
+                hh, ww = self._input_shape(name, h, w)
                 t0 = time.perf_counter()
                 self._forward(name, np.zeros((1, hh, ww, 3), np.float32))
                 tiled = max(hh, ww) > self.tile_threshold_rows
@@ -421,6 +553,7 @@ class ServeState:
             "weights_loaded": sorted(self._weights_loaded),
             "quantize": self.quantize,
             "int8_rungs": dict(self.int8_rung),
+            "int8_gate_db": dict(self.int8_gate_db),
             "uptime_s": self.stats.uptime_s(),
         }
 
@@ -476,10 +609,7 @@ class ServeState:
                     make_graphs,
                 )
 
-                # the input view as the JAX server builds it: u8 → [0,1] →
-                # ×255 → truncated u8
-                x_u8 = (np.clip(imageio.to_float01(image), 0, 1)
-                        * 255).astype(np.uint8)
+                x_u8 = self._input_view(image, model, y_u8.shape[:2])
                 graph_b64 = make_graphs(x_u8.astype(np.float32) / 255.0,
                                         y_u8.astype(np.float32) / 255.0)
             t_graph = time.perf_counter()

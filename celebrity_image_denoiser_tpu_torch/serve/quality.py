@@ -14,9 +14,14 @@ pixel, with Gaussian noise of σ = 25.  PNG goes through the port's own codec
 (``data/imageio.py``), which is lossless, so the served pixels are those
 the JAX fixture's Pillow round trip gives.
 
-Ported for the same-resolution families; srgan and cgan wait for their
-models (``ROADMAP.md`` queue 1, item 3), and so does
-``srgan_battery_gain_db``.
+srgan's fixture is the JAX one: a 256² noisy fixture shrunk to 64² by
+Pillow's bicubic (``data/imageio.py::resize_bicubic_u8``, equal to Pillow
+bit for bit), the ×4 output scored against the bicubic upscale of that
+input.  ``srgan_battery_gain_db`` is its held-out battery (the synthetic
+corpus, noise variant 2, a ×4 bicubic downscale through
+``ops/resize.py``), drawn on the CPU from a ``torch.Generator`` seeded 77:
+its images differ from the JAX battery's (another generator), the recipe
+is the same.  cgan waits for its model (``ROADMAP.md`` queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from celebrity_image_denoiser_tpu_torch.data import imageio
 
@@ -66,18 +72,58 @@ def _decode_b64_png(b64: str) -> np.ndarray:
     return imageio.decode_png(base64.b64decode(b64))
 
 
+def _enhance_png(state, model: str, img: np.ndarray) -> np.ndarray:
+    result = state.enhance(model, imageio.encode_png(img), "image/png",
+                           include_graph=False)
+    return _decode_b64_png(result["denoised_image_base64"])
+
+
 def fixture_gain_db(state, model: str) -> float:
     """PSNR gain of ``model`` on the fixture through the full serving path
-    (``ServeState.enhance``), against the noisy input."""
-    if model in ("srgan", "cgan"):
+    (``ServeState.enhance``): against the noisy input for the
+    same-resolution families, against the bicubic ×4 upscale of the 64²
+    input for srgan."""
+    if model in ("cgan", "cgan_torch"):
         raise ValueError(
             f"fixture_gain_db({model!r}) waits for the {model} family "
             "(ROADMAP.md queue 1, item 3: the other served families)")
+    if model == "srgan":
+        clean, noisy = noisy_fixture(256, seed=2)
+        lr = imageio.resize_bicubic_u8(noisy, (64, 64))
+        out = _enhance_png(state, "srgan", lr)
+        bicubic = imageio.resize_bicubic_u8(lr, (256, 256))
+        return psnr_u8(out, clean) - psnr_u8(bicubic, clean)
     clean, noisy = noisy_fixture(64, seed=1)
-    result = state.enhance(model, imageio.encode_png(noisy), "image/png",
-                           include_graph=False)
-    out = _decode_b64_png(result["denoised_image_base64"])
+    out = _enhance_png(state, model, noisy)
     return psnr_u8(out, clean) - psnr_u8(noisy, clean)
+
+
+def srgan_battery_gain_db(state, n: int = 6, size: int = 128,
+                          seed: int = 77) -> float:
+    """Bicubic-relative PSNR margin of srgan averaged over a held-out
+    battery (``srgan_battery_gain_db:101``): ``n`` synthetic clean images
+    of ``size``², noise variant 2, LR = ×4 bicubic downscale (antialiased,
+    ``ops/resize.py``), baseline = the bicubic ×4 upscale of the LR image;
+    every LR image through the full serving path.  Drawn on the CPU."""
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        synth_clean_batch,
+    )
+    from celebrity_image_denoiser_tpu_torch.ops.resize import resize
+
+    gen = torch.Generator().manual_seed(seed)
+    clean01 = synth_clean_batch(gen, n, size)
+    noisy01 = noise_lib.random_noise_batch01(gen, clean01, variant=2)
+    h, w = noisy01.shape[1:3]
+    lr01 = torch.clamp(resize(noisy01, (h // 4, w // 4)), 0, 1)
+    base01 = torch.clamp(resize(lr01, (h, w)), 0, 1)
+
+    def u8(t):
+        return torch.round(t * 255).to(torch.uint8).numpy()
+    clean_u8, base_u8, lr_u8 = u8(clean01), u8(base01), u8(lr01)
+    gains = [psnr_u8(_enhance_png(state, "srgan", lr_u8[i]), clean_u8[i])
+             - psnr_u8(base_u8[i], clean_u8[i]) for i in range(len(lr_u8))]
+    return float(np.mean(gains))
 
 
 def recorded_margin(weights_dir: str, model: str,

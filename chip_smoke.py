@@ -85,6 +85,30 @@ Phases, each printing its own lines; any failure exits non-zero:
              and mean occupancy, launches exactly forwards × the per-forward
              counts, and every micro-batched response equal to the same
              request served alone (int8 bit-equal, f32 within 1 count);
+4e. families — dncnn, esrgan and srgan on their shipped weights, float32
+             and int8 (phase 4's ``ServeState`` serves them too): every K2
+             and K3 launch of the f32 kernel route (BatchNorm folded) held
+             against its plain version on the same inputs (f32
+             3e-5·max|ref|) at 256² and odd sizes (srgan: 64² and 44×60 LR),
+             the served pixels within 1 count of the plain route, the kernel
+             route within 1e-4 of the autograd route (nothing folded); every
+             K5 launch of an int8 forward at 64² bit-equal to
+             ``conv3x3_s8_plain``; ``/enhance`` requests with exactly the
+             launches per forward (f32: dncnn 8 K3 + 1 K2, esrgan 16 K2,
+             srgan 13 K2; int8: K5 15, 16 or 9 by esrgan's rung, 13); the
+             int8 rung and its gate dB; the quality floors (70% of each
+             family's recorded fixture gain, srgan's battery gain, srgan's
+             fixture gain > 0) in f32 and int8; one tiled request per family
+             (dncnn and esrgan 4097×1001, srgan 2100×96 LR) against the
+             untiled forward (f32 within 1 count, int8 bit-equal), with
+             exactly tiles × the per-forward launches; p50/p90 of 30
+             ``/enhance`` requests (256², srgan 64² LR) per family and mode;
+             forward times at 256² (srgan 64² LR) and a 2048² tile; the
+             srgan 2048² LR forward (8192² out) at batch 1 with its time
+             and peak memory; then K2 and K3 in f32 at the family shapes and
+             the U-Net's at 512² beside cuDNN (TF32 off) and their bound
+             (operations at 67 TFLOP/s, f32 outside the tensor cores, or
+             bytes at 3.35 TB/s);
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -164,6 +188,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import base64
+import contextlib
 import functools
 import json
 import re
@@ -180,6 +205,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 # × max|ref|.  f32: the kernels differ from the plain versions by summation
 # order only (≤ 1.5e-6 on the card); TF32 operands (10-bit mantissa) miss by
 # far more, so a kernel that quietly used TF32 fails.  bf16: two ulps.
@@ -672,6 +698,29 @@ def phase_kernels(_build, conv3x3, double_conv):
                                   xa, *args[1:], relu=relu, x2=xb),
                               conv3x3.conv3x3_bias_relu_plain(
                                   xa, *args[1:], relu=relu, x2=xb)))
+    # the families' f32 shapes (phase 4e) at unpadded odd sizes: K3 3->64->64
+    # and 64->64->64 (dncnn), K2 64->64 (the blocks), 64->256 (srgan's
+    # upscale) and 64->3 with a zero bias (dncnn's last conv)
+    f32 = torch.float32
+    for layer, shape in (("dncnn 0+2", (1, 97, 130, 3, 64, 64)),
+                         ("dncnn pair", (2, 97, 130, 64, 64, 64))):
+        args = pair_inputs(gen, shape, f32)
+        worst["double_conv3x3_relu"] = max(
+            worst["double_conv3x3_relu"],
+            check("double_conv3x3_relu", layer, shape, f32,
+                  double_conv.double_conv3x3_relu(*args),
+                  double_conv.double_conv3x3_relu_plain(*args)))
+    for layer, shape in (("block conv", (1, 97, 130, 64, 64, False)),
+                         ("upscale", (1, 44, 60, 64, 256, False)),
+                         ("dncnn tail", (1, 97, 130, 64, 3, False))):
+        (x, k, b), relu = single_inputs(gen, shape, f32)
+        if layer == "dncnn tail":
+            b = torch.zeros_like(b)
+        worst["conv3x3_bias_relu"] = max(
+            worst["conv3x3_bias_relu"],
+            check("conv3x3_bias_relu", layer, shape, f32,
+                  conv3x3.conv3x3_bias_relu(x, k, b, relu=relu),
+                  conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)))
     say("kernels: conv3x3_bias_relu, conv3x3_bias_relu_v2, "
         "double_conv3x3_relu")
     # control: the f32 check must reject TF32 in the kernels' place
@@ -809,6 +858,9 @@ def phase_int8_kernels(_build, conv3x3, k5, k6):
         ("ragged", "k6", (2, 17, 23, 256, 128, "s8")),
         ("ragged", "k6", (1, 9, 7, 128, 64, "bf16")),
         ("generic", "k6", (2, 32, 32, 256, 128, "f32")),
+        # the families' generic rungs (phase 4e): raw f32 out, Cin 64
+        ("families", "k5", (1, 97, 130, 64, 0, 64, False, "f32")),
+        ("families", "k5", (1, 44, 60, 64, 0, 256, False, "f32")),
     ]
     for layer, kind, shape in cases:
         args, kw = int8_inputs(gen, kind, shape)
@@ -1051,7 +1103,7 @@ def phase_int8_serve(conv3x3, double_conv, k5, k6):
     st = ServeState(device="cuda", quantize="int8")
     if "denoise" not in st.healthz()["weights_loaded"]:
         fail("shipped denoise weights did not load")
-    rung = st.int8_rung.get("denoise")
+    rung = st.ladder("denoise")
     say(f"  ladder: {rung}")
     if rung != "int8-s8skip":
         fail(f"the int8 ladder served {rung}, not int8-s8skip")
@@ -1243,8 +1295,8 @@ def phase_tiling(conv3x3, double_conv, k5, k6):
         # the same requests served untiled on the kernel route
         ref = ServeState(device="cuda", quantize=quantize,
                          tile_threshold_rows=8192)
-        if quantize and (st.int8_rung.get("denoise") != "int8-s8skip"
-                         or ref.int8_rung.get("denoise") != "int8-s8skip"):
+        if quantize and (st.ladder("denoise") != "int8-s8skip"
+                         or ref.ladder("denoise") != "int8-s8skip"):
             fail(f"the int8 ladder served {st.int8_rung}, {ref.int8_rung}")
         srv, thread, url = serve_in_thread(st)
         try:
@@ -1353,11 +1405,11 @@ def phase_microbatch(conv3x3, double_conv, k5, k6):
     say("== phase 4d: micro-batching (shipped weights)")
     st8 = ServeState(device="cuda", quantize="int8", microbatch_window_ms=2,
                      microbatch_max=16)
-    if st8.int8_rung.get("denoise") != "int8-s8skip":
+    if st8.ladder("denoise") != "int8-s8skip":
         fail(f"the int8 ladder served {st8.int8_rung}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st8.warmup(((256, 256), (2048, 2048)))
+    st8.warmup(((256, 256), (2048, 2048)), models=("denoise",))
     warm = time.perf_counter() - t0
     say(f"  int8 warmup((256,256),(2048,2048)), batches 1-16: {warm:.2f} s")
     # one 16 x 2048^2 batch: s8 tensors of 4.29e9 elements (down1, up1,
@@ -1402,9 +1454,9 @@ def phase_microbatch(conv3x3, double_conv, k5, k6):
         else:
             st_on = ServeState(device="cuda", microbatch_window_ms=2,
                                microbatch_max=16)
-            st_on.warmup(((MB_SIZE, MB_SIZE),))
+            st_on.warmup(((MB_SIZE, MB_SIZE),), models=("denoise",))
         st_off = ServeState(device="cuda", quantize=quantize)
-        st_off.warmup(((MB_SIZE, MB_SIZE),))
+        st_off.warmup(((MB_SIZE, MB_SIZE),), models=("denoise",))
         outs = {}
         for mode, st in (("off", st_off), ("on", st_on)):
             srv, thread, url = serve_in_thread(st)
@@ -1450,6 +1502,500 @@ def phase_microbatch(conv3x3, double_conv, k5, k6):
         del st_on, st_off
         torch.cuda.empty_cache()
     return totals
+
+
+# ---------------------------------------------------------------------------
+# the dncnn, esrgan and srgan families
+FAMILIES = ("dncnn", "esrgan", "srgan")
+# (K2, K3) launches per f32 forward
+F32_PER_FORWARD = {"dncnn": (1, 8), "esrgan": (16, 0), "srgan": (13, 0)}
+# K5 launches per int8 forward, by rung (the 3-channel and 9x9 convs float)
+K5_PER_FORWARD = {("dncnn", "int8-generic"): 15,
+                  ("esrgan", "int8-generic"): 16,
+                  ("esrgan", "int8-trunkfloat"): 9,
+                  ("srgan", "int8-generic"): 13}
+FAMILY_SIZES = {"dncnn": ((256, 256), (97, 130)),  # (H, W) requests
+                "esrgan": ((256, 256), (97, 130)),
+                "srgan": ((64, 64), (44, 60))}
+FAMILY_TILED = {"dncnn": (4097, 1001), "esrgan": (4097, 1001),
+                "srgan": (2100, 96)}
+FAMILY_THRESHOLD = 2048  # the servers' tile threshold
+FAMILY_REQUESTS = 30  # latency requests per family and mode
+FAMILY_K5_FIXTURE = 64  # the K5 holds' input, a side
+SRGAN_BIG = 2048  # the srgan LR side whose forward's memory is read
+FAMILY_TILE = 2048  # the forward-time tile, a side
+F32_TIMES_SIZE = 512  # the f32 kernel rows' input, a side
+
+
+def family_url(url, fam):
+    return url.replace("model=denoise", f"model={fam}")
+
+
+def family_input(st, fam, img, device="cuda"):
+    """The (1, H, W, 3) f32 input ``st.denoise_image`` gives the forward of
+    ``fam`` for ``img``, on ``device``."""
+    return torch.from_numpy(st._served_input(fam, img)[0]).to(device)
+
+
+class Holds:
+    """Wraps kernel entry points for the length of a ``with``: each launch
+    is held against its plain version on the same inputs (f32: the check's
+    tolerance; ``exact``: bit-equal).  The holds' plain calls launch
+    nothing."""
+
+    def __init__(self, entries, exact=False):
+        self.entries = entries  # (module, entry name, plain function)
+        self.exact = exact
+        self.n = 0
+        self.worst = 0.0  # the largest error / max|ref|
+        self.shapes = set()
+
+    def _wrap(self, name, entry, plain):
+        def held(*args, **kw):
+            y = entry(*args, **kw)
+            ref = plain(*args, **kw)
+            self.n += 1
+            self.shapes.add((name, tuple(args[0].shape), tuple(y.shape)))
+            if self.exact:
+                if not torch.equal(y, ref):
+                    fail(f"{name} {tuple(args[0].shape)}: differs from its "
+                         "plain version")
+                return y
+            err = (y.float() - ref.float()).abs().max().item()
+            rel = err / max(ref.float().abs().max().item(), 1e-30)
+            self.worst = max(self.worst, rel)
+            if rel > TOL[torch.float32] or not bool(torch.isfinite(y).all()):
+                fail(f"{name} {tuple(args[0].shape)} -> {tuple(y.shape)}: "
+                     f"{rel:.2e} x max|ref| off its plain version")
+            return y
+        return held
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.entries]
+        for m, n, plain in self.entries:
+            setattr(m, n, self._wrap(n, getattr(m, n), plain))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, entry in self.saved:
+            setattr(m, n, entry)
+
+
+def family_quality(st, fam, label) -> str:
+    """The family's quality floors through ``st.enhance``: 70% of the
+    fixture gain recorded in ``weights/<fam>/meta.json``; for srgan 70% of
+    its battery gain, and its fixture gain > 0."""
+    from celebrity_image_denoiser_tpu_torch.serve import quality
+
+    key = "battery_gain_db" if fam == "srgan" else "fixture_gain_db"
+    if quality.recorded_margin(st.weights_dir, fam, key=key) is None:
+        fail(f"weights/{fam}/meta.json records no {key}")
+    floor = quality.recorded_gate_floor(st.weights_dir, fam, default=0.0,
+                                        key=key)
+    gain = (quality.srgan_battery_gain_db(st) if fam == "srgan"
+            else quality.fixture_gain_db(st, fam))
+    text = f"{label} {key[:-3]} {gain:.3f} dB (floor {floor:.3f})"
+    if gain < floor:
+        fail(f"{fam} {label}: {key} {gain:.3f} dB below the floor "
+             f"{floor:.3f} dB")
+    if fam == "srgan":
+        fixture = quality.fixture_gain_db(st, fam)
+        text += f", fixture {fixture:.3f} dB (> 0)"
+        if fixture <= 0:
+            fail(f"srgan {label}: fixture gain {fixture:.3f} dB")
+    return text
+
+
+def phase_families(conv3x3, double_conv, k5, k6, device="cuda"):
+    import torch.nn.functional as F
+
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    say("== phase 4e: the dncnn, esrgan and srgan families (shipped "
+        "weights, f32 and int8)")
+    t_phase = time.perf_counter()
+    st_f = ServeState(device=device, tile_threshold_rows=FAMILY_THRESHOLD)
+    st_q = ServeState(device=device, quantize="int8",
+                      tile_threshold_rows=FAMILY_THRESHOLD)
+    for st in (st_f, st_q):
+        missing = set(FAMILIES) - set(st.healthz()["weights_loaded"])
+        if missing:
+            fail(f"shipped weights did not load: {sorted(missing)}")
+    f32_holds = Holds([
+        (conv3x3, "conv3x3_bias_relu", conv3x3.conv3x3_bias_relu_plain),
+        (double_conv, "double_conv3x3_relu",
+         double_conv.double_conv3x3_relu_plain)])
+    k5_holds = Holds([(k5, "conv3x3_s8", k5.conv3x3_s8_plain)], exact=True)
+    totals = [0, 0, 0, 0]  # (K2, K3, K5, K6) of the /enhance requests
+
+    def counted(fn):
+        int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+        out = fn()
+        counts = int8_counts(conv3x3, double_conv, k5, k6)
+        for i, c in enumerate(counts):
+            totals[i] += c
+        return out, counts
+
+    servers = [serve_in_thread(st) for st in (st_f, st_q)]
+    urls = {"float": servers[0][2], "int8": servers[1][2]}
+    sts = {"float": st_f, "int8": st_q}
+    records = {}
+    try:
+        for fam in FAMILIES:
+            rung = st_q.ladder(fam)
+            db = st_q.int8_gate_db.get(fam)
+            say(f"  {fam}: int8 ladder {rung}"
+                + (f", gate {db:.2f} dB" if db is not None else ""))
+            if (fam, rung) not in K5_PER_FORWARD:
+                fail(f"{fam}: the int8 ladder served {rung}")
+            per = {"float": F32_PER_FORWARD[fam] + (0, 0),
+                   "int8": (0, 0, K5_PER_FORWARD[(fam, rung)], 0)}
+            rec = records.setdefault(fam, {"rung": rung, "gate_db": db})
+            model = st_f.models[fam]
+            # 1. the kernel route against the plain and autograd routes
+            for i, (h, w) in enumerate(FAMILY_SIZES[fam]):
+                img = test_image(h, w, seed=40 + i)
+                n0 = f32_holds.n
+                with f32_holds:
+                    y_k = st_f.denoise_image(img, fam)
+                y_p = st_f.denoise_image(img, fam, plain=True)
+                d = np.abs(y_k.astype(np.int16) - y_p.astype(np.int16))
+                x = family_input(st_f, fam, img, device)
+                with torch.inference_mode():
+                    xk = x.permute(0, 3, 1, 2)
+                    da = (model(xk) - model(xk, route="autograd")).abs()
+                da = da.max().item()
+                say(f"  {fam} {w}x{h}: {f32_holds.n - n0} K2/K3 launches "
+                    f"each within {TOL[torch.float32]:.0e} x max|ref| of "
+                    f"plain (worst so far {f32_holds.worst:.2e}); served "
+                    f"vs plain max diff {d.max()} exact "
+                    f"{np.mean(d == 0):.4%}; kernel vs autograd route "
+                    f"max {da:.2e}")
+                if f32_holds.n - n0 != sum(F32_PER_FORWARD[fam]):
+                    fail(f"{fam} {w}x{h}: {f32_holds.n - n0} kernel "
+                         "launches held")
+                if d.max() > 1:
+                    fail(f"{fam} {w}x{h}: served pixels differ from the "
+                         f"plain route by {d.max()}")
+                if da > 1e-4:
+                    fail(f"{fam} {w}x{h}: the kernel route is {da:.2e} off "
+                         "the autograd route")
+            # 2. every K5 launch of an int8 forward, bit-equal
+            img = test_image(FAMILY_K5_FIXTURE, FAMILY_K5_FIXTURE, seed=47)
+            n0 = k5_holds.n
+            with k5_holds:
+                st_q.denoise_image(img, fam)
+            say(f"  {fam} int8 {FAMILY_K5_FIXTURE}x{FAMILY_K5_FIXTURE}: "
+                f"{k5_holds.n - n0} K5 launches, each bit-equal to "
+                "conv3x3_s8_plain")
+            if k5_holds.n - n0 != per["int8"][2]:
+                fail(f"{fam}: {k5_holds.n - n0} K5 launches held, expected "
+                     f"{per['int8'][2]}")
+            # 3. /enhance with exact launch counts, then latency
+            for mode in ("float", "int8"):
+                url = family_url(urls[mode], fam)
+                for i, (h, w) in enumerate(FAMILY_SIZES[fam]):
+                    img = test_image(h, w, seed=50 + i)
+                    (status, payload), counts = counted(
+                        lambda: post_enhance(url, imageio.encode_png(img)))
+                    if status != 200 or set(payload) != {
+                            "denoised_image_base64", "noise_graph_base64",
+                            "backend"}:
+                        fail(f"{fam} {mode} /enhance {w}x{h}: HTTP {status} "
+                             f"{sorted(payload)}")
+                    out = imageio.decode_png(base64.b64decode(
+                        payload["denoised_image_base64"]))
+                    want = sts[mode].denoise_image(img, fam)
+                    say(f"  {fam} {mode} /enhance {w}x{h}: 200, "
+                        f"{out.shape[1]}x{out.shape[0]} out, launches K2 "
+                        f"{counts[0]} K3 {counts[1]} K5 {counts[2]} K6 "
+                        f"{counts[3]}")
+                    if counts != per[mode]:
+                        fail(f"{fam} {mode} /enhance {w}x{h}: launches "
+                             f"{counts}, expected {per[mode]}")
+                    if not np.array_equal(out, want):
+                        fail(f"{fam} {mode} /enhance {w}x{h}: the response "
+                             "is not the forward's output")
+                png = imageio.encode_png(test_image(
+                    *FAMILY_SIZES[fam][0], seed=59))
+                lat = []
+                for _ in range(FAMILY_REQUESTS):
+                    t0 = time.perf_counter()
+                    (status, _), _ = counted(lambda: post_enhance(url, png))
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    if status != 200:
+                        fail(f"{fam} {mode} latency loop: HTTP {status}")
+                p50, p90 = np.percentile(lat, [50, 90])
+                rec[f"{mode}_p50_ms"], rec[f"{mode}_p90_ms"] = p50, p90
+                h, w = FAMILY_SIZES[fam][0]
+                say(f"  {fam} {mode} /enhance {w}x{h} over {len(lat)} "
+                    f"requests (one client, graphs=false): p50 {p50:.2f} "
+                    f"ms p90 {p90:.2f} ms")
+                # 4. the quality floors
+                text, _ = counted(lambda: family_quality(sts[mode], fam,
+                                                         mode))
+                say(f"  {fam} {text}")
+            # 5. one tiled request, against the untiled forward
+            h, w = FAMILY_TILED[fam]
+            img = test_image(h, w, seed=60)
+            png = imageio.encode_png(img)
+            hh, ww = st_f._input_shape(fam, h, w)
+            tiles = (-(-hh // FAMILY_THRESHOLD)) * (-(-ww // FAMILY_THRESHOLD))
+            for mode in ("float", "int8"):
+                st = sts[mode]
+                before = st.stats.snapshot()["compute_backends"]
+                t0 = time.perf_counter()
+                (status, payload), counts = counted(
+                    lambda: post_enhance(family_url(urls[mode], fam), png))
+                dt = time.perf_counter() - t0
+                if status != 200:
+                    fail(f"{fam} {mode} tiled {w}x{h}: HTTP {status}")
+                label = backends_after(st, before)
+                out = imageio.decode_png(base64.b64decode(
+                    payload["denoised_image_base64"]))
+                st.tile_threshold_rows = 1 << 16
+                try:
+                    ref = st.denoise_image(img, fam)
+                finally:
+                    st.tile_threshold_rows = FAMILY_THRESHOLD
+                d = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+                want = tuple(tiles * c for c in per[mode])
+                say(f"  {fam} {mode} tiled {w}x{h}: 200 in {dt:.2f} s, "
+                    f"{label}, {tiles} tiles, launches {counts}, vs untiled "
+                    f"max diff {d.max()} exact {np.mean(d == 0):.6%}")
+                if label != {f"{mode}+tiled": 1} or counts != want:
+                    fail(f"{fam} {mode} tiled: {label}, launches {counts}, "
+                         f"expected {want}")
+                if d.max() > (1 if mode == "float" else 0):
+                    fail(f"{fam} {mode} tiled: differs from untiled by "
+                         f"{d.max()}")
+            # 6. forward times (device and host, the served forward with its
+            # u8 output on the card) at 256² (srgan 64² LR) and a 2048² tile
+            for mode in ("float", "int8"):
+                apply = sts[mode]._apply(fam, "kernel")
+                for side in ((FAMILY_SIZES[fam][0][0],) + (
+                        () if fam == "srgan" else (FAMILY_TILE,))):
+                    x = family_input(sts[mode], fam,
+                                     test_image(side, side, seed=61), device)
+                    with torch.inference_mode():
+                        ms = time_ms(lambda: sts[mode]._to_u8(fam, apply(x)),
+                                     reps=3, warmup=1)
+                    rec[f"{mode}_forward_ms_{side}"] = ms
+                    say(f"  {fam} {mode} forward at {side}x{side}: "
+                        f"{ms:.3f} ms")
+                    del x
+        # 7. srgan at 2048² LR (8192² out), batch 1: time and peak memory,
+        # then the same forward under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        x = family_input(st_f, "srgan", test_image(SRGAN_BIG, SRGAN_BIG,
+                                                    seed=62), "cpu").numpy()
+        for mode in ("float", "int8"):
+            for run in (0, 1):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+                prof = (profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+                        if run else contextlib.nullcontext())
+                with prof:
+                    t0 = time.perf_counter()
+                    y = sts[mode]._forward("srgan", x)
+                    dt = time.perf_counter() - t0
+                counts = int8_counts(conv3x3, double_conv, k5, k6)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                say(f"  srgan {mode} {SRGAN_BIG}x{SRGAN_BIG} LR -> "
+                    f"{y.shape[2]}x{y.shape[1]} (run {run}"
+                    f"{', profiled' if run else ''}): {dt:.3f} s (forward + "
+                    f"D2H of the u8 output), peak {peak:.2f} GiB, launches "
+                    f"{counts}")
+                if run == 1:
+                    report_profile(prof, dt * 1e3, top=8)
+                if y.shape != (1, 4 * SRGAN_BIG, 4 * SRGAN_BIG, 3) or \
+                        counts != (F32_PER_FORWARD["srgan"] + (0, 0)
+                                   if mode == "float" else
+                                   (0, 0, K5_PER_FORWARD[(
+                                       "srgan", st_q.int8_rung["srgan"])], 0)):
+                    fail(f"srgan {mode} {SRGAN_BIG}²: shape {y.shape}, "
+                         f"launches {counts}")
+                records["srgan"][f"{mode}_big_s_run{run}"] = dt
+                records["srgan"][f"{mode}_big_peak_gib"] = peak
+                del y
+        del x
+    finally:
+        for srv, thread, _ in servers:
+            stop_server(srv, thread)
+    family_layout_probe(device)
+    rows = family_f32_times(conv3x3, double_conv, device)
+    k5_rows = family_k5_times(k5)
+    say(f"  phase 4e: {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches held: {f32_holds.n} K2/K3 (f32, worst "
+        f"{f32_holds.worst:.2e} x max|ref|), {k5_holds.n} K5 (bit-equal); "
+        f"/enhance launches K2 {totals[0]} K3 {totals[1]} K5 {totals[2]} "
+        f"K6 {totals[3]}")
+    return totals, records, rows + k5_rows, f32_holds.worst
+
+
+def family_layout_probe(device="cuda"):
+    """cuDNN's float convs of the families (9×9 heads and tails, dncnn's
+    3-channel 3×3 convs) on each tile of a 4097×1001 input (tiles of 2048
+    rows, halo 32) against the whole image, over the rows a tile keeps:
+    in contiguous NCHW memory, which the models give their heads, every
+    value must be equal (the int8 rungs quantize the heads' outputs, so a
+    tiled int8 request is bit-equal to an untiled one only then); in
+    channels-last memory the differing values are printed."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    h, w, halo = 4097, 1001, 32
+    tiles = []
+    for start in range(0, h, FAMILY_THRESHOLD):
+        stop = min(start + FAMILY_THRESHOLD, h)
+        tiles.append((max(start - halo, 0), min(stop + halo, h), start, stop))
+    for label, cin, cout, k in (("9x9 head", 3, 64, 9),
+                                ("9x9 tail", 64, 3, 9),
+                                ("3x3 3->64", 3, 64, 3),
+                                ("3x3 64->3", 64, 3, 3)):
+        x = torch.rand((1, cin, h, w), generator=gen, device=device)
+        wt = torch.randn((cout, cin, k, k), generator=gen, device=device)
+        b = torch.randn((cout,), generator=gen, device=device)
+        differ = {}
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            with torch.inference_mode():
+                full = F.conv2d(x.contiguous(memory_format=fmt), wt, b,
+                                padding=k // 2)
+                n = 0
+                for lo, hi, start, stop in tiles:
+                    t = F.conv2d(x[:, :, lo:hi].contiguous(memory_format=fmt),
+                                 wt, b, padding=k // 2)
+                    n += int((t[:, :, start - lo:stop - lo]
+                              != full[:, :, start:stop]).sum())
+            differ[str(fmt).split(".")[-1]] = n
+            del full
+        say(f"  cuDNN {label} on {len(tiles)} tiles of {w}x{h} vs whole: "
+            f"values that differ {differ}")
+        if differ["contiguous_format"]:
+            fail(f"cuDNN's {label} conv in NCHW memory depends on the tile")
+
+
+def family_f32_times(conv3x3, double_conv, device="cuda"):
+    """K2 and K3 in f32 at the families' shapes and the U-Net's (batch 1,
+    ``F32_TIMES_SIZE``²), each checked against its plain version, timed
+    beside it, beside cuDNN (``F.conv2d`` + bias + ReLU, NCHW, TF32 off) and
+    beside its bound (operations at 67 TFLOP/s, bytes at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    s = F32_TIMES_SIZE
+    unet_pairs = pair_shapes(1, s, s)
+    unet_singles = single_shapes(1, s, s)
+    pairs = [("unet " + k, v) for k, v in unet_pairs.items()] + [
+        ("dncnn body.0+2", (1, s, s, 3, 64, 64)),
+        ("dncnn body.5+8", (1, s, s, 64, 64, 64))]
+    singles = [("unet " + k, v) for k, v in unet_singles.items()] + [
+        ("dncnn body.47 (no bias)", (1, s, s, 64, 3, False)),
+        ("esrgan/srgan block conv", (1, s, s, 64, 64, False)),
+        ("srgan upscale.0", (1, s, s, 64, 256, False))]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    dt = torch.float32
+    rows = []
+
+    def row(kernel, layer, shape, got, ref, ms, plain, lib, flops, nbytes):
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        if err > TOL[dt]:
+            fail(f"f32 {kernel} {layer}: {err:.2e} x max|ref| off plain")
+        b = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES \
+            else "bytes"
+        rows.append({"kernel": kernel, "layer": layer, "shape": shape,
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": b, "bound_by": by,
+                     "tflops": flops / ms / 1e9})
+        say(f"  f32 {kernel:20s} {layer:24s} {str(shape):28s} {ms:8.3f} ms "
+            f"plain {plain:8.3f} cuDNN {lib:8.3f} bound {b:.3f} ({by}) "
+            f"{flops / ms / 1e9:6.2f} TFLOP/s, {b / ms:.1%} of bound")
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    for layer, (n, h, w, c0, c1, c2) in pairs:
+        x = rnd((n, h, w, c0))
+        w1, b1 = rnd((3, 3, c0, c1), (9 * c0) ** -0.5), rnd((c1,), 0.1)
+        w2, b2 = rnd((3, 3, c1, c2), (9 * c1) ** -0.5), rnd((c2,), 0.1)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        o1, o2 = w1.permute(3, 2, 0, 1).contiguous(), \
+            w2.permute(3, 2, 0, 1).contiguous()
+        with torch.inference_mode():
+            args = (x, w1, b1, w2, b2)
+            got = double_conv.double_conv3x3_relu(*args)
+            ref = double_conv.double_conv3x3_relu_plain(*args)
+            ms = time_ms(lambda: double_conv.double_conv3x3_relu(*args), 10)
+            plain = time_ms(
+                lambda: double_conv.double_conv3x3_relu_plain(*args), 10)
+            lib = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(
+                xc, o1, b1, padding=1)), o2, b2, padding=1)), 10)
+        flops = 2 * n * h * w * 9 * (c0 * c1 + c1 * c2)
+        nbytes = 4 * (x.numel() + w1.numel() + w2.numel() + c1 + c2
+                      + n * h * w * c2)
+        row("double_conv3x3_relu", layer, (n, h, w, c0, c1, c2), got, ref,
+            ms, plain, lib, flops, nbytes)
+    for layer, (n, h, w, cin, cout, relu) in singles:
+        x = rnd((n, h, w, cin))
+        wt = rnd((3, 3, cin, cout), (9 * cin) ** -0.5)
+        b = (torch.zeros(cout, device=device) if "no bias" in layer
+             else rnd((cout,), 0.1))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wo = wt.permute(3, 2, 0, 1).contiguous()
+        act = F.relu if relu else (lambda t: t)
+        with torch.inference_mode():
+            got = conv3x3.conv3x3_bias_relu(x, wt, b, relu=relu)
+            ref = conv3x3.conv3x3_bias_relu_plain(x, wt, b, relu=relu)
+            ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, wt, b,
+                                                           relu=relu), 10)
+            plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
+                x, wt, b, relu=relu), 10)
+            lib = time_ms(lambda: act(F.conv2d(xc, wo, b, padding=1)), 10)
+        flops = 2 * n * h * w * 9 * cin * cout
+        nbytes = 4 * (x.numel() + wt.numel() + cout + n * h * w * cout)
+        row("conv3x3_bias_relu", layer, (n, h, w, cin, cout, relu), got, ref,
+            ms, plain, lib, flops, nbytes)
+    return rows
+
+
+def family_k5_times(k5):
+    """K5 in its raw f32 mode (the generic int8 rungs' convs) at 64→64 and
+    64→256, batch 1, ``F32_TIMES_SIZE``²: bit-equal to its plain version,
+    timed beside it, beside ``torch._int_mm`` at the im2col GEMM shape (no
+    epilogue; no PyTorch call computes this function) and beside its bound
+    (operations at 1979 TOP/s, bytes at 3.35 TB/s)."""
+    s = F32_TIMES_SIZE
+    gen = make_gen()
+    rows = []
+    for layer, shape in (("block conv", (1, s, s, 64, 0, 64, False, "f32")),
+                         ("srgan upscale.0",
+                          (1, s, s, 64, 0, 256, False, "f32"))):
+        n, h, w, cin, _, cout, _, _ = shape
+        args, kw = int8_inputs(gen, "k5", shape)
+        with torch.inference_mode():
+            got = k5.conv3x3_s8(*args, **kw)
+            check_int8("k5", layer, shape, got, k5.conv3x3_s8_plain(*args,
+                                                                    **kw))
+            ms = time_ms(lambda: k5.conv3x3_s8(*args, **kw), 10)
+            plain = time_ms(lambda: k5.conv3x3_s8_plain(*args, **kw), 2, 1)
+            mm = int_mm_ms("k5", args, kw)
+        ops = 2 * n * h * w * 9 * cin * cout
+        nbytes = n * h * w * cin + cout * 9 * cin + 4 * cout \
+            + 4 * n * h * w * cout
+        b = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+        by = ("operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES
+              else "bytes")
+        rows.append({"layer": layer, "shape": shape, "ms": ms,
+                     "plain_ms": plain, "int_mm_ms": mm, "bound_ms": b,
+                     "bound_by": by})
+        say(f"  k5 raw f32 {layer:16s} {str(shape):40s} {ms:.3f} ms plain "
+            f"{plain:.3f} _int_mm {mm:.3f} bound {b:.4f} ({by}) "
+            f"{ops / ms / 1e9:.1f} TOP/s, {b / ms:.1%} of bound")
+    return rows
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -2349,9 +2895,11 @@ def main() -> int:
     int8_launches = phase_int8_serve(conv3x3, double_conv, k5, k6)
     tiled_launches = phase_tiling(conv3x3, double_conv, k5, k6)
     mb_launches = phase_microbatch(conv3x3, double_conv, k5, k6)
-    # (K2, K3, K5, K6) launched by the serving phases 4b-4d
-    served = [a + b + c for a, b, c in zip(int8_launches, tiled_launches,
-                                           mb_launches)]
+    family_launches, families, f32_rows, family_err = phase_families(
+        conv3x3, double_conv, k5, k6)
+    # (K2, K3, K5, K6) launched by the serving phases 4b-4e
+    served = [sum(c) for c in zip(int8_launches, tiled_launches, mb_launches,
+                                  family_launches)]
     stats, bench_launches, layer_ms = phase_bench(conv3x3, double_conv, k5,
                                                   k6, bench, worst)
     stats8 = phase_int8_times(conv3x3, k5, k6, layer_ms)
@@ -2382,18 +2930,26 @@ def main() -> int:
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             # the main paths: the float and int8 /enhance requests (single,
-            # tiled and micro-batched) and the bench run (the int8 requests
-            # launch K2 in its s8 mode only)
+            # tiled and micro-batched; the dncnn, esrgan and srgan requests
+            # of phase 4e) and the bench run (the int8 requests launch K2 in
+            # its s8 mode only)
             "launches": (launches[name] + bench_launches[name]
                          + (served[0] if name == "conv3x3_bias_relu"
                             else served[1])),
             "max_abs_err": worst[name],
+            # the largest error of a phase 4e launch, × max|ref|
+            "families_max_rel_err": family_err,
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if s["operations"] >= s["bytes"]
                          else "bytes"),
             "library_ms": s["library_ms"],
         }
+        # f32 at the families' shapes and the U-Net's (phase 4e)
+        entry["f32"] = [{k: r[k] for k in ("layer", "shape", "ms",
+                                           "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}
+                        for r in f32_rows if r.get("kernel") == name]
         if name == "conv3x3_bias_relu":
             entry["also_replaces"] = (
                 "celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py:85")
@@ -2417,8 +2973,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{name}.cu",
             "replaces": where,
-            # the int8 /enhance requests (single, tiled and micro-batched)
-            # and the bench run
+            # the int8 /enhance requests (single, tiled and micro-batched;
+            # for K5 the families' of phase 4e too) and the bench run
             "launches": n_launch + bench_launches[name],
             "max_abs_err": worst8[kind],
             # per int8 bench step, summed over its launches (phase 5b)
@@ -2433,6 +2989,9 @@ def main() -> int:
             # cuDNN transpose convs, printed in phase 5b
             "int_mm_ms": s.get("int_mm_ms"),
         })
+        if name == "conv3x3_s8":  # its raw f32 mode, phase 4e
+            kernels[-1]["raw_f32"] = [r for r in f32_rows
+                                      if "int_mm_ms" in r]
     g = noise_stats["gaussian_only"]
     kernels.append({
         "name": "noise_batch", "route": "cuda",
@@ -2460,6 +3019,7 @@ def main() -> int:
             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"], "library_ms": None},
     })
+    print(json.dumps({"families": families}), flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

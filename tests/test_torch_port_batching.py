@@ -316,7 +316,7 @@ def _recording(st):
 def test_warmup_runs_each_batch_size_once_then_serves():
     st = ServeState(device="cpu", microbatch_window_ms=1.0, microbatch_max=6)
     sizes = _recording(st)
-    st.warmup(((22, 24),))  # padded to 24 x 24
+    st.warmup(((22, 24),), models=("denoise",))  # padded to 24 x 24
     # batch 1 through the batcher, then the pow2 series with the cap
     assert sizes == [1, 2, 4, 6]
     assert st.batchers.stats() == {
@@ -331,7 +331,7 @@ def test_warmup_of_a_big_size_runs_its_tiles_and_no_batches():
     st = ServeState(device="cpu", tile_threshold_rows=32,
                     microbatch_window_ms=1.0, microbatch_max=4)
     sizes = _recording(st)
-    st.warmup(((70, 20),))  # 72 x 20 padded: tiles of 32 rows
+    st.warmup(((70, 20),), models=("denoise",))  # 72 x 20: 32-row tiles
     assert sizes == [1, 1, 1]
     assert st.batchers.stats() == {}
 
@@ -339,8 +339,29 @@ def test_warmup_of_a_big_size_runs_its_tiles_and_no_batches():
 def test_warmup_without_microbatching_runs_batch_1():
     st = ServeState(device="cpu")
     sizes = _recording(st)
-    st.warmup(((16, 16), (8, 12)))
+    st.warmup(((16, 16), (8, 12)), models=("denoise",))
     assert sizes == [1, 1]
+
+
+def test_warmup_covers_every_family_by_default():
+    """As the JAX ``warmup(models=None)``: every family at its forward's
+    shape, the [0, 1] families unpadded, srgan padded to 16."""
+    st = ServeState(device="cpu")
+    shapes = []
+    apply = st._apply
+
+    def recording_apply(name, route):
+        fn = apply(name, route)
+
+        def run(x):
+            shapes.append((name, tuple(x.shape)))
+            return fn(x)
+        return run
+
+    st._apply = recording_apply
+    st.warmup(((10, 14),))
+    assert shapes == [("denoise", (1, 12, 16, 3)), ("srgan", (1, 16, 16, 3)),
+                      ("esrgan", (1, 10, 14, 3)), ("dncnn", (1, 10, 14, 3))]
 
 
 def test_cli_serve_microbatching_and_precompile_flags(monkeypatch):

@@ -46,7 +46,11 @@ def test_port_has_modules_to_check():
                  "ops.cuda.convt2x2_s8",
                  # big inputs, micro-batching and the quality gate
                  "parallel", "parallel.tiling", "serve.batching",
-                 "serve.quality"):
+                 "serve.quality",
+                 # the dncnn, esrgan and srgan families
+                 "models.dncnn", "models.esrgan", "models.srgan",
+                 "models.folded", "models.registry", "ops.padding",
+                 "ops.resize"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 

@@ -269,9 +269,12 @@ def test_uniform_v1_range():
 def test_unknown_kind_and_waiting_variants():
     with pytest.raises(ValueError, match="unknown noise"):
         port_noise.add_noise(_gen(), IMG, "perlin", variant=1)
-    for variant in (2, 3):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port_noise.add_noise(_gen(), IMG, "gaussian", variant=variant)
+    # variant 2 is served as plain functions (tests/test_torch_port_
+    # families.py holds its distributions); variant 3 waits
+    assert port_noise.add_noise(_gen(), IMG, "gaussian", variant=2).shape \
+        == IMG.shape
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port_noise.add_noise(_gen(), IMG, "gaussian", variant=3)
     for name in ("blind_gaussian_batch", "poisson_v3_exact"):
         assert not hasattr(port_noise, name)
 

@@ -81,7 +81,9 @@ def test_recorded_margin_and_floor_agree_with_jax(tmp_path, case, key):
 
 
 def test_fixture_gain_waits_for_the_other_families():
-    for model in ("srgan", "cgan"):
+    """Only cgan is left (srgan, esrgan and dncnn are measured in
+    ``tests/test_torch_port_families.py``)."""
+    for model in ("cgan", "cgan_torch"):
         with pytest.raises(ValueError, match="queue 1, item 3"):
             quality.fixture_gain_db(None, model)
 

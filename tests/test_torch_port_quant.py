@@ -52,7 +52,10 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8 as k5
 from celebrity_image_denoiser_tpu_torch.ops.cuda import convt2x2_s8 as k6
 from celebrity_image_denoiser_tpu_torch.serve import quality
-from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from celebrity_image_denoiser_tpu_torch.serve.handlers import (
+    EnhanceError,
+    ServeState,
+)
 from celebrity_image_denoiser_tpu_torch.serve.quality import (
     psnr_u8,
     structured_clean,
@@ -529,10 +532,11 @@ def _png(img):
 
 def test_int8_serving_answers_enhance_through_the_s8_program():
     st = ServeState(device="cpu", quantize="int8")
-    assert st.int8_rung == {"denoise": "int8-s8skip"}
     assert st.healthz()["quantize"] == "int8"
     img = structured_clean(48)
     r = st.enhance("denoise", _png(img), "image/png", include_graph=False)
+    # each family's ladder is built at its first use, as in the JAX server
+    assert st.int8_rung == {"denoise": "int8-s8skip"}
     assert r["backend"] == "torch" and st.last_compute_backend() == "int8"
     out = imageio.decode_png(base64.b64decode(r["denoised_image_base64"]))
     assert out.shape == (48, 48, 3)
@@ -579,8 +583,14 @@ def test_kernel_errors_are_not_caught_into_a_fallback(monkeypatch):
         raise RuntimeError("conv3x3_s8: CUDA error 98 (simulated)")
 
     monkeypatch.setattr(k5, "conv3x3_s8", launch_failed)
+    # the ladder is built at the family's first use
+    st = ServeState(device="cpu", quantize="int8")
     with pytest.raises(RuntimeError, match="simulated"):
-        ServeState(device="cpu", quantize="int8")
+        st.ladder("denoise")
+    # a request does not quietly serve float either: a 500
+    with pytest.raises(EnhanceError) as e:
+        st.enhance("denoise", _png(np.zeros((16, 16, 3), np.uint8)))
+    assert e.value.status == 500 and "denoise" not in st.int8_rung
 
 
 def test_serve_cli_defaults_to_int8():
@@ -652,7 +662,7 @@ def test_no_int8_kernel_moves_the_ladder_down(monkeypatch, when):
     monkeypatch.setattr(quant, "quantize_apply", builder)
     st = ServeState(weights_dir="/nonexistent-weights", seed=7,
                     quantize="int8", device="cpu")
-    assert st.int8_rung["denoise"] is None
+    assert st.ladder("denoise") is None
     st.enhance("denoise", _png(np.zeros((16, 16, 3), np.uint8)),
                "image/png", include_graph=False)
     assert st.last_compute_backend() == "float"

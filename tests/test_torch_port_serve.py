@@ -134,9 +134,12 @@ def test_error_contract_matches_jax(servers, query, body, ctype):
 
 
 def test_unknown_model_lists_the_served_families(servers):
-    status, payload = _post(servers["port"], "model=srgan",
-                            _multipart(_PNG))
-    assert status == 400 and "denoise" in payload["detail"]
+    """cgan waits for its slice: a 400 that lists the four families the
+    port serves."""
+    status, payload = _post(servers["port"], "model=cgan", _multipart(_PNG))
+    assert status == 400
+    for family in ("denoise", "srgan", "esrgan", "dncnn"):
+        assert f"'{family}'" in payload["detail"], payload["detail"]
 
 
 def test_ui_served(servers):
