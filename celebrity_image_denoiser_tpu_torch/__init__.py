@@ -2,10 +2,11 @@
 ``celebrity_image_denoiser_tpu``, written for an NVIDIA H100.
 
 The JAX package stays beside it as the reference; this package imports
-nothing of it (and never ``jax``).  What is ported so far is the denoise
-family: the U-Net behind ``POST /enhance`` in float32, the bf16 serving
-step the bench times, and the GAN trainer (``cli.train``) with on-the-fly
-noise.  The inference forward's 3×3 convolutions run through hand-written
+nothing of it (and never ``jax``).  What is ported so far: the five
+served families behind ``POST /enhance`` (denoise, cgan with its Keras and
+torch backends, srgan, esrgan, dncnn) in float32 and int8, the bf16
+serving step the bench times, and the denoise GAN trainer (``cli.train``)
+with on-the-fly noise.  The inference forward's 3×3 convolutions run through hand-written
 CUDA kernels (``csrc/``, bound in ``ops/cuda/``) that port the Pallas kernels
 ``ops/pallas/conv_fused.py`` and ``ops/pallas/double_conv.py``; the training
 input stage runs the port of ``ops/pallas/noise_kernel.py``.  The train step

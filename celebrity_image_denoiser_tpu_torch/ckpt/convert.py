@@ -15,8 +15,11 @@ a torch ``weight`` of one dimension is a BatchNorm's ``scale`` in one module
 and a PReLU's ``alpha`` in another: the module's type decides.  Given the
 ``module`` the weights are for, both ways check each leaf against the type
 of the module it lands in (a BatchNorm ``scale`` never loads into a PReLU);
-``alpha`` is carried only with the module.  The Linear case comes with the
-families that have one.
+``alpha`` is carried only with the module.  A Linear's 2-D ``kernel``
+(in, out) becomes its ``weight`` (out, in), and an Embedding's ``table``
+its ``weight`` (``ckpt/torch_import.py:77-92``), as the cGAN families
+have them; the 2-D ``weight`` of the way back is a Linear's or an
+Embedding's by the type of ``module``'s submodule (a Linear without it).
 
 ``state_dict_to_jax_params`` is the way back — torch → a numpy tree in the
 JAX layout, kernels HWIO again (the permutation's inverse, (2, 3, 1, 0), is
@@ -48,7 +51,8 @@ _KERNEL_PERM = (3, 2, 0, 1)
 _KERNEL_PERM_BACK = (2, 3, 1, 0)
 # JAX leaf name -> torch name, for the leaves that are carried as they are
 _LEAF_TO_TORCH = {"bias": "bias", "scale": "weight", "alpha": "weight",
-                  "mean": "running_mean", "var": "running_var"}
+                  "table": "weight", "mean": "running_mean",
+                  "var": "running_var"}
 
 
 def _submodule(module: torch.nn.Module, path: str, key: str):
@@ -60,11 +64,14 @@ def _submodule(module: torch.nn.Module, path: str, key: str):
 
 
 _CONVS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d)
+_LINEARS = (torch.nn.Linear,)
+_EMBEDDINGS = (torch.nn.Embedding,)
 _BNS = (torch.nn.BatchNorm2d,)
 _PRELUS = (torch.nn.PReLU,)
 # the module kinds each JAX leaf may land in
-_LEAF_KINDS = {"kernel": _CONVS, "scale": _BNS, "mean": _BNS, "var": _BNS,
-               "alpha": _PRELUS, "bias": _CONVS + _BNS}
+_LEAF_KINDS = {"kernel": _CONVS + _LINEARS, "scale": _BNS, "mean": _BNS,
+               "var": _BNS, "alpha": _PRELUS, "table": _EMBEDDINGS,
+               "bias": _CONVS + _LINEARS + _BNS}
 
 
 def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
@@ -98,10 +105,11 @@ def jax_params_to_state_dict(tree_or_flat: Mapping[str, Any],
             if not isinstance(sub, _LEAF_KINDS[leaf]):
                 raise ValueError(f"{key}: lands in a {type(sub).__name__}")
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: only 4-D conv kernels are carried "
-                                 f"across, got shape {arr.shape}")
-            arr = np.transpose(arr, _KERNEL_PERM)
+            if arr.ndim not in (2, 4):
+                raise ValueError(f"{key}: only 4-D conv kernels and 2-D "
+                                 f"Linear kernels are carried across, got "
+                                 f"shape {arr.shape}")
+            arr = np.transpose(arr, _KERNEL_PERM if arr.ndim == 4 else (1, 0))
             leaf = "weight"
         else:
             leaf = _LEAF_TO_TORCH[leaf]
@@ -132,7 +140,9 @@ def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor],
                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A torch state_dict (or any dict keyed like one: gradients, optimiser
     moments) → ``(params, state)`` as nested dicts of float32 numpy arrays in
-    the JAX layout: 4-D ``weight`` → HWIO ``kernel``, ``running_mean`` /
+    the JAX layout: 4-D ``weight`` → HWIO ``kernel``, 2-D ``weight`` → a
+    Linear's (in, out) ``kernel`` or, by ``module``, an Embedding's
+    ``table``, ``running_mean`` /
     ``running_var`` → state ``mean`` / ``var``; ``num_batches_tracked`` is
     dropped.  A 1-D ``weight`` is a PReLU's ``alpha`` or a BatchNorm's
     ``scale`` by the type of ``module``'s submodule at its path; without
@@ -148,6 +158,15 @@ def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor],
         target = params
         if leaf == "weight" and arr.ndim == 4:
             arr, leaf = np.transpose(arr, _KERNEL_PERM_BACK), "kernel"
+        elif leaf == "weight" and arr.ndim == 2:
+            sub = None if module is None else _submodule(module, path, key)
+            if isinstance(sub, _EMBEDDINGS):
+                leaf = "table"
+            elif sub is None or isinstance(sub, _LINEARS):
+                arr, leaf = arr.T, "kernel"
+            else:
+                raise ValueError(f"{key}: a 2-D weight of a "
+                                 f"{type(sub).__name__}")
         elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
             if module is not None:

@@ -4,7 +4,7 @@ card by default.
     python -m celebrity_image_denoiser_tpu_torch.cli.serve
 
 Port of ``celebrity_image_denoiser_tpu/cli/serve.py``: ``POST
-/enhance?model=denoise|srgan|esrgan|dncnn``.  ``--quantize`` keeps the JAX
+/enhance?model=denoise|cgan|srgan|esrgan|dncnn``.  ``--quantize`` keeps the JAX
 CLI's default of int8: each family is served through the first rung of its
 ladder that passes the runtime agreement gate (denoise: the s8
 skip-storage program; every family: the generic transform; esrgan: then

@@ -1,11 +1,17 @@
 """Model registry: the generators and discriminators by their serving names
-(port of ``celebrity_image_denoiser_tpu/models/registry.py``), for the
-families ported so far."""
+(port of ``celebrity_image_denoiser_tpu/models/registry.py``)."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from celebrity_image_denoiser_tpu_torch.models.cgan import (
+    CGANKerasDiscriminator,
+    CGANKerasGenerator,
+)
+from celebrity_image_denoiser_tpu_torch.models.cgan_torch import (
+    CGANTorchGenerator,
+)
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseDiscriminator,
     DenoiseGenerator,
@@ -18,21 +24,20 @@ GENERATORS: Dict[str, Callable] = {
     "denoise": DenoiseGenerator,
     "srgan": SRGANGenerator,
     "esrgan": ESRGANGenerator,
+    "cgan": CGANKerasGenerator,        # the serving default backend
+    "cgan_torch": CGANTorchGenerator,  # the torch fallback backend
     "dncnn": DnCNN,
 }
 
-# the discriminators of the families the port trains
+# the discriminators ported so far (the srgan and esrgan ones wait for
+# their trainers, ROADMAP.md queue 1, item 5)
 DISCRIMINATORS: Dict[str, Callable] = {
     "denoise": DenoiseDiscriminator,
+    "cgan": CGANKerasDiscriminator,
 }
-
-_WAITING = ("cgan", "cgan_torch")
 
 
 def build_generator(name: str, **kwargs):
-    if name in _WAITING:
-        raise ValueError(f"the {name} generator is not ported yet "
-                         "(ROADMAP.md queue 1, item 3)")
     if name not in GENERATORS:
         raise ValueError(f"Unknown model '{name}'. Choose one of "
                          f"{list(GENERATORS)}")

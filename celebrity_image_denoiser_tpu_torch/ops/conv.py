@@ -42,7 +42,8 @@ def conv2d_layer(x: torch.Tensor, weight: torch.Tensor,
     Differentiable in x, weight and bias."""
     y = quant.conv_hook(
         x, weight,
-        lambda xq, wq, ws: quant.int8_conv2d(xq, wq, ws, stride, padding),
+        lambda xq, wq, ws, lay: quant.int8_conv2d(xq, wq, ws, stride,
+                                                  padding, lay),
         lambda xf, wf: F.conv2d(xf, wf, None, stride=stride, padding=padding))
     if y is None:
         y = F.conv2d(x, weight.to(x.dtype), None, stride=stride,
@@ -53,16 +54,20 @@ def conv2d_layer(x: torch.Tensor, weight: torch.Tensor,
 
 
 def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None, *, stride=1
-                     ) -> torch.Tensor:
-    """``nn.ConvTranspose2d`` semantics, no padding; weight (C_in, C_out,
-    kH, kW); output size (in - 1) * stride + k, as in the JAX op."""
+                     bias: Optional[torch.Tensor] = None, *, stride=1,
+                     padding=0) -> torch.Tensor:
+    """``nn.ConvTranspose2d`` semantics; weight (C_in, C_out, kH, kW);
+    output size (in - 1) * stride - 2 * padding + k, as in the JAX op
+    (``ops/conv.py:104-144``)."""
     y = quant.conv_hook(
         x, weight,
-        lambda xq, wq, ws: quant.int8_conv_transpose2d(xq, wq, ws, stride),
-        lambda xf, wf: F.conv_transpose2d(xf, wf, None, stride=stride))
+        lambda xq, wq, ws, lay: quant.int8_conv_transpose2d(
+            xq, wq, ws, stride, padding, lay),
+        lambda xf, wf: F.conv_transpose2d(xf, wf, None, stride=stride,
+                                          padding=padding))
     if y is None:
-        return F.conv_transpose2d(x, weight, bias, stride=stride)
+        return F.conv_transpose2d(x, weight, bias, stride=stride,
+                                  padding=padding)
     return y if bias is None else y + bias.to(y.dtype).view(1, -1, 1, 1)
 
 
@@ -77,9 +82,10 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` (no padding) with its parameters cast to x's
-    dtype at use, through ``conv2d_transpose``."""
+    """``nn.ConvTranspose2d`` (no output padding) with its parameters cast
+    to x's dtype at use, through ``conv2d_transpose``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_transpose(x, self.weight.to(x.dtype),
-                                self.bias.to(x.dtype), stride=self.stride)
+                                self.bias.to(x.dtype), stride=self.stride,
+                                padding=self.padding)

@@ -1,10 +1,15 @@
-"""Batch normalisation with running statistics (torch convention).
+"""Batch normalisation with running statistics, in the torch and the Keras
+conventions.
 
 Counterpart of ``celebrity_image_denoiser_tpu/ops/norm.py::batch_norm``
-(:21) for its torch convention only: eps 1e-5, momentum 0.1 (running =
+(:21).  The torch convention: eps 1e-5, momentum 0.1 (running =
 0.9·running + 0.1·batch), the biased batch variance in the normaliser and
 the unbiased one in the running update (:41-59) — which is
-``nn.BatchNorm2d``.  The Keras convention waits for the cGAN family.
+``nn.BatchNorm2d``.  The Keras convention (``keras_momentum=True``, the
+cGAN family's ``BatchNormalization``): eps 1e-3, running = 0.99·running +
+0.01·batch, the biased batch variance in both — ``KerasBatchNorm2d``; in
+eval mode it is ``nn.BatchNorm2d(eps=1e-3)`` with Keras' moving variance
+taken as it is.
 
 The running statistics are updated in place (the JAX function returns new
 ones).  ``x`` may be bfloat16 while the parameters and statistics stay
@@ -26,6 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+KERAS_MOMENTUM = 0.99  # the Keras layer's default (running-stat decay)
+
+
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor, *,
                train: bool, eps: float = 1e-5, momentum: float = 0.1
@@ -35,6 +43,31 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     eval mode uses the running statistics unchanged."""
     return F.batch_norm(x, running_mean, running_var, weight, bias, train,
                         momentum, eps)
+
+
+class KerasBatchNorm2d(nn.BatchNorm2d):
+    """Keras' ``BatchNormalization`` on NCHW tensors: ``nn.BatchNorm2d``
+    with eps 1e-3 whose train-mode update keeps ``KERAS_MOMENTUM`` of the
+    running statistics and takes the biased batch variance
+    (``ops/norm.py:44-55`` with ``keras_momentum=True``)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=1 - KERAS_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            xf = x.detach().float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            for run, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+                run.copy_(KERAS_MOMENTUM * run + (1.0 - KERAS_MOMENTUM)
+                          * batch)
+        return y
 
 
 @torch.no_grad()

@@ -28,12 +28,17 @@ In PyTorch idiom:
 * **the replay** cannot be a forward hook (it must replace the float conv,
   not follow it), so ``ops/conv.py``'s layer functions consult
   ``conv_hook`` first, as the JAX package's ``ops.conv2d`` does; the int8
-  products run the hand-written kernels ``conv3x3_s8`` (3×3, stride 1,
+  products run the hand-written kernels ``conv3x3_s8`` (K5: 3×3, stride 1,
   padding 1, at most ``conv3x3_s8.MAX_CIN`` input channels) and
-  ``convt2x2_s8`` (2×2, stride 2) on the card, and an exact float64 product
-  on the CPU for any other geometry.  On a card a geometry with no kernel
-  raises ``NoInt8Kernel``, a ``ValueError``: the serving ladder then moves
-  down a rung, while a kernel that fails stays loud.
+  ``convt2x2_s8`` (K6: 2×2, stride 2, no padding) on the card, and an exact
+  float64 product on the CPU for any other geometry.  The cGAN's 4×4
+  stride-2 padding-1 convs and transpose convs reach K5 on the card through
+  exact rewrites (``s2d_conv4x4_s8``, ``d2s_convt4x4_s8``: zero taps add
+  nothing to an integer sum).  On a card a geometry with no kernel raises
+  ``NoInt8Kernel``, a ``ValueError``: the serving ladder then moves down a
+  rung, while a kernel that fails stays loud.  A kernel's weight layout is
+  made once per calibrated conv, at the replay's first call (the ladder's
+  gate), and kept with the ``QuantizedApply``.
 
 Replay is positional, so a model whose conv sequence changed since
 calibration fails loudly: over-consumed, a shape mismatch, under-consumed
@@ -66,10 +71,14 @@ _MODE = contextvars.ContextVar("cid_torch_quant_mode", default=None)
 
 class _Int8Apply:
     """Replays quantized entries positionally; ``entries[i] is None`` means
-    'run this conv in float' (skip policy)."""
+    'run this conv in float' (skip policy).  ``layouts[i]``: a dict in which
+    the int8 conv keeps its kernel's weight layout between calls."""
 
-    def __init__(self, entries: List[Optional[tuple]]):
+    def __init__(self, entries: List[Optional[tuple]],
+                 layouts: Optional[List[dict]] = None):
         self.entries = entries
+        self.layouts = (layouts if layouts is not None
+                        else [{} for _ in entries])
         self.i = 0
 
 
@@ -188,40 +197,152 @@ def calibrate(model: nn.Module, calib_x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the replay (called by ops/conv.py before the float conv)
 def int8_conv2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
-                w_scale: torch.Tensor, stride, padding) -> torch.Tensor:
-    """f32(conv_s32(x_i8, w_i8)) · w_scale, NCHW, PyTorch weight layout."""
+                w_scale: torch.Tensor, stride, padding,
+                layout: Optional[dict] = None) -> torch.Tensor:
+    """f32(conv_s32(x_i8, w_i8)) · w_scale, NCHW, PyTorch weight layout.
+    ``layout``: a dict that keeps the kernel's weight layout between calls
+    (None: made for this call)."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8
 
+    layout = {} if layout is None else layout
     c_in = int(x_i8.shape[1])
-    if tuple(w_i8.shape[2:]) == (3, 3) and _pair(stride) == (1, 1) \
-            and _pair(padding) == (1, 1) and c_in % conv3x3_s8.CHUNK == 0 \
-            and c_in <= conv3x3_s8.MAX_CIN:
+    geometry = (tuple(w_i8.shape[2:]), _pair(stride), _pair(padding))
+    if geometry == ((3, 3), (1, 1), (1, 1)) and _k5_takes(c_in):
+        if "k5" not in layout:
+            layout["k5"] = w_i8.permute(0, 2, 3, 1).contiguous()
         y = conv3x3_s8.conv3x3_s8(x_i8.permute(0, 2, 3, 1).contiguous(),
-                                  w_i8.permute(0, 2, 3, 1).contiguous(),
-                                  w_scale)
+                                  layout["k5"], w_scale)
         return y.permute(0, 3, 1, 2)
-    _no_kernel(x_i8, "conv", w_i8.shape, stride)
+    if x_i8.device.type != "cpu" and geometry == S2_4X4 and \
+            _k5_takes(4 * c_in):
+        if "s2d" not in layout:
+            layout["s2d"] = s2d_conv4x4_weight(w_i8)
+        return s2d_conv4x4_s8(x_i8, layout["s2d"], w_scale)
+    _no_kernel(x_i8, "conv", w_i8.shape, stride, padding)
     acc = F.conv2d(x_i8.double(), w_i8.double(), stride=stride,
                    padding=padding).to(torch.int32)
     return acc.float() * w_scale.view(1, -1, 1, 1)
 
 
 def int8_conv_transpose2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
-                          w_scale: torch.Tensor, stride) -> torch.Tensor:
-    """The transpose conv's counterpart of ``int8_conv2d`` (no padding)."""
+                          w_scale: torch.Tensor, stride, padding=0,
+                          layout: Optional[dict] = None) -> torch.Tensor:
+    """The transpose conv's counterpart of ``int8_conv2d`` (PyTorch's
+    ``(C_in, C_out, kH, kW)`` weight, no output padding)."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import convt2x2_s8
 
+    layout = {} if layout is None else layout
     c_in, c_out = int(w_i8.shape[0]), int(w_i8.shape[1])
-    if tuple(w_i8.shape[2:]) == (2, 2) and _pair(stride) == (2, 2) \
-            and convt2x2_s8.fits(c_in, c_out):
+    geometry = (tuple(w_i8.shape[2:]), _pair(stride), _pair(padding))
+    if geometry == ((2, 2), (2, 2), (0, 0)) and convt2x2_s8.fits(c_in, c_out):
+        if "k6" not in layout:
+            layout["k6"] = w_i8.permute(2, 3, 1, 0).contiguous()
         y = convt2x2_s8.convt2x2_s8(x_i8.permute(0, 2, 3, 1).contiguous(),
-                                    w_i8.permute(2, 3, 1, 0).contiguous(),
-                                    w_scale)
+                                    layout["k6"], w_scale)
         return y.permute(0, 3, 1, 2)
-    _no_kernel(x_i8, "transpose conv", w_i8.shape, stride)
-    acc = F.conv_transpose2d(x_i8.double(), w_i8.double(),
-                             stride=stride).to(torch.int32)
+    if x_i8.device.type != "cpu" and geometry == S2_4X4 and _k5_takes(c_in):
+        if "d2s" not in layout:
+            layout["d2s"] = (d2s_convt4x4_weight(w_i8), w_scale.repeat(4))
+        return d2s_convt4x4_s8(x_i8, *layout["d2s"])
+    _no_kernel(x_i8, "transpose conv", w_i8.shape, stride, padding)
+    acc = F.conv_transpose2d(x_i8.double(), w_i8.double(), stride=stride,
+                             padding=padding).to(torch.int32)
     return acc.float() * w_scale.view(1, -1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the 4×4 stride-2 padding-1 convs on K5: exact rewrites
+#
+# Per axis, output i of the conv reads padded-input rows 2i + a, a = 0..3,
+# which are x rows 2(i + t - 1) + p for K5's tap t = 0..2 and the phase
+# p = 0, 1 of a space-to-depth of x: a = 2t + p - 1.  Output 2m + q of the
+# transpose conv reads x rows m + t - 1 with kernel row a = q + 3 - 2t.  The
+# (t, p) or (t, q) pairs whose a falls outside 0..3 get zero weights: 16 of
+# the 36 (tap, phase) products per output are real, so K5 issues 2.25× the
+# useful multiply-adds.
+S2_4X4 = ((4, 4), (2, 2), (1, 1))  # (kernel, stride, padding)
+
+
+def _k5_takes(c_in: int) -> bool:
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8
+
+    return c_in % conv3x3_s8.CHUNK == 0 and c_in <= conv3x3_s8.MAX_CIN
+
+
+def s2d_conv4x4_weight(w_i8: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, 4, 4) → K5's (C_out, 3, 3, 4·C_in): input channel
+    (2·py + px)·C_in + c of tap (ty, tx) is ``w[:, c, 2ty+py-1,
+    2tx+px-1]``, zero where that is outside the kernel."""
+    c_out, c_in = int(w_i8.shape[0]), int(w_i8.shape[1])
+    w3 = w_i8.new_zeros((c_out, 3, 3, 2, 2, c_in))
+    for ty in range(3):
+        for tx in range(3):
+            for py in range(2):
+                for px in range(2):
+                    ay, ax = 2 * ty + py - 1, 2 * tx + px - 1
+                    if 0 <= ay < 4 and 0 <= ax < 4:
+                        w3[:, ty, tx, py, px] = w_i8[:, :, ay, ax]
+    return w3.reshape(c_out, 3, 3, 4 * c_in)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) → contiguous NHWC (N, ⌈H/2⌉, ⌈W/2⌉, 4·C), channel
+    (2·py + px)·C + c holding pixel (2i + py, 2j + px); an odd extent gets
+    the zero row or column that the 4×4 conv's padding puts there."""
+    n, c, h, w = x.shape
+    x = x.permute(0, 2, 3, 1)
+    if h % 2 or w % 2:
+        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    return x.reshape(n, h2, 2, w2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        n, h2, w2, 4 * c).contiguous()
+
+
+def s2d_conv4x4_s8(x_i8: torch.Tensor, w3: torch.Tensor,
+                   w_scale: torch.Tensor) -> torch.Tensor:
+    """The 4×4 stride-2 padding-1 conv of s8 ``x_i8`` (N, C, H, W) as K5's
+    3×3 conv of its ``space_to_depth``, weights from
+    ``s2d_conv4x4_weight``; the f32 product (N, C_out, ⌊H/2⌋, ⌊W/2⌋), an
+    NCHW view of NHWC memory."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8
+
+    h, w = x_i8.shape[2:]
+    y = conv3x3_s8.conv3x3_s8(space_to_depth(x_i8), w3, w_scale)
+    return y[:, :h // 2, :w // 2].permute(0, 3, 1, 2)
+
+
+def d2s_convt4x4_weight(w_i8: torch.Tensor) -> torch.Tensor:
+    """(C_in, C_out, 4, 4) → K5's (4·C_out, 3, 3, C_in): output channel
+    (2·qy + qx)·C_out + o of tap (ty, tx) is ``w[:, o, qy+3-2ty,
+    qx+3-2tx]``, zero where that is outside the kernel."""
+    c_in, c_out = int(w_i8.shape[0]), int(w_i8.shape[1])
+    w3 = w_i8.new_zeros((2, 2, c_out, 3, 3, c_in))
+    for qy in range(2):
+        for qx in range(2):
+            for ty in range(3):
+                for tx in range(3):
+                    ay, ax = qy + 3 - 2 * ty, qx + 3 - 2 * tx
+                    if 0 <= ay < 4 and 0 <= ax < 4:
+                        w3[qy, qx, :, ty, tx] = w_i8[:, :, ay, ax].T
+    return w3.reshape(4 * c_out, 3, 3, c_in)
+
+
+def d2s_convt4x4_s8(x_i8: torch.Tensor, w3: torch.Tensor,
+                    w_scale4: torch.Tensor) -> torch.Tensor:
+    """The 4×4 stride-2 padding-1 transpose conv of s8 ``x_i8`` (N, C, H,
+    W) as K5's 3×3 conv with an output channel group per output phase
+    (weights from ``d2s_convt4x4_weight``, ``w_scale4`` the scales repeated
+    per phase), then depth-to-space: the f32 product (N, C_out, 2H, 2W), an
+    NCHW view of NHWC memory."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8
+
+    n, _, h, w = x_i8.shape
+    c_out = int(w3.shape[0]) // 4
+    y = conv3x3_s8.conv3x3_s8(x_i8.permute(0, 2, 3, 1).contiguous(), w3,
+                              w_scale4)
+    y = y.view(n, h, w, 2, 2, c_out).permute(0, 1, 3, 2, 4, 5).reshape(
+        n, 2 * h, 2 * w, c_out)
+    return y.permute(0, 3, 1, 2)
 
 
 def _pair(v):
@@ -234,20 +355,23 @@ class NoInt8Kernel(ValueError):
     ladder moves down a rung; a kernel that fails raises ``RuntimeError``."""
 
 
-def _no_kernel(x, what, shape, stride):
+def _no_kernel(x, what, shape, stride, padding=0):
     if x.device.type != "cpu":
         raise NoInt8Kernel(
             f"no int8 kernel for a {what} of weight {tuple(shape)} at stride "
-            f"{stride} on {x.device} (the kernels take 3x3 stride-1 padding-1 "
-            "convs of at most 256 input channels and 2x2 stride-2 transpose "
-            "convs, channels a multiple of 32; see ops/cuda/convt2x2_s8.py::"
-            "fits)")
+            f"{stride} padding {padding} on {x.device} (the kernels take 3x3 "
+            "stride-1 padding-1 convs of at most 256 input channels, 4x4 "
+            "stride-2 padding-1 convs of at most 64, 4x4 stride-2 padding-1 "
+            "transpose convs of at most 256 and 2x2 stride-2 transpose convs "
+            "without padding, channels a multiple of 32 (8 for the 4x4 "
+            "convs); see ops/cuda/convt2x2_s8.py::fits)")
 
 
 def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
               run_float: Callable) -> Optional[torch.Tensor]:
     """Called by ``ops/conv.py`` before its float conv.  Under a replay:
-    ``run_int8(x_i8, w_i8, w_scale)`` gives the f32 dequantized product and
+    ``run_int8(x_i8, w_i8, w_scale, layout)`` gives the f32 dequantized
+    product (``layout``: the conv's dict for its kernel weight layout) and
     ``run_float(x_f32, w_f32)`` the float conv (bias excluded); returns the
     int8 path's output in x's dtype before the bias, or None for the float
     path."""
@@ -274,7 +398,8 @@ def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
             f"kernel shape {tuple(w_i8.shape)} != traced kernel shape "
             f"{tuple(weight.shape)} — re-calibrate with quantize_apply()")
     xf = x.float()
-    y = run_int8(quantize_activation(xf, s_c), w_i8, w_scale).to(x.dtype)
+    y = run_int8(quantize_activation(xf, s_c), w_i8, w_scale,
+                 mode.layouts[mode.i - 1]).to(x.dtype)
     if isinstance(mode, _BiasCorrectCollect):
         y_f = run_float(xf, weight.float())
         corr = (y_f - y.float()).mean(dim=(0, 2, 3))
@@ -292,9 +417,11 @@ class QuantizedApply:
     def __init__(self, model: nn.Module, entries: List[Optional[tuple]]):
         self.model = model
         self.entries = entries
+        # per conv, its kernel's weight layout, made at the first call
+        self.layouts = [{} for _ in entries]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        ctx = _Int8Apply(list(self.entries))
+        ctx = _Int8Apply(list(self.entries), self.layouts)
         with torch.inference_mode(), _mode(ctx):
             y = _float_forward(self.model, x)
         if ctx.i != len(ctx.entries):

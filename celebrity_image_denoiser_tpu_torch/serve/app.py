@@ -4,7 +4,8 @@ Port of ``celebrity_image_denoiser_tpu/serve/app.py::make_server`` (:58) and
 ``run_server`` (:172) on ``http.server.ThreadingHTTPServer``:
 
     GET  /          → {"message", "models", "default_backends"}
-    POST /enhance?model=...&graphs=...  multipart: file, [label]
+    POST /enhance?model=...&cgan_backend=...&graphs=...
+                    multipart: file, [label], [cond_file]
                     → {"denoised_image_base64", "noise_graph_base64",
                        "backend"} | {"detail"} with 400/500
     GET  /ui        → the web UI (``serve/static/index.html``)
@@ -128,13 +129,17 @@ def make_server(host: str = "0.0.0.0", port: int = 8000,
                 if "file" not in parts:
                     raise EnhanceError(400, "Uploaded file must be an image")
                 fpart = parts["file"]
+                cond = parts.get("cond_file")
                 result = run_enhance(
                     st,
                     model=model,
                     file_bytes=fpart.data,
                     content_type=fpart.content_type or "",
+                    cgan_backend=qs.get("cgan_backend", ["auto"])[0],
+                    # "replace": undecodable label bytes are a 400 at int()
                     label_raw=(parts["label"].data.decode("utf-8", "replace")
                                if "label" in parts else None),
+                    cond_bytes=cond.data if cond else None,
                     graphs_raw=qs.get("graphs", ["true"])[0],
                 )
             except EnhanceError as e:

@@ -1,14 +1,12 @@
-"""Serving logic — the ``POST /enhance`` contract for the denoise, srgan,
-esrgan and dncnn families, float and int8.
+"""Serving logic — the ``POST /enhance`` contract for the denoise, cgan,
+srgan, esrgan and dncnn families, float and int8.
 
 Port of ``celebrity_image_denoiser_tpu/serve/handlers.py`` (``EnhanceError:60``,
 ``run_enhance:69``, ``_as01:115``, ``ServeState``): the same contract —
-unknown model → 400 listing what is served, content type must be image/*
-(400), uploads capped at 50 MB (400), undecodable image → 500, response
-``{denoised_image_base64, noise_graph_base64, backend}``, tolerant weight
-loading that warns and keeps the random init — for the four families
-ported (``self.models``: cgan and cgan_torch wait, ``ROADMAP.md`` queue 1,
-item 3, and answer a 400 that lists the four).
+unknown model → 400 listing the five families, content type must be
+image/* (400), uploads capped at 50 MB (400), undecodable image → 500,
+response ``{denoised_image_base64, noise_graph_base64, backend}``, tolerant
+weight loading that warns and keeps the random init.
 
 The float forward is ``_build_forward``'s with no quantizer (:290-297):
 forward, then ``clip(y*0.5+0.5)`` for the tanh families (denoise, srgan)
@@ -19,6 +17,17 @@ JAX server's (:761-828):
 
 * denoise: normalized to [-1, 1], padded to a multiple of 4
   (``get_padding``), the output cropped back;
+* cgan (:721-760): as denoise, through the Keras generator
+  (``weights/cgan_epoch_500.keras``, read by ``ckpt/keras.py``; the ladder
+  and the micro-batcher know it as ``cgan:keras``) when
+  ``cgan_backend=keras``, or ``auto`` and its weights loaded; the model is
+  single-input, so ``label`` and ``cond_file`` are ignored, and the
+  response says ``"backend": "keras"``.  Otherwise the torch generator
+  (``models/cgan_torch.py``, random init: no ``.pth`` is shipped, as in the
+  JAX package) draws a 64×64 image from a fresh latent (an OS-seeded
+  ``torch.Generator``) and the label, always in float, cropped at the
+  padding offsets as Pillow's ``crop`` does: no label and no condition is
+  a 400, a ``cond_file`` a 500 (the reference's shape fault);
 * srgan: normalized, padded to a multiple of 16 (divisor 4 × scale 4), the
   output 4× the padded input and not cropped; its analysis view is the
   input bicubic-upscaled to the output's size (Pillow's bicubic,
@@ -30,7 +39,7 @@ JAX server's (:761-828):
 
 On the card the float forward is each generator's kernel route
 (``models/folded.py``): K2/K3 for every 3×3 conv, the eval BatchNorm
-folded in.
+folded in (cgan: K2 for its 3×3 tail, its 4×4 layers in PyTorch).
 
 ``quantize="int8"`` (``_maybe_quantize:409-550``) builds, once per family
 at its first use (``ladder``; a request, ``warmup``), as the JAX server
@@ -55,7 +64,9 @@ the card never quietly serves float in place of a kernel.  The served
 input is f32 in [-1, 1]; the int8 program casts it to bf16 at conv 0 and
 its tanh output back to f32, which is truncated to uint8 as on the float
 path.  The generic rungs replay each generator's autograd route, whose 3×3
-convs of 64 input channels reach K5 (``ops/quant.py::int8_conv2d``).  Each
+convs of 64 input channels reach K5 (``ops/quant.py::int8_conv2d``), and
+cgan's 4×4 stride-2 convs and transpose convs too, through exact rewrites
+(``ops/quant.py::s2d_conv4x4_s8``, ``d2s_convt4x4_s8``).  Each
 request is labelled ``int8`` or ``float`` (``+tiled`` for a
 big input, below) in the log line and in ``ServeStats``
 (``last_compute_backend`` reads it, per thread).
@@ -78,8 +89,8 @@ shapes when it is over the threshold) and, with micro-batching on, every
 batch size the batcher can dispatch, so that the kernels are built and
 each shape launched before the first request.
 
-Not ported yet: cgan and cgan_torch (a 400); there is no mesh (spatial
-sharding and data-parallel batches, ``ROADMAP.md`` queue 1, item 7).
+Not ported yet: there is no mesh (spatial sharding and data-parallel
+batches, ``ROADMAP.md`` queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -97,6 +108,7 @@ from celebrity_image_denoiser_tpu_torch.ckpt.convert import (
     load_npz_state_dict,
     load_pth_state_dict,
 )
+from celebrity_image_denoiser_tpu_torch.ckpt.keras import load_keras_model
 from celebrity_image_denoiser_tpu_torch.core.config import (
     MODEL_CFG,
     default_weights_dir,
@@ -107,6 +119,10 @@ from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.data.synthetic import (
     calibration_batch,
     srgan_calibration_batch,
+)
+from celebrity_image_denoiser_tpu_torch.models.cgan import CGANKerasGenerator
+from celebrity_image_denoiser_tpu_torch.models.cgan_torch import (
+    CGANTorchGenerator,
 )
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
@@ -137,10 +153,18 @@ TILE_HALO = 32
 # (handlers.py:50-56): a reference .pth first, else the native npz directory
 _CKPT_CANDIDATES = {
     "denoise": ("denoise_epoch_499.pth", "denoise"),
+    "cgan": ("cgan_epoch_500_converted.pth", "cgan"),
     "srgan": ("srgan_epoch_499.pth", "srgan"),
     "esrgan": ("esrgan_epoch_500.pth", "esrgan"),
     "dncnn": ("dncnn_epoch_499.pth", "dncnn"),
 }
+_CGAN_KERAS = "cgan_epoch_500.keras"
+KERAS = "cgan:keras"  # the Keras cGAN's name on the ladder and the batcher
+
+
+# the families whose output is cropped back to the upload at the padding
+# offsets (esrgan runs unpadded and is cropped all the same: a JAX quirk)
+_CROPPED = ("denoise", "cgan", "esrgan")
 
 
 class EnhanceError(Exception):
@@ -158,20 +182,24 @@ def _mark_recorded(e: Exception) -> None:
 
 
 def run_enhance(st: "ServeState", *, model: str, file_bytes: bytes,
-                content_type: str, label_raw=None, graphs_raw="true"):
+                content_type: str, cgan_backend: str = "auto",
+                label_raw=None, cond_bytes: Optional[bytes] = None,
+                graphs_raw="true"):
     """Request semantics shared by server front ends: label parsing (400),
     the ``graphs=false`` opt-out, and counting each failure exactly once."""
     model_key = str(model).strip().lower()
     try:
+        label = None
         if label_raw is not None:
             try:
-                int(str(label_raw).strip())
+                label = int(str(label_raw).strip())
             except ValueError:
                 raise EnhanceError(400, "label must be an integer")
         include_graph = str(graphs_raw).strip().lower() != "false"
         return st.enhance(model=model_key, file_bytes=file_bytes,
                           content_type=content_type,
-                          include_graph=include_graph)
+                          cgan_backend=cgan_backend, label=label,
+                          cond_bytes=cond_bytes, include_graph=include_graph)
     except Exception as e:
         status = e.status if isinstance(e, EnhanceError) else 500
         if not getattr(e, "_stats_recorded", False):
@@ -230,16 +258,21 @@ class ServeState:
         gen = torch.Generator().manual_seed(seed)
         self.models: Dict[str, torch.nn.Module] = {
             "denoise": DenoiseGenerator(generator=gen),
+            "cgan": CGANTorchGenerator(generator=gen),
             "srgan": SRGANGenerator(scale_factor=MODEL_CFG["srgan"]["scale"],
                                     generator=gen),
             "esrgan": ESRGANGenerator(num_residuals=8, generator=gen),
             "dncnn": DnCNN(generator=gen),
         }
+        # the Keras cGAN, when its weights load (None: the torch fallback)
+        self.keras_cgan: Optional[CGANKerasGenerator] = None
         self.stats = ServeStats()
         self._weights_loaded = set()
         self._load_weights()
         for m in self.models.values():
             m.to(self.device).eval()
+        if self.keras_cgan is not None:
+            self.keras_cgan.to(self.device).eval()
         self._path_note = threading.local()
         # per family whose ladder is built: the int8 forward (None: float),
         # the gate's dB and the rung it came from (written last: the flag)
@@ -247,6 +280,15 @@ class ServeState:
         self.int8_gate_db: Dict[str, Optional[float]] = {}
         self.int8_rung: Dict[str, Optional[str]] = {}
         self._ladder_lock = threading.Lock()
+
+    def _model(self, name: str) -> torch.nn.Module:
+        """The image-to-image model ``name`` serves with (``KERAS``: the Keras
+        cGAN)."""
+        return self.keras_cgan if name == KERAS else self.models[name]
+
+    @staticmethod
+    def _cfg(name: str) -> dict:
+        return MODEL_CFG[name.split(":")[0]]
 
     def ladder(self, name: str) -> Optional[str]:
         """The int8 rung that serves ``name`` (None: float, or
@@ -263,7 +305,7 @@ class ServeState:
     @staticmethod
     def _tanh(name: str) -> bool:
         """Whether ``name`` serves in the tanh domain ([-1, 1])."""
-        return MODEL_CFG[name]["activation"] == "tanh"
+        return ServeState._cfg(name)["activation"] == "tanh"
 
     def _agreement_db(self, name: str, apply_q, calib: torch.Tensor) -> float:
         """The runtime gate's dB of ``apply_q`` against the float forward on
@@ -271,7 +313,7 @@ class ServeState:
         domain, 1 in [0, 1], :464)."""
         probe = calib[:2, :32, :32, :].contiguous()
         with torch.inference_mode():
-            yf = self.models[name](probe.permute(0, 3, 1, 2)).permute(
+            yf = self._model(name)(probe.permute(0, 3, 1, 2)).permute(
                 0, 2, 3, 1).float()
             yq = apply_q(probe).float()
         mse = float(torch.mean((yq - yf) ** 2))
@@ -289,7 +331,7 @@ class ServeState:
         return calibration_batch(cls._tanh(name), sigmas=sigmas)
 
     def _maybe_quantize(self, name: str) -> None:
-        model = self.models[name]
+        model = self._model(name)
         calib = self.calibration(name).to(self.device)
         builders = []
         if name == "denoise":
@@ -331,7 +373,8 @@ class ServeState:
         self.int8_rung[name] = None
 
     def last_compute_backend(self) -> str:
-        """``int8`` or ``float``: how this thread's last request ran."""
+        """``int8`` or ``float`` (``+tiled``): how this thread's last request
+        ran."""
         return getattr(self._path_note, "value", "n/a")
 
     # -- weight loading (warn-and-continue, app.py:327-345) -----------------
@@ -370,11 +413,24 @@ class ServeState:
                 self._weights_loaded.add(name)
                 logger.info("[%s] loaded weights from %s", name, src)
             except FileNotFoundError as e:
-                logger.warning("[%s] checkpoint not loaded (%s). Using random "
-                               "init for that backend.", name, e)
+                if name == "cgan":  # no torch cGAN is shipped (as in JAX)
+                    logger.info("[cgan] no torch checkpoint (%s); the Keras "
+                                "backend serves when its weights load", e)
+                else:
+                    logger.warning("[%s] checkpoint not loaded (%s). Using "
+                                   "random init for that backend.", name, e)
             except Exception as e:  # a PRESENT but unloadable checkpoint
                 logger.warning("[%s] checkpoint failed to load (%s). Using "
                                "random init for that backend.", name, e)
+        keras_path = os.path.join(self.weights_dir, _CGAN_KERAS)
+        try:
+            model = CGANKerasGenerator()
+            load_keras_model(model, keras_path)
+            self.keras_cgan = model
+            self._weights_loaded.add("cgan")
+            logger.info("Loaded Keras cGAN from %s", keras_path)
+        except Exception as e:  # absent or unloadable: the torch fallback
+            logger.warning("Keras cGAN not loaded (%s).", e)
 
     # -- the forward (_build_forward:278-301, _dispatch_forward:303-407) ----
     def _apply(self, name: str, route: str):
@@ -383,7 +439,7 @@ class ServeState:
         self.ladder(name)
         qapply = self._qapply.get(name)
         if qapply is None:
-            model = self.models[name]
+            model = self._model(name)
             return lambda x: model(x.permute(0, 3, 1, 2), route=route
                                    ).permute(0, 2, 3, 1)
         if isinstance(qapply, quant_unet.QuantizedDenoiseUNet):
@@ -402,7 +458,7 @@ class ServeState:
         """The tiled forward for inputs over the threshold on these axes: a
         width tiler nested inside the height tiler when both are."""
         fn = self._apply(name, route)
-        cfg = MODEL_CFG[name]
+        cfg = self._cfg(name)
         # the unpadded families have no pooling: any extent tiles exactly
         multiple = 1 if cfg["normalize"] is None else 4
         for axis, over in ((2, over_w), (1, over_h)):
@@ -451,13 +507,13 @@ class ServeState:
 
     def _padding(self, name: str, h: int, w: int):
         """(left, top, right, bottom) padding of an (h, w) input."""
-        cfg = MODEL_CFG[name]
+        cfg = self._cfg(name)
         return get_padding((w, h), cfg["pad_divisor"], cfg.get("scale", 1))
 
     def _input_shape(self, name: str, h: int, w: int):
         """The forward's (H, W) for an (h, w) upload: padded, or as it is
         for the [0, 1] families."""
-        if MODEL_CFG[name]["normalize"] is None:
+        if self._cfg(name)["normalize"] is None:
             return h, w
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
         return h + pt_ + pb_, w + pl_ + pr_
@@ -467,7 +523,7 @@ class ServeState:
         box of the original (left, top, right, bottom))."""
         h, w = image.shape[:2]
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
-        cfg = MODEL_CFG[name]
+        cfg = self._cfg(name)
         if cfg["normalize"] is None:  # dncnn, esrgan: [0, 1], unpadded
             x01 = imageio.to_float01(image)
             x = x01
@@ -485,13 +541,34 @@ class ServeState:
                       plain: bool = False) -> np.ndarray:
         """uint8 RGB (H, W, 3) → the served uint8 RGB output, in the
         family's serving domain (the module docstring): the input's size,
-        or 4× its padded size for srgan.  ``plain`` runs the kernels' plain
-        versions (the reference on the card)."""
+        or 4× its padded size for srgan; ``"cgan"`` is the Keras cGAN.
+        ``plain`` runs the kernels' plain versions (the reference on the
+        card)."""
         xin, _, box = self._served_input(model, image)
-        y01 = _as01(self._forward(model, xin, plain=plain))
+        which = KERAS if model == "cgan" else model
+        y01 = _as01(self._forward(which, xin, plain=plain))
         y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
-        return _pil_crop(y_u8, box) if model in ("denoise", "esrgan") \
-            else y_u8
+        return _pil_crop(y_u8, box) if model in _CROPPED else y_u8
+
+    def _cgan_torch(self, image: np.ndarray, label: Optional[int],
+                    cond_bytes: Optional[bytes]) -> np.ndarray:
+        """The torch cGAN's answer (:838-852): a 64×64 image from a fresh
+        latent and ``label``, cropped at the padding offsets of ``image``
+        (Pillow's ``crop``: shifted, zeros past the border)."""
+        if cond_bytes is not None:  # the reference's channel fault
+            raise EnhanceError(500, "Image enhancement failed")
+        seed = int.from_bytes(os.urandom(8), "little")
+        z = torch.randn((1, 100), generator=torch.Generator().manual_seed(
+            seed)).to(self.device)
+        cond = torch.tensor([int(label)], device=self.device)
+        with torch.inference_mode():
+            y = self.models["cgan"](z, cond)
+            y01 = torch.clamp(y * 0.5 + 0.5, 0.0, 1.0)[0].permute(1, 2, 0)
+        self._path_note.value = "float"
+        y_u8 = (y01.cpu().numpy() * 255).astype(np.uint8)
+        h, w = image.shape[:2]
+        pl_, pt_, _, _ = self._padding("cgan", h, w)
+        return _pil_crop(y_u8, (pl_, pt_, pl_ + w, pt_ + h))
 
     def _input_view(self, image: np.ndarray, model: str, out_hw):
         """The analysis figure's view of the input beside an output of
@@ -499,7 +576,7 @@ class ServeState:
         input bicubic-upscaled to the output's size."""
         _, x01, box = self._served_input(model, image)
         x_u8 = (np.clip(x01, 0, 1) * 255).astype(np.uint8)
-        if model in ("denoise", "esrgan"):
+        if model in _CROPPED:
             return _pil_crop(x_u8, box)
         if model == "srgan":
             return imageio.resize_bicubic_u8(_pil_crop(x_u8, box),
@@ -515,17 +592,24 @@ class ServeState:
         series up to ``microbatch_max``, the cap included), for the sizes
         the batcher serves (not those that are tiled).  ``models``: only
         these families (default: every family, as the JAX
-        ``warmup(models=None)``).  The [0, 1] families run unpadded."""
+        ``warmup(models=None)``).  The [0, 1] families run unpadded; cgan
+        warms its Keras generator (the torch one draws from a latent, at one
+        shape)."""
         for h, w in sizes:
             for name in self.models:
                 if models is not None and name not in models:
                     continue
+                which = name
+                if name == "cgan":
+                    if self.keras_cgan is None:
+                        continue
+                    which = KERAS
                 hh, ww = self._input_shape(name, h, w)
                 t0 = time.perf_counter()
-                self._forward(name, np.zeros((1, hh, ww, 3), np.float32))
+                self._forward(which, np.zeros((1, hh, ww, 3), np.float32))
                 tiled = max(hh, ww) > self.tile_threshold_rows
                 if self.batchers is not None and not tiled:
-                    dispatch = self._batched_dispatch(name)
+                    dispatch = self._batched_dispatch(which)
                     mb = self.batchers.max_batch
                     for b in sorted({_pow2_at_least(n, mb)
                                      for n in range(2, mb + 1)}):
@@ -539,7 +623,10 @@ class ServeState:
         return {
             "message": "Unified GAN API is running",
             "models": list(self.models.keys()),
-            "default_backends": {name: "torch" for name in self.models},
+            "default_backends": {
+                name: ("keras" if self.keras_cgan is not None else "torch")
+                + " (configurable)" if name == "cgan" else "torch"
+                for name in self.models},
         }
 
     def healthz(self) -> dict:
@@ -559,7 +646,9 @@ class ServeState:
 
     # -- the enhance endpoint -------------------------------------------------
     def enhance(self, model: str, file_bytes: bytes,
-                content_type: str = "image/png",
+                content_type: str = "image/png", cgan_backend: str = "auto",
+                label: Optional[int] = None,
+                cond_bytes: Optional[bytes] = None,
                 include_graph: bool = True) -> dict:
         """Stats are recorded here, so library callers are counted too;
         errors carry the ``_stats_recorded`` marker so front ends never
@@ -568,6 +657,7 @@ class ServeState:
         model_key = str(model).strip().lower()
         try:
             result = self._enhance_impl(model_key, file_bytes, content_type,
+                                        cgan_backend, label, cond_bytes,
                                         include_graph)
         except Exception as e:
             status = e.status if isinstance(e, EnhanceError) else 500
@@ -580,13 +670,11 @@ class ServeState:
         return result
 
     def _enhance_impl(self, model: str, file_bytes: bytes, content_type: str,
-                      include_graph: bool) -> dict:
+                      cgan_backend: str, label: Optional[int],
+                      cond_bytes: Optional[bytes], include_graph: bool
+                      ) -> dict:
         t_start = time.perf_counter()
         if model not in self.models:
-            if model in MODEL_CFG:
-                raise EnhanceError(
-                    400, f"Model '{model}' is not ported to this server yet. "
-                         f"Choose one of {list(self.models.keys())}")
             raise EnhanceError(
                 400, f"Unknown model '{model}'. Choose one of "
                      f"{list(self.models.keys())}")
@@ -601,7 +689,19 @@ class ServeState:
         t_decode = time.perf_counter()
 
         try:
-            y_u8 = self.denoise_image(image, model)
+            use_keras = model == "cgan" and (
+                cgan_backend == "keras"
+                or (cgan_backend == "auto" and self.keras_cgan is not None))
+            if model == "cgan" and not use_keras:
+                if cond_bytes is None and label is None:
+                    raise EnhanceError(400, "cGAN requires either a label or "
+                                            "condition image")
+                y_u8 = self._cgan_torch(image, label, cond_bytes)
+            elif use_keras and self.keras_cgan is None:
+                raise RuntimeError("cgan_backend=keras, but the Keras cGAN "
+                                   "did not load")
+            else:
+                y_u8 = self.denoise_image(image, model)
             t_forward = time.perf_counter()
             graph_b64 = ""
             if include_graph:
@@ -626,7 +726,7 @@ class ServeState:
             return {
                 "denoised_image_base64": out_b64,
                 "noise_graph_base64": graph_b64,
-                "backend": "torch",
+                "backend": "keras" if use_keras else "torch",
             }
         except EnhanceError:
             raise

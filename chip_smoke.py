@@ -109,6 +109,30 @@ Phases, each printing its own lines; any failure exits non-zero:
              the U-Net's at 512² beside cuDNN (TF32 off) and their bound
              (operations at 67 TFLOP/s, f32 outside the tensor cores, or
              bytes at 3.35 TB/s);
+4f. cgan   — the shipped ``weights/cgan_epoch_500.keras`` read by the
+             port's own HDF5 reader (no h5py on the card machine) and
+             served as the JAX server serves it (the Keras backend by
+             default), float32 and int8: every K2 launch of the f32 kernel
+             route (the 3×3 tail) held against its plain version at 256²
+             and 97×130, the served pixels within 1 count of the plain
+             route, the kernel route within 1e-4 of the autograd route; an
+             int8 forward at 256² whose three K5 launches are each bit-equal
+             to ``conv3x3_s8_plain`` and whose three rewritten 4×4 stride-2
+             layers (space-to-depth + K5, K5 + depth-to-space) are each
+             bit-equal to the direct integer conv; ``/enhance`` with exactly
+             K2 ×1 (f32) or K5 ×3 (int8) per forward, ``"backend":
+             "keras"``, the rung (``int8-generic``) and its gate dB; p50/p90
+             of 30 requests of 256² per mode; the fixture gain (label 5,
+             ``cgan_backend=keras``) above 1.0 dB in both; one 4097×1001
+             request against the untiled forward (f32 within 1 count, int8
+             bit-equal); the torch fallback (``cgan_backend=torch``): a
+             label answers 200 at the upload's size, a ``cond_file`` 500,
+             no label 400, no kernel launched; forward times at 256² and
+             2048²; then each rewritten layer at a 2048² input: K5 timed
+             beside its plain version, ``torch._int_mm`` at its GEMM shape,
+             the whole rewrite, cuDNN's f32 conv of the same layer and its
+             bound (issued and useful operations at 1979 TOP/s, or bytes),
+             and K2 on the tail at 2048² beside cuDNN and its bound;
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -902,15 +926,31 @@ def test_image(h, w, seed):
 
 
 def post_enhance(url, png: bytes):
+    return post_form(url, [("file", "x.png", "image/png", png)])
+
+
+def post_form(url, fields):
+    """POST a multipart form of ``(name, filename or None, content type,
+    bytes)`` parts; (status, payload) also for an error status."""
+    import urllib.error
+
     boundary = "cidchipsmoke7d1f"
-    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
-            f"filename=\"x.png\"\r\nContent-Type: image/png\r\n\r\n").encode()
-    body += png + f"\r\n--{boundary}--\r\n".encode()
+    body = b""
+    for name, filename, ctype, data in fields:
+        disp = f"form-data; name=\"{name}\"" + (
+            f"; filename=\"{filename}\"" if filename else "")
+        body += (f"--{boundary}\r\nContent-Disposition: {disp}\r\n"
+                 + (f"Content-Type: {ctype}\r\n" if ctype else "")
+                 + "\r\n").encode() + data + b"\r\n"
+    body += f"--{boundary}--\r\n".encode()
     req = urllib.request.Request(
         url, data=body, method="POST",
         headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
-    with urllib.request.urlopen(req, timeout=300) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def quality_gate(st, label: str) -> None:
@@ -1998,6 +2038,388 @@ def family_k5_times(k5):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: the cGAN family
+CGAN_SIZES = ((256, 256), (97, 130))  # (H, W) requests
+CGAN_TILED = (4097, 1001)
+CGAN_REQUESTS = 30  # latency requests per mode
+CGAN_BIG = 2048  # the forward-time input and the K5 rewrite rows, a side
+CGAN_K5_FIXTURE = 256  # the held int8 forward's input, a side
+# (K2, K3, K5, K6) launches per forward of the Keras cGAN: f32 runs its 3x3
+# tail on K2; int8 its three 4x4 stride-2 layers on K5 (the 3-channel head
+# and tail float)
+CGAN_PER_FORWARD = {"float": (1, 0, 0, 0), "int8": (0, 0, 3, 0)}
+CGAN_FLOOR_DEFAULT = 1.0  # cgan records no margin: tests/test_serve.py:495
+
+
+def direct_conv_s8(x_i8, w_i8, w_scale, stride, padding, layout=None):
+    """The int8 conv as one direct integer conv (float64 sums of s8
+    products are exact), the replay's plain reference on the card."""
+    import torch.nn.functional as F
+
+    acc = F.conv2d(x_i8.double(), w_i8.double(), stride=stride,
+                   padding=padding).to(torch.int32)
+    return acc.float() * w_scale.view(1, -1, 1, 1)
+
+
+def direct_convt_s8(x_i8, w_i8, w_scale, stride, padding=0, layout=None):
+    import torch.nn.functional as F
+
+    acc = F.conv_transpose2d(x_i8.double(), w_i8.double(), stride=stride,
+                             padding=padding).to(torch.int32)
+    return acc.float() * w_scale.view(1, -1, 1, 1)
+
+
+def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.ops import quant
+    from celebrity_image_denoiser_tpu_torch.serve import quality
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import (
+        KERAS,
+        ServeState,
+    )
+
+    say("== phase 4f: the cgan family (the shipped Keras generator, f32 and "
+        "int8; the torch fallback)")
+    t_phase = time.perf_counter()
+    st_f = ServeState(device=device, tile_threshold_rows=FAMILY_THRESHOLD)
+    st_q = ServeState(device=device, quantize="int8",
+                      tile_threshold_rows=FAMILY_THRESHOLD)
+    for st in (st_f, st_q):
+        if st.keras_cgan is None or "cgan" not in st.healthz()[
+                "weights_loaded"]:
+            fail("the shipped weights/cgan_epoch_500.keras did not load "
+                 "through ckpt/keras.py")
+    n_params = sum(p.numel() for p in st_f.keras_cgan.parameters())
+    say(f"  weights/cgan_epoch_500.keras read by the port's HDF5 reader "
+        f"(no h5py): {n_params} parameters; default backend "
+        f"{st_f.info()['default_backends']['cgan']!r}")
+    f32_holds = Holds([
+        (conv3x3, "conv3x3_bias_relu", conv3x3.conv3x3_bias_relu_plain)])
+    k5_holds = Holds([(k5, "conv3x3_s8", k5.conv3x3_s8_plain)], exact=True)
+    direct_holds = Holds([(quant, "int8_conv2d", direct_conv_s8),
+                          (quant, "int8_conv_transpose2d", direct_convt_s8)],
+                         exact=True)
+    totals = [0, 0, 0, 0]
+
+    def counted(fn):
+        int8_counts(conv3x3, double_conv, k5, k6, reset=True)
+        out = fn()
+        counts = int8_counts(conv3x3, double_conv, k5, k6)
+        for i, c in enumerate(counts):
+            totals[i] += c
+        return out, counts
+
+    rung = st_q.ladder(KERAS)
+    db = st_q.int8_gate_db.get(KERAS)
+    say(f"  cgan int8 ladder {rung}"
+        + (f", gate {db:.2f} dB vs float" if db is not None else ""))
+    if rung != "int8-generic":
+        fail(f"cgan: the int8 ladder served {rung}, not int8-generic")
+    rec = {"rung": rung, "gate_db": db}
+    sts = {"float": st_f, "int8": st_q}
+    servers = [serve_in_thread(st) for st in (st_f, st_q)]
+    urls = {"float": family_url(servers[0][2], "cgan"),
+            "int8": family_url(servers[1][2], "cgan")}
+    model = st_f.keras_cgan
+    try:
+        # 1. the kernel route against the plain and autograd routes
+        for i, (h, w) in enumerate(CGAN_SIZES):
+            img = test_image(h, w, seed=70 + i)
+            n0 = f32_holds.n
+            with f32_holds:
+                y_k = st_f.denoise_image(img, "cgan")
+            y_p = st_f.denoise_image(img, "cgan", plain=True)
+            d = np.abs(y_k.astype(np.int16) - y_p.astype(np.int16))
+            # cuDNN's transpose convs (its backward-data algorithms) need
+            # not sum in the same order twice: the same request again
+            rep_d = np.abs(st_f.denoise_image(img, "cgan").astype(np.int16)
+                           - y_k.astype(np.int16))
+            x = family_input(st_f, "cgan", img, device)
+            with torch.inference_mode():
+                xk = x.permute(0, 3, 1, 2)
+                da = (model(xk) - model(xk, route="autograd")).abs()
+            da = da.max().item()
+            say(f"  cgan {w}x{h}: {f32_holds.n - n0} K2 launch(es) within "
+                f"{TOL[torch.float32]:.0e} x max|ref| of plain (worst so "
+                f"far {f32_holds.worst:.2e}); served vs plain max diff "
+                f"{d.max()} exact {np.mean(d == 0):.4%}; served twice max "
+                f"diff {rep_d.max()} exact {np.mean(rep_d == 0):.4%}; kernel "
+                f"vs autograd route max {da:.2e}")
+            if f32_holds.n - n0 != CGAN_PER_FORWARD["float"][0]:
+                fail(f"cgan {w}x{h}: {f32_holds.n - n0} K2 launches held")
+            if max(d.max(), rep_d.max()) > 1:
+                fail(f"cgan {w}x{h}: served pixels differ from the plain "
+                     f"route or from themselves by more than 1")
+            if da > 1e-4:
+                fail(f"cgan {w}x{h}: the kernel route is {da:.2e} off the "
+                     "autograd route")
+        # 2. every K5 launch of an int8 forward bit-equal to its plain
+        # version, and each rewritten conv to the direct integer conv
+        img = test_image(CGAN_K5_FIXTURE, CGAN_K5_FIXTURE, seed=72)
+        n0, m0 = k5_holds.n, direct_holds.n
+        with direct_holds, k5_holds:
+            st_q.denoise_image(img, "cgan")
+        shapes = sorted(s for s in k5_holds.shapes)
+        say(f"  cgan int8 {CGAN_K5_FIXTURE}x{CGAN_K5_FIXTURE}: "
+            f"{k5_holds.n - n0} K5 launches bit-equal to conv3x3_s8_plain, "
+            f"{direct_holds.n - m0} rewritten convs bit-equal to the direct "
+            f"integer conv; K5 (input, output) shapes {shapes}")
+        if k5_holds.n - n0 != 3 or direct_holds.n - m0 != 3:
+            fail(f"cgan int8: {k5_holds.n - n0} K5 launches and "
+                 f"{direct_holds.n - m0} rewritten convs held, expected 3")
+        rec["k5_shapes"] = [list(s[1:]) for s in shapes]
+        # 3. /enhance with exact launch counts, then latency
+        for mode in ("float", "int8"):
+            for i, (h, w) in enumerate(CGAN_SIZES):
+                img = test_image(h, w, seed=73 + i)
+                (status, payload), counts = counted(
+                    lambda: post_enhance(urls[mode], imageio.encode_png(img)))
+                if status != 200 or payload.get("backend") != "keras":
+                    fail(f"cgan {mode} /enhance {w}x{h}: HTTP {status} "
+                         f"backend {payload.get('backend')}")
+                out = imageio.decode_png(base64.b64decode(
+                    payload["denoised_image_base64"]))
+                want = sts[mode].denoise_image(img, "cgan")
+                d = np.abs(out.astype(np.int16) - want.astype(np.int16))
+                say(f"  cgan {mode} /enhance {w}x{h}: 200, backend keras, "
+                    f"{out.shape[1]}x{out.shape[0]} out, launches K2 "
+                    f"{counts[0]} K3 {counts[1]} K5 {counts[2]} K6 "
+                    f"{counts[3]}; vs the forward max diff {d.max()}")
+                if counts != CGAN_PER_FORWARD[mode]:
+                    fail(f"cgan {mode} /enhance {w}x{h}: launches {counts}, "
+                         f"expected {CGAN_PER_FORWARD[mode]}")
+                # f32: cuDNN's transpose convs may sum in another order
+                if out.shape != img.shape or d.max() > (mode == "float"):
+                    fail(f"cgan {mode} /enhance {w}x{h}: the response is not "
+                         "the forward's output")
+            png = imageio.encode_png(test_image(*CGAN_SIZES[0], seed=75))
+            lat = []
+            for _ in range(CGAN_REQUESTS):
+                t0 = time.perf_counter()
+                (status, _), _ = counted(lambda: post_enhance(urls[mode],
+                                                              png))
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    fail(f"cgan {mode} latency loop: HTTP {status}")
+            p50, p90 = np.percentile(lat, [50, 90])
+            rec[f"{mode}_p50_ms"], rec[f"{mode}_p90_ms"] = p50, p90
+            h, w = CGAN_SIZES[0]
+            say(f"  cgan {mode} /enhance {w}x{h} over {len(lat)} requests "
+                f"(one client, graphs=false): p50 {p50:.2f} ms p90 "
+                f"{p90:.2f} ms")
+            # 4. the quality floor: the fixture through the Keras backend
+            floor = quality.recorded_gate_floor(st_f.weights_dir, "cgan",
+                                                default=CGAN_FLOOR_DEFAULT)
+            gain, _ = counted(lambda: quality.fixture_gain_db(sts[mode],
+                                                              "cgan"))
+            rec[f"{mode}_fixture_gain_db"] = gain
+            say(f"  cgan {mode} fixture gain {gain:.4f} dB (floor "
+                f"{floor:.3f})")
+            if gain <= floor:
+                fail(f"cgan {mode}: fixture gain {gain:.3f} dB not above "
+                     f"the floor {floor:.3f} dB")
+        # 5. one tiled request against the untiled forward
+        h, w = CGAN_TILED
+        img = test_image(h, w, seed=76)
+        png = imageio.encode_png(img)
+        tiles = n_tiles(h, w, FAMILY_THRESHOLD)
+        for mode in ("float", "int8"):
+            st = sts[mode]
+            before = st.stats.snapshot()["compute_backends"]
+            t0 = time.perf_counter()
+            (status, payload), counts = counted(
+                lambda: post_enhance(urls[mode], png))
+            dt = time.perf_counter() - t0
+            if status != 200:
+                fail(f"cgan {mode} tiled {w}x{h}: HTTP {status}")
+            label = backends_after(st, before)
+            out = imageio.decode_png(base64.b64decode(
+                payload["denoised_image_base64"]))
+            st.tile_threshold_rows = 1 << 16
+            try:
+                ref = st.denoise_image(img, "cgan")
+            finally:
+                st.tile_threshold_rows = FAMILY_THRESHOLD
+            d = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+            want = tuple(tiles * c for c in CGAN_PER_FORWARD[mode])
+            rec[f"{mode}_tiled_s"] = dt
+            say(f"  cgan {mode} tiled {w}x{h}: 200 in {dt:.2f} s, {label}, "
+                f"{tiles} tiles, launches {counts}, vs untiled max diff "
+                f"{d.max()} exact {np.mean(d == 0):.6%}")
+            if label != {f"{mode}+tiled": 1} or counts != want:
+                fail(f"cgan {mode} tiled: {label}, launches {counts}, "
+                     f"expected {want}")
+            if d.max() > (1 if mode == "float" else 0):
+                fail(f"cgan {mode} tiled: differs from untiled by {d.max()}")
+        # 6. the torch fallback: a label (200), a condition image (500), and
+        # neither (400); always float, no kernel
+        img = test_image(37, 29, seed=77)
+        png = imageio.encode_png(img)
+        url = urls["float"] + "&cgan_backend=torch"
+        file_part = ("file", "x.png", "image/png", png)
+        for what, fields, want_status in (
+                ("label 5", [file_part, ("label", None, None, b"5")], 200),
+                ("cond_file", [file_part, ("cond_file", "c.png", "image/png",
+                                           png)], 500),
+                ("no label", [file_part], 400),
+                ("label 'x'", [file_part, ("label", None, None, b"x")], 400)):
+            (status, payload), counts = counted(lambda: post_form(url,
+                                                                  fields))
+            text = f"  cgan torch backend, {what}: HTTP {status}"
+            if status == 200:
+                out = imageio.decode_png(base64.b64decode(
+                    payload["denoised_image_base64"]))
+                text += (f", backend {payload['backend']}, "
+                         f"{out.shape[1]}x{out.shape[0]} out")
+                if payload["backend"] != "torch" or out.shape != img.shape:
+                    fail(f"cgan torch backend: {payload['backend']} "
+                         f"{out.shape}")
+            say(text + f", launches {counts}")
+            if status != want_status or any(counts):
+                fail(f"cgan torch backend {what}: HTTP {status}, launches "
+                     f"{counts}; expected {want_status} and none")
+        # 7. forward times (the served forward with its u8 output on the
+        # card) at 256² and 2048²
+        for mode in ("float", "int8"):
+            apply = sts[mode]._apply(KERAS, "kernel")
+            for side in (CGAN_SIZES[0][0], CGAN_BIG):
+                x = family_input(sts[mode], "cgan",
+                                 test_image(side, side, seed=78), device)
+                with torch.inference_mode():
+                    ms = time_ms(lambda: sts[mode]._to_u8(KERAS, apply(x)),
+                                 reps=3, warmup=1)
+                rec[f"{mode}_forward_ms_{side}"] = ms
+                say(f"  cgan {mode} forward at {side}x{side}: {ms:.3f} ms")
+                del x
+    finally:
+        for srv, thread, _ in servers:
+            stop_server(srv, thread)
+    rows = cgan_k5_times(k5, quant, device)
+    tail = cgan_tail_time(conv3x3, device)
+    say(f"  phase 4f: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"held: {f32_holds.n} K2 (f32, worst {f32_holds.worst:.2e} x "
+        f"max|ref|), {k5_holds.n} K5 (bit-equal); /enhance launches K2 "
+        f"{totals[0]} K3 {totals[1]} K5 {totals[2]} K6 {totals[3]}")
+    return totals, rec, rows, tail, f32_holds.worst
+
+
+def cgan_k5_times(k5, quant, device="cuda"):
+    """The three rewritten 4×4 stride-2 layers at a ``CGAN_BIG``² input
+    (batch 1): the rewrite on the card bit-equal to the direct integer
+    conv; K5's launch timed beside its plain version, ``torch._int_mm`` at
+    its im2col GEMM shape and its bound (operations at 1979 TOP/s, dense
+    int8, or bytes at 3.35 TB/s); the whole rewrite (with its space-to-depth
+    or depth-to-space copy) and cuDNN's f32 conv of the same layer (TF32
+    off) beside it; the useful operations' bound and the MACs the rewrite
+    issues per useful one."""
+    import torch.nn.functional as F
+
+    gen = make_gen()
+    s = CGAN_BIG
+    rows = []
+    for layer, transposed, (c_in, c_out, side) in (
+            ("model.2 conv 64->128", False, (64, 128, s // 2)),
+            ("model.5 convT 128->128", True, (128, 128, s // 4)),
+            ("model.8 convT 128->64", True, (128, 64, s // 2))):
+        x = s8_rand(gen, (1, c_in, side, side))
+        ws = (torch.rand(c_out, generator=gen, device=device) + 0.5) * 1e-4
+        if transposed:
+            w = s8_rand(gen, (c_in, c_out, 4, 4))
+            w3, ws3 = quant.d2s_convt4x4_weight(w), ws.repeat(4)
+            xk = x.permute(0, 2, 3, 1).contiguous()
+            rewrite = lambda: quant.d2s_convt4x4_s8(x, w3, ws3)  # noqa: E731
+            direct = lambda: direct_convt_s8(x, w, ws, 2, 1)  # noqa: E731
+            xf, wf = x.float(), w.float()
+            cudnn = lambda: F.conv_transpose2d(  # noqa: E731
+                xf, wf, stride=2, padding=1)
+            useful = 2 * side * side * 4 * 4 * c_in * c_out
+        else:
+            w = s8_rand(gen, (c_out, c_in, 4, 4))
+            w3, ws3 = quant.s2d_conv4x4_weight(w), ws
+            h2 = side // 2
+            xk = quant.space_to_depth(x)
+            rewrite = lambda: quant.s2d_conv4x4_s8(x, w3, ws3)  # noqa: E731
+            direct = lambda: direct_conv_s8(x, w, ws, 2, 1)  # noqa: E731
+            xf, wf = x.float(), w.float()
+            cudnn = lambda: F.conv2d(xf, wf, stride=2,  # noqa: E731
+                                     padding=1)
+            useful = 2 * h2 * h2 * 4 * 4 * c_in * c_out
+        args = (xk, w3, ws3)
+        with torch.inference_mode():
+            got = rewrite()
+            ref = direct()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                fail(f"cgan {layer}: the rewrite differs from the direct "
+                     "integer conv")
+            check_int8("k5", layer, tuple(xk.shape) + (int(w3.shape[0]),),
+                       k5.conv3x3_s8(*args), k5.conv3x3_s8_plain(*args))
+            ms = time_ms(lambda: k5.conv3x3_s8(*args), 10)
+            whole = time_ms(rewrite, 10)
+            plain = time_ms(lambda: k5.conv3x3_s8_plain(*args), 2, 1)
+            mm = int_mm_ms("k5", args, {})
+            lib = time_ms(cudnn, 10)
+        n, h, wd, cin = xk.shape
+        cout = int(w3.shape[0])
+        ops = 2 * n * h * wd * 9 * cin * cout
+        nbytes = xk.numel() + w3.numel() + 4 * cout + 4 * n * h * wd * cout
+        b = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+        by = ("operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES
+              else "bytes")
+        b_useful = bound_ms(useful, nbytes, PEAK_INT8_OPS)
+        rows.append({"layer": layer, "k5_shape": [n, h, wd, cin, cout],
+                     "ms": ms, "rewrite_ms": whole, "plain_ms": plain,
+                     "int_mm_ms": mm, "cudnn_f32_ms": lib, "bound_ms": b,
+                     "bound_by": by, "useful_bound_ms": b_useful,
+                     "mac_overhead": ops / useful})
+        say(f"  k5 cgan {layer:24s} K5 {str((n, h, wd, cin, cout)):26s} "
+            f"{ms:.3f} ms (rewrite {whole:.3f}) plain {plain:.3f} _int_mm "
+            f"{mm:.3f} cuDNN f32 {lib:.3f} bound {b:.4f} ({by}; useful ops "
+            f"{b_useful:.4f}) {ops / useful:.2f}x MACs, "
+            f"{useful / ms / 1e9:.1f} useful TOP/s, {b / ms:.1%} of bound")
+        del x, xk, xf, got, ref
+    return rows
+
+
+def cgan_tail_time(conv3x3, device="cuda"):
+    """K2 in f32 on the cGAN's tail (64 -> 3, bias, no ReLU) at a
+    ``CGAN_BIG``² input: checked against its plain version, timed beside
+    it, beside cuDNN (TF32 off) and beside its bound (operations at 67
+    TFLOP/s, bytes at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    s = CGAN_BIG
+    x = torch.randn((1, s, s, 64), generator=gen, device=device)
+    wt = torch.randn((3, 3, 64, 3), generator=gen, device=device) / 24.0
+    b = torch.randn((3,), generator=gen, device=device) * 0.1
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    wo = wt.permute(3, 2, 0, 1).contiguous()
+    with torch.inference_mode():
+        got = conv3x3.conv3x3_bias_relu(x, wt, b, relu=False)
+        ref = conv3x3.conv3x3_bias_relu_plain(x, wt, b, relu=False)
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        if err > TOL[torch.float32]:
+            fail(f"cgan tail K2: {err:.2e} x max|ref| off plain")
+        ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, wt, b,
+                                                       relu=False), 10)
+        plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
+            x, wt, b, relu=False), 10)
+        lib = time_ms(lambda: F.conv2d(xc, wo, b, padding=1), 10)
+    flops = 2 * s * s * 9 * 64 * 3
+    nbytes = 4 * (x.numel() + wt.numel() + 3 + s * s * 3)
+    bnd = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    by = ("operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
+          else "bytes")
+    say(f"  f32 conv3x3_bias_relu cgan tail model.11 (1, {s}, {s}, 64, 3) "
+        f"{ms:.3f} ms plain {plain:.3f} cuDNN {lib:.3f} bound {bnd:.3f} "
+        f"({by}), {bnd / ms:.1%} of bound, {err:.2e} x max|ref|")
+    return {"layer": "cgan tail model.11", "shape": [1, s, s, 64, 3],
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "bound_by": by, "max_rel_err": err}
+
+
 def bound_ms(flops, nbytes, peak_flops):
     return max(flops / peak_flops, nbytes / PEAK_BYTES) * 1e3
 
@@ -2897,9 +3319,11 @@ def main() -> int:
     mb_launches = phase_microbatch(conv3x3, double_conv, k5, k6)
     family_launches, families, f32_rows, family_err = phase_families(
         conv3x3, double_conv, k5, k6)
-    # (K2, K3, K5, K6) launched by the serving phases 4b-4e
+    cgan_launches, families["cgan"], cgan_rows, cgan_tail, cgan_err = \
+        phase_cgan(conv3x3, double_conv, k5, k6)
+    # (K2, K3, K5, K6) launched by the serving phases 4b-4f
     served = [sum(c) for c in zip(int8_launches, tiled_launches, mb_launches,
-                                  family_launches)]
+                                  family_launches, cgan_launches)]
     stats, bench_launches, layer_ms = phase_bench(conv3x3, double_conv, k5,
                                                   k6, bench, worst)
     stats8 = phase_int8_times(conv3x3, k5, k6, layer_ms)
@@ -2931,14 +3355,14 @@ def main() -> int:
             "replaces": replaces[name],
             # the main paths: the float and int8 /enhance requests (single,
             # tiled and micro-batched; the dncnn, esrgan and srgan requests
-            # of phase 4e) and the bench run (the int8 requests launch K2 in
-            # its s8 mode only)
+            # of phase 4e, the cgan ones of 4f) and the bench run (the int8
+            # requests launch K2 in its s8 mode only)
             "launches": (launches[name] + bench_launches[name]
                          + (served[0] if name == "conv3x3_bias_relu"
                             else served[1])),
             "max_abs_err": worst[name],
-            # the largest error of a phase 4e launch, × max|ref|
-            "families_max_rel_err": family_err,
+            # the largest error of a phase 4e/4f launch, × max|ref|
+            "families_max_rel_err": max(family_err, cgan_err),
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if s["operations"] >= s["bytes"]
@@ -2951,6 +3375,7 @@ def main() -> int:
                                            "bound_ms", "bound_by")}
                         for r in f32_rows if r.get("kernel") == name]
         if name == "conv3x3_bias_relu":
+            entry["cgan_tail"] = cgan_tail  # phase 4f, 2048²
             entry["also_replaces"] = (
                 "celebrity_image_denoiser_tpu/ops/pallas/conv_fused.py:85")
             # its s8-out mode, the int8 step's first conv (phases 3b, 5b)
@@ -2989,9 +3414,11 @@ def main() -> int:
             # cuDNN transpose convs, printed in phase 5b
             "int_mm_ms": s.get("int_mm_ms"),
         })
-        if name == "conv3x3_s8":  # its raw f32 mode, phase 4e
+        if name == "conv3x3_s8":  # its raw f32 mode, phases 4e and 4f
             kernels[-1]["raw_f32"] = [r for r in f32_rows
                                       if "int_mm_ms" in r]
+            # cgan's 4x4 stride-2 layers through the exact rewrites, 2048²
+            kernels[-1]["cgan_rewrites"] = cgan_rows
     g = noise_stats["gaussian_only"]
     kernels.append({
         "name": "noise_batch", "route": "cuda",

@@ -317,14 +317,28 @@ def test_srgan_scale_must_be_a_power_of_two():
 
 
 def test_registry_builds_the_ported_families_and_names_the_waiting_ones():
-    assert set(registry.GENERATORS) == {"denoise", "srgan", "esrgan", "dncnn"}
+    """Every generator of the JAX registry is ported (the cGAN's Keras and
+    torch backends last); of the discriminators, srgan's and esrgan's wait
+    for their trainers."""
+    from celebrity_image_denoiser_tpu.models import registry as jregistry
+    from celebrity_image_denoiser_tpu_torch.models.cgan import (
+        CGANKerasDiscriminator,
+        CGANKerasGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.models.cgan_torch import (
+        CGANTorchGenerator,
+    )
+
+    assert list(registry.GENERATORS) == list(jregistry.GENERATORS)
     assert isinstance(registry.build_generator("dncnn", depth=3), DnCNN)
-    for name in ("cgan", "cgan_torch"):
-        with pytest.raises(ValueError, match="queue 1, item 3"):
-            registry.build_generator(name)
+    assert isinstance(registry.build_generator("cgan"), CGANKerasGenerator)
+    assert isinstance(registry.build_generator("cgan_torch"),
+                      CGANTorchGenerator)
     with pytest.raises(ValueError, match="Unknown model"):
         registry.build_generator("vdsr")
-    assert set(registry.DISCRIMINATORS) == {"denoise"}
+    assert set(registry.DISCRIMINATORS) == {"denoise", "cgan"}
+    assert isinstance(registry.build_discriminator("cgan"),
+                      CGANKerasDiscriminator)
     with pytest.raises(ValueError):
         registry.build_discriminator("esrgan")
 
@@ -366,8 +380,8 @@ def test_shipped_npz_loads_all_or_nothing(tmp_path):
     """Each shipped npz loads whole; with one array missing the server keeps
     that family's random init (and says so), and the others still load."""
     st = ServeState(device="cpu")
-    assert st.healthz()["weights_loaded"] == ["denoise", "dncnn", "esrgan",
-                                              "srgan"]
+    assert st.healthz()["weights_loaded"] == ["cgan", "denoise", "dncnn",
+                                              "esrgan", "srgan"]
     src = os.path.join(WEIGHTS, "esrgan", "arrays.npz")
     with np.load(src) as z:
         arrays = {k: z[k] for k in z.files

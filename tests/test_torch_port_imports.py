@@ -6,6 +6,8 @@
   port module and must gain no ``jax*`` or JAX-package module, and a source
   scan finds no such import statement (the pattern must not match the
   port's own name, which shares the JAX package's name as a prefix).
+  Nor ``h5py``, which the card machine does not have: the port reads
+  Keras' HDF5 files itself (``ckpt/keras.py``).
 * No quiet fallback: the entry points run on the card by default, and on a
   machine without CUDA (this one) they raise instead of running on the CPU.
 """
@@ -25,6 +27,7 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 JAX_PKG_IMPORT = re.compile(
     r"^\s*(from|import)\s+celebrity_image_denoiser_tpu(?!_torch)\b", re.M)
 JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax)\b", re.M)
+H5PY_IMPORT = re.compile(r"^\s*(from|import)\s+h5py\b", re.M)
 
 
 def _modules():
@@ -50,7 +53,9 @@ def test_port_has_modules_to_check():
                  # the dncnn, esrgan and srgan families
                  "models.dncnn", "models.esrgan", "models.srgan",
                  "models.folded", "models.registry", "ops.padding",
-                 "ops.resize"):
+                 "ops.resize",
+                 # the cgan family
+                 "models.cgan", "models.cgan_torch", "ckpt.keras"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 
@@ -63,7 +68,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "    importlib.import_module(m)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'celebrity_image_denoiser_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'celebrity_image_denoiser_tpu', "
+        "'h5py'))\n"
         "assert not bad, bad\n"
         "print('ok', len(new))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,6 +91,7 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = path.read_text()
     assert not JAX_PKG_IMPORT.search(text), path
     assert not JAX_IMPORT.search(text), path
+    assert not H5PY_IMPORT.search(text), path
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ package's, on the CPU.
   perturbs them, the original ``meta.json`` kept, fails the floor.
 """
 
+import base64
 import json
 import shutil
 
@@ -22,6 +23,7 @@ import pytest
 from celebrity_image_denoiser_tpu.serve import quality as jquality
 from celebrity_image_denoiser_tpu.serve.handlers import ServeState as JaxState
 from celebrity_image_denoiser_tpu_torch.core.config import default_weights_dir
+from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.serve import quality
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
 
@@ -81,11 +83,24 @@ def test_recorded_margin_and_floor_agree_with_jax(tmp_path, case, key):
 
 
 def test_fixture_gain_waits_for_the_other_families():
-    """Only cgan is left (srgan, esrgan and dncnn are measured in
+    """No family waits any more: cgan's fixture runs through its Keras
+    backend with label 5, as the JAX fixture asks (the gains are measured in
+    ``tests/test_torch_port_cgan.py``; srgan, esrgan and dncnn in
     ``tests/test_torch_port_families.py``)."""
-    for model in ("cgan", "cgan_torch"):
-        with pytest.raises(ValueError, match="queue 1, item 3"):
-            quality.fixture_gain_db(None, model)
+    calls = []
+
+    class Recorder:
+        def enhance(self, model, png, ctype, **kw):
+            calls.append((model, kw))
+            img = imageio.decode_png(png)
+            return {"denoised_image_base64":
+                    base64.b64encode(imageio.encode_png(img)).decode()}
+
+    for model in ("cgan", "denoise"):
+        assert quality.fixture_gain_db(Recorder(), model) == 0.0
+    assert calls == [("cgan", {"include_graph": False,
+                               "cgan_backend": "keras", "label": 5}),
+                     ("denoise", {"include_graph": False})]
 
 
 @pytest.fixture(scope="module")

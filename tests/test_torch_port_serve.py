@@ -134,12 +134,15 @@ def test_error_contract_matches_jax(servers, query, body, ctype):
 
 
 def test_unknown_model_lists_the_served_families(servers):
-    """cgan waits for its slice: a 400 that lists the four families the
-    port serves."""
-    status, payload = _post(servers["port"], "model=cgan", _multipart(_PNG))
+    """An unknown model's 400 lists the five families the port serves, as
+    the JAX server's does; cgan is one of them (its Keras backend)."""
+    status, payload = _post(servers["port"], "model=vdsr", _multipart(_PNG))
     assert status == 400
-    for family in ("denoise", "srgan", "esrgan", "dncnn"):
+    for family in ("denoise", "cgan", "srgan", "esrgan", "dncnn"):
         assert f"'{family}'" in payload["detail"], payload["detail"]
+    status, payload = _post(servers["port"], "model=cgan&graphs=false",
+                            _multipart(_PNG))
+    assert status == 200 and payload["backend"] == "keras", payload
 
 
 def test_ui_served(servers):

@@ -87,8 +87,14 @@ def test_tree_and_flat_npz_carry_the_same(shipped_params):
 
 
 def test_convert_refuses_unknown_leaves():
+    # a 2-D kernel is a Linear's since the cGAN families were ported
+    # (in, out) -> (out, in); kernels of other ranks and unknown leaves fail
+    assert tuple(jax_params_to_state_dict(
+        {"fc": {"kernel": np.zeros((4, 3))}})["fc.weight"].shape) == (3, 4)
     with pytest.raises(ValueError):
-        jax_params_to_state_dict({"fc": {"kernel": np.zeros((4, 3))}})
+        jax_params_to_state_dict({"fc": {"kernel": np.zeros((4, 3, 2))}})
+    with pytest.raises(ValueError):
+        jax_params_to_state_dict({"fc": {"weights": np.zeros((4, 3))}})
     with pytest.raises(ValueError):  # PReLU's slope: no layer carries it yet
         jax_params_to_state_dict({"act": {"alpha": np.zeros((1,))}})
     # a BatchNorm's scale is carried since the discriminator was ported
