@@ -27,6 +27,14 @@ calibration hooks and replays: there the tail, a 64→3 conv, stays float).
 The first conv takes its input in contiguous NCHW memory, so that cuDNN
 sums it alike at every tile shape (``models/folded.py``): on the int8 rung
 its output is quantized at the next conv.
+
+The same request gives the same pixels: the PyTorch layers run under
+cuDNN's deterministic flag (``core/device.py::deterministic_cudnn``).
+cuDNN's default algorithms for the f32 4×4 stride-2 transpose convs need
+not sum alike twice, and its deterministic ones took 5–16× as long on the
+H100 (``PERF.md`` §6); so the kernel and plain routes run each transpose
+conv as a 3×3 conv with an output channel group per output phase, then
+depth-to-space (``_phased``), whose forward algorithms are deterministic.
 """
 
 from __future__ import annotations
@@ -36,11 +44,14 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from celebrity_image_denoiser_tpu_torch.core.device import deterministic_cudnn
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import nchw, nhwc
 from celebrity_image_denoiser_tpu_torch.models.folded import FoldedConvNet
 from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d, ConvTranspose2d
 from celebrity_image_denoiser_tpu_torch.ops.norm import KerasBatchNorm2d
+from celebrity_image_denoiser_tpu_torch.ops.quant import d2s_convt4x4_weight
 
 
 @torch.no_grad()
@@ -90,12 +101,36 @@ class CGANKerasGenerator(FoldedConvNet):
                 ) -> torch.Tensor:
         self._check_route(route, x)
         x = x.contiguous()  # NCHW memory: see the module docstring
-        if route == "autograd":
-            return self.model(x)
-        h = self.model[:self.TAIL](x)
+        with deterministic_cudnn():
+            if route == "autograd":
+                return self.model(x)
+            h = x
+            for i, layer in enumerate(self.model[:self.TAIL]):
+                h = (self._phased(f"model.{i}", layer, h)
+                     if isinstance(layer, nn.ConvTranspose2d) else layer(h))
         y = self._conv(f"model.{self.TAIL}", self.model[self.TAIL], None,
                        nhwc(h), relu=False, route=route)
         return torch.tanh(nchw(y))
+
+    def _phased(self, name: str, conv: nn.ConvTranspose2d,
+                x: torch.Tensor) -> torch.Tensor:
+        """The 4×4 stride-2 padding-1 transpose conv as a 3×3 conv with an
+        output channel group per output phase, then depth-to-space (the
+        int8 rewrite's arithmetic, ``ops/quant.py``, in float).  The weights
+        are laid out once per loaded weights, as ``_folded`` does."""
+        ts = (conv.weight, conv.bias)
+        stamp = tuple((t.data_ptr(), t._version) for t in ts)
+        hit = self._kparams.get((name, "phased"))
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                w3 = d2s_convt4x4_weight(conv.weight.detach().float())
+                hit = (stamp, w3.permute(0, 3, 1, 2).contiguous(),
+                       conv.bias.detach().float().repeat(4))
+            self._kparams[(name, "phased")] = hit
+        y = F.conv2d(x, hit[1].to(x.dtype), hit[2].to(x.dtype), padding=1)
+        n, c4, h, w = y.shape
+        y = y.view(n, 2, 2, c4 // 4, h, w).permute(0, 3, 4, 1, 5, 2)
+        return y.reshape(n, c4 // 4, 2 * h, 2 * w)
 
 
 class CGANKerasDiscriminator(nn.Module):

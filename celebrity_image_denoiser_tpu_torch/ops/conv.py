@@ -42,8 +42,8 @@ def conv2d_layer(x: torch.Tensor, weight: torch.Tensor,
     Differentiable in x, weight and bias."""
     y = quant.conv_hook(
         x, weight,
-        lambda xq, wq, ws, lay: quant.int8_conv2d(xq, wq, ws, stride,
-                                                  padding, lay),
+        lambda xq, wq, ws, rw: quant.int8_conv2d(xq, wq, ws, stride,
+                                                 padding, rw),
         lambda xf, wf: F.conv2d(xf, wf, None, stride=stride, padding=padding))
     if y is None:
         y = F.conv2d(x, weight.to(x.dtype), None, stride=stride,
@@ -61,8 +61,8 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
     (``ops/conv.py:104-144``)."""
     y = quant.conv_hook(
         x, weight,
-        lambda xq, wq, ws, lay: quant.int8_conv_transpose2d(
-            xq, wq, ws, stride, padding, lay),
+        lambda xq, wq, ws, rw: quant.int8_conv_transpose2d(
+            xq, wq, ws, stride, padding, rw),
         lambda xf, wf: F.conv_transpose2d(xf, wf, None, stride=stride,
                                           padding=padding))
     if y is None:

@@ -36,9 +36,9 @@ In PyTorch idiom:
   exact rewrites (``s2d_conv4x4_s8``, ``d2s_convt4x4_s8``: zero taps add
   nothing to an integer sum).  On a card a geometry with no kernel raises
   ``NoInt8Kernel``, a ``ValueError``: the serving ladder then moves down a
-  rung, while a kernel that fails stays loud.  A kernel's weight layout is
-  made once per calibrated conv, at the replay's first call (the ladder's
-  gate), and kept with the ``QuantizedApply``.
+  rung, while a kernel that fails stays loud.  ``quantize_apply`` lays
+  out a rewrite's weights once, when it builds the entries of a model on
+  the card (``rewrite_weights``).
 
 Replay is positional, so a model whose conv sequence changed since
 calibration fails loudly: over-consumed, a shape mismatch, under-consumed
@@ -71,14 +71,10 @@ _MODE = contextvars.ContextVar("cid_torch_quant_mode", default=None)
 
 class _Int8Apply:
     """Replays quantized entries positionally; ``entries[i] is None`` means
-    'run this conv in float' (skip policy).  ``layouts[i]``: a dict in which
-    the int8 conv keeps its kernel's weight layout between calls."""
+    'run this conv in float' (skip policy)."""
 
-    def __init__(self, entries: List[Optional[tuple]],
-                 layouts: Optional[List[dict]] = None):
+    def __init__(self, entries: List[Optional[tuple]]):
         self.entries = entries
-        self.layouts = (layouts if layouts is not None
-                        else [{} for _ in entries])
         self.i = 0
 
 
@@ -198,26 +194,23 @@ def calibrate(model: nn.Module, calib_x: torch.Tensor,
 # the replay (called by ops/conv.py before the float conv)
 def int8_conv2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
                 w_scale: torch.Tensor, stride, padding,
-                layout: Optional[dict] = None) -> torch.Tensor:
+                rewrite: Optional[tuple] = None) -> torch.Tensor:
     """f32(conv_s32(x_i8, w_i8)) · w_scale, NCHW, PyTorch weight layout.
-    ``layout``: a dict that keeps the kernel's weight layout between calls
-    (None: made for this call)."""
+    ``rewrite``: the 4×4 stride-2 rewrite's weights from ``rewrite_weights``
+    (None: laid out for this call)."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3_s8
 
-    layout = {} if layout is None else layout
     c_in = int(x_i8.shape[1])
     geometry = (tuple(w_i8.shape[2:]), _pair(stride), _pair(padding))
     if geometry == ((3, 3), (1, 1), (1, 1)) and _k5_takes(c_in):
-        if "k5" not in layout:
-            layout["k5"] = w_i8.permute(0, 2, 3, 1).contiguous()
         y = conv3x3_s8.conv3x3_s8(x_i8.permute(0, 2, 3, 1).contiguous(),
-                                  layout["k5"], w_scale)
+                                  w_i8.permute(0, 2, 3, 1).contiguous(),
+                                  w_scale)
         return y.permute(0, 3, 1, 2)
     if x_i8.device.type != "cpu" and geometry == S2_4X4 and \
             _k5_takes(4 * c_in):
-        if "s2d" not in layout:
-            layout["s2d"] = s2d_conv4x4_weight(w_i8)
-        return s2d_conv4x4_s8(x_i8, layout["s2d"], w_scale)
+        return s2d_conv4x4_s8(
+            x_i8, *(rewrite or rewrite_weights(w_i8, w_scale, False)))
     _no_kernel(x_i8, "conv", w_i8.shape, stride, padding)
     acc = F.conv2d(x_i8.double(), w_i8.double(), stride=stride,
                    padding=padding).to(torch.int32)
@@ -226,24 +219,21 @@ def int8_conv2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
 
 def int8_conv_transpose2d(x_i8: torch.Tensor, w_i8: torch.Tensor,
                           w_scale: torch.Tensor, stride, padding=0,
-                          layout: Optional[dict] = None) -> torch.Tensor:
+                          rewrite: Optional[tuple] = None) -> torch.Tensor:
     """The transpose conv's counterpart of ``int8_conv2d`` (PyTorch's
     ``(C_in, C_out, kH, kW)`` weight, no output padding)."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import convt2x2_s8
 
-    layout = {} if layout is None else layout
     c_in, c_out = int(w_i8.shape[0]), int(w_i8.shape[1])
     geometry = (tuple(w_i8.shape[2:]), _pair(stride), _pair(padding))
     if geometry == ((2, 2), (2, 2), (0, 0)) and convt2x2_s8.fits(c_in, c_out):
-        if "k6" not in layout:
-            layout["k6"] = w_i8.permute(2, 3, 1, 0).contiguous()
         y = convt2x2_s8.convt2x2_s8(x_i8.permute(0, 2, 3, 1).contiguous(),
-                                    layout["k6"], w_scale)
+                                    w_i8.permute(2, 3, 1, 0).contiguous(),
+                                    w_scale)
         return y.permute(0, 3, 1, 2)
     if x_i8.device.type != "cpu" and geometry == S2_4X4 and _k5_takes(c_in):
-        if "d2s" not in layout:
-            layout["d2s"] = (d2s_convt4x4_weight(w_i8), w_scale.repeat(4))
-        return d2s_convt4x4_s8(x_i8, *layout["d2s"])
+        return d2s_convt4x4_s8(
+            x_i8, *(rewrite or rewrite_weights(w_i8, w_scale, True)))
     _no_kernel(x_i8, "transpose conv", w_i8.shape, stride, padding)
     acc = F.conv_transpose2d(x_i8.double(), w_i8.double(), stride=stride,
                              padding=padding).to(torch.int32)
@@ -327,6 +317,19 @@ def d2s_convt4x4_weight(w_i8: torch.Tensor) -> torch.Tensor:
     return w3.reshape(4 * c_out, 3, 3, c_in)
 
 
+def rewrite_weights(w_i8: torch.Tensor, w_scale: torch.Tensor,
+                    transposed: bool) -> Optional[tuple]:
+    """A 4×4 weight's rewrite in K5's layout with its scales: (``s2d_conv4x4
+    _weight``, ``w_scale``) for a conv, (``d2s_convt4x4_weight``, ``w_scale``
+    repeated per phase) for a transpose conv; None for another kernel size.
+    The replay takes it only at stride 2 padding 1."""
+    if tuple(w_i8.shape[2:]) != (4, 4):
+        return None
+    if transposed:
+        return d2s_convt4x4_weight(w_i8), w_scale.repeat(4)
+    return s2d_conv4x4_weight(w_i8), w_scale
+
+
 def d2s_convt4x4_s8(x_i8: torch.Tensor, w3: torch.Tensor,
                     w_scale4: torch.Tensor) -> torch.Tensor:
     """The 4×4 stride-2 padding-1 transpose conv of s8 ``x_i8`` (N, C, H,
@@ -370,8 +373,8 @@ def _no_kernel(x, what, shape, stride, padding=0):
 def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
               run_float: Callable) -> Optional[torch.Tensor]:
     """Called by ``ops/conv.py`` before its float conv.  Under a replay:
-    ``run_int8(x_i8, w_i8, w_scale, layout)`` gives the f32 dequantized
-    product (``layout``: the conv's dict for its kernel weight layout) and
+    ``run_int8(x_i8, w_i8, w_scale, rewrite)`` gives the f32 dequantized
+    product (``rewrite``: the entry's ``rewrite_weights``, or None) and
     ``run_float(x_f32, w_f32)`` the float conv (bias excluded); returns the
     int8 path's output in x's dtype before the bias, or None for the float
     path."""
@@ -392,6 +395,7 @@ def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
         return None
     w_i8, w_scale, s_c = entry[:3]
     corr = entry[3] if len(entry) > 3 else None
+    rewrite = entry[4] if len(entry) > 4 else None
     if tuple(w_i8.shape) != tuple(weight.shape):
         raise ValueError(
             f"int8 replay mismatch at conv call #{mode.i - 1}: calibrated "
@@ -399,7 +403,7 @@ def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
             f"{tuple(weight.shape)} — re-calibrate with quantize_apply()")
     xf = x.float()
     y = run_int8(quantize_activation(xf, s_c), w_i8, w_scale,
-                 mode.layouts[mode.i - 1]).to(x.dtype)
+                 rewrite).to(x.dtype)
     if isinstance(mode, _BiasCorrectCollect):
         y_f = run_float(xf, weight.float())
         corr = (y_f - y.float()).mean(dim=(0, 2, 3))
@@ -417,11 +421,9 @@ class QuantizedApply:
     def __init__(self, model: nn.Module, entries: List[Optional[tuple]]):
         self.model = model
         self.entries = entries
-        # per conv, its kernel's weight layout, made at the first call
-        self.layouts = [{} for _ in entries]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        ctx = _Int8Apply(list(self.entries), self.layouts)
+        ctx = _Int8Apply(list(self.entries))
         with torch.inference_mode(), _mode(ctx):
             y = _float_forward(self.model, x)
         if ctx.i != len(ctx.entries):
@@ -449,7 +451,9 @@ def quantize_apply(model: nn.Module, calib_x: torch.Tensor,
                    act_quantile: Optional[float] = None,
                    bias_correct: bool = False) -> QuantizedApply:
     """Build the int8 eval forward for ``model`` from ``calib_x`` (NHWC, the
-    serving domain, on the model's device); see the module docstring."""
+    serving domain, on the model's device); see the module docstring.  An
+    entry is (w_i8, w_scale, s_c, bias correction or None, the weights'
+    ``rewrite_weights`` on a card or None)."""
     taps = calibrate(model, calib_x, act_quantile)
     if not taps:
         raise ValueError("no convs were traced — nothing to quantize")
@@ -468,8 +472,13 @@ def quantize_apply(model: nn.Module, calib_x: torch.Tensor,
             raise ValueError(
                 f"bias-correction pass traced {len(ctx.corrections)} convs "
                 f"but {len(entries)} were calibrated")
-        entries = [None if e is None else (*e, c)
-                   for e, c in zip(entries, ctx.corrections)]
+        corrections = ctx.corrections
+    else:
+        corrections = [None] * len(entries)
+    entries = [None if e is None else
+               (*e, c, None if e[0].device.type == "cpu" else
+                rewrite_weights(e[0], e[1], tap[2]))
+               for e, c, tap in zip(entries, corrections, taps)]
     return QuantizedApply(model, entries)
 
 

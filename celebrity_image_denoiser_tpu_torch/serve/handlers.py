@@ -27,7 +27,9 @@ JAX server's (:761-828):
   JAX package) draws a 64×64 image from a fresh latent (an OS-seeded
   ``torch.Generator``) and the label, always in float, cropped at the
   padding offsets as Pillow's ``crop`` does: no label and no condition is
-  a 400, a ``cond_file`` a 500 (the reference's shape fault);
+  a 400, a ``cond_file`` a 500 (the reference's shape fault), a label
+  outside 0..9 a 400 (the JAX server's ``jnp.take`` answers 200 there, an
+  image from a NaN embedding row, or from row ``label + 10`` for -10..-1);
 * srgan: normalized, padded to a multiple of 16 (divisor 4 × scale 4), the
   output 4× the padded input and not cropped; its analysis view is the
   input bicubic-upscaled to the output's size (Pillow's bicubic,
@@ -557,6 +559,11 @@ class ServeState:
         (Pillow's ``crop``: shifted, zeros past the border)."""
         if cond_bytes is not None:  # the reference's channel fault
             raise EnhanceError(500, "Image enhancement failed")
+        n_classes = self.models["cgan"].n_classes
+        if not 0 <= label < n_classes:
+            # checked on the host: on the card an index out of the table
+            # trips a device-side assert that no later request survives
+            raise EnhanceError(400, f"label must be in 0..{n_classes - 1}")
         seed = int.from_bytes(os.urandom(8), "little")
         z = torch.randn((1, 100), generator=torch.Generator().manual_seed(
             seed)).to(self.device)

@@ -115,24 +115,31 @@ Phases, each printing its own lines; any failure exits non-zero:
              default), float32 and int8: every K2 launch of the f32 kernel
              route (the 3×3 tail) held against its plain version at 256²
              and 97×130, the served pixels within 1 count of the plain
-             route, the kernel route within 1e-4 of the autograd route; an
+             route and equal to a second forward (the cGAN runs cuDNN
+             deterministic, its f32 transpose convs as phased 3×3 convs),
+             the kernel route within 1e-4 of the autograd route; an
              int8 forward at 256² whose three K5 launches are each bit-equal
              to ``conv3x3_s8_plain`` and whose three rewritten 4×4 stride-2
              layers (space-to-depth + K5, K5 + depth-to-space) are each
              bit-equal to the direct integer conv; ``/enhance`` with exactly
              K2 ×1 (f32) or K5 ×3 (int8) per forward, ``"backend":
-             "keras"``, the rung (``int8-generic``) and its gate dB; p50/p90
+             "keras"``, the response equal to the forward, the rung (``int8-generic``) and its gate dB; p50/p90
              of 30 requests of 256² per mode; the fixture gain (label 5,
              ``cgan_backend=keras``) above 1.0 dB in both; one 4097×1001
              request against the untiled forward (f32 within 1 count, int8
              bit-equal); the torch fallback (``cgan_backend=torch``): a
              label answers 200 at the upload's size, a ``cond_file`` 500,
-             no label 400, no kernel launched; forward times at 256² and
-             2048²; then each rewritten layer at a 2048² input: K5 timed
+             no label 400, a label outside 0..9 400, no kernel launched, and
+             then cgan and denoise still answer 200; forward times at 256²
+             and 2048² (f32 also without the deterministic scope); then each rewritten layer at a 2048² input: K5 timed
              beside its plain version, ``torch._int_mm`` at its GEMM shape,
              the whole rewrite, cuDNN's f32 conv of the same layer and its
-             bound (issued and useful operations at 1979 TOP/s, or bytes),
-             and K2 on the tail at 2048² beside cuDNN and its bound;
+             bound (issued and useful operations at 1979 TOP/s, or bytes);
+             the f32 transpose convs as the phased 3×3 conv the kernel
+             route runs (within 3e-5 x max|ref| of cuDNN's transpose conv,
+             equal to itself twice) beside cuDNN's transpose conv with its
+             default and its deterministic algorithms; and K2 on the tail at
+             2048² beside cuDNN and its bound;
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -2052,7 +2059,7 @@ CGAN_PER_FORWARD = {"float": (1, 0, 0, 0), "int8": (0, 0, 3, 0)}
 CGAN_FLOOR_DEFAULT = 1.0  # cgan records no margin: tests/test_serve.py:495
 
 
-def direct_conv_s8(x_i8, w_i8, w_scale, stride, padding, layout=None):
+def direct_conv_s8(x_i8, w_i8, w_scale, stride, padding, rewrite=None):
     """The int8 conv as one direct integer conv (float64 sums of s8
     products are exact), the replay's plain reference on the card."""
     import torch.nn.functional as F
@@ -2062,7 +2069,7 @@ def direct_conv_s8(x_i8, w_i8, w_scale, stride, padding, layout=None):
     return acc.float() * w_scale.view(1, -1, 1, 1)
 
 
-def direct_convt_s8(x_i8, w_i8, w_scale, stride, padding=0, layout=None):
+def direct_convt_s8(x_i8, w_i8, w_scale, stride, padding=0, rewrite=None):
     import torch.nn.functional as F
 
     acc = F.conv_transpose2d(x_i8.double(), w_i8.double(), stride=stride,
@@ -2131,8 +2138,7 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
                 y_k = st_f.denoise_image(img, "cgan")
             y_p = st_f.denoise_image(img, "cgan", plain=True)
             d = np.abs(y_k.astype(np.int16) - y_p.astype(np.int16))
-            # cuDNN's transpose convs (its backward-data algorithms) need
-            # not sum in the same order twice: the same request again
+            # the same request again: cuDNN runs deterministic in the cGAN
             rep_d = np.abs(st_f.denoise_image(img, "cgan").astype(np.int16)
                            - y_k.astype(np.int16))
             x = family_input(st_f, "cgan", img, device)
@@ -2148,9 +2154,10 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
                 f"vs autograd route max {da:.2e}")
             if f32_holds.n - n0 != CGAN_PER_FORWARD["float"][0]:
                 fail(f"cgan {w}x{h}: {f32_holds.n - n0} K2 launches held")
-            if max(d.max(), rep_d.max()) > 1:
+            if d.max() > 1 or rep_d.max() > 0:
                 fail(f"cgan {w}x{h}: served pixels differ from the plain "
-                     f"route or from themselves by more than 1")
+                     f"route by {d.max()} or from themselves by "
+                     f"{rep_d.max()}")
             if da > 1e-4:
                 fail(f"cgan {w}x{h}: the kernel route is {da:.2e} off the "
                      "autograd route")
@@ -2189,8 +2196,7 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
                 if counts != CGAN_PER_FORWARD[mode]:
                     fail(f"cgan {mode} /enhance {w}x{h}: launches {counts}, "
                          f"expected {CGAN_PER_FORWARD[mode]}")
-                # f32: cuDNN's transpose convs may sum in another order
-                if out.shape != img.shape or d.max() > (mode == "float"):
+                if out.shape != img.shape or d.max() > 0:
                     fail(f"cgan {mode} /enhance {w}x{h}: the response is not "
                          "the forward's output")
             png = imageio.encode_png(test_image(*CGAN_SIZES[0], seed=75))
@@ -2252,8 +2258,10 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
                      f"expected {want}")
             if d.max() > (1 if mode == "float" else 0):
                 fail(f"cgan {mode} tiled: differs from untiled by {d.max()}")
-        # 6. the torch fallback: a label (200), a condition image (500), and
-        # neither (400); always float, no kernel
+        # 6. the torch fallback: a label (200), a condition image (500),
+        # neither (400), a label outside the table (400, checked on the
+        # host: on the card it would end the process's CUDA context); always
+        # float, no kernel.  Then the card still serves the other paths.
         img = test_image(37, 29, seed=77)
         png = imageio.encode_png(img)
         url = urls["float"] + "&cgan_backend=torch"
@@ -2263,7 +2271,10 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
                 ("cond_file", [file_part, ("cond_file", "c.png", "image/png",
                                            png)], 500),
                 ("no label", [file_part], 400),
-                ("label 'x'", [file_part, ("label", None, None, b"x")], 400)):
+                ("label 'x'", [file_part, ("label", None, None, b"x")], 400),
+                ("label 10", [file_part, ("label", None, None, b"10")], 400),
+                ("label -1", [file_part, ("label", None, None, b"-1")], 400),
+                ("label 9", [file_part, ("label", None, None, b"9")], 200)):
             (status, payload), counts = counted(lambda: post_form(url,
                                                                   fields))
             text = f"  cgan torch backend, {what}: HTTP {status}"
@@ -2279,19 +2290,39 @@ def phase_cgan(conv3x3, double_conv, k5, k6, device="cuda"):
             if status != want_status or any(counts):
                 fail(f"cgan torch backend {what}: HTTP {status}, launches "
                      f"{counts}; expected {want_status} and none")
+        for fam, u in (("cgan", urls["float"]), ("cgan", urls["int8"]),
+                       ("denoise", servers[0][2])):
+            status, _ = post_enhance(u, png)
+            say(f"  after those, {fam} at {u.split('?')[1]}: HTTP {status}")
+            if status != 200:
+                fail(f"{fam} after the torch backend's refusals: HTTP "
+                     f"{status}")
         # 7. forward times (the served forward with its u8 output on the
-        # card) at 256² and 2048²
-        for mode in ("float", "int8"):
+        # card) at 256² and 2048²; f32 also with cuDNN's default (not
+        # deterministic) algorithms, the cost of the deterministic scope
+        from celebrity_image_denoiser_tpu_torch.models import cgan as cgan_mod
+
+        scope = cgan_mod.deterministic_cudnn
+        for mode, key in (("float", "float"), ("float", "float_nondet"),
+                          ("int8", "int8")):
             apply = sts[mode]._apply(KERAS, "kernel")
-            for side in (CGAN_SIZES[0][0], CGAN_BIG):
-                x = family_input(sts[mode], "cgan",
-                                 test_image(side, side, seed=78), device)
-                with torch.inference_mode():
-                    ms = time_ms(lambda: sts[mode]._to_u8(KERAS, apply(x)),
-                                 reps=3, warmup=1)
-                rec[f"{mode}_forward_ms_{side}"] = ms
-                say(f"  cgan {mode} forward at {side}x{side}: {ms:.3f} ms")
-                del x
+            cgan_mod.deterministic_cudnn = (contextlib.nullcontext
+                                            if key == "float_nondet"
+                                            else scope)
+            try:
+                for side in (CGAN_SIZES[0][0], CGAN_BIG):
+                    x = family_input(sts[mode], "cgan",
+                                     test_image(side, side, seed=78), device)
+                    with torch.inference_mode():
+                        ms = time_ms(lambda: sts[mode]._to_u8(KERAS,
+                                                              apply(x)),
+                                     reps=5, warmup=1)
+                    rec[f"{key}_forward_ms_{side}"] = ms
+                    say(f"  cgan {key} forward at {side}x{side}: {ms:.3f} "
+                        "ms")
+                    del x
+            finally:
+                cgan_mod.deterministic_cudnn = scope
     finally:
         for srv, thread, _ in servers:
             stop_server(srv, thread)
@@ -2317,7 +2348,7 @@ def cgan_k5_times(k5, quant, device="cuda"):
 
     gen = make_gen()
     s = CGAN_BIG
-    rows = []
+    rows, f32_rows = [], []
     for layer, transposed, (c_in, c_out, side) in (
             ("model.2 conv 64->128", False, (64, 128, s // 2)),
             ("model.5 convT 128->128", True, (128, 128, s // 4)),
@@ -2334,6 +2365,7 @@ def cgan_k5_times(k5, quant, device="cuda"):
             cudnn = lambda: F.conv_transpose2d(  # noqa: E731
                 xf, wf, stride=2, padding=1)
             useful = 2 * side * side * 4 * 4 * c_in * c_out
+            f32_rows.append((layer, xf, wf, cudnn))
         else:
             w = s8_rand(gen, (c_out, c_in, 4, 4))
             w3, ws3 = quant.s2d_conv4x4_weight(w), ws
@@ -2377,8 +2409,46 @@ def cgan_k5_times(k5, quant, device="cuda"):
             f"{ms:.3f} ms (rewrite {whole:.3f}) plain {plain:.3f} _int_mm "
             f"{mm:.3f} cuDNN f32 {lib:.3f} bound {b:.4f} ({by}; useful ops "
             f"{b_useful:.4f}) {ops / useful:.2f}x MACs, "
-            f"{useful / ms / 1e9:.1f} useful TOP/s, {b / ms:.1%} of bound")
-        del x, xk, xf, got, ref
+            f"{useful / ms / 1e9:.1f} useful TOP/s, {b_useful / ms:.1%} of "
+            f"the useful bound ({b / ms:.1%} of the issued)")
+        del x, xk, got, ref
+    # the f32 transpose convs: cuDNN's default algorithms (not
+    # deterministic), its deterministic ones, and the phased 3×3 conv the
+    # f32 kernel route runs
+    from celebrity_image_denoiser_tpu_torch.models.cgan import (
+        CGANKerasGenerator,
+    )
+
+    probe = CGANKerasGenerator().to(device).eval()
+    for layer, xf, wf, cudnn in f32_rows:
+        conv = torch.nn.ConvTranspose2d(wf.shape[0], wf.shape[1], 4, 2, 1,
+                                        device=device)
+        with torch.no_grad():
+            conv.weight.copy_(wf)
+            conv.bias.zero_()
+        phased = lambda: probe._phased(layer, conv, xf)  # noqa: E731
+        with torch.inference_mode():
+            ref = cudnn()
+            got = phased()
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            twice = torch.equal(got, phased())
+            ms = time_ms(phased, 10)
+            lib = time_ms(cudnn, 10)
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True,
+                                            allow_tf32=False):
+                lib_det = time_ms(cudnn, 3, 1)
+        row = next(r for r in rows if r["layer"] == layer)
+        row.update(f32_phased_ms=ms, cudnn_f32_det_ms=lib_det,
+                   f32_phased_err=err)
+        say(f"  f32 cgan {layer:24s} phased 3x3 conv {ms:.3f} ms (vs cuDNN "
+            f"{err:.2e} x max|ref|, same twice {twice}); cuDNN transpose "
+            f"{lib:.3f} ms, deterministic {lib_det:.3f} ms")
+        if err > TOL[torch.float32] or not twice:
+            fail(f"cgan f32 {layer}: the phased conv is {err:.2e} x max|ref| "
+                 f"off cuDNN's transpose conv, or differs from itself")
+        del got, ref
+    del f32_rows
     return rows
 
 

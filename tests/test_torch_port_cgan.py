@@ -9,19 +9,24 @@ and the port's; each test states its tolerance.
   compressed, another datatype, a newer superblock) with a clear error.
 * The Keras generator on the shipped weights: within 1e-5 of the JAX
   generator loaded by the JAX loader, within 1e-4 of ``keras.predict``;
-  its kernel, plain and autograd routes within 1e-5 of each other.  The
+  its kernel, plain and autograd routes within 1e-5 of each other (the
+  first two run the transpose convs as phased 3×3 convs), each under
+  cuDNN's deterministic flag, put back afterwards.  The
   torch generator and the Keras discriminator against JAX given the JAX
   parameters (1e-5), the image-condition path raising in both; the
   converter's Linear and Embedding both ways; Keras' BatchNorm train step
   and the transpose conv's padding against JAX.
 * int8: the 4×4 stride-2 rewrites (``s2d_conv4x4_s8``, ``d2s_convt4x4_s8``)
   equal to the direct integer conv at the cGAN's three shapes and at odd
-  sizes, refusing channel counts K5 does not take; given JAX's
+  sizes, refusing channel counts K5 does not take, their weights laid out
+  once in each ``quantize_apply`` entry; given JAX's
   calibration batch, the int8 weights and scales bit-identical and the
   replay ≥ 60 dB of JAX's run op by op.
 * Serving: ``POST /enhance?model=cgan`` against the JAX server (status,
   keys, ``backend``, shape, pixels within 1 count on ≥ 99.5%), the label
-  400, ``cond_file`` 500 on the torch path and ignored on the Keras path;
+  400, ``cond_file`` 500 on the torch path and ignored on the Keras path,
+  a label outside 0..9 a 400 on the port (200 on JAX) after which the port
+  still serves;
   the int8 rung; a tiled request equal to the untiled one; the quality
   floor (1.0 dB) in f32 and int8, and a degraded checkpoint below it.
 """
@@ -262,6 +267,52 @@ def test_routes_refuse_train_mode_and_gradients():
     m(x, route="autograd").sum().backward()
 
 
+@pytest.mark.parametrize("route", ["kernel", "plain", "autograd"])
+def test_generator_runs_cudnn_deterministic_and_puts_the_flag_back(
+        monkeypatch, route):
+    """Every cuDNN conv of the Keras generator's forward before its tail
+    runs with ``torch.backends.cudnn.deterministic`` set, and the flag is
+    back as it was after the forward; the kernel and plain routes run no
+    transpose conv (their phased 3×3 convs stand in); scopes that overlap
+    in two threads keep the flag set until the last one leaves."""
+    from celebrity_image_denoiser_tpu_torch.core.device import (
+        deterministic_cudnn,
+    )
+
+    m = CGANKerasGenerator(generator=torch.Generator().manual_seed(0)).eval()
+    seen = []
+    for name in ("conv2d", "conv_transpose2d"):
+        real = getattr(torch.nn.functional, name)
+        monkeypatch.setattr(torch.nn.functional, name, lambda *a, real=real,
+                            name=name, **k: (seen.append(
+                                (name, torch.backends.cudnn.deterministic)),
+                                real(*a, **k))[1])
+    assert torch.backends.cudnn.deterministic is False
+    with torch.no_grad():
+        m(torch.rand(1, 3, 8, 8), route=route)
+    body = (["conv2d"] * 2 + ["conv_transpose2d"] * 2 if route == "autograd"
+            else ["conv2d"] * 4)
+    assert seen[:4] == [(name, True) for name in body]
+    assert torch.backends.cudnn.deterministic is False
+
+    entered, leave = threading.Event(), threading.Event()
+
+    def other():
+        with deterministic_cudnn():
+            entered.set()
+            leave.wait(10)
+
+    t = threading.Thread(target=other)
+    t.start()
+    assert entered.wait(10)
+    with deterministic_cudnn():
+        pass
+    assert torch.backends.cudnn.deterministic is True  # the thread's scope
+    leave.set()
+    t.join(10)
+    assert torch.backends.cudnn.deterministic is False
+
+
 # ---------------------------------------------------------------------------
 # the torch generator, the discriminator, the building blocks
 def _jax_init(jm, seed):
@@ -471,6 +522,39 @@ def test_rewrites_refuse_channels_k5_does_not_take(monkeypatch, transposed,
         run()
 
 
+def test_rewrite_weights_are_laid_out_once_per_entry(monkeypatch):
+    """``rewrite_weights`` gives each 4×4 layer's K5 weights and scales
+    (the transpose conv's repeated per phase) and None for another kernel
+    size; ``quantize_apply`` stores them as the entry's last field (None on
+    the CPU, where the replay computes the direct conv), and the replay
+    hands that field to the layer's int8 function at every call."""
+    rng = np.random.default_rng(5)
+    ws = _t(rng.uniform(1e-5, 1e-3, 16).astype(np.float32))
+    wt = _s8(rng, 16, 8, 4, 4)
+    w3, s3 = quant.rewrite_weights(wt, ws, False)
+    assert torch.equal(w3, quant.s2d_conv4x4_weight(wt)) and s3 is ws
+    w3, s3 = quant.rewrite_weights(wt.transpose(0, 1), ws, True)
+    assert torch.equal(w3, quant.d2s_convt4x4_weight(wt.transpose(0, 1)))
+    assert torch.equal(s3, ws.repeat(4))
+    assert quant.rewrite_weights(_s8(rng, 16, 8, 3, 3), ws, False) is None
+
+    m = CGANKerasGenerator(generator=torch.Generator().manual_seed(1)).eval()
+    calib = _t(rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32))
+    q = quant.quantize_apply(m, calib)
+    assert [e[3:] for e in q.entries if e is not None] == [(None, None)] * 3
+    marks = [("s2d",), ("d2s1",), ("d2s2",)]
+    entries = [e if e is None else (*e[:4], mark) for e, mark in zip(
+        q.entries, [None] + marks + [None])]
+    seen = []
+    for name in ("int8_conv2d", "int8_conv_transpose2d"):
+        real = getattr(quant, name)
+        monkeypatch.setattr(quant, name, lambda *a, real=real, **k: (
+            seen.append(a[5]), real(*a[:5]))[1])
+    for _ in range(2):
+        quant.QuantizedApply(m, entries)(calib[:1])
+    assert seen == marks * 2
+
+
 def _jax_amaxes(jm, p, s, calib):
     tap = jquant._Calibrate()
 
@@ -643,6 +727,29 @@ def test_torch_backend_matches_the_jax_server(servers, fields, status):
             assert _decoded(payload).shape == img.shape
         else:
             assert set(payload) == {"detail"}
+
+
+@pytest.mark.parametrize("label", [10, -1])
+def test_torch_backend_refuses_a_label_outside_the_table(servers, label):
+    """A label outside 0..9 is a 400 on the port, checked on the host
+    before any tensor is made (on the card the embedding's index would trip
+    a device-side assert that fails every later request).  The JAX server
+    answers 200 there (``jnp.take`` fills: a NaN row for 10, row 9 for
+    -1), a difference kept by design.  The port serves on afterwards: a
+    torch-backend label, the Keras backend and denoise all answer 200."""
+    png = imageio.encode_png(_image(37, 29, seed=4))
+    query = "model=cgan&cgan_backend=torch&graphs=false"
+    body = _form([("file", "x.png", png),
+                  ("label", None, str(label).encode())])
+    assert _post(servers["jax"], query, body)[0] == 200
+    got, payload = _post(servers["port"], query, body)
+    assert got == 400 and payload == {"detail": "label must be in 0..9"}
+    for q, fields in ((query, [("label", None, b"9")]),
+                      ("model=cgan&graphs=false", []),
+                      ("model=denoise&graphs=false", [])):
+        status, payload = _post(servers["port"], q,
+                                _form([("file", "x.png", png)] + fields))
+        assert status == 200, (q, payload)
 
 
 def test_info_and_healthz_list_the_five_families(servers):
