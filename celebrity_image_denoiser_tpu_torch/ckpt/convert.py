@@ -21,6 +21,12 @@ its ``weight`` (``ckpt/torch_import.py:77-92``), as the cGAN families
 have them; the 2-D ``weight`` of the way back is a Linear's or an
 Embedding's by the type of ``module``'s submodule (a Linear without it).
 
+Every module of the port carries its weights this way: the generators and
+discriminators of the five families (the srgan discriminator's BatchNorm,
+the esrgan discriminator's Linear over NCHW-flattened features) and the VGG
+tower of ``models/vgg.py`` (the ``vgg`` / ``vgg_state`` sections of the
+shipped ``weights/perceptual``, ``load_npz_state_dict(..., "vgg")``).
+
 ``state_dict_to_jax_params`` is the way back — torch → a numpy tree in the
 JAX layout, kernels HWIO again (the permutation's inverse, (2, 3, 1, 0), is
 the same for both conv kinds) — used to write checkpoints that the JAX

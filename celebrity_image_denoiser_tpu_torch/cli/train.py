@@ -6,14 +6,23 @@
       --clean-dir Clean_dataset --image-size 256 256 --batch-size 16 \\
       --num-epochs 20
 
+  # srgan ×4: 256² HR crops, 64² LR inputs, the shipped VGG tower
+  python -m celebrity_image_denoiser_tpu_torch.cli.train --model srgan \\
+      --clean-dir Clean_dataset --image-size 256 256 --sr-scale 4
+
   # resume from the newest checkpoint under --checkpoint-dir
   python -m celebrity_image_denoiser_tpu_torch.cli.train ... --resume
 
-The flags are those of the JAX CLI that this slice can honour.  Flags whose
+Every family trains: denoise, srgan, esrgan, cgan (the Keras generator and
+discriminator, Keras Adam) and dncnn (no discriminator; the blind-σ
+Gaussian unless ``--noise-variant`` is given).  srgan's content loss runs
+on a torchvision VGG16 ``--vgg-pth``, else the shipped tower
+(``weights/perceptual``), else random features with a loud warning.  The
+flags are those of the JAX CLI that the port can honour.  Flags whose
 machinery is not ported (``--no-on-the-fly``, ``--tensor-cache``,
-``--extra-metrics``, ``--profile-dir``, ``--vgg-pth``, ``--remat``,
-``--sr-scale``, ``--graph-dir``, data parallelism) are absent rather than
-accepted and ignored; ROADMAP.md queue 1 items 9-14 list them.
+``--extra-metrics``, ``--profile-dir``, ``--remat``, ``--graph-dir``, data
+parallelism) are absent rather than accepted and ignored; ROADMAP.md queue
+1 items 4-8 list them.
 """
 
 from __future__ import annotations
@@ -26,14 +35,18 @@ from celebrity_image_denoiser_tpu_torch.core.config import TrainConfig
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.data.datasets import CleanImageDataset
 from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
-from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
-    DenoiseDiscriminator,
-    DenoiseGenerator,
-)
+from celebrity_image_denoiser_tpu_torch.metrics import PerceptualDistance
+from celebrity_image_denoiser_tpu_torch.models import registry
 from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
     FAMILIES,
     GANTrainer,
 )
+from celebrity_image_denoiser_tpu_torch.train.losses import (
+    make_vgg_perceptual,
+)
+from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("cid_torch.cli.train")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,8 +63,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noise-variant", type=int, default=None,
                    choices=[1, 2, 3],
                    help="default: the variant the reference uses for the "
-                        "model family (v1 for denoise); 2 and 3 are not "
-                        "ported yet")
+                        "model family (v1 denoise, v2 srgan/cgan, v3 "
+                        "esrgan; dncnn: the blind-sigma Gaussian)")
+    p.add_argument("--sr-scale", type=int, default=4,
+                   help="srgan upscale factor (LR = image-size / scale)")
+    p.add_argument("--vgg-pth", default=None,
+                   help="torchvision vgg16 .pth for the srgan perceptual "
+                        "loss; default: the shipped trained tower "
+                        "(weights/perceptual) when present, else random "
+                        "features with a loud warning")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
@@ -63,6 +83,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises when no card is present) or "
                         "cpu")
     return p
+
+
+def perceptual_loss(vgg_pth=None):
+    """srgan's content loss (``cli/train.py:270-293`` of the JAX CLI): the
+    torchvision tower of ``vgg_pth``, else ``PerceptualDistance.default()``
+    (the shipped tower, else random features, with a warning)."""
+    if vgg_pth:
+        pd = PerceptualDistance.from_torchvision_pth(vgg_pth)
+        logger.info("perceptual: torchvision VGG16 from %s", vgg_pth)
+    else:
+        pd = PerceptualDistance.default()
+        if pd.pretrained:
+            logger.info("perceptual: shipped trained tower "
+                        "(weights/perceptual)")
+        else:
+            logger.warning(
+                "perceptual: NO trained weights found — SRGAN's content "
+                "loss will use RANDOM VGG features (pass --vgg-pth or ship "
+                "weights/perceptual)")
+    # the shipped tower was trained on [0, 1]; torchvision and random
+    # towers keep the reference's unshifted feed
+    return make_vgg_perceptual(pd.net, to_unit=pd.input_domain == "unit")
 
 
 def build_trainer(args) -> GANTrainer:
@@ -80,19 +122,29 @@ def build_trainer(args) -> GANTrainer:
         noise_variant=args.noise_variant,
         compute_dtype=args.compute_dtype,
     )
-    if args.model != "denoise":
-        raise NotImplementedError(
-            f"the {args.model} family is not ported yet (ROADMAP.md queue 1 "
-            "item 11)")
     dataset = CleanImageDataset(
         args.clean_dir, image_size=cfg.image_size,
         test_split=cfg.test_split, split_seed=cfg.split_seed)
     pipeline = DataPipeline(dataset, cfg.batch_size, shuffle=True,
                             seed=cfg.seed, drop_last=True, device=device)
     init = torch.Generator().manual_seed(cfg.seed)
-    trainer = GANTrainer(DenoiseGenerator(generator=init),
-                         DenoiseDiscriminator(generator=init), pipeline, cfg,
-                         family=args.model, device=device)
+    if args.model == "srgan":
+        gen = registry.build_generator("srgan", scale_factor=args.sr_scale,
+                                       generator=init)
+    else:
+        gen = registry.build_generator(args.model, generator=init)
+    if args.model == "dncnn":
+        disc = None
+    elif args.model in ("esrgan", "cgan"):
+        # these discriminators' Linear widths depend on the input size
+        disc = registry.build_discriminator(
+            args.model, input_hw=tuple(cfg.image_size), generator=init)
+    else:
+        disc = registry.build_discriminator(args.model, generator=init)
+    perceptual = (perceptual_loss(args.vgg_pth) if args.model == "srgan"
+                  else None)
+    trainer = GANTrainer(gen, disc, pipeline, cfg, family=args.model,
+                         perceptual=perceptual, device=device)
     if args.resume:
         trainer.resume()
     return trainer

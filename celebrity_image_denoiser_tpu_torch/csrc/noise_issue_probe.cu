@@ -1,6 +1,6 @@
 // One chunk of one noise kind per thread: the fast path of
-// normalize_gaussian_noise.cu's batch kernel alone (total a multiple of
-// kChunk, one sample).  Not part of the port's kernel library: chip_smoke.py
+// normalize_gaussian_noise.cu's batch kernel alone, in variant 1 on [-1, 1]
+// (total a multiple of kChunk, one sample).  Not part of the port's kernel library: chip_smoke.py
 // builds this source on its own, counts the instructions each kind's kernel
 // must issue in its SASS (the arithmetic floor of the batch kernel) and
 // times the kinds one by one.
@@ -29,10 +29,10 @@ noise_issue_probe(const uint8_t* __restrict__ x, float* __restrict__ noisy,
   uint8_t xs[kChunk];
   load8(x + i0, xs);
   float out[kChunk];
-  chunk_of<KIND>(xs, i0, channels, (uint32_t)seed, (uint32_t)(seed >> 32), p,
-                 table, guide, out);
+  chunk_of<KIND, 1, false>(xs, i0, channels, (uint32_t)seed,
+                           (uint32_t)(seed >> 32), p, table, guide, out);
   store8<float>(noisy + i0, out);
-  store_clean(clean + i0, xs);
+  store_clean<false>(clean + i0, xs);
 }
 
 template <int KIND>
@@ -64,7 +64,7 @@ extern "C" int cid_noise_issue_probe(int kind, const void* x, void* noisy,
       seed_ptr == nullptr || table == nullptr || guide == nullptr ||
       !cid::grid_fits((total / kChunk + kThreads - 1) / kThreads))
     return (int)cudaErrorInvalidValue;
-  const Params p{sigma01, speckle, uniform, salt, pepper};
+  const Params p{sigma01, speckle, uniform, 0.f, salt, pepper, 0.f, 0.f};
   const auto* sp = static_cast<const unsigned long long*>(seed_ptr);
   const auto* t = static_cast<const uint32_t*>(table);
   const auto* g = static_cast<const uint8_t*>(guide);

@@ -1,5 +1,5 @@
 // The training input stage in one launch: a uint8 NHWC batch in, its noisy
-// version and its clean target out, both float32 in [-1, 1].
+// version and its clean target out, float32 in [-1, 1] or on [0, 1].
 //
 // Replaces:
 //   celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py::fused_normalize_gaussian_noise (:46)
@@ -7,17 +7,25 @@
 // and, around it, the rest of the JAX package's on-the-fly input stage,
 // celebrity_image_denoiser_tpu/data/noise.py::random_noise_batch (:207-229):
 // one compiled program in which every sample takes the noise kind it drew
-// (vmap + lax.switch), and the trainer's normalisation of the clean batch.
-// Each sample n takes kind codes[kinds[n]] of variant 1 (noise.py:47-86):
-//   gaussian     clip(x01 + (sigma / 255) n)                 sigma = 25
-//   salt_pepper  per pixel: 0 if up < 1 - e^(-0.02 C), else 1 if
-//                us < 1 - e^(-0.02 C), else x01 (pepper over salt)
-//   speckle      clip(x01 + x01 (0.1 n))
-//   poisson      clip(K / 255), K ~ Poisson(x), counts >= 255 alike
-//   uniform      clip(x01 + u (25 / 255))
-// then * 2 - 1; the clean target is x01 * 2 - 1.  x01 = x * RN(1/255): on
-// the card PyTorch divides by a scalar as a product with its reciprocal,
-// so this is the trainer's clean.to(float32) / 255.0 * 2.0 - 1.0 there.
+// (vmap + lax.switch), and the trainer's normalisation of the clean batch;
+// and blind_gaussian_batch (:232-242), dncnn's input stage.  Each sample n
+// takes kind codes[kinds[n]] of its variant (noise.py:45-170), on x01:
+//              variant 1               variant 2             variant 3
+//   gaussian   x01 + (25/255) n        the same              x01 + 0.1 n
+//   s & p      per pixel: 0 if         per element: if       per element: 0
+//              up < 1 - e^(-0.02 C),   uf < 0.05, 1 if       if up < 0.002,
+//              else 1 if us < that     us < 0.5 else 0       else 1 if
+//              (pepper over salt)                            us < 0.002
+//   speckle    x01 + x01 (0.1 n)       the same              x01 + x01 n
+//   poisson    K / 255, K ~ Pois(x),   K / 256, K ~ Pois(x01 256), counts
+//              counts >= 255 alike     >= 256 alike (JAX's on-device vals)
+//   uniform    x01 + u (25/255)        x01 + (-50/255 +      x01 + (-0.05 +
+//                                      u (100/255))          u 0.1)
+// each clipped to [0, 1]; the blind-sigma Gaussian: x01 + sigma_n n with
+// sigma_n = (5 + u_n 45) RN(1/255) per sample.  On [-1, 1] every output
+// and the clean target x01 then take * 2 - 1.  x01 = x * RN(1/255): on the
+// card PyTorch divides by a scalar as a product with its reciprocal, so
+// this is the trainer's clean.to(float32) / 255.0 there.
 //
 // Random bits.  The TPU kernel reads its core's hardware generator, whose
 // stream no other machine can reproduce.  Here the bits come from
@@ -31,8 +39,13 @@
 //   * an even i takes output words 0, 1 as (a, b), an odd i words 2, 3;
 //   * u1 = (a >> 8) 2^-24 + 2^-25, u2 = (b >> 8) 2^-24,
 //     n = sqrt(-2 ln u1) cos(2 pi u2) (gaussian, speckle); u = (a >> 8)
-//     2^-24 (uniform); salt & pepper take us, up from (a, b) of the
-//     pixel's channel-0 element; poisson takes the whole word a.
+//     2^-24 (uniform); poisson takes the whole word a; salt & pepper take
+//     us = (a >> 8) 2^-24 and the second uniform up (variant 2: uf and us)
+//     = (b >> 8) 2^-24 from the element's (a, b), or in variant 1 from the
+//     (a, b) of the pixel's channel-0 element;
+//   * the blind sigma of sample n: u_n = (w0 >> 8) 2^-24 from word 0 of the
+//     block at counter (lo32(n), hi32(n), 1, 0), apart from every element's
+//     counter by its third word.
 // So a gaussian sample gets exactly what the gaussian-only kernel gives at
 // the same index, and the output depends on (seed, index, kinds) only,
 // never on the launch grid.  Every float operation the compiler could
@@ -40,6 +53,15 @@
 // logf / cosf / sqrtf are the precise ones torch.log / torch.cos /
 // torch.sqrt call on the card, so the arithmetic is the plain version's,
 // operation for operation.
+//
+// One template instance per (variant, domain): noise_batch_kernel<T, V,
+// UNIT>, f32 for variants 0 (blind) to 3 in both domains and bf16 for
+// variant 1 on [-1, 1] (the gaussian-only entry).  Not a parameter table in
+// constant memory: the variants differ in code, not only in constants (salt
+// & pepper per pixel or per element and with which rule, the poisson
+// table's scale and cap, the uniform's offset, the blind sigma), so an
+// instance holds only its own variant's branches, and variant 1's is the
+// code it was before the other variants came, with the constants it had.
 //
 // Poisson without a rejection loop.  lambda = x is an integer in 0..255 and
 // every count >= 255 gives the same output, so inversion against a table is
@@ -52,7 +74,10 @@
 // average, the eight words of a thread searched in step.  A warp waits for
 // its longest search: about 3.4 steps at random lambda (6.5 with 256
 // buckets), mostly in the buckets at the ends, where the thresholds of the
-// tails crowd together.
+// tails crowd together.  Variants 2 and 3 take lambda = x 256 / 255 (still
+// one of 256 values a row, in a table of their own) and K / 256: a count
+// of 256 differs from 255 there, and the guide, whose counts stop at 255,
+// is followed by one more look at T[255] when the search ends at 255.
 //
 // What bounds it on an H100.  Bytes: one read of a byte and two writes of
 // a float per element (3.1 MB + 25.2 MB at the train batch, 16 x 256 x 256
@@ -88,7 +113,9 @@ __device__ __forceinline__ int kind_of(const long long* __restrict__ kinds,
   return t >= 0 && t < 8 ? (int)((codes >> (4 * t)) & 0xFu) : 0xF;
 }
 
-template <typename T>
+// V: the variant (kBlind: every sample gaussian with its own sigma; kinds
+// and codes unread); UNIT: outputs on [0, 1] instead of [-1, 1].
+template <typename T, int V, bool UNIT>
 __global__ void __launch_bounds__(kThreads)
 noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
                    float* __restrict__ clean,
@@ -109,48 +136,80 @@ noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
     uint8_t xs[kChunk];
     load8(x + i0, xs);
     float out[kChunk];
-    switch (kind_of(kinds, codes, s0)) {
-      case kGaussian:
-        chunk_of<kGaussian>(xs, i0, channels, k0, k1, p, table, guide, out);
-        break;
-      case kSaltPepper:
-        chunk_of<kSaltPepper>(xs, i0, channels, k0, k1, p, table, guide, out);
-        break;
-      case kSpeckle:
-        chunk_of<kSpeckle>(xs, i0, channels, k0, k1, p, table, guide, out);
-        break;
-      case kPoisson:
-        chunk_of<kPoisson>(xs, i0, channels, k0, k1, p, table, guide, out);
-        break;
-      case kUniform:
-        chunk_of<kUniform>(xs, i0, channels, k0, k1, p, table, guide, out);
-        break;
-      default:
+    if constexpr (V == kBlind) {
+      Params q = p;
+      q.sigma01 = blind_sigma01(s0, k0, k1, p);
+      chunk_of<kGaussian, 1, UNIT>(xs, i0, channels, k0, k1, q, table, guide,
+                                   out);
+    } else {
+      switch (kind_of(kinds, codes, s0)) {
+        case kGaussian:
+          chunk_of<kGaussian, V, UNIT>(xs, i0, channels, k0, k1, p, table,
+                                       guide, out);
+          break;
+        case kSaltPepper:
+          chunk_of<kSaltPepper, V, UNIT>(xs, i0, channels, k0, k1, p, table,
+                                         guide, out);
+          break;
+        case kSpeckle:
+          chunk_of<kSpeckle, V, UNIT>(xs, i0, channels, k0, k1, p, table,
+                                      guide, out);
+          break;
+        case kPoisson:
+          chunk_of<kPoisson, V, UNIT>(xs, i0, channels, k0, k1, p, table,
+                                      guide, out);
+          break;
+        case kUniform:
+          chunk_of<kUniform, V, UNIT>(xs, i0, channels, k0, k1, p, table,
+                                      guide, out);
+          break;
+        default:
 #pragma unroll
-        for (int e = 0; e < kChunk; ++e) out[e] = nanf("");
+          for (int e = 0; e < kChunk; ++e) out[e] = nanf("");
+      }
     }
     store8<T>(noisy + i0, out);
-    if (clean != nullptr) store_clean(clean + i0, xs);
+    if (clean != nullptr) store_clean<UNIT>(clean + i0, xs);
     return;
   }
 
   const long long end = i0 + kChunk < total ? i0 + kChunk : total;
   for (long long i = i0; i < end; ++i) {
     const uint8_t xe = x[i];
-    const int kind = kind_of(kinds, codes, i / per_sample);
-    uint32_t a, b;
-    words_of(kind == kSaltPepper ? i - i % channels : i, k0, k1, a, b);
+    const long long s = i / per_sample;
     float v;
-    switch (kind) {
-      case kGaussian: v = noisy_of<kGaussian>(xe, a, b, p, table, guide); break;
-      case kSaltPepper: v = salt_pepper_of(xe, a, b, p); break;
-      case kSpeckle: v = noisy_of<kSpeckle>(xe, a, b, p, table, guide); break;
-      case kPoisson: v = noisy_of<kPoisson>(xe, a, b, p, table, guide); break;
-      case kUniform: v = noisy_of<kUniform>(xe, a, b, p, table, guide); break;
-      default: v = nanf("");
+    uint32_t a, b;
+    if constexpr (V == kBlind) {
+      Params q = p;
+      q.sigma01 = blind_sigma01(s, k0, k1, p);
+      words_of(i, k0, k1, a, b);
+      v = noisy_of<kGaussian, 1, UNIT>(xe, a, b, q, table, guide);
+    } else {
+      const int kind = kind_of(kinds, codes, s);
+      // variant 1's salt & pepper takes the words of the pixel's channel 0
+      words_of(V == 1 && kind == kSaltPepper ? i - i % channels : i, k0, k1,
+               a, b);
+      switch (kind) {
+        case kGaussian:
+          v = noisy_of<kGaussian, V, UNIT>(xe, a, b, p, table, guide);
+          break;
+        case kSaltPepper:
+          v = noisy_of<kSaltPepper, V, UNIT>(xe, a, b, p, table, guide);
+          break;
+        case kSpeckle:
+          v = noisy_of<kSpeckle, V, UNIT>(xe, a, b, p, table, guide);
+          break;
+        case kPoisson:
+          v = noisy_of<kPoisson, V, UNIT>(xe, a, b, p, table, guide);
+          break;
+        case kUniform:
+          v = noisy_of<kUniform, V, UNIT>(xe, a, b, p, table, guide);
+          break;
+        default: v = nanf("");
+      }
     }
     noisy[i] = cid::from_f32<T>(v);
-    if (clean != nullptr) clean[i] = to_pm1(x01_of(xe));
+    if (clean != nullptr) clean[i] = out_of<UNIT>(x01_of(xe));
   }
 }
 
@@ -158,7 +217,7 @@ bool aligned_to(const void* ptr, uintptr_t n) {
   return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % n == 0;
 }
 
-template <typename T>
+template <typename T, int V, bool UNIT>
 cudaError_t launch(const void* x, void* noisy, float* clean,
                    const long long* kinds, uint32_t codes,
                    const unsigned long long* seed_ptr, unsigned long long seed,
@@ -170,50 +229,89 @@ cudaError_t launch(const void* x, void* noisy, float* clean,
   if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
   const int aligned =
       aligned_to(x, 8) && aligned_to(noisy, 16) && aligned_to(clean, 16);
-  noise_batch_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  noise_batch_kernel<T, V, UNIT><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<T*>(noisy), clean, kinds,
       codes, seed_ptr, seed, total, per_sample, channels, table, guide, p,
       aligned);
   return cudaGetLastError();
 }
 
+// the f32 instance of (V, unit)
+template <int V>
+cudaError_t launch_f32(bool unit, const void* x, void* noisy, float* clean,
+                       const long long* kinds, uint32_t codes,
+                       const unsigned long long* seed_ptr,
+                       unsigned long long seed, long long total,
+                       long long per_sample, int channels,
+                       const uint32_t* table, const uint8_t* guide,
+                       const Params& p, cudaStream_t stream) {
+  return unit ? launch<float, V, true>(x, noisy, clean, kinds, codes,
+                                       seed_ptr, seed, total, per_sample,
+                                       channels, table, guide, p, stream)
+              : launch<float, V, false>(x, noisy, clean, kinds, codes,
+                                        seed_ptr, seed, total, per_sample,
+                                        channels, table, guide, p, stream);
+}
+
 }  // namespace
 
 // x: `total` uint8 values, samples of `per_sample` elements (a multiple of
-// `channels`); noisy: `total` values of `dtype` (common.cuh codes); clean:
-// `total` floats or null; kinds: one int64 per sample, an index into the
-// 4-bit `codes`, or null (every sample entry 0); the seed from seed_ptr (8
-// bytes on the device) or, if that is null, `seed`; table (256 x 256
-// uint32) and guide (256 x 1025 uint8): the poisson inversion, needed
-// where a code is poisson.
+// `channels`); noisy: `total` values of `dtype` (common.cuh codes; bf16 in
+// variant 1 on [-1, 1] only); clean: `total` floats or null; kinds: one
+// int64 per sample, an index into the 4-bit `codes`, or null (every sample
+// entry 0); the seed from seed_ptr (8 bytes on the device) or, if that is
+// null, `seed`; table (256 x 256 uint32) and guide (256 x 1025 uint8): the
+// poisson inversion of the variant, needed where a code is poisson;
+// variant: 0 (the blind-sigma Gaussian: kinds, codes, table and guide
+// unread), 1, 2 or 3; unit: outputs on [0, 1] (else [-1, 1]).
 extern "C" int cid_noise_batch(const void* x, void* noisy, void* clean,
                                const void* kinds, unsigned int codes,
                                const void* seed_ptr, unsigned long long seed,
                                long long total, long long per_sample,
                                int channels, const void* table,
-                               const void* guide, float sigma01,
-                               float speckle, float uniform, float salt,
-                               float pepper, int dtype, void* stream) {
+                               const void* guide, int variant, int unit,
+                               float sigma01, float speckle, float uniform,
+                               float low, float sp_a, float sp_b,
+                               float blind_lo, float blind_span, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total <= 0 || per_sample <= 0 || channels <= 0 ||
-      per_sample % channels != 0 || total % per_sample != 0)
+      per_sample % channels != 0 || total % per_sample != 0 || variant < 0 ||
+      variant > 3)
     return (int)cudaErrorInvalidValue;
-  for (uint32_t c = codes; c != 0; c >>= 4)
-    if ((c & 0xFu) == kPoisson && (table == nullptr || guide == nullptr))
-      return (int)cudaErrorInvalidValue;
-  const Params p{sigma01, speckle, uniform, salt, pepper};
+  if (variant != kBlind)
+    for (uint32_t c = codes; c != 0; c >>= 4)
+      if ((c & 0xFu) == kPoisson && (table == nullptr || guide == nullptr))
+        return (int)cudaErrorInvalidValue;
+  const Params p{sigma01, speckle, uniform, low, sp_a, sp_b, blind_lo,
+                 blind_span};
   const auto* k = static_cast<const long long*>(kinds);
   const auto* sp = static_cast<const unsigned long long*>(seed_ptr);
   const auto* t = static_cast<const uint32_t*>(table);
   const auto* g = static_cast<const uint8_t*>(guide);
   float* c = static_cast<float*>(clean);
-  if (dtype == cid::kDtypeF32)
-    return (int)launch<float>(x, noisy, c, k, codes, sp, seed, total,
-                              per_sample, channels, t, g, p, s);
-  if (dtype == cid::kDtypeBF16)
-    return (int)launch<__nv_bfloat16>(x, noisy, c, k, codes, sp, seed, total,
-                                      per_sample, channels, t, g, p, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == cid::kDtypeBF16) {
+    if (variant != 1 || unit) return (int)cudaErrorInvalidValue;
+    return (int)launch<__nv_bfloat16, 1, false>(x, noisy, c, k, codes, sp,
+                                                seed, total, per_sample,
+                                                channels, t, g, p, s);
+  }
+  if (dtype != cid::kDtypeF32) return (int)cudaErrorInvalidValue;
+  const bool u = unit != 0;
+  switch (variant) {
+    case kBlind:
+      return (int)launch_f32<kBlind>(u, x, noisy, c, k, codes, sp, seed,
+                                     total, per_sample, channels, t, g, p, s);
+    case 1:
+      return (int)launch_f32<1>(u, x, noisy, c, k, codes, sp, seed, total,
+                                per_sample, channels, t, g, p, s);
+    case 2:
+      return (int)launch_f32<2>(u, x, noisy, c, k, codes, sp, seed, total,
+                                per_sample, channels, t, g, p, s);
+    default:
+      return (int)launch_f32<3>(u, x, noisy, c, k, codes, sp, seed, total,
+                                per_sample, channels, t, g, p, s);
+  }
 }
 
 // The gaussian-only entry of the Pallas original: every element gaussian,
@@ -224,6 +322,7 @@ extern "C" int cid_normalize_gaussian_noise(const void* x, void* y,
                                             float sigma01, int dtype,
                                             void* stream) {
   return cid_noise_batch(x, y, nullptr, nullptr, (unsigned)kGaussian, nullptr,
-                         seed, total, total, 1, nullptr, nullptr, sigma01, 0.f,
-                         0.f, 0.f, 0.f, dtype, stream);
+                         seed, total, total, 1, nullptr, nullptr, 1, 0,
+                         sigma01, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, dtype,
+                         stream);
 }

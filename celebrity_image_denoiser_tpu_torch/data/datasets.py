@@ -10,9 +10,9 @@ batch is a quarter of the float32 bytes on the way there.  Bad files follow
 the warn-and-skip contract: ``__getitem__`` returns ``None`` and the pipeline
 filters it.
 
-Resizing is not ported (``ops/resize.py``, ROADMAP.md queue 1 item 9): a file
+Resizing is not ported (``ops/resize.py``, ROADMAP.md queue 1 item 4): a file
 whose size differs from ``image_size`` raises.  ``PairedImageDataset``
-(pre-rendered noisy files) waits with item 10.
+(pre-rendered noisy files) waits with the same item.
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ class CleanImageDataset:
                 f"{path}: image is {arr.shape[0]}x{arr.shape[1]} but "
                 f"image_size is {self.image_size[0]}x{self.image_size[1]}; "
                 "resizing is not ported yet (ops/resize.py, ROADMAP.md queue "
-                "1 item 9) — resize the files or pass their size")
+                "1 item 4) — resize the files or pass their size")
         return arr
 
     def __getitem__(self, idx: int):

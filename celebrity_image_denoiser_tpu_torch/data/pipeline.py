@@ -38,7 +38,7 @@ class DataPipeline:
         if use_native:
             raise NotImplementedError(
                 "the native C++ batch assembly is not ported yet "
-                "(ROADMAP.md queue 1 item 10)")
+                "(ROADMAP.md queue 1 item 4)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

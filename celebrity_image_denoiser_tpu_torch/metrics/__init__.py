@@ -1,5 +1,12 @@
 """Image-quality metrics of the port."""
 
-from celebrity_image_denoiser_tpu_torch.metrics.psnr_ssim import psnr, ssim
+from celebrity_image_denoiser_tpu_torch.metrics.perceptual import (
+    PerceptualDistance,
+)
+from celebrity_image_denoiser_tpu_torch.metrics.psnr_ssim import (
+    psnr,
+    ssim,
+    ssim_tf,
+)
 
-__all__ = ["psnr", "ssim"]
+__all__ = ["PerceptualDistance", "psnr", "ssim", "ssim_tf"]

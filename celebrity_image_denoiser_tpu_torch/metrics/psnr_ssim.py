@@ -1,12 +1,14 @@
-"""PSNR / SSIM on the device in the skimage convention (counterpart of
-``celebrity_image_denoiser_tpu/metrics/psnr_ssim.py``: ``psnr:27``,
-``ssim:87``).
+"""PSNR / SSIM on the device in the reference's two conventions
+(counterpart of ``celebrity_image_denoiser_tpu/metrics/psnr_ssim.py``:
+``psnr:27``, ``ssim:87``, ``ssim_tf:103``).
 
 ``ssim`` = skimage ``structural_similarity`` defaults — 7×7 uniform window
 over the valid region, unbiased covariance, mean over channels — including
 the reference's habit of calling it with ``data_range=2.0`` on [-1, 1]
-tensors.  Both functions take NHWC (or HWC) like the JAX package and return
-per-image values.  ``ssim_tf`` waits for the cGAN family.
+tensors.  ``ssim_tf`` = ``tf.image.ssim``, the cGAN trainer's: an 11×11
+Gaussian window (σ 1.5) over the valid region, biased covariance.  The
+functions take NHWC (or HWC) like the JAX package and return per-image
+values.
 """
 
 from __future__ import annotations
@@ -24,22 +26,18 @@ def psnr(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0
     return 10.0 * torch.log10((data_range ** 2) / torch.clamp(mse, min=1e-12))
 
 
-def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0,
-         win: int = 7) -> torch.Tensor:
-    """skimage-convention SSIM; per-image values for NHWC, a scalar for
-    HWC."""
+def _ssim(a: torch.Tensor, b: torch.Tensor, data_range: float, filt,
+          norm: float) -> torch.Tensor:
+    """The SSIM map's per-image mean (``_ssim_maps:71``) of NHWC or HWC
+    ``a``, ``b``, with the window ``filt`` over NCHW and the covariance
+    scaled by ``norm``."""
     squeeze = a.dim() == 3
     if squeeze:
         a, b = a[None], b[None]
     a = a.float().permute(0, 3, 1, 2)
     b = b.float().permute(0, 3, 1, 2)
-
-    def filt(x):  # mean filter over the valid region
-        return F.avg_pool2d(x, win, stride=1)
-
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
-    norm = win * win / (win * win - 1.0)  # the unbiased estimator
     ua, ub = filt(a), filt(b)
     va = (filt(a * a) - ua * ua) * norm
     vb = (filt(b * b) - ub * ub) * norm
@@ -48,3 +46,29 @@ def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0,
     cs = (2 * vab + c2) / (va + vb + c2)
     out = (lum * cs).mean(dim=(1, 2, 3))
     return out[0] if squeeze else out
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 2.0,
+         win: int = 7) -> torch.Tensor:
+    """skimage-convention SSIM; per-image values for NHWC, a scalar for
+    HWC."""
+    return _ssim(a, b, data_range, lambda x: F.avg_pool2d(x, win, stride=1),
+                 win * win / (win * win - 1.0))  # the unbiased estimator
+
+
+def ssim_tf(a: torch.Tensor, b: torch.Tensor, max_val: float = 2.0,
+            win: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """``tf.image.ssim`` convention (Gaussian window, biased covariance);
+    per-image values for NHWC, a scalar for HWC."""
+    coords = torch.arange(win, dtype=torch.float32, device=a.device) \
+        - (win - 1) / 2.0
+    g = torch.exp(-(coords ** 2) / (2.0 * sigma ** 2))
+    g = g / g.sum()
+    c = a.shape[-1]
+    kh = g.view(1, 1, win, 1).repeat(c, 1, 1, 1)
+    kw = g.view(1, 1, 1, win).repeat(c, 1, 1, 1)
+
+    def filt(x):  # separable, depthwise, over the valid region
+        return F.conv2d(F.conv2d(x, kh, groups=c), kw, groups=c)
+
+    return _ssim(a, b, max_val, filt, 1.0)

@@ -11,8 +11,8 @@ Keras' convention (``ops/norm.py::KerasBatchNorm2d``, eps 1e-3).  Served in
 [-1, 1], padded to a multiple of 4.  The discriminator
 (``CGANKerasDiscriminator:52``) is conv 64 → conv 128 + BatchNorm → conv
 256 + BatchNorm (4×4 stride 2, LeakyReLU(0.2)), then a Linear over the
-features flattened in NHWC order (Keras' order), then a sigmoid; it is
-ported for the trainer (``ROADMAP.md`` queue 1, item 5) and not served.
+features flattened in NHWC order (Keras' order), then a sigmoid; the cgan
+trainer runs it, the server does not.
 
 Child names equal the JAX param paths (``model.0``, ``model.3``, …,
 ``features.5``, ``dense``), so the Keras file and JAX trees load strictly
@@ -28,8 +28,9 @@ The first conv takes its input in contiguous NCHW memory, so that cuDNN
 sums it alike at every tile shape (``models/folded.py``): on the int8 rung
 its output is quantized at the next conv.
 
-The same request gives the same pixels: the PyTorch layers run under
-cuDNN's deterministic flag (``core/device.py::deterministic_cudnn``).
+The same request gives the same pixels: in eval mode the PyTorch layers
+run under cuDNN's deterministic flag (``core/device.py::
+deterministic_cudnn``); a train-mode forward (the trainer's) does not.
 cuDNN's default algorithms for the f32 4×4 stride-2 transpose convs need
 not sum alike twice, and its deterministic ones took 5–16× as long on the
 H100 (``PERF.md`` §6); so the kernel and plain routes run each transpose
@@ -39,6 +40,7 @@ depth-to-space (``_phased``), whose forward algorithms are deterministic.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -101,7 +103,10 @@ class CGANKerasGenerator(FoldedConvNet):
                 ) -> torch.Tensor:
         self._check_route(route, x)
         x = x.contiguous()  # NCHW memory: see the module docstring
-        with deterministic_cudnn():
+        # training runs cuDNN's fastest algorithms (its deterministic
+        # transpose convs cost 5.6× the whole forward)
+        with (contextlib.nullcontext() if self.training
+              else deterministic_cudnn()):
             if route == "autograd":
                 return self.model(x)
             h = x
@@ -151,5 +156,6 @@ class CGANKerasDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.features(x)
         # Keras flattens NHWC: the Linear's weights follow that order
-        y = self.dense(f.permute(0, 2, 3, 1).flatten(1))
+        y = F.linear(f.permute(0, 2, 3, 1).flatten(1),
+                     self.dense.weight.to(f.dtype), self.dense.bias.to(f.dtype))
         return torch.sigmoid(y).reshape(-1)

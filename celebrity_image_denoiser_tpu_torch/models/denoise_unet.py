@@ -232,22 +232,32 @@ class DenoiseDiscriminator(nn.Module):
         reset_conv_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.model:
-            if isinstance(layer, nn.Conv2d):
-                x = conv2d_layer(x, layer.weight, layer.bias,
-                                 stride=layer.stride, padding=layer.padding)
-            elif isinstance(layer, nn.BatchNorm2d):
-                x = batch_norm(x, layer.weight, layer.bias,
-                               layer.running_mean, layer.running_var,
-                               train=self.training, eps=layer.eps,
-                               momentum=layer.momentum)
-            elif isinstance(layer, nn.LeakyReLU):
-                x = leaky_relu(x, layer.negative_slope)
-            elif isinstance(layer, nn.AdaptiveAvgPool2d):
-                x = global_avg_pool(x)
-            else:  # nn.Sigmoid
-                x = torch.sigmoid(x)
-        return x.reshape(-1)
+        return discriminator_layers(self.model, x, self.training).reshape(-1)
+
+
+def discriminator_layers(model: nn.Sequential, x: torch.Tensor,
+                         training: bool) -> torch.Tensor:
+    """The layers of a torch-family discriminator's ``model`` (convs,
+    BatchNorm, LeakyReLU, the global average pool, the sigmoid) as the JAX
+    layers run them: ``conv2d_layer``, ``batch_norm`` (batch statistics and
+    an in-place running update in train mode)."""
+    for layer in model:
+        if isinstance(layer, nn.Conv2d):
+            x = conv2d_layer(x, layer.weight, layer.bias,
+                             stride=layer.stride, padding=layer.padding)
+        elif isinstance(layer, nn.BatchNorm2d):
+            x = batch_norm(x, layer.weight, layer.bias, layer.running_mean,
+                           layer.running_var, train=training, eps=layer.eps,
+                           momentum=layer.momentum)
+        elif isinstance(layer, nn.LeakyReLU):
+            x = leaky_relu(x, layer.negative_slope)
+        elif isinstance(layer, nn.AdaptiveAvgPool2d):
+            x = global_avg_pool(x)
+        elif isinstance(layer, nn.Sigmoid):
+            x = torch.sigmoid(x)
+        else:
+            raise TypeError(f"no JAX counterpart for {type(layer).__name__}")
+    return x
 
 
 # bf16(2/255): the JAX step multiplies a bf16 array by the Python float 2/255,

@@ -4,8 +4,11 @@ Port of ``celebrity_image_denoiser_tpu/models/esrgan.py::ESRGANGenerator``
 (:39) and ``ResidualBlock`` (:20): a 9×9 head conv + PReLU, residual blocks
 ``x + conv-BN-PReLU-conv-BN(x)``, a 9×9 tail conv applied to ``head +
 trunk``, no output activation and no upscale.  Served in the [0, 1]
-domain, unpadded.  The discriminator waits for the esrgan trainer
-(``ROADMAP.md`` queue 1, item 5).
+domain, unpadded.  The discriminator (``ESRGANDiscriminator:148``), which
+the esrgan trainer runs, is four 3×3 stride-2 convs 3→64→128→256→512 with
+LeakyReLU(0.2), then a Linear over the features flattened in NCHW order
+(torch's, ``models.py:69`` of the reference) to one logit; its width comes
+from ``input_hw``.
 
 Child names equal the JAX param paths (``initial.1`` is the PReLU,
 ``residuals.N.block.0`` a block's first conv), which are the reference
@@ -18,10 +21,12 @@ PReLU and the residual adds are tensor ops.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     nchw,
@@ -29,7 +34,11 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     reset_conv_parameters,
 )
 from celebrity_image_denoiser_tpu_torch.models.folded import FoldedConvNet
-from celebrity_image_denoiser_tpu_torch.ops.activations import PReLU, prelu
+from celebrity_image_denoiser_tpu_torch.ops.activations import (
+    PReLU,
+    leaky_relu,
+    prelu,
+)
 from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d
 
 
@@ -76,3 +85,35 @@ class ESRGANGenerator(FoldedConvNet):
                 t = t + y
             x2 = nchw(t)
         return self.final(x1 + x2)
+
+
+class ESRGANDiscriminator(nn.Module):
+    """Input (N, 3, H, W) in [0, 1] with (H, W) = ``input_hw``; output (N,)
+    logits.  Child names equal the JAX param paths (``conv1`` … ``conv4``,
+    ``fc``); float32 parameters cast to x's dtype at use."""
+
+    def __init__(self, input_hw: Tuple[int, int] = (256, 256),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h, w = input_hw
+        for _ in range(4):  # 3×3, stride 2, padding 1
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        self.flat_dim = 512 * h * w
+        self.conv1 = Conv2d(3, 64, 3, stride=2, padding=1)
+        self.conv2 = Conv2d(64, 128, 3, stride=2, padding=1)
+        self.conv3 = Conv2d(128, 256, 3, stride=2, padding=1)
+        self.conv4 = Conv2d(256, 512, 3, stride=2, padding=1)
+        self.fc = nn.Linear(self.flat_dim, 1)
+        reset_conv_parameters(self, generator)
+        with torch.no_grad():  # torch's Linear init: U(±1/sqrt(in))
+            bound = 1.0 / math.sqrt(self.flat_dim)
+            for t in (self.fc.weight, self.fc.bias):
+                t.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            x = leaky_relu(conv(x), 0.2)
+        # torch flattens NCHW: the Linear's weights follow that order
+        y = F.linear(x.flatten(1), self.fc.weight.to(x.dtype),
+                     self.fc.bias.to(x.dtype))
+        return y.reshape(-1)

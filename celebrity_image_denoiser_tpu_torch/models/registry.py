@@ -17,8 +17,14 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
 )
 from celebrity_image_denoiser_tpu_torch.models.dncnn import DnCNN
-from celebrity_image_denoiser_tpu_torch.models.esrgan import ESRGANGenerator
-from celebrity_image_denoiser_tpu_torch.models.srgan import SRGANGenerator
+from celebrity_image_denoiser_tpu_torch.models.esrgan import (
+    ESRGANDiscriminator,
+    ESRGANGenerator,
+)
+from celebrity_image_denoiser_tpu_torch.models.srgan import (
+    SRGANDiscriminator,
+    SRGANGenerator,
+)
 
 GENERATORS: Dict[str, Callable] = {
     "denoise": DenoiseGenerator,
@@ -29,10 +35,10 @@ GENERATORS: Dict[str, Callable] = {
     "dncnn": DnCNN,
 }
 
-# the discriminators ported so far (the srgan and esrgan ones wait for
-# their trainers, ROADMAP.md queue 1, item 5)
 DISCRIMINATORS: Dict[str, Callable] = {
     "denoise": DenoiseDiscriminator,
+    "srgan": SRGANDiscriminator,
+    "esrgan": ESRGANDiscriminator,
     "cgan": CGANKerasDiscriminator,
 }
 

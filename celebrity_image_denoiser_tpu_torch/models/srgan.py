@@ -6,7 +6,10 @@ sequence (no skip inside a block); a ``mid`` conv whose output is added to
 the head's; log2(scale) upscale stages of conv 64→256, PixelShuffle(2),
 PReLU; a 9×9 tail conv; tanh.  The scale factor must be a power of two
 (``:22``).  Served in the [-1, 1] domain, padded to a multiple of 16.  The
-discriminator waits for the srgan trainer (``ROADMAP.md`` queue 1, item 5).
+discriminator (``SRGANDiscriminator:58``), which the srgan trainer runs, is
+a 3×3 conv ladder 3→64→64 (stride 2)→128→128 (stride 2)→256 with BatchNorm
+and LeakyReLU(0.2), a global average pool, 1×1 convs 256→512→1 and a
+sigmoid.
 
 Child names equal the JAX param paths (``res_blocks.N.0``, ``mid``,
 ``upscale.0``, ``upscale.2`` the first stage's PReLU, …).
@@ -26,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+    discriminator_layers,
     nchw,
     nhwc,
     reset_conv_parameters,
@@ -88,3 +92,30 @@ class SRGANGenerator(FoldedConvNet):
             t = pixel_shuffle_nhwc(t, shuffle.upscale_factor)
             t = nhwc(prelu(nchw(t), act.weight))
         return torch.tanh(self.final(nchw(t)))
+
+
+class SRGANDiscriminator(nn.Module):
+    """Input (N, 3, H, W) in [-1, 1]; output (N,) probabilities.  Child names
+    equal the JAX param paths (``model.0`` … ``model.17``); float32
+    parameters cast to x's dtype at use, BatchNorm in the torch convention
+    (``models/denoise_unet.py::discriminator_layers``)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.model = nn.Sequential(
+            nn.Conv2d(3, 64, 3, padding=1), nn.LeakyReLU(0.2),
+            nn.Conv2d(64, 64, 3, stride=2, padding=1), nn.BatchNorm2d(64),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(64, 128, 3, padding=1), nn.BatchNorm2d(128),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(128, 128, 3, stride=2, padding=1), nn.BatchNorm2d(128),
+            nn.LeakyReLU(0.2),
+            nn.Conv2d(128, 256, 3, padding=1), nn.BatchNorm2d(256),
+            nn.LeakyReLU(0.2),
+            nn.AdaptiveAvgPool2d(1),
+            nn.Conv2d(256, 512, 1), nn.LeakyReLU(0.2),
+            nn.Conv2d(512, 1, 1), nn.Sigmoid())
+        reset_conv_parameters(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return discriminator_layers(self.model, x, self.training).reshape(-1)

@@ -1,13 +1,34 @@
-"""GAN trainer of the denoise family.
+"""GAN trainers of the five families — one step function per family.
 
-Port of ``celebrity_image_denoiser_tpu/train/gan_trainer.py`` for
-``family="denoise"`` (:229-285): alternating D/G Adam steps.  D sees
-BCE(real→1) + BCE(fake→0) with the fake detached; G then optimises
-MSE + ``adv_weight``·BCE(fake→1) **through the already-updated D**.  The
-generator forward is computed once per step and reused for the D step, the G
-step and the content loss; D forwards three times per step (real, detached
-fake, fake again after its update) and each forward updates its BatchNorm
-running statistics.
+Port of ``celebrity_image_denoiser_tpu/train/gan_trainer.py``
+(``make_train_step:73-312``, ``GANTrainer:315-650``), branch by branch:
+
+* **denoise** (:229-285): alternating D/G Adam steps.  D sees BCE(real→1)
+  + BCE(fake→0) with the fake detached; G then optimises MSE +
+  ``adv_weight``·BCE(fake→1) **through the already-updated D**.
+* **srgan**: the same skeleton with the VGG perceptual loss
+  (``train/losses.py::make_vgg_perceptual``) as the content loss; on the
+  fly the noisy HR batch is downscaled by ``sr_scale`` (bicubic with
+  antialias, ``ops/resize.py``, as ``jax.image.resize``) into the LR input
+  (:201-207).
+* **esrgan**: BCE-with-logits, D's loss halved (:173, :237-238); trains on
+  [0, 1].
+* **cgan** (:244-263): the *joint* update — G's gradient against the
+  pre-update D, G = BCE(fake→1) + ``cgan_mae_weight``·MAE, both Adam steps
+  Keras' (``train/optim.py::adam_keras``).
+* **dncnn** (:212-227): MSE only, no discriminator (``d_loss`` 0), on
+  [0, 1]; on the fly the blind-σ Gaussian unless a ``noise_variant`` is
+  given (``dncnn_blind``, :193).
+
+The generator forward is computed once per step and reused by every loss
+that reads it.  D forwards three times in an alternating step (real,
+detached fake, fake again after its update) and each forward updates its
+BatchNorm running statistics.  cgan's D forwards twice, real and fake, and
+its fake forward serves both gradients — D's loss and G's (through the
+pre-update D): the JAX step's extra D forward for G's gradient has the same
+output in train mode (batch statistics) and its BatchNorm state is
+discarded (:258-263), so D's Keras BatchNorm takes exactly two updates per
+step here without one.
 
 What differs from the JAX step, and why:
 
@@ -19,22 +40,23 @@ What differs from the JAX step, and why:
   ``route="autograd"`` (PyTorch's differentiable convs) and launches none of
   the conv kernels; ``generate`` and ``evaluate_dataset`` run the generator
   under ``torch.inference_mode()`` by ``route="kernel"``.
-* Mixed precision (``compute_dtype="bfloat16"``, :120-142) is written out as
+* Mixed precision (``compute_dtype="bfloat16"``, :120-166) is written out as
   explicit casts at the model boundary, not ``torch.autocast``: parameters,
   optimiser state, losses and metrics stay float32; the layers cast their
-  weights to the activation dtype at use.
+  weights to the activation dtype at use; the VGG tower runs in bfloat16 and
+  its MSE is reduced in float32.
 * With ``on_the_fly_noise`` the step takes the clean batch as uint8 NHWC
-  and ``data/noise.py::random_noise_batch`` makes the noisy input and the
-  clean target in one launch of the noise kernel, with no host read
-  (:189-208).
+  and ``data/noise.py`` makes the noisy input and the clean target in one
+  launch of the noise kernel, with no host read (:189-210), in the family's
+  domain: [-1, 1] for denoise and cgan, [0, 1] for esrgan and dncnn, and
+  for srgan [0, 1] before the downscale, then ``·2 − 1``.
 
 PSNR/SSIM are computed on the device inside the step and returned as device
 scalars; the loop reads them once per epoch (:582-600).
 
-Waiting for later slices: ``mesh=``, ``remat``, ``extras_fn`` /
-``extra_metrics`` and ``test_random_images`` (ROADMAP.md queue 1 items
-12-14), and the other families (item 11), which raise
-``NotImplementedError``.
+Waiting for later slices (``ROADMAP.md`` queue 1): ``remat`` and
+``extras_fn`` (item 5), ``mesh=`` (item 7), and ``test_random_images``
+(item 8), which raise or are absent.
 """
 
 from __future__ import annotations
@@ -54,7 +76,8 @@ from celebrity_image_denoiser_tpu_torch.core.config import (
 )
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
-from celebrity_image_denoiser_tpu_torch.metrics import psnr, ssim
+from celebrity_image_denoiser_tpu_torch.metrics import psnr, ssim, ssim_tf
+from celebrity_image_denoiser_tpu_torch.ops.resize import resize
 from celebrity_image_denoiser_tpu_torch.train import losses as L
 from celebrity_image_denoiser_tpu_torch.train import optim
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
@@ -62,17 +85,14 @@ from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
 logger = get_logger("cid_torch.train")
 
 FAMILIES = ("denoise", "srgan", "esrgan", "cgan", "dncnn")
+UNIT_FAMILIES = ("esrgan", "dncnn")  # train on [0, 1]; the rest on [-1, 1]
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
 
 
-def _require_denoise(family: str) -> None:
+def _check_family(family: str) -> None:
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}; choose from {FAMILIES}")
-    if family != "denoise":
-        raise NotImplementedError(
-            f"the {family} family is not ported yet (ROADMAP.md queue 1 "
-            "item 11); this trainer runs family='denoise'")
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -82,44 +102,85 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
 def family_eval_metrics(family: str, fake: torch.Tensor, clean: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean PSNR/SSIM of NHWC batches in the family's reference convention
-    (``data_range=2.0`` on the [-1, 1] tanh families), as device scalars."""
-    _require_denoise(family)
+    (:56-70), as device scalars: clamped [0, 1] with ``data_range=1.0`` for
+    esrgan and dncnn; ``ssim_tf`` (``tf.image.ssim``) with ``max_val=2.0``
+    for cgan; ``data_range=2.0`` for the other tanh families."""
+    _check_family(family)
+    if family in UNIT_FAMILIES:
+        f, c = fake.clamp(0.0, 1.0), clean.clamp(0.0, 1.0)
+        return (psnr(f, c, data_range=1.0).mean(),
+                ssim(f, c, data_range=1.0).mean())
+    if family == "cgan":
+        return (psnr(fake, clean, data_range=2.0).mean(),
+                ssim_tf(fake, clean, max_val=2.0).mean())
     return (psnr(fake, clean, data_range=2.0).mean(),
             ssim(fake, clean, data_range=2.0).mean())
 
 
 def make_train_step(
     generator: torch.nn.Module,
-    discriminator: torch.nn.Module,
+    discriminator: Optional[torch.nn.Module],
     *,
     family: str = "denoise",
     adv_weight: float = 0.001,
+    cgan_mae_weight: float = 100.0,
+    perceptual: Optional[Callable] = None,
     adam_b1: float = 0.9,
     adam_b2: float = 0.999,
     on_the_fly_noise: bool = False,
     noise_variant: int = 1,
+    sr_scale: int = 1,
+    dncnn_blind: bool = True,
     compute_dtype: Optional[str] = None,
+    mesh=None,
+    remat: bool = False,
+    extras_fn: Optional[Callable] = None,
 ):
     """Build ``(init_fn, step_fn)``.
 
-    ``init_fn() -> (g_opt, d_opt)``: fresh Adam states for the two modules.
+    ``init_fn() -> (g_opt, d_opt)``: fresh Adam states for the two modules
+    (Keras' Adam for cgan; ``d_opt`` empty without a discriminator).
 
     ``step_fn(opt, noisy, clean, gen, lr_g, lr_d) -> metrics`` runs one
-    training step, updating the modules and ``opt`` in place.  ``noisy`` and
-    ``clean`` are float32 NHWC in [-1, 1].  With ``on_the_fly_noise``,
-    ``noisy`` is ignored, ``clean`` is **uint8** NHWC and the noise is drawn
-    from the ``torch.Generator`` ``gen`` on the batch's device.  ``metrics``
-    holds ``g_loss``, ``d_loss``, ``psnr`` and ``ssim`` as device scalars
-    (no host sync) and, on the fly, ``noise_kinds``: the kind index each
-    sample drew, an int64 tensor on the device."""
-    _require_denoise(family)
+    training step, updating the modules and ``opt`` in place.  ``noisy``
+    and ``clean`` are float32 NHWC in the family's domain (srgan: ``noisy``
+    the LR batch).  With ``on_the_fly_noise``, ``noisy`` is ignored,
+    ``clean`` is **uint8** NHWC and the noise is drawn from the
+    ``torch.Generator`` ``gen`` on the batch's device.  ``metrics`` holds
+    ``g_loss``, ``d_loss``, ``psnr`` and ``ssim`` as device scalars (no host
+    sync) and, on the fly with a noise variant, ``noise_kinds``: the kind
+    index each sample drew, an int64 tensor on the device.
+
+    ``perceptual`` (srgan's content loss, ``make_vgg_perceptual``) takes
+    NCHW tensors.  ``mesh``, ``remat`` and ``extras_fn`` are the JAX
+    factory's and are not ported yet."""
+    _check_family(family)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (data parallelism) is not ported yet (ROADMAP.md queue 1 "
+            "item 7)")
+    if remat:
+        raise NotImplementedError(
+            "remat is not ported yet (ROADMAP.md queue 1 item 5)")
+    if extras_fn is not None:
+        raise NotImplementedError(
+            "extras_fn is not ported yet (ROADMAP.md queue 1 item 5)")
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{compute_dtype!r}")
+    if family == "srgan" and perceptual is None:
+        raise ValueError("the srgan family needs a perceptual loss "
+                         "(make_vgg_perceptual)")
+    if family != "dncnn" and discriminator is None:
+        raise ValueError(f"the {family} family needs a discriminator")
     cdt = _DTYPES[compute_dtype]
-    adam_init, adam_update = optim.adam(adam_b1, adam_b2)
+    adam_init, adam_update = (optim.adam_keras if family == "cgan"
+                              else optim.adam)(adam_b1, adam_b2)
+    d_crit = L.bce_with_logits if family == "esrgan" else L.bce
+    unit = family in UNIT_FAMILIES
     g_params = dict(generator.named_parameters())
-    d_params = dict(discriminator.named_parameters())
+    d_params = (dict(discriminator.named_parameters())
+                if family != "dncnn" and discriminator is not None else {})
 
     def g_fwd(x):
         return generator(x.to(cdt), route="autograd").float()
@@ -127,34 +188,87 @@ def make_train_step(
     def d_fwd(x):
         return discriminator(x.to(cdt)).float()
 
+    def content_loss(fake, y):
+        if family == "srgan":
+            return perceptual(fake.to(cdt), y.to(cdt)).float()
+        if family == "cgan":
+            return L.mae(fake, y)
+        return L.mse(fake, y)
+
+    def inputs(clean_u8, gen, out):
+        """The noisy input and the clean target of an on-the-fly step, NHWC
+        in the family's domain (srgan: the noisy side downscaled)."""
+        domain = "unit" if unit or sr_scale > 1 else "tanh"
+        if family == "dncnn" and dncnn_blind:
+            noisy, clean = noise_lib.blind_gaussian_batch(gen, clean_u8,
+                                                          domain=domain)
+        else:
+            noisy, clean, out["noise_kinds"] = noise_lib.random_noise_batch(
+                gen, clean_u8, variant=noise_variant, domain=domain)
+        if sr_scale > 1:
+            n, h, w, c = noisy.shape
+            noisy = resize(noisy, (h // sr_scale, w // sr_scale), "bicubic")
+        if domain == "unit" and not unit:
+            noisy, clean = noisy * 2.0 - 1.0, clean * 2.0 - 1.0
+        return noisy, clean
+
     def init_fn():
         return adam_init(g_params), adam_init(d_params)
+
+    def grads_of(loss, params, retain=False):
+        return dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), retain_graph=retain)))
 
     def step_fn(opt, noisy, clean, gen, lr_g, lr_d) -> Dict[str, object]:
         g_opt, d_opt = opt
         out: Dict[str, object] = {}
         if on_the_fly_noise:
-            noisy, clean, out["noise_kinds"] = noise_lib.random_noise_batch(
-                gen, clean, variant=noise_variant)
+            noisy, clean = inputs(clean, gen, out)
         x, y = _nchw(noisy), _nchw(clean)
         generator.train()
-        discriminator.train()
+        if d_params:
+            discriminator.train()
 
-        # ---- discriminator loss and step (fake detached) -------------------
-        with torch.enable_grad():
-            fake = g_fwd(x)
-            real_pred = d_fwd(y)
-            fake_pred = d_fwd(fake.detach())
-            d_loss = L.bce(real_pred, 1.0) + L.bce(fake_pred, 0.0)
-            d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
-        adam_update(dict(zip(d_params, d_grads)), d_opt, d_params, lr_d)
-
-        # ---- generator loss through the updated D, and step ----------------
-        with torch.enable_grad():
-            fake_pred = d_fwd(fake)
-            g_loss = L.mse(fake, y) + adv_weight * L.bce(fake_pred, 1.0)
-            g_grads = torch.autograd.grad(g_loss, list(g_params.values()))
-        adam_update(dict(zip(g_params, g_grads)), g_opt, g_params, lr_g)
+        if family == "dncnn":
+            # plain supervised MSE on the residual denoiser (no D)
+            with torch.enable_grad():
+                fake = g_fwd(x)
+                g_loss = L.mse(fake, y)
+                g_grads = grads_of(g_loss, g_params)
+            adam_update(g_grads, g_opt, g_params, lr_g)
+            d_loss = torch.zeros((), device=fake.device)
+        elif family == "cgan":
+            # joint update: both gradients against the pre-update D, from
+            # one forward of D on the fake
+            with torch.enable_grad():
+                fake = g_fwd(x)
+                real_pred = d_fwd(y)
+                fake_pred = d_fwd(fake)
+                d_loss = d_crit(real_pred, 1.0) + d_crit(fake_pred, 0.0)
+                g_loss = d_crit(fake_pred, 1.0) + cgan_mae_weight * \
+                    content_loss(fake, y)
+                d_grads = grads_of(d_loss, d_params, retain=True)
+                g_grads = grads_of(g_loss, g_params)
+            adam_update(d_grads, d_opt, d_params, lr_d)
+            adam_update(g_grads, g_opt, g_params, lr_g)
+        else:
+            # ---- discriminator loss and step (fake detached) ---------------
+            with torch.enable_grad():
+                fake = g_fwd(x)
+                real_pred = d_fwd(y)
+                fake_pred = d_fwd(fake.detach())
+                d_loss = d_crit(real_pred, 1.0) + d_crit(fake_pred, 0.0)
+                if family == "esrgan":
+                    d_loss = 0.5 * d_loss  # esrgan_train.py:110
+                d_grads = grads_of(d_loss, d_params)
+            adam_update(d_grads, d_opt, d_params, lr_d)
+            # ---- generator loss through the updated D, and step ------------
+            with torch.enable_grad():
+                fake_pred = d_fwd(fake)
+                g_loss = content_loss(fake, y) + adv_weight * d_crit(
+                    fake_pred, 1.0)
+                g_grads = grads_of(g_loss, g_params)
+            adam_update(g_grads, g_opt, g_params, lr_g)
 
         with torch.no_grad():
             fake_nhwc = fake.detach().permute(0, 2, 3, 1)
@@ -169,36 +283,43 @@ def make_train_step(
 class GANTrainer:
     """Host-side training loop: epochs over a DataPipeline, per-epoch StepLR,
     checkpoint cadence, best-PSNR tracking, metric history and resume — the
-    contract of the JAX ``GANTrainer`` (:315-650).
+    contract of the JAX ``GANTrainer`` (:315-650), for every family.
 
     ``pipeline`` yields uint8 NHWC clean batches (``cfg.on_the_fly_noise``)
-    or ``(noisy, clean)`` float32 NHWC pairs, on ``device``.  The modules
-    are moved to ``device`` (the card unless the caller names the CPU) and
-    stay float32."""
+    or ``(noisy, clean)`` float32 NHWC pairs in the family's domain, on
+    ``device``.  The modules (and srgan's ``perceptual`` loss) are moved to
+    ``device`` (the card unless the caller names the CPU) and stay float32.
+    ``discriminator`` is None for dncnn.  srgan's ``sr_scale`` is the
+    generator's ``scale_factor``; dncnn trains on the blind-σ Gaussian when
+    ``cfg.noise_variant`` is None, on that variant otherwise."""
 
     def __init__(
         self,
         generator: torch.nn.Module,
-        discriminator: torch.nn.Module,
+        discriminator: Optional[torch.nn.Module],
         pipeline,
         cfg: TrainConfig = TrainConfig(),
         *,
         family: Optional[str] = None,
+        perceptual: Optional[torch.nn.Module] = None,
         val_pipeline=None,
         device="cuda",
     ):
         self.cfg = cfg
         self.family = family or cfg.model
-        _require_denoise(self.family)
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP.md queue 1 item 12)")
+        _check_family(self.family)
         self.device = resolve_device(device)
         self.generator = generator.to(self.device, torch.float32)
-        self.discriminator = discriminator.to(self.device, torch.float32)
+        self.discriminator = discriminator
+        modules = [self.generator]
+        if discriminator is not None:
+            self.discriminator = discriminator.to(self.device, torch.float32)
+            modules.append(self.discriminator)
+        if perceptual is not None:
+            modules.append(perceptual.to(self.device))
         if self.device.type == "cuda":
-            self.generator.to(memory_format=torch.channels_last)
-            self.discriminator.to(memory_format=torch.channels_last)
+            for m in modules:
+                m.to(memory_format=torch.channels_last)
         self.pipeline = pipeline
         self.val_pipeline = val_pipeline
 
@@ -206,12 +327,18 @@ class GANTrainer:
             self.generator, self.discriminator,
             family=self.family,
             adv_weight=cfg.adv_weight,
+            cgan_mae_weight=cfg.cgan_mae_weight,
+            perceptual=perceptual,
             adam_b1=cfg.betas[0],
             adam_b2=cfg.betas[1],
             on_the_fly_noise=cfg.on_the_fly_noise,
             noise_variant=cfg.noise_variant
             or FAMILY_NOISE_VARIANT.get(self.family, 1),
+            sr_scale=(getattr(generator, "scale_factor", 1)
+                      if self.family == "srgan" else 1),
+            dncnn_blind=cfg.noise_variant is None,
             compute_dtype=cfg.compute_dtype,
+            remat=cfg.remat,
         )
         self.opt = self.init_fn()
         self.schedule_g = optim.step_lr(cfg.lr, cfg.step_lr_step_size,
@@ -237,19 +364,23 @@ class GANTrainer:
         return sum(1 for c in self.gaussian_counts if c)
 
     # ---- checkpointing ------------------------------------------------------
+    def _modules(self):
+        """(generator, discriminator or None) with their section names."""
+        return (("generator", self.generator),
+                ("discriminator", self.discriminator))
+
     def _sections(self) -> Dict[str, object]:
-        g_params, g_state = convert.state_dict_to_jax_params(
-            self.generator.state_dict())
-        d_params, d_state = convert.state_dict_to_jax_params(
-            self.discriminator.state_dict())
-        sections: Dict[str, object] = {
-            "generator": g_params, "generator_state": g_state,
-            "discriminator": d_params, "discriminator_state": d_state}
-        for name, st in zip(("g_optimizer", "d_optimizer"), self.opt):
-            sections[name] = {
+        sections: Dict[str, object] = {}
+        for (name, m), (opt_name, st) in zip(
+                self._modules(), zip(("g_optimizer", "d_optimizer"),
+                                     self.opt)):
+            params, state = ({}, {}) if m is None else \
+                convert.state_dict_to_jax_params(m.state_dict(), module=m)
+            sections[name], sections[name + "_state"] = params, state
+            sections[opt_name] = {
                 "step": np.asarray(st.step, np.int32),
-                "mu": convert.state_dict_to_jax_params(st.mu)[0],
-                "nu": convert.state_dict_to_jax_params(st.nu)[0]}
+                "mu": convert.state_dict_to_jax_params(st.mu, module=m)[0],
+                "nu": convert.state_dict_to_jax_params(st.nu, module=m)[0]}
         return sections
 
     def save_checkpoint(self, epoch: int, is_best: bool = False) -> None:
@@ -280,20 +411,25 @@ class GANTrainer:
         if path is None:
             return 0
         sections, meta = ckpt_lib.load_checkpoint(path)
-        convert.load_jax_trees(self.generator, sections["generator"],
-                               sections.get("generator_state"))
-        convert.load_jax_trees(self.discriminator, sections["discriminator"],
-                               sections.get("discriminator_state"))
-        for name, st in zip(("g_optimizer", "d_optimizer"), self.opt):
-            sec = sections.get(name)
+        for (name, m), (opt_name, st) in zip(
+                self._modules(), zip(("g_optimizer", "d_optimizer"),
+                                     self.opt)):
+            if m is None:
+                if sections.get(name):
+                    raise KeyError(f"{path}: a {name} section, and the "
+                                   f"{self.family} trainer has none")
+                continue
+            convert.load_jax_trees(m, sections[name],
+                                   sections.get(name + "_state"))
+            sec = sections.get(opt_name)
             if not sec:
                 continue
             st.step = int(sec["step"])
             for moments, key in ((st.mu, "mu"), (st.nu, "nu")):
-                loaded = convert.jax_params_to_state_dict(sec[key])
+                loaded = convert.jax_params_to_state_dict(sec[key], module=m)
                 if set(loaded) != set(moments):
-                    raise KeyError(f"{path}: {name}.{key} does not match the "
-                                   "model's parameters")
+                    raise KeyError(f"{path}: {opt_name}.{key} does not match "
+                                   "the model's parameters")
                 with torch.no_grad():
                     for k, v in loaded.items():
                         moments[k].copy_(v)
@@ -307,20 +443,23 @@ class GANTrainer:
 
     # ---- evaluation helpers -------------------------------------------------
     def _eval_forward(self, noisy_nhwc: torch.Tensor) -> torch.Tensor:
-        """Eval-mode forward through the conv kernels; NHWC in and out."""
+        """Eval-mode forward through the conv kernels; NHWC in and out, in
+        the family's domain."""
         self.generator.eval()
         x = noisy_nhwc.to(self.device, torch.float32)
         return self.generator(_nchw(x), route="kernel").permute(0, 2, 3, 1)
 
     @torch.inference_mode()
     def generate(self, noisy: np.ndarray) -> np.ndarray:
-        """float32 NHWC in [-1, 1] → the generator's output, on the host."""
+        """float32 NHWC in the family's domain ([0, 1] for esrgan and dncnn,
+        [-1, 1] else; srgan's LR) → the generator's output, on the host."""
         return self._eval_forward(torch.as_tensor(noisy)).cpu().numpy()
 
     @torch.inference_mode()
     def evaluate_dataset(self, pipeline) -> Dict[str, float]:
         """Held-out evaluation: mean PSNR/SSIM over a pipeline of (noisy,
-        clean) float32 NHWC batches, on the device."""
+        clean) float32 NHWC batches in the family's domain, on the device,
+        in the family's convention (``family_eval_metrics``)."""
         vals = []
         for batch in pipeline:
             if not isinstance(batch, tuple):

@@ -180,12 +180,27 @@ Phases, each printing its own lines; any failure exits non-zero:
              known answers from the plain version on the card, moments and
              determinism on a constant image, and one tensor of more than
              2^31 elements whose first and last images are held against the
-             plain version at their index offsets;
+             plain version at their index offsets; then the modes the other
+             families train with — variants 2 and 3 in [-1, 1] and on
+             [0, 1], variant 1 on [0, 1] and the blind-σ Gaussian in both
+             domains (every kind, the train shape, ragged, straddling and
+             unaligned shapes, a byte of 255 whose poisson counts reach
+             256) — bit-equal in f32, the clean target
+             ``x.to(float32) / 255.0`` (``* 2 - 1`` in [-1, 1]); each
+             kind's distribution in variants 2 and 3 on a constant image
+             (the noise's mean and σ, the salt and pepper rates), every
+             sample's blind σ against the stream's and 10^5 of them about
+             27.5/255; and ``random_noise_batch`` (variant 2 in [-1, 1] and
+             on [0, 1], variant 3 on [0, 1]) and ``blind_gaussian_batch``
+             under ``torch.cuda.set_sync_debug_mode("error")``, one launch
+             a call;
 9. train-check — one f32 train step at 4×32×32 from fixed arrays, on the card
              and on the CPU with the port itself: losses rtol 1e-4, the
              discriminator's BatchNorm statistics atol 1e-4, parameters atol
              2.5e-4, every generator parameter moved (no all-zero gradient),
-             no conv kernel launched;
+             no conv kernel launched; then one f32 step of dncnn, esrgan,
+             cgan and srgan at full width (2×32², srgan 8² LR and the
+             shipped VGG tower), card against CPU to the same tolerances;
 10. train  — 80 synthetic 256×256 PNGs, then ``cli.train`` at full width
              (batch 16, 256², one epoch = 4 steps) in bfloat16 and in
              float32: finite losses, PSNR > 5 dB, the noise kernel launched
@@ -209,7 +224,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
              fails the run); the input stage's share of the step; one bf16
              train step under torch.profiler (device time by kernel, busy
-             share).
+             share);
+12. train-families — ``cli.train --model dncnn|esrgan|cgan|srgan`` at full
+             width (dncnn depth 17, esrgan 8 blocks, cgan's Keras generator,
+             srgan ×4 with 5 blocks and the shipped ``weights/perceptual``
+             tower), batch 16, 256² (srgan 64² LR), one epoch (4 steps) in
+             bf16 and in f32 on phase 10's synthetic PNGs: finite metrics,
+             the noise kernel launched exactly once a step, the checkpoint
+             resumed with identical state, steps/s over a window of about
+             3 s (its launches one a step too) and peak memory; then the
+             noise kernel in each mode the trainers run at the train batch,
+             bit-equal to its plain version, on the device's clock beside
+             its bytes bound (1 byte read, 8 written an element).
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2842,17 +2868,32 @@ def noise_inputs(gen, n, types=5):
                                 device="cuda")
 
 
-def check_noise_batch(noise, label, kinds, seed, x, types=None) -> float:
+def check_noise_batch(noise, label, kinds, seed, x, types=None, variant=1,
+                      domain="tanh") -> float:
+    """``noise_batch`` (``kinds`` None: ``blind_noise_batch``) against its
+    plain version, noisy and clean bit-equal, and the clean target the
+    trainer's ``clean.to(float32) / 255.0`` (``* 2.0 - 1.0`` in [-1, 1])."""
     types = tuple(noise.KIND_CODES) if types is None else types
-    got = noise.noise_batch(kinds, seed, x, types)
-    ref = noise.noise_batch_plain(kinds, seed, x, types)
-    err = check_noise(f"noise_batch noisy {label}", torch.float32, got[0],
-                      ref[0])
-    err = max(err, check_noise(f"noise_batch clean {label}", torch.float32,
-                               got[1], ref[1]))
-    if not torch.equal(got[1], x.to(torch.float32) / 255.0 * 2.0 - 1.0):
+    if kinds is None:
+        got = noise.blind_noise_batch(seed, x, domain)
+        ref = noise.blind_noise_batch_plain(seed, x, domain)
+        entry = f"blind {domain}"
+    else:
+        got = noise.noise_batch(kinds, seed, x, types, variant, domain)
+        ref = noise.noise_batch_plain(kinds, seed, x, types, variant, domain)
+        entry = "" if (variant, domain) == (1, "tanh") else \
+            f"v{variant} {domain} "
+    err = check_noise(f"noise_batch noisy {entry}{label}", torch.float32,
+                      got[0], ref[0])
+    err = max(err, check_noise(f"noise_batch clean {entry}{label}",
+                               torch.float32, got[1], ref[1]))
+    clean = x.to(torch.float32) / 255.0
+    if not torch.equal(got[1], clean if domain == "unit"
+                       else clean * 2.0 - 1.0):
         fail("noise_batch's clean target is not the trainer's "
-             "clean.to(float32) / 255.0 * 2.0 - 1.0")
+             "clean.to(float32) / 255.0 (* 2.0 - 1.0)")
+    if domain == "unit" and got[0].min().item() < 0:
+        fail(f"noise_batch {entry}{label}: a value below 0 on [0, 1]")
     return err
 
 
@@ -2925,6 +2966,7 @@ def phase_noise_kernel(noise) -> float:
             and o.min().item() >= -1.0 and o.max().item() <= 1.0):
         fail("noise kernel: moments or determinism off")
     noise_distributions(noise, gen)
+    worst = max(worst, phase_noise_modes(noise, gen))
     # beyond 2^31 elements: the last image against the plain version
     n_img = BIG_NOISE_SHAPE[1] * BIG_NOISE_SHAPE[2] * BIG_NOISE_SHAPE[3]
     total = BIG_NOISE_SHAPE[0] * n_img
@@ -3003,6 +3045,162 @@ def noise_distributions(noise, gen) -> None:
         fail("a noise kind's distribution is off")
 
 
+def phase_noise_modes(noise, gen) -> float:
+    """Phase 8's part for the modes the other families train with: variants
+    2 and 3 and variant 1 on [0, 1] (every kind, the train shape, ragged,
+    straddling and unaligned shapes, a byte of 255 whose poisson counts
+    reach 256 in variants 2 and 3) and the blind-σ Gaussian, bit-equal to
+    their plain versions in both domains; their distributions; and one
+    launch per input-stage call with no host sync."""
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+
+    worst = 0.0
+    flat = torch.randint(0, 256, (1 + 3 * 16 * 16 * 3,), generator=gen,
+                         dtype=torch.uint8, device="cuda")
+    cases = (((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), None),
+             ((5, 9, 7, 3), None), ((4, 33, 17, 3), [1, 2, 3, 4]),
+             ("unaligned", [3, 0, 1]), ((2, 16, 16, 3), [3, 3]))
+    for variant, domain in ((1, "unit"), (2, "tanh"), (2, "unit"),
+                            (3, "tanh"), (3, "unit"), (None, "tanh"),
+                            (None, "unit")):
+        for shape, kinds in cases:
+            if shape == "unaligned":
+                x = flat[1:].view(3, 16, 16, 3)
+            elif kinds == [3, 3]:  # poisson at λ 256: counts of 256
+                if variant is None:
+                    continue
+                x = torch.full(shape, 255, dtype=torch.uint8, device="cuda")
+            else:
+                x = torch.randint(0, 256, shape, generator=gen,
+                                  dtype=torch.uint8, device="cuda")
+            n = x.shape[0]
+            k = (None if variant is None
+                 else torch.arange(n, device="cuda") % 5 if kinds is None
+                 else torch.tensor(kinds, device="cuda"))
+            seed = torch.randint(0, 1 << 62, (1,), generator=gen,
+                                 device="cuda")
+            label = (f"{tuple(x.shape)}" if k is None
+                     else f"{tuple(x.shape)} kinds {k.tolist()[:5]}")
+            worst = max(worst, check_noise_batch(
+                noise, label, k, seed, x, None, variant or 1, domain))
+    noise_mode_distributions(noise, gen)
+    # the input stage of each family: one launch a call, no host read
+    x = torch.randint(0, 256, (TRAIN_BATCH, 64, 64, 3), generator=gen,
+                      dtype=torch.uint8, device="cuda")
+    stage_gen = torch.Generator(device="cuda")
+    stage_gen.manual_seed(SEED)
+    calls = (("random_noise_batch v2 tanh (cgan)", lambda: noise_lib.
+              random_noise_batch(stage_gen, x, variant=2)),
+             ("random_noise_batch v2 unit (srgan)", lambda: noise_lib.
+              random_noise_batch(stage_gen, x, variant=2, domain="unit")),
+             ("random_noise_batch v3 unit (esrgan)", lambda: noise_lib.
+              random_noise_batch(stage_gen, x, variant=3, domain="unit")),
+             ("blind_gaussian_batch unit (dncnn)", lambda: noise_lib.
+              blind_gaussian_batch(stage_gen, x)))
+    for label, fn in calls:
+        torch.cuda.synchronize()
+        before = noise.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n = noise.LAUNCHES - before
+        say(f"  {label} x3 under set_sync_debug_mode('error'): no host "
+            f"sync, noise kernel launches {n}")
+        if n != 3:
+            fail(f"{label}: {n} launches for 3 calls, expected one a call")
+    return worst
+
+
+def clipped_moments(mu, sigma):
+    """Mean and σ of clip(mu + sigma·N(0, 1), 0, 1)."""
+    from scipy import integrate, stats
+
+    def moment(k):
+        body = integrate.quad(lambda v: v ** k * stats.norm.pdf(
+            v, mu, sigma), 0, 1)[0]
+        return body + stats.norm.sf(1, mu, sigma)  # the mass clipped to 1
+
+    m1, m2 = moment(1), moment(2)
+    return m1, (m2 - m1 * m1) ** 0.5
+
+
+def noise_mode_distributions(noise, gen) -> None:
+    """Each kind of variants 2 and 3 on a constant image of byte 128 (8 x
+    64 x 64 x 3 on [0, 1]): the noise's mean and σ against their values
+    (the gaussian's and speckle's of the clipped normal; the uniform's
+    range; the poisson's x/256 variance) within 4 standard errors and 3%;
+    the salt & pepper rates (variant 2: 5% of the elements flip, half to
+    salt; variant 3: 0.2% pepper, salt 0.2% of the rest) within 4 standard
+    errors; the blind σ of each sample equal to ``blind_sigmas`` within
+    4%, and 10^5 of those within [5, 50]/255 about 27.5/255."""
+    shape, v = (8, 64, 64, 3), 128
+    n = float(np.prod(shape))
+    x = torch.full(shape, v, dtype=torch.uint8, device="cuda")
+    img = float(noise.x01(x[:1, :1, :1, :1]).item())
+    seed = torch.randint(0, 1 << 62, (1,), generator=gen, device="cuda")
+    bad = []
+
+    def run(kind, variant):
+        k = torch.full((shape[0],), noise.KIND_CODES[kind], device="cuda")
+        return noise.noise_batch(k, seed, x, variant=variant,
+                                 domain="unit")[0].double()
+
+    def near(label, got, want, tol):
+        ok = abs(got - want) <= tol
+        say(f"  {label}: {got:.6f} (want {want:.6f} ± {tol:.6f})"
+            f"{'' if ok else ' FAIL'}")
+        if not ok:
+            bad.append(label)
+
+    for variant in (2, 3):
+        sig = 25 / 255 if variant == 2 else 0.1
+        for kind, (mu, sd) in (
+                ("gaussian", clipped_moments(img, sig)),
+                ("speckle", clipped_moments(img, img * (0.1 if variant == 2
+                                                        else 1.0))),
+                ("uniform", (img, (100 / 255 if variant == 2 else 0.1)
+                             / 12 ** 0.5)),
+                ("poisson", (img, (img / 256) ** 0.5))):
+            out = run(kind, variant)
+            se = sd / n ** 0.5
+            near(f"v{variant} {kind} mean", out.mean().item(), mu,
+                 4 * se + 1e-7)
+            near(f"v{variant} {kind} σ", out.std().item(), sd,
+                 max(4 * sd / (2 * n) ** 0.5, 0.03 * sd))
+        out = run("salt_pepper", variant)
+        salt = (out == 1).double().mean().item()
+        pepper = (out == 0).double().mean().item()
+        if variant == 2:
+            want_s = want_p = 0.05 * 0.5
+        else:
+            want_p, want_s = 0.002, 0.002 * (1 - 0.002)
+        for label, got, want in (("salt", salt, want_s),
+                                 ("pepper", pepper, want_p)):
+            near(f"v{variant} salt & pepper {label} rate", got, want,
+                 4 * (want * (1 - want) / n) ** 0.5)
+    # blind σ: per sample on the constant image, and the stream's σ's
+    noisy, clean = noise.blind_noise_batch(seed, x)
+    est = (noisy - clean).double().std(dim=(1, 2, 3))
+    sig = noise.blind_sigmas(seed, shape[0], "cuda").double()
+    worst = ((est - sig).abs() / sig).max().item()
+    say(f"  blind σ per sample (255 scale): "
+        + ", ".join(f"{v * 255:.2f}" for v in est.tolist())
+        + f"; against blind_sigmas at most {worst:.2%} apart")
+    if worst > 0.04:
+        bad.append("blind σ per sample")
+    many = noise.blind_sigmas(seed, 100_000, "cuda").double() * 255
+    se = 45 / 12 ** 0.5 / 100_000 ** 0.5
+    near("blind σ mean over 10^5 samples (255 scale)", many.mean().item(),
+         27.5, 4 * se)
+    if many.min().item() < 5 or many.max().item() > 50:
+        bad.append("blind σ outside [5, 50]")
+    if bad:
+        fail(f"noise mode distributions off: {bad}")
+
+
 def phase_train_check(conv3x3, double_conv):
     from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
         DenoiseDiscriminator,
@@ -3058,6 +3256,97 @@ def phase_train_check(conv3x3, double_conv):
         fail("train step: state differs between card and CPU")
 
 
+TRAIN_FAMILIES = ("dncnn", "esrgan", "cgan", "srgan")
+CHECK_HW = 32  # phase 9's families: 2 x 32² (srgan 8² LR -> 32² HR)
+
+
+def family_modules(family, generator, hw, vgg=None):
+    """(generator, discriminator or None, perceptual or None) of a family
+    at full width, the discriminators sized for ``hw``, as cli.train builds
+    them; srgan's content loss on ``vgg`` (the shipped tower)."""
+    from celebrity_image_denoiser_tpu_torch.models import registry
+    from celebrity_image_denoiser_tpu_torch.train.losses import (
+        make_vgg_perceptual,
+    )
+
+    g = registry.build_generator(family, generator=generator)
+    if family == "dncnn":
+        return g, None, None
+    d = registry.build_discriminator(
+        family, generator=generator,
+        **({"input_hw": (hw, hw)} if family in ("esrgan", "cgan") else {}))
+    perc = make_vgg_perceptual(vgg, to_unit=True) if family == "srgan" \
+        else None
+    return g, d, perc
+
+
+def phase_train_check_families():
+    """Phase 9 for the other families: one f32 step of each from the same
+    weights and arrays on the card and on the CPU."""
+    from celebrity_image_denoiser_tpu_torch.metrics import PerceptualDistance
+    from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
+        UNIT_FAMILIES,
+        make_train_step,
+    )
+
+    for family in TRAIN_FAMILIES:
+        rng = np.random.default_rng(SEED)
+        n, hw = 2, CHECK_HW
+        clean = rng.uniform(0, 1, (n, hw, hw, 3)).astype(np.float32)
+        noisy = np.clip(clean + rng.normal(0, 0.1, clean.shape), 0, 1)
+        if family == "srgan":
+            noisy = noisy.reshape(n, hw // 4, 4, hw // 4, 4, 3).mean(
+                axis=(2, 4))
+        if family not in UNIT_FAMILIES:
+            noisy, clean = noisy * 2 - 1, clean * 2 - 1
+        noisy = noisy.astype(np.float32)
+        results = {}
+        for dev in ("cpu", "cuda"):
+            vgg = PerceptualDistance.default().net if family == "srgan" \
+                else None
+            g, d, perc = family_modules(
+                family, torch.Generator().manual_seed(SEED), hw, vgg)
+            mods = {"G": g.to(dev)}
+            if d is not None:
+                mods["D"] = d.to(dev)
+            if perc is not None:
+                perc.to(dev)
+            before = {k: v.clone() for k, v in g.state_dict().items()}
+            init_fn, step_fn = make_train_step(
+                g, d, family=family, perceptual=perc, compute_dtype="float32")
+            out = step_fn(init_fn(), torch.from_numpy(noisy).to(dev),
+                          torch.from_numpy(clean).to(dev), None, 1e-4, 1e-4)
+            unmoved = [k for k, v in g.state_dict().items()
+                       if "running_" not in k and "num_batches" not in k
+                       and torch.equal(v, before[k])]
+            if unmoved:
+                fail(f"{family} train step on {dev}: no gradient reached "
+                     f"{unmoved}")
+            results[dev] = ({k: float(v) for k, v in out.items()},
+                            {f"{m}.{k}": v.cpu() for m, mod in mods.items()
+                             for k, v in mod.state_dict().items()})
+        (m_cpu, sd_cpu), (m_gpu, sd_gpu) = results["cpu"], results["cuda"]
+        rels = {}
+        for k in ("g_loss", "d_loss"):
+            rels[k] = (abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+                       if m_cpu[k] else abs(m_gpu[k]))
+        worst = {"stats": 0.0, "params": 0.0}
+        for k, v in sd_cpu.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            kind = "stats" if "running_" in k else "params"
+            worst[kind] = max(worst[kind], (sd_gpu[k] - v).abs().max().item())
+        say(f"  {family}: g_loss card {m_gpu['g_loss']:.7f} cpu "
+            f"{m_cpu['g_loss']:.7f} rel {rels['g_loss']:.2e}; d_loss card "
+            f"{m_gpu['d_loss']:.7f} cpu {m_cpu['d_loss']:.7f} rel "
+            f"{rels['d_loss']:.2e}; BatchNorm stats max diff "
+            f"{worst['stats']:.3e}, parameters {worst['params']:.3e}; psnr "
+            f"card {m_gpu['psnr']:.4f} cpu {m_cpu['psnr']:.4f}")
+        if not (max(rels.values()) <= 1e-4 and worst["stats"] <= 1e-4
+                and worst["params"] <= 2.5e-4):
+            fail(f"{family} train step: card and CPU differ")
+
+
 def timed_steps(trainer, batch, steps, repeats=3, warmup=3) -> list:
     """Seconds per train step of ``trainer.step_fn`` on a resident batch:
     one figure for each of ``repeats`` windows of ``steps`` steps, sorted."""
@@ -3080,11 +3369,7 @@ def phase_train(conv3x3, double_conv, noise):
     import tempfile
 
     from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
-    from celebrity_image_denoiser_tpu_torch.data import imageio
     from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
-    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
-        synth_clean_batch,
-    )
 
     say(f"== phase 10: cli.train at batch {TRAIN_BATCH}, {TRAIN_SIZE}x"
         f"{TRAIN_SIZE}, one epoch")
@@ -3092,11 +3377,7 @@ def phase_train(conv3x3, double_conv, noise):
     step_sec = {}
     trainers = {}
     with tempfile.TemporaryDirectory(prefix="cid_train_") as tmp:
-        imgs = synth_clean_batch(make_gen(), TRAIN_IMAGES, TRAIN_SIZE)
-        imgs = (imgs * 255).round().to(torch.uint8).cpu().numpy()
-        for i, im in enumerate(imgs):
-            with open(f"{tmp}/{i:03d}.png", "wb") as f:
-                f.write(imageio.encode_png(im))
+        imgs = write_train_pngs(tmp)
         for cdt in ("bfloat16", "float32"):
             argv = ["--model", "denoise", "--clean-dir", tmp, "--image-size",
                     str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
@@ -3198,6 +3479,171 @@ def phase_train(conv3x3, double_conv, noise):
              "per call")
     return (launches, gaussian_launches, trainers["bfloat16"], batch,
             step_sec["bfloat16"])
+
+
+def write_train_pngs(tmp) -> np.ndarray:
+    """TRAIN_IMAGES synthetic clean images of TRAIN_SIZE² as PNGs in
+    ``tmp``; returns them as uint8 NHWC."""
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        synth_clean_batch,
+    )
+
+    imgs = synth_clean_batch(make_gen(), TRAIN_IMAGES, TRAIN_SIZE)
+    imgs = (imgs * 255).round().to(torch.uint8).cpu().numpy()
+    for i, im in enumerate(imgs):
+        with open(f"{tmp}/{i:03d}.png", "wb") as f:
+            f.write(imageio.encode_png(im))
+    return imgs
+
+
+# phase 12's timed window per run, seconds
+FAMILY_WINDOW_S = 3.0
+
+
+def phase_train_families(noise):
+    """Phase 12: cli.train for the other families at full width."""
+    import tempfile
+
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    say(f"== phase 12: cli.train for {', '.join(TRAIN_FAMILIES)} at full "
+        f"width, batch {TRAIN_BATCH}, {TRAIN_SIZE}x{TRAIN_SIZE} (srgan "
+        f"{TRAIN_SIZE // 4}x{TRAIN_SIZE // 4} LR), one epoch, bf16 and f32")
+    t_phase = time.perf_counter()
+    launches, rows = 0, {}
+    with tempfile.TemporaryDirectory(prefix="cid_train_families_") as tmp:
+        imgs = write_train_pngs(tmp)
+        batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+        for family in TRAIN_FAMILIES:
+            for cdt in ("bfloat16", "float32"):
+                argv = ["--model", family, "--clean-dir", tmp,
+                        "--image-size", str(TRAIN_SIZE), str(TRAIN_SIZE),
+                        "--batch-size", str(TRAIN_BATCH), "--num-epochs",
+                        "1", "--compute-dtype", cdt, "--checkpoint-dir",
+                        f"{tmp}/ckpt_{family}_{cdt}"]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
+                t0 = time.perf_counter()
+                tr = cli_train.run(argv)
+                wall = time.perf_counter() - t0
+                k4 = noise.LAUNCHES
+                hist = {k: v[-1] for k, v in tr.metric_history.items() if v}
+                if tr.steps != 4 or len(tr.metric_history["g_loss"]) != 1:
+                    fail(f"{family} {cdt}: expected 4 steps and one finite "
+                         "epoch")
+                if not all(np.isfinite(v) for v in hist.values()):
+                    fail(f"{family} {cdt}: non-finite metrics {hist}")
+                if k4 != tr.steps or noise.GAUSSIAN_LAUNCHES:
+                    fail(f"{family} {cdt}: noise kernel launches {k4} (and "
+                         f"{noise.GAUSSIAN_LAUNCHES} gaussian-only) for "
+                         f"{tr.steps} steps")
+                launches += k4
+                # the checkpoint resumes with identical state
+                again = cli_train.build_trainer(
+                    cli_train.build_parser().parse_args(argv + ["--resume"]))
+                if again.start_epoch != 1 or again.opt[0].step != 4:
+                    fail(f"{family} {cdt}: resume found no checkpoint")
+                pairs = [(tr.generator, again.generator)]
+                if tr.discriminator is not None:
+                    pairs.append((tr.discriminator, again.discriminator))
+                for a, b in pairs:
+                    for (k, v), w in zip(a.state_dict().items(),
+                                         b.state_dict().values()):
+                        if not k.endswith("num_batches_tracked") \
+                                and not torch.equal(v, w):
+                            fail(f"{family} {cdt}: {k} differs after resume")
+                if not all(torch.equal(v, again.opt[0].nu[k])
+                           for k, v in tr.opt[0].nu.items()):
+                    fail(f"{family} {cdt}: optimiser state differs after "
+                         "resume")
+                del again
+                # steady state on a resident batch, input stage included
+                step = functools.partial(tr.step_fn, tr.opt, None, batch,
+                                         tr.noise_gen, 1e-4, 1e-4)
+                for _ in range(2):
+                    step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                est = (time.perf_counter() - t0) / 3
+                n_steps = int(min(400, max(3, round(FAMILY_WINDOW_S / est))))
+                noise.LAUNCHES = 0
+                t0 = time.perf_counter()
+                for _ in range(n_steps):
+                    m = step()
+                torch.cuda.synchronize()
+                sec = (time.perf_counter() - t0) / n_steps
+                if noise.LAUNCHES != n_steps:
+                    fail(f"{family} {cdt}: {noise.LAUNCHES} noise kernel "
+                         f"launches in {n_steps} timed steps")
+                launches += noise.LAUNCHES
+                vals = {k: float(v) for k, v in m.items()
+                        if k != "noise_kinds"}
+                if not all(np.isfinite(v) for v in vals.values()):
+                    fail(f"{family} {cdt}: non-finite metrics {vals}")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                rows.setdefault(family, {})[cdt] = {
+                    "steps_per_s": 1 / sec, "images_per_s": TRAIN_BATCH / sec,
+                    "peak_gib": peak, "timed_steps": n_steps,
+                    "epoch_s": wall}
+                say(f"  {family} {cdt}: epoch of {tr.steps} steps in "
+                    f"{wall:.2f} s (set-up included), g_loss "
+                    f"{hist['g_loss']:.5f} d_loss {hist['d_loss']:.5f} psnr "
+                    f"{hist['psnr']:.3f} ssim {hist['ssim']:.4f}; noise "
+                    f"kernel launches {k4} (one a step); resumed with "
+                    f"identical state; {1 / sec:.3f} steps/s "
+                    f"({TRAIN_BATCH / sec:.1f} images/s, {n_steps} steps, "
+                    f"{noise.LAUNCHES} noise launches); peak "
+                    f"{peak:.2f} GiB")
+                del tr, step, m
+                torch.cuda.empty_cache()
+    modes = noise_mode_times(noise)
+    say(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows, modes
+
+
+def noise_mode_times(noise) -> list:
+    """The noise kernel in each mode the trainers run, at the train batch
+    (kinds and seed drawn as the trainer draws them): its time on the
+    device's clock beside its plain version and its bytes bound (1 byte
+    read and 8 written per element at 3.35 TB/s)."""
+    gen = make_gen()
+    x = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                      generator=gen, dtype=torch.uint8, device="cuda")
+    kinds, seed = noise_inputs(gen, TRAIN_BATCH)
+    bound = x.numel() * 9 / PEAK_BYTES * 1e3
+    out = []
+    for mode, variant, domain in (
+            ("v1 tanh (denoise)", 1, "tanh"), ("v2 tanh (cgan)", 2, "tanh"),
+            ("v2 unit (srgan)", 2, "unit"), ("v3 unit (esrgan)", 3, "unit"),
+            ("v1 unit (dncnn, --noise-variant 1)", 1, "unit"),
+            ("blind unit (dncnn)", None, "unit")):
+        if variant is None:
+            fn = functools.partial(noise.blind_noise_batch, seed, x, domain)
+            plain = functools.partial(noise.blind_noise_batch_plain, seed, x,
+                                      domain)
+        else:
+            fn = functools.partial(noise.noise_batch, kinds, seed, x,
+                                   tuple(noise.KIND_CODES), variant, domain)
+            plain = functools.partial(noise.noise_batch_plain, kinds, seed,
+                                      x, tuple(noise.KIND_CODES), variant,
+                                      domain)
+        got, ref = fn(), plain()
+        err = max(check_noise(f"noise_batch {mode} {tuple(x.shape)}",
+                              torch.float32, got[i], ref[i]) for i in (0, 1))
+        ms = device_ms(fn)
+        plain_ms = time_ms(plain)
+        say(f"  noise kernel {mode}: {ms:.4f} ms on the device's clock, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms (bytes), "
+            f"{bound / ms:.1%} of it")
+        out.append({"mode": mode, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": "bytes",
+                    "max_abs_err": err})
+    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -3401,12 +3847,17 @@ def main() -> int:
     phase_profile(bench)
     noise_err = phase_noise_kernel(noise)
     phase_train_check(conv3x3, double_conv)
+    phase_train_check_families()
     noise_launches, gaussian_launches, trainer, batch, step_sec = \
         phase_train(conv3x3, double_conv, noise)
     if noise_launches < 1:
         fail("noise_batch was not launched on the training path")
     noise_stats = phase_train_profile(_build, probes, noise, trainer, batch,
                                       step_sec, issue)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    family_noise_launches, train_rows, noise_modes = \
+        phase_train_families(noise)
 
     replaces = {
         "conv3x3_bias_relu":
@@ -3496,9 +3947,10 @@ def main() -> int:
                   "normalize_gaussian_noise.cu",
         "replaces":
             "celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py:46",
-        # the two cli.train runs, counts set to 0 just before each: one
-        # launch per step
-        "launches": noise_launches,
+        # the cli.train runs of phases 10 (denoise) and 12 (dncnn, esrgan,
+        # cgan, srgan) and their timed windows, counts set to 0 just before
+        # each: one launch per step
+        "launches": noise_launches + family_noise_launches,
         "max_abs_err": max(noise_err, noise_stats["max_abs_err"]),
         # one launch at the train batch (16 x 256 x 256 x 3, f32 noisy and
         # clean), phase 11; no single PyTorch call computes this
@@ -3506,6 +3958,8 @@ def main() -> int:
         "bound_ms": noise_stats["bound_ms"],
         "bound_by": noise_stats["bound_by"],
         "library_ms": None,
+        # each mode the trainers run, at the train batch (phase 12)
+        "modes": noise_modes,
         # the same kernel through the Pallas function's counterpart (every
         # element gaussian, one f32 output), at the same batch; its own
         # count over the same cli.train runs (0: not on the main path)
@@ -3517,6 +3971,7 @@ def main() -> int:
             "bound_by": g["bound_by"], "library_ms": None},
     })
     print(json.dumps({"families": families}), flush=True)
+    print(json.dumps({"train_families": train_rows}), flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -336,11 +336,14 @@ def test_registry_builds_the_ported_families_and_names_the_waiting_ones():
                       CGANTorchGenerator)
     with pytest.raises(ValueError, match="Unknown model"):
         registry.build_generator("vdsr")
-    assert set(registry.DISCRIMINATORS) == {"denoise", "cgan"}
+    assert list(registry.DISCRIMINATORS) == list(jregistry.DISCRIMINATORS)
     assert isinstance(registry.build_discriminator("cgan"),
                       CGANKerasDiscriminator)
-    with pytest.raises(ValueError):
-        registry.build_discriminator("esrgan")
+    for name in ("denoise", "srgan", "esrgan"):
+        assert type(registry.build_discriminator(name)).__name__ == type(
+            jregistry.build_discriminator(name)).__name__
+    with pytest.raises(ValueError, match="Unknown discriminator"):
+        registry.build_discriminator("vdsr")
 
 
 # ---------------------------------------------------------------------------
@@ -580,8 +583,10 @@ def test_random_noise_batch01_draws_a_kind_per_sample():
     again = port_noise.random_noise_batch01(
         torch.Generator().manual_seed(3), clean, variant=2)
     assert torch.equal(out, again)
-    with pytest.raises(NotImplementedError):  # variant 3 waits
-        port_noise.random_noise_batch01(gen, clean, variant=3)
+    out3 = port_noise.random_noise_batch01(gen, clean, variant=3)
+    assert out3.shape == clean.shape and out3.min() >= 0 and out3.max() <= 1
+    with pytest.raises(ValueError, match="unknown noise variant"):
+        port_noise.random_noise_batch01(gen, clean, variant=4)
 
 
 # ---------------------------------------------------------------------------

@@ -269,14 +269,16 @@ def test_uniform_v1_range():
 def test_unknown_kind_and_waiting_variants():
     with pytest.raises(ValueError, match="unknown noise"):
         port_noise.add_noise(_gen(), IMG, "perlin", variant=1)
-    # variant 2 is served as plain functions (tests/test_torch_port_
-    # families.py holds its distributions); variant 3 waits
-    assert port_noise.add_noise(_gen(), IMG, "gaussian", variant=2).shape \
-        == IMG.shape
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_noise.add_noise(_gen(), IMG, "gaussian", variant=3)
-    for name in ("blind_gaussian_batch", "poisson_v3_exact"):
-        assert not hasattr(port_noise, name)
+    # variants 2 and 3 run (tests/test_torch_port_families.py and
+    # tests/test_torch_port_train_families.py hold their distributions);
+    # the host-side poisson_v3_exact waits, and a fourth variant is unknown
+    for variant in (2, 3):
+        assert port_noise.add_noise(_gen(), IMG, "gaussian",
+                                    variant=variant).shape == IMG.shape
+    with pytest.raises(ValueError, match="unknown noise variant"):
+        port_noise.add_noise(_gen(), IMG, "gaussian", variant=4)
+    assert hasattr(port_noise, "blind_gaussian_batch")
+    assert not hasattr(port_noise, "poisson_v3_exact")
 
 
 def test_variant1_parameters_are_defined_once():
@@ -303,8 +305,8 @@ def test_variant1_parameters_are_defined_once():
         params = inspect.signature(fn).parameters
         assert {k: params[k].default for k in want} == want
     batch = torch.zeros(2, 4, 4, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_noise.random_noise_batch(_gen(), batch, variant=3)
+    noisy, _, _ = port_noise.random_noise_batch(_gen(), batch, variant=3)
+    assert noisy.shape == batch.shape
     with pytest.raises(ValueError, match="unknown noise variant"):
         port_noise.random_noise_batch(_gen(), batch, variant=4)
 
@@ -386,10 +388,16 @@ def test_random_noise_batch_is_one_noise_batch_launch():
         int(_replay(2, 16, 1)[1]), batch, 25.0, torch.float32))
     with pytest.raises(ValueError):
         port_noise.random_noise_batch(_gen(), batch.float())
-    with pytest.raises(NotImplementedError):
-        port_noise.random_noise_batch(_gen(), batch, variant=2)
+    # variant 2: the same draws into the same one call, its kinds
+    noisy, clean, kinds = port_noise.random_noise_batch(_gen(11), batch,
+                                                        variant=2)
+    want = k4.noise_batch_plain(want_kinds, seed, batch, variant=2)
+    assert torch.equal(kinds, want_kinds)
+    assert torch.equal(noisy, want[0]) and torch.equal(clean, want[1])
     with pytest.raises(ValueError, match="unknown noise"):
         port_noise.random_noise_batch(_gen(), batch, types=("perlin",))
+    with pytest.raises(ValueError, match="unknown output domain"):
+        port_noise.random_noise_batch(_gen(), batch, domain="01")
 
 
 def test_input_stage_reads_nothing_back_to_the_host():
@@ -523,9 +531,12 @@ def test_noise_batch_refuses():
         k4.noise_batch(kinds, seed, x, types=("perlin",))
     with pytest.raises(ValueError):
         k4.noise_batch(kinds, seed, x, types=("gaussian",) * 9)
-    with pytest.raises(NotImplementedError):
-        k4.noise_batch(kinds, seed, x, variant=3)
+    with pytest.raises(ValueError, match="unknown noise variant"):
+        k4.noise_batch(kinds, seed, x, variant=0)
+    with pytest.raises(ValueError, match="unknown output domain"):
+        k4.noise_batch(kinds, seed, x, domain="01")
     before = k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES
     k4.noise_batch(kinds, seed, x)
+    k4.noise_batch(kinds, seed, x, variant=3, domain="unit")
     # the plain version launches nothing
     assert (k4.LAUNCHES, k4.GAUSSIAN_LAUNCHES) == before
