@@ -107,6 +107,30 @@ def perceptual_loss(vgg_pth=None):
     return make_vgg_perceptual(pd.net, to_unit=pd.input_domain == "unit")
 
 
+def build_modules(family, image_size, *, sr_scale=4, vgg_pth=None,
+                  generator=None):
+    """``(generator, discriminator or None, perceptual loss or None)`` of
+    ``family`` at full width, as the JAX CLI builds them (:240-297): no
+    discriminator for dncnn, esrgan's and cgan's sized for ``image_size``
+    (their Linear widths depend on it), srgan ×``sr_scale`` with its
+    content loss (``perceptual_loss``).  ``generator`` is the
+    ``torch.Generator`` the initialisers draw from."""
+    if family == "srgan":
+        g = registry.build_generator("srgan", scale_factor=sr_scale,
+                                     generator=generator)
+    else:
+        g = registry.build_generator(family, generator=generator)
+    if family == "dncnn":
+        d = None
+    elif family in ("esrgan", "cgan"):
+        d = registry.build_discriminator(family, input_hw=tuple(image_size),
+                                         generator=generator)
+    else:
+        d = registry.build_discriminator(family, generator=generator)
+    perceptual = perceptual_loss(vgg_pth) if family == "srgan" else None
+    return g, d, perceptual
+
+
 def build_trainer(args) -> GANTrainer:
     """The trainer that ``run`` and ``main`` train."""
     device = resolve_device(args.device)
@@ -127,22 +151,10 @@ def build_trainer(args) -> GANTrainer:
         test_split=cfg.test_split, split_seed=cfg.split_seed)
     pipeline = DataPipeline(dataset, cfg.batch_size, shuffle=True,
                             seed=cfg.seed, drop_last=True, device=device)
-    init = torch.Generator().manual_seed(cfg.seed)
-    if args.model == "srgan":
-        gen = registry.build_generator("srgan", scale_factor=args.sr_scale,
-                                       generator=init)
-    else:
-        gen = registry.build_generator(args.model, generator=init)
-    if args.model == "dncnn":
-        disc = None
-    elif args.model in ("esrgan", "cgan"):
-        # these discriminators' Linear widths depend on the input size
-        disc = registry.build_discriminator(
-            args.model, input_hw=tuple(cfg.image_size), generator=init)
-    else:
-        disc = registry.build_discriminator(args.model, generator=init)
-    perceptual = (perceptual_loss(args.vgg_pth) if args.model == "srgan"
-                  else None)
+    gen, disc, perceptual = build_modules(
+        args.model, cfg.image_size, sr_scale=args.sr_scale,
+        vgg_pth=args.vgg_pth,
+        generator=torch.Generator().manual_seed(cfg.seed))
     trainer = GANTrainer(gen, disc, pipeline, cfg, family=args.model,
                          perceptual=perceptual, device=device)
     if args.resume:

@@ -258,17 +258,17 @@ def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
 
 
 def blind_gaussian_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
-                         sigma_min: float = 5.0, sigma_max: float = 50.0,
                          domain: str = "unit"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blind-σ Gaussian noise for DnCNN training (``noise.py:232-242``):
-    per-sample σ ~ U[sigma_min, sigma_max] on the 0-255 scale, over a uint8
-    NHWC batch; returns the noisy batch and the clean target, float32 NHWC
-    on [0, 1] (``domain="unit"``, dncnn's) or in [-1, 1].  The stream's
+    per-sample σ ~ U[5, 50] on the 0-255 scale
+    (``ops/cuda/noise.py::BLIND_SIGMA``: the JAX function's defaults, which
+    its trainer never changes), over a uint8 NHWC batch; returns the noisy
+    batch and the clean target, float32 NHWC on [0, 1] (``domain="unit"``,
+    dncnn's) or in [-1, 1].  The stream's
     seed is drawn from ``gen`` on the batch's device, and each σ from the
     stream on the card (``ops/cuda/noise.py::blind_sigmas``): one launch
     of ``blind_noise_batch``, no host read."""
     _check_uint8_batch(gen, batch_uint8)
     return noise_kernel.blind_noise_batch(_seed(gen, batch_uint8.device),
-                                          batch_uint8, domain,
-                                          (sigma_min, sigma_max))
+                                          batch_uint8, domain)

@@ -385,8 +385,7 @@ def poisson_counts(x_uint8: torch.Tensor, a: torch.Tensor,
         max=255 if variant == 1 else 256)
 
 
-def blind_sigmas(seed: torch.Tensor, n: int, device,
-                 sigma_range=BLIND_SIGMA) -> torch.Tensor:
+def blind_sigmas(seed: torch.Tensor, n: int, device) -> torch.Tensor:
     """The blind σ of samples 0..n-1 on the [0, 1] scale, float32 (n,):
     ``(lo + u·(hi − lo))·RN(1/255)``, ``u`` from the stream's per-sample
     block (counter ``(lo32(s), hi32(s), 1, 0)``, word 0)."""
@@ -396,7 +395,7 @@ def blind_sigmas(seed: torch.Tensor, n: int, device,
     w0 = philox4x32_10((i & _MASK32, (i >> 32) & _MASK32,
                         torch.ones_like(i), torch.zeros_like(i)), key)[0]
     u = (w0 >> 8).to(torch.float32) * 2.0 ** -24
-    lo, hi = (float(v) for v in sigma_range)
+    lo, hi = BLIND_SIGMA
     return (u * (hi - lo) + lo) * (1.0 / 255.0)
 
 
@@ -508,13 +507,13 @@ def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
 
 
 def blind_noise_batch_plain(seed: torch.Tensor, x_uint8: torch.Tensor,
-                            domain: str = "unit", sigma_range=BLIND_SIGMA):
+                            domain: str = "unit"):
     """Plain PyTorch version of ``blind_noise_batch``."""
     check_domain(domain)
     _check_x_seed(seed, x_uint8)
     a, b = _words(seed, x_uint8)
     img = x01(x_uint8)
-    sigma = blind_sigmas(seed, x_uint8.shape[0], x_uint8.device, sigma_range)
+    sigma = blind_sigmas(seed, x_uint8.shape[0], x_uint8.device)
     noisy = blind_gaussian_from_draws(img, normals_from_bits(a, b), sigma)
     return _in_domain(noisy, domain), _in_domain(img, domain)
 
@@ -538,22 +537,22 @@ def _constants(variant: int, channels: int):
             UNIFORM3_LOW, SP3_AMOUNT * 0.5, SP3_AMOUNT * 0.5)
 
 
-def _launch(label, x, kinds, codes, seed, variant, domain, consts,
-            sigma_range, table, guide):
+def _launch(label, x, kinds, codes, seed, variant, domain, consts, table,
+            guide):
     global LAUNCHES
     # one allocation for both outputs: the host's time is the step's
     noisy, clean = torch.empty((2, *x.shape), dtype=torch.float32,
                                device=x.device).unbind(0)
     n, h, w, c = x.shape
-    lo, hi = sigma_range
+    lo, hi = BLIND_SIGMA
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_noise_batch(
             x.data_ptr(), noisy.data_ptr(), clean.data_ptr(), kinds, codes,
             seed.data_ptr(), 0, n * h * w * c, h * w * c, c, table, guide,
-            variant, int(domain == "unit"), *consts, float(lo),
-            float(hi) - float(lo), _build.dtype_code(torch.float32), stream)
+            variant, int(domain == "unit"), *consts, lo, hi - lo,
+            _build.dtype_code(torch.float32), stream)
         _build.check(rc, label)
         LAUNCHES += 1
     return noisy, clean
@@ -576,24 +575,20 @@ def noise_batch(kinds: torch.Tensor, seed: torch.Tensor,
     _, table, guide = poisson_tables(x_uint8.device, variant)
     return _launch("noise_batch", x_uint8, kinds.data_ptr(), codes, seed,
                    variant, domain, _constants(variant, x_uint8.shape[3]),
-                   BLIND_SIGMA, table.data_ptr(), guide.data_ptr())
+                   table.data_ptr(), guide.data_ptr())
 
 
 def blind_noise_batch(seed: torch.Tensor, x_uint8: torch.Tensor,
-                      domain: str = "unit", sigma_range=BLIND_SIGMA):
+                      domain: str = "unit"):
     """x_uint8 (N, H, W, C) uint8 → ``(noisy, clean)`` in ``domain``, in one
     launch of the noise kernel: every sample gaussian with its own σ,
-    ``U[sigma_range]/255`` drawn from the stream of ``seed`` (a one-element
+    ``U[BLIND_SIGMA]/255`` drawn from the stream of ``seed`` (a one-element
     int64 tensor on x's device, read there; ``blind_sigmas``)."""
     check_domain(domain)
     _check_x_seed(seed, x_uint8)
-    lo, hi = (float(v) for v in sigma_range)
-    if not (math.isfinite(lo) and math.isfinite(hi) and 0 <= lo <= hi):
-        raise ValueError(f"sigma_range must be finite with 0 <= lo <= hi, "
-                         f"got {sigma_range}")
     if x_uint8.device.type == "cpu":
-        return blind_noise_batch_plain(seed, x_uint8, domain, (lo, hi))
+        return blind_noise_batch_plain(seed, x_uint8, domain)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
     return _launch("blind_noise_batch", x_uint8, None, 0, seed, 0, domain,
-                   (0.0,) * 6, (lo, hi), None, None)
+                   (0.0,) * 6, None, None)

@@ -18,7 +18,7 @@ Port of ``celebrity_image_denoiser_tpu/train/gan_trainer.py``
   Keras' (``train/optim.py::adam_keras``).
 * **dncnn** (:212-227): MSE only, no discriminator (``d_loss`` 0), on
   [0, 1]; on the fly the blind-σ Gaussian unless a ``noise_variant`` is
-  given (``dncnn_blind``, :193).
+  given (the JAX factory's ``dncnn_blind``, :193).
 
 The generator forward is computed once per step and reused by every loss
 that reads it.  D forwards three times in an alternating step (real,
@@ -86,8 +86,12 @@ logger = get_logger("cid_torch.train")
 
 FAMILIES = ("denoise", "srgan", "esrgan", "cgan", "dncnn")
 UNIT_FAMILIES = ("esrgan", "dncnn")  # train on [0, 1]; the rest on [-1, 1]
+# float64 runs the modules' forward and backward in double precision (the
+# losses stay float32): a reference that the f32 step's gradients are held
+# against, since a deep BatchNorm net's f32 gradient is only as exact as its
+# conditioning allows (chip_smoke.py phase 9)
 _DTYPES = {None: torch.float32, "float32": torch.float32,
-           "bfloat16": torch.bfloat16}
+           "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 def _check_family(family: str) -> None:
@@ -128,9 +132,8 @@ def make_train_step(
     adam_b1: float = 0.9,
     adam_b2: float = 0.999,
     on_the_fly_noise: bool = False,
-    noise_variant: int = 1,
+    noise_variant: Optional[int] = None,
     sr_scale: int = 1,
-    dncnn_blind: bool = True,
     compute_dtype: Optional[str] = None,
     mesh=None,
     remat: bool = False,
@@ -151,6 +154,9 @@ def make_train_step(
     sync) and, on the fly with a noise variant, ``noise_kinds``: the kind
     index each sample drew, an int64 tensor on the device.
 
+    ``noise_variant`` None is the family's own input stage: the blind-σ
+    Gaussian for dncnn, ``FAMILY_NOISE_VARIANT`` for the others.
+
     ``perceptual`` (srgan's content loss, ``make_vgg_perceptual``) takes
     NCHW tensors.  ``mesh``, ``remat`` and ``extras_fn`` are the JAX
     factory's and are not ported yet."""
@@ -166,8 +172,8 @@ def make_train_step(
         raise NotImplementedError(
             "extras_fn is not ported yet (ROADMAP.md queue 1 item 5)")
     if compute_dtype not in _DTYPES:
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
-                         f"{compute_dtype!r}")
+        raise ValueError(f"compute_dtype must be float32, bfloat16 or "
+                         f"float64, got {compute_dtype!r}")
     if family == "srgan" and perceptual is None:
         raise ValueError("the srgan family needs a perceptual loss "
                          "(make_vgg_perceptual)")
@@ -178,6 +184,9 @@ def make_train_step(
                               else optim.adam)(adam_b1, adam_b2)
     d_crit = L.bce_with_logits if family == "esrgan" else L.bce
     unit = family in UNIT_FAMILIES
+    blind = family == "dncnn" and noise_variant is None
+    if noise_variant is None:
+        noise_variant = FAMILY_NOISE_VARIANT[family]
     g_params = dict(generator.named_parameters())
     d_params = (dict(discriminator.named_parameters())
                 if family != "dncnn" and discriminator is not None else {})
@@ -199,7 +208,7 @@ def make_train_step(
         """The noisy input and the clean target of an on-the-fly step, NHWC
         in the family's domain (srgan: the noisy side downscaled)."""
         domain = "unit" if unit or sr_scale > 1 else "tanh"
-        if family == "dncnn" and dncnn_blind:
+        if blind:
             noisy, clean = noise_lib.blind_gaussian_batch(gen, clean_u8,
                                                           domain=domain)
         else:
@@ -332,11 +341,9 @@ class GANTrainer:
             adam_b1=cfg.betas[0],
             adam_b2=cfg.betas[1],
             on_the_fly_noise=cfg.on_the_fly_noise,
-            noise_variant=cfg.noise_variant
-            or FAMILY_NOISE_VARIANT.get(self.family, 1),
+            noise_variant=cfg.noise_variant,
             sr_scale=(getattr(generator, "scale_factor", 1)
                       if self.family == "srgan" else 1),
-            dncnn_blind=cfg.noise_variant is None,
             compute_dtype=cfg.compute_dtype,
             remat=cfg.remat,
         )

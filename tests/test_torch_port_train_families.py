@@ -12,9 +12,12 @@ they are used.  One f32 step per family, as
 ``test_torch_port_train.py::test_one_f32_train_step_matches_jax``: losses
 rtol 1e-4, BatchNorm running statistics atol 1e-4, parameters atol 2.5e-4
 (at step 1 Adam moves each weight by about ±lr whatever its gradient's
-size, so a weight whose true gradient is zero lands up to 2·lr apart).
+size, so a weight whose true gradient is zero lands up to 2·lr apart).  So
+the gradients are held through the optimisers' first moments, leaf by leaf
+(``_assert_moments_match``).
 """
 
+import copy
 import os
 
 import numpy as np
@@ -189,6 +192,36 @@ def _assert_module_matches_trees(module, params, state, atol, what):
     for k, v in want_s.items():
         np.testing.assert_allclose(got_s[k], v, atol=atol[1], rtol=0,
                                    err_msg=f"{what} state {k}")
+
+
+def _port_moments(module, state):
+    """An optimiser state's first moments as a flat JAX-named tree."""
+    return jax_tree.flatten(convert.state_dict_to_jax_params(
+        state.mu, module=module)[0])
+
+
+def _assert_moments_close(got, want, what, rel=1e-4):
+    """Two first-moment trees, leaf by leaf, within ``rel``·max|leaf| of
+    ``want``.  After one step a first moment is (1 − b1)·grad, so this
+    holds the gradients, which the parameters' bound cannot see (at Adam's
+    first step every weight moves by about ±lr).  A bias feeding a
+    train-mode BatchNorm has a gradient of exactly 0, so both sides hold
+    rounding there (up to 2e-6 of the module's largest first moment,
+    measured): the bound has a floor of 1e-5 of it."""
+    want = {k: np.asarray(v, np.float64) for k, v in want.items()}
+    assert set(got) == set(want), what
+    floor = 1e-5 * max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        np.testing.assert_allclose(
+            np.asarray(got[k], np.float64), v,
+            atol=max(rel * np.abs(v).max(), floor), rtol=0,
+            err_msg=f"{what} mu {k}")
+
+
+def _assert_moments_match(module, state, jax_state, what, rel=1e-4):
+    """The port's first moments after a step against JAX's."""
+    _assert_moments_close(_port_moments(module, state),
+                          _np_tree(jax_state.mu), what, rel)
 
 
 # ---------------------------------------------------------------------------
@@ -567,7 +600,11 @@ def test_one_f32_train_step_matches_jax(family, jax_nets, jax_steps, towers):
     in-step PSNR/SSIM atol 1e-3, every parameter atol 2.5e-4, the BatchNorm
     running statistics atol 1e-4 (cgan's discriminator: exactly two Keras
     updates, real then fake); dncnn has no discriminator and a d_loss of
-    0."""
+    0.  Each optimiser's first moment, the gradient, within 1e-4 of each
+    leaf's largest; srgan's generator within 5e-3, because JAX's own f32
+    gradient there is the one off: against the port's float64 step
+    (``compute_dtype="float64"``) the port's f32 first moments hold within
+    1e-4 and JAX's do not, only within 5e-3."""
     noisy, clean = _batch(family)
     carry, ref = jax_steps[family][1](
         _jax_carry(family, jax_nets, jax_steps), jnp.asarray(noisy),
@@ -581,6 +618,23 @@ def test_one_f32_train_step_matches_jax(family, jax_nets, jax_steps, towers):
         np.testing.assert_allclose(float(out[k]), float(ref[k]), atol=1e-3,
                                    err_msg=k)
     _assert_module_matches_trees(pg, carry[0], carry[1], (2.5e-4, 1e-4), "G")
+    _assert_moments_match(pg, opt[0], carry[4], "G",
+                          rel=5e-3 if family == "srgan" else 1e-4)
+    if family == "srgan":
+        # the float64 step decides which side's f32 gradient is off
+        g64, d64 = (m.double() for m in _port_nets(family, jax_nets))
+        init64, step64 = gan_trainer.make_train_step(
+            g64, d64, family=family, compute_dtype="float64",
+            perceptual=port_losses.make_vgg_perceptual(
+                copy.deepcopy(towers[1].net).double(), to_unit=True))
+        opt64 = init64()
+        step64(opt64, _t(noisy).double(), _t(clean).double(), None, 1e-4,
+               1e-4)
+        ref = _port_moments(g64, opt64[0])
+        _assert_moments_close(_port_moments(pg, opt[0]), ref, "G f32")
+        _assert_moments_close(_np_tree(carry[4].mu), ref, "G JAX", 5e-3)
+        with pytest.raises(AssertionError):
+            _assert_moments_close(_np_tree(carry[4].mu), ref, "G JAX")
     assert opt[0].step == 1
     if pd is None:
         assert float(out["d_loss"]) == 0.0 and opt[1].step == 0
@@ -588,13 +642,44 @@ def test_one_f32_train_step_matches_jax(family, jax_nets, jax_steps, towers):
     else:
         _assert_module_matches_trees(pd, carry[2], carry[3], (2.5e-4, 1e-4),
                                      "D")
+        _assert_moments_match(pd, opt[1], carry[5], "D")
         assert opt[1].step == 1
+
+
+@pytest.mark.parametrize("family", ["esrgan", "srgan"])
+def test_generator_sees_the_updated_discriminator(family, jax_nets, towers):
+    """The alternating steps' adversarial gradient, which the default
+    ``adv_weight`` of 1e-3 leaves below the first-moment bound for esrgan:
+    at ``adv_weight`` 1 and a D learning rate of 1e-2, G's first moment
+    holds the BCE term's gradient through the *updated* discriminator
+    (through the pre-update one it differs).  Same bounds as the one-step
+    test."""
+    g, d = jax_nets[family][:2]
+    kw = {"perceptual": _jax_perceptual(towers[0])} if family == "srgan" \
+        else {}
+    init_fn, jstep = jax_trainer.make_train_step(
+        g, d, family=family, donate=False, adv_weight=1.0, **kw)
+    carry = init_fn(prng.key(2))
+    _, _, gp, gs, dp, ds = jax_nets[family]
+    noisy, clean = _batch(family, seed=4)
+    carry, ref = jstep((gp, gs, dp, ds, carry[4], carry[5]),
+                       jnp.asarray(noisy), jnp.asarray(clean), prng.key(3),
+                       1e-4, 1e-2)
+    pg, pd, opt, step_fn = _port_step(family, jax_nets, towers,
+                                      adv_weight=1.0)
+    out = step_fn(opt, _t(noisy), _t(clean), None, 1e-4, 1e-2)
+    for k in ("g_loss", "d_loss"):
+        np.testing.assert_allclose(float(out[k]), float(ref[k]), rtol=1e-4,
+                                   err_msg=k)
+    _assert_moments_match(pg, opt[0], carry[4], "G",
+                          rel=5e-3 if family == "srgan" else 1e-4)
+    _assert_moments_match(pd, opt[1], carry[5], "D")
 
 
 def test_cgan_three_chained_steps_match_jax(jax_nets, jax_steps, towers):
     """Keras Adam's step count enters its step size: three chained cgan
-    steps on three batches, losses rtol 1e-4 at each and every parameter
-    and running statistic after the third within the one-step
+    steps on three batches, losses rtol 1e-4 at each and every parameter,
+    running statistic and first moment after the third within the one-step
     tolerances."""
     carry = _jax_carry("cgan", jax_nets, jax_steps)
     pg, pd, opt, step_fn = _port_step("cgan", jax_nets, towers)
@@ -610,6 +695,8 @@ def test_cgan_three_chained_steps_match_jax(jax_nets, jax_steps, towers):
     assert opt[0].step == opt[1].step == int(carry[4].step) == 3
     _assert_module_matches_trees(pg, carry[0], carry[1], (2.5e-4, 1e-4), "G")
     _assert_module_matches_trees(pd, carry[2], carry[3], (2.5e-4, 1e-4), "D")
+    _assert_moments_match(pg, opt[0], carry[4], "G")
+    _assert_moments_match(pd, opt[1], carry[5], "D")
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -622,7 +709,7 @@ def test_on_the_fly_step_trains_in_the_family_domain(family, jax_nets,
     seen = []
     pg, pd, opt, step_fn = _port_step(
         family, jax_nets, towers, on_the_fly_noise=True,
-        noise_variant=2 if family in ("srgan", "cgan") else 3,
+        noise_variant={"srgan": 2, "cgan": 2, "esrgan": 3}.get(family),
         sr_scale=4 if family == "srgan" else 1)
     pg.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
     clean = (synth_clean_batch(torch.Generator().manual_seed(0), 2, HW)
@@ -676,6 +763,45 @@ def test_cli_train_each_family_on_the_cpu(family, png_dir, tmp_path):
     again = cli_train.build_trainer(cli_train.build_parser().parse_args(
         args + ["--num-epochs", "2", "--resume"]))
     assert again.start_epoch == 1 and again.opt[0].step == 2
+
+
+@pytest.mark.parametrize("family", ("denoise",) + FAMILIES)
+def test_build_modules_builds_what_the_jax_cli_builds(family, towers):
+    """``cli.train.build_modules`` (the trainer's modules, also phase 9's
+    on the card): every parameter and state leaf of the generator and the
+    discriminator has the shape of the one the JAX CLI builds (:258-268) at
+    32² and ×4; dncnn has no discriminator; esrgan's and cgan's are sized
+    for the image; srgan alone has a content loss, on the shipped tower fed
+    [0, 1], equal to ``make_vgg_perceptual``'s on the same inputs."""
+    g, d, perc = cli_train.build_modules(
+        family, (HW, HW), sr_scale=4,
+        generator=torch.Generator().manual_seed(0))
+    if family == "srgan":
+        jg = jax_models.build_generator("srgan", scale_factor=4)
+    else:
+        jg = jax_models.build_generator(family)
+    jd = (None if family == "dncnn" else jax_models.build_discriminator(
+        family, **({"input_hw": (HW, HW)} if family in ("esrgan", "cgan")
+                   else {})))
+    assert (d is None) == (jd is None)
+    for port, jm in ((g, jg), (d, jd)):
+        if port is None:
+            continue
+        want = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+        got = convert.state_dict_to_jax_params(port.state_dict(),
+                                               module=port)
+        for w, gt in zip(want, got):
+            assert {k: tuple(v.shape) for k, v in
+                    jax_tree.flatten(w).items()} == \
+                {k: tuple(v.shape) for k, v in jax_tree.flatten(gt).items()}
+    if family != "srgan":
+        assert perc is None
+        return
+    assert g.scale_factor == 4 and perc.to_unit
+    assert not any(p.requires_grad for p in perc.parameters())
+    rng = np.random.default_rng(8)
+    x, y = (_t(rng.uniform(-1, 1, (1, 3, HW, HW))) for _ in range(2))
+    assert torch.equal(perc(x, y), _port_perceptual(towers[1])(x, y))
 
 
 class _Pairs:
