@@ -6,6 +6,15 @@
       --clean-dir Clean_dataset --image-size 256 256 --batch-size 16 \\
       --num-epochs 20
 
+  # the reference's disk pairs (rendered by cli.noise_gen)
+  python -m celebrity_image_denoiser_tpu_torch.cli.train --model denoise \\
+      --clean-dir Clean_dataset --noisy-dir Dataset_Noise --no-on-the-fly
+
+  # a tensor-pair cache: the npz cache (data.caching.build_tensor_cache),
+  # the reference's Pre_dataset .pt tree or its cGAN tf.data cache
+  python -m celebrity_image_denoiser_tpu_torch.cli.train --model esrgan \\
+      --tensor-cache cache_dir
+
   # srgan ×4: 256² HR crops, 64² LR inputs, the shipped VGG tower
   python -m celebrity_image_denoiser_tpu_torch.cli.train --model srgan \\
       --clean-dir Clean_dataset --image-size 256 256 --sr-scale 4
@@ -17,12 +26,21 @@ Every family trains: denoise, srgan, esrgan, cgan (the Keras generator and
 discriminator, Keras Adam) and dncnn (no discriminator; the blind-σ
 Gaussian unless ``--noise-variant`` is given).  srgan's content loss runs
 on a torchvision VGG16 ``--vgg-pth``, else the shipped tower
-(``weights/perceptual``), else random features with a loud warning.  The
-flags are those of the JAX CLI that the port can honour.  Flags whose
-machinery is not ported (``--no-on-the-fly``, ``--tensor-cache``,
-``--extra-metrics``, ``--profile-dir``, ``--remat``, ``--graph-dir``, data
-parallelism) are absent rather than accepted and ignored; ROADMAP.md queue
-1 items 4-8 list them.
+(``weights/perceptual``), else random features with a loud warning.
+
+The data comes one of three ways, chosen as the JAX CLI chooses
+(``build_dataset``): clean files with the noise drawn on the card (the
+default: one launch of the noise kernel a step, the clean batch resized to
+``--image-size`` and carried as uint8); the pre-rendered disk pairs
+(``--no-on-the-fly --noisy-dir``; srgan reads its LR noisy side at
+``--image-size // --sr-scale``; esrgan and dncnn load on [0, 1], the rest
+in [-1, 1]); or a tensor cache (``--tensor-cache``, whose numeric domain
+follows ``--tensor-cache-domain``, the cache's ``meta.json`` or a probe,
+and is remapped to the family's).  The last two launch no noise kernel.
+The flags are those of the JAX CLI that the port can honour.  Flags whose
+machinery is not ported (``--extra-metrics``, ``--profile-dir``,
+``--remat``, ``--graph-dir``, data parallelism) are absent rather than
+accepted and ignored; ROADMAP.md queue 1 items 5-8 list them.
 """
 
 from __future__ import annotations
@@ -33,12 +51,17 @@ import torch
 
 from celebrity_image_denoiser_tpu_torch.core.config import TrainConfig
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
-from celebrity_image_denoiser_tpu_torch.data.datasets import CleanImageDataset
+from celebrity_image_denoiser_tpu_torch.data.caching import open_tensor_cache
+from celebrity_image_denoiser_tpu_torch.data.datasets import (
+    CleanImageDataset,
+    PairedImageDataset,
+)
 from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
 from celebrity_image_denoiser_tpu_torch.metrics import PerceptualDistance
 from celebrity_image_denoiser_tpu_torch.models import registry
 from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
     FAMILIES,
+    UNIT_FAMILIES,
     GANTrainer,
 )
 from celebrity_image_denoiser_tpu_torch.train.losses import (
@@ -54,12 +77,32 @@ def build_parser() -> argparse.ArgumentParser:
         description="Train a GAN family on an NVIDIA card")
     p.add_argument("--model", default="denoise", choices=list(FAMILIES))
     p.add_argument("--clean-dir", default="Clean_dataset")
+    p.add_argument("--noisy-dir", default="Dataset_Noise")
     p.add_argument("--num-epochs", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--image-size", type=int, nargs=2, default=(256, 256))
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--checkpoint-dir", default="checkpoint")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-on-the-fly", action="store_true",
+                   help="read pre-rendered noisy pairs from --noisy-dir "
+                        "(reference-parity pipeline)")
+    p.add_argument("--tensor-cache", default=None,
+                   help="train from a tensor-pair cache dir: the npz cache "
+                        "(data.caching.build_tensor_cache), the reference's "
+                        "Pre_dataset .pt tree (<dir>/<noise>/{noisy,clean}"
+                        "_tensor/*.pt) or its cGAN tf.data cache (needs "
+                        "tensorflow) — detected by layout; implies "
+                        "--no-on-the-fly")
+    p.add_argument("--tensor-cache-domain", default=None,
+                   choices=["unit", "tanh"],
+                   help="numeric domain of a --tensor-cache: 'unit' = [0,1], "
+                        "'tanh' = [-1,1]. For caches without meta.json the "
+                        "declaration wins (otherwise the domain is probed "
+                        "from sample pairs and the inference logged); for "
+                        "caches WITH meta.json the recorded domain is "
+                        "authoritative and a contradicting declaration is "
+                        "an error")
     p.add_argument("--noise-variant", type=int, default=None,
                    choices=[1, 2, 3],
                    help="default: the variant the reference uses for the "
@@ -131,10 +174,115 @@ def build_modules(family, image_size, *, sr_scale=4, vgg_pth=None,
     return g, d, perceptual
 
 
-def build_trainer(args) -> GANTrainer:
-    """The trainer that ``run`` and ``main`` train."""
-    device = resolve_device(args.device)
-    cfg = TrainConfig(
+def resolve_cache_domain(dataset, declared, path: str) -> bool:
+    """Set and return ``dataset.normalized`` (True: [-1, 1]) by the JAX
+    CLI's rules (:148-213): a declared domain (``"unit"`` / ``"tanh"``)
+    overrides an assumed one (the ``.pt`` reader's torchvision [0, 1]) and
+    contradicting a domain recorded in ``meta.json`` is a ``ValueError``;
+    with no declaration a cache without metadata is probed over up to 32
+    pairs spread across it, with a warning that says how weak the evidence
+    is."""
+    if declared is not None:
+        want = declared == "tanh"
+        recorded = bool(getattr(dataset, "domain_recorded", False))
+        if recorded and bool(dataset.normalized) != want:
+            raise ValueError(
+                f"--tensor-cache-domain={declared} contradicts the domain "
+                f"recorded in {path}/meta.json "
+                f"({'tanh' if dataset.normalized else 'unit'}); drop the "
+                "flag or rebuild the cache if its metadata is wrong")
+        if not recorded and dataset.normalized is not None \
+                and bool(dataset.normalized) != want:
+            logger.info("declared --tensor-cache-domain=%s overrides the "
+                        "cache's assumed domain", declared)
+        else:
+            logger.info("using declared --tensor-cache-domain=%s", declared)
+        dataset.normalized = want
+    elif dataset.normalized is None:
+        # a [-1, 1] cache has negative values with near certainty once
+        # enough samples are seen: spread up to 32 probes across it
+        n_probe = min(32, len(dataset))
+        step = max(1, len(dataset) // n_probe)
+        stats = [(float(min(a.min() for a in pair)),
+                  float(max(a.max() for a in pair)))
+                 for pair in (dataset[i] for i in range(0, len(dataset), step))
+                 if pair is not None]
+        if not stats:
+            raise ValueError(
+                f"--tensor-cache {path}: none of the {n_probe} probed pairs "
+                "could be read, so its numeric domain can't be probed — fix "
+                "the cache or pass --tensor-cache-domain explicitly")
+        probe_min = min(s[0] for s in stats)
+        probe_max = max(s[1] for s in stats)
+        dataset.normalized = probe_min < -1e-3
+        # nothing negative and nothing near 1.0: a dim [-1, 1] cache looks
+        # the same
+        ambiguous = not dataset.normalized and probe_max < 0.75
+        logger.warning(
+            "--tensor-cache has no meta.json; probed %d pairs (min %.4f, max "
+            "%.4f) => INFERRING domain %s%s — pass --tensor-cache-domain or "
+            "rebuild the cache to make this explicit",
+            len(stats), probe_min, probe_max,
+            "[-1,1]" if dataset.normalized else "[0,1]",
+            ("; evidence is weak (no negatives seen but max stays well under "
+             "1.0), the inference may be wrong" if ambiguous else ""))
+    return bool(dataset.normalized)
+
+
+class Remapped:
+    """A pair dataset mapped between [0, 1] and [-1, 1]: ``to_tanh`` maps
+    ``a·2 − 1``, else ``a·0.5 + 0.5``; None items stay None."""
+
+    def __init__(self, base, to_tanh: bool):
+        self.base = base
+        self.to_tanh = to_tanh
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        pair = self.base[i]
+        if pair is None:
+            return None
+        if self.to_tanh:
+            return tuple(a * 2.0 - 1.0 for a in pair)
+        return tuple(a * 0.5 + 0.5 for a in pair)
+
+
+def build_dataset(args, cfg: TrainConfig):
+    """The training dataset of ``args``, as the JAX CLI builds it
+    (:136-257): a tensor cache in the family's domain, the disk pairs, or
+    the clean files of the on-the-fly path."""
+    zero_one_family = args.model in UNIT_FAMILIES
+    if args.tensor_cache:
+        dataset = open_tensor_cache(args.tensor_cache)
+        tanh = resolve_cache_domain(dataset, args.tensor_cache_domain,
+                                    args.tensor_cache)
+        if tanh == zero_one_family:
+            logger.info("remapping cached pairs to the %s family domain %s",
+                        args.model, "[0,1]" if zero_one_family else "[-1,1]")
+            dataset = Remapped(dataset, to_tanh=not zero_one_family)
+        return dataset
+    if cfg.on_the_fly_noise:
+        return CleanImageDataset(
+            args.clean_dir, image_size=cfg.image_size,
+            test_split=cfg.test_split, split_seed=cfg.split_seed)
+    # srgan's disk layout is LR noisy / HR clean; esrgan and dncnn pairs
+    # load unnormalised ([0, 1], their train domain)
+    lr_hw = None
+    if args.model == "srgan":
+        lr_hw = (cfg.image_size[0] // args.sr_scale,
+                 cfg.image_size[1] // args.sr_scale)
+    return PairedImageDataset(
+        args.noisy_dir, args.clean_dir, cfg.noise_types,
+        noisy_size=lr_hw or cfg.image_size, clean_size=cfg.image_size,
+        test_split=cfg.test_split, split_seed=cfg.split_seed,
+        normalize=not zero_one_family)
+
+
+def build_config(args) -> TrainConfig:
+    """The ``TrainConfig`` of parsed ``args``."""
+    return TrainConfig(
         model=args.model,
         num_epochs=args.num_epochs,
         batch_size=args.batch_size,
@@ -142,15 +290,19 @@ def build_trainer(args) -> GANTrainer:
         lr=args.lr,
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,
-        on_the_fly_noise=True,
+        on_the_fly_noise=not args.no_on_the_fly and not args.tensor_cache,
         noise_variant=args.noise_variant,
         compute_dtype=args.compute_dtype,
     )
-    dataset = CleanImageDataset(
-        args.clean_dir, image_size=cfg.image_size,
-        test_split=cfg.test_split, split_seed=cfg.split_seed)
-    pipeline = DataPipeline(dataset, cfg.batch_size, shuffle=True,
-                            seed=cfg.seed, drop_last=True, device=device)
+
+
+def build_trainer(args) -> GANTrainer:
+    """The trainer that ``run`` and ``main`` train."""
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    pipeline = DataPipeline(build_dataset(args, cfg), cfg.batch_size,
+                            shuffle=True, seed=cfg.seed, drop_last=True,
+                            device=device)
     gen, disc, perceptual = build_modules(
         args.model, cfg.image_size, sr_scale=args.sr_scale,
         vgg_pth=args.vgg_pth,

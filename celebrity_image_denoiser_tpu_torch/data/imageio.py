@@ -1,9 +1,10 @@
 """Host-side image decode/encode and normalization helpers.
 
 Port of ``celebrity_image_denoiser_tpu/data/imageio.py`` (``imread_rgb:20``,
-``encode_png_base64:71``, ``to_float01:88``, ``normalize:93``) for a host
-that may have no Pillow: PNG always goes through a small codec written on
-the standard library's ``zlib`` and ``struct``:
+``imwrite:57``, ``encode_png_base64:71``, ``to_float01:88``,
+``normalize:93``, ``list_images:105``) for a host that may have no Pillow:
+PNG always goes through a small codec written on the standard library's
+``zlib`` and ``struct``:
 
 * decode: 8-bit, non-interlaced greyscale, grey+alpha, RGB or RGBA, all
   five row filter types (None, Sub, Up, Average, Paeth), CRCs checked;
@@ -13,20 +14,34 @@ the standard library's ``zlib`` and ``struct``:
 Other formats (JPEG, BMP, …) import PIL inside the branch that needs them;
 without PIL such a request fails like any undecodable upload.
 
-``resize_bicubic_u8`` is Pillow's ``Image.resize(size, BICUBIC)`` on 8-bit
-images, bit for bit, for the two places the JAX server and its quality
-fixture call it (srgan's analysis view, ``serve/handlers.py:825-828``, and
-its fixture, ``serve/quality.py:77-89``).
+``resize_u8`` is Pillow's ``Image.resize(size, BICUBIC | LANCZOS)`` on
+8-bit images, bit for bit: the same fixed-point separable passes, the
+coefficients computed in the order Pillow's ``Resample.c`` computes them.
+It serves ``imread_rgb``'s two Pillow methods (the datasets' and the
+renderer's resize) and, as ``resize_bicubic_u8``, the two places the JAX
+server and its quality fixture call Pillow (srgan's analysis view,
+``serve/handlers.py:825-828``, and its fixture, ``serve/quality.py:77-89``).
+``imread_rgb``'s third method, ``"cv2-linear"``, is the JAX function's path
+where cv2 is not installed: the triangle filter without antialiasing
+through ``ops/resize.py``.  The port never imports cv2 (the card machine
+has none); where the JAX function finds cv2 it runs cv2's fixed-point
+kernel instead, within 1 count of this one.
 """
 
 from __future__ import annotations
 
 import base64
+import functools
 import io
+import math
+import os
 import struct
 import zlib
+from typing import List, Optional, Tuple
 
 import numpy as np
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tiff")
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels (8-bit only; palette images are not supported)
@@ -145,7 +160,7 @@ def _to_rgb(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
-def imread_rgb(data: bytes) -> np.ndarray:
+def _decode_rgb(data: bytes) -> np.ndarray:
     """Encoded image bytes → uint8 RGB HWC.  PNG through the codec above; any
     other format through PIL, imported here only."""
     if data.startswith(PNG_SIGNATURE):
@@ -154,6 +169,59 @@ def imread_rgb(data: bytes) -> np.ndarray:
 
     img = Image.open(io.BytesIO(data)).convert("RGB")
     return np.asarray(img, dtype=np.uint8)
+
+
+def imread_rgb(path_or_bytes, size: Optional[Tuple[int, int]] = None,
+               method: str = "bicubic") -> np.ndarray:
+    """Decode a file (a path) or encoded bytes to uint8 RGB HWC; with
+    ``size`` = (w, h) (PIL's order), resize it by ``method``: "bicubic"
+    (Pillow's BICUBIC, the reference's dataset resize), "lanczos" (Pillow's
+    LANCZOS, a = 3), both bit-exact with Pillow (``resize_u8``), or
+    "cv2-linear" (the triangle filter without antialiasing, rounded to
+    uint8: the JAX function's path without cv2, ``ops.resize(arr, (h, w),
+    "linear", antialias=False)``)."""
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        data = bytes(path_or_bytes)
+    else:
+        with open(path_or_bytes, "rb") as f:
+            data = f.read()
+    arr = _decode_rgb(data)
+    if size is None:
+        return arr
+    if method == "cv2-linear":
+        import torch  # noqa: PLC0415 — this method only
+
+        from celebrity_image_denoiser_tpu_torch.ops.resize import resize
+
+        return resize(torch.from_numpy(arr.copy()), (size[1], size[0]),
+                      "linear", antialias=False).numpy()
+    if method not in _PIL_FILTERS:
+        raise ValueError(f"unknown resize method {method!r}; choose from "
+                         f"{sorted(_PIL_FILTERS) + ['cv2-linear']}")
+    return resize_u8(arr, size, method)
+
+
+def imwrite(path: str, arr: np.ndarray) -> None:
+    """Save uint8 HWC RGB: PNG through the codec above; any other extension
+    through PIL, imported here only."""
+    arr = np.asarray(arr, dtype=np.uint8)
+    if path.lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(arr))
+        return
+    from PIL import Image
+
+    Image.fromarray(arr).save(path)
+
+
+def list_images(root: str) -> List[str]:
+    """Every file under ``root`` with an image extension, sorted."""
+    out = []
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.lower().endswith(IMAGE_EXTS):
+                out.append(os.path.join(dirpath, f))
+    return sorted(out)
 
 
 def encode_png_base64(arr: np.ndarray) -> str:
@@ -174,43 +242,75 @@ def normalize(arr: np.ndarray, mean=0.5, std=0.5) -> np.ndarray:
 _PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow's Resample.c
 
 
-def _pil_bicubic(x: np.ndarray) -> np.ndarray:
-    """Pillow's bicubic filter, a = -0.5."""
+def _pil_bicubic(x: float) -> float:
+    """Pillow's ``bicubic_filter``, a = -0.5."""
     a = -0.5
-    x = np.abs(x)
-    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
-                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
 
 
-def _pil_coeffs(in_size: int, out_size: int):
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _pil_lanczos(x: float) -> float:
+    """Pillow's ``lanczos_filter``: the sinc truncated by sinc(x / 3)."""
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3)
+    return 0.0
+
+
+# method → (filter, support), as Pillow's filter table
+_PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0),
+                "lanczos": (_pil_lanczos, 3.0)}
+
+
+@functools.lru_cache(maxsize=256)
+def _pil_coeffs(in_size: int, out_size: int, method: str = "bicubic"):
     """Per output sample: the first input sample and the fixed-point
-    weights (``precompute_coeffs`` and ``normalize_coeffs_8bpc``)."""
+    weights (``precompute_coeffs`` and ``normalize_coeffs_8bpc``), each
+    weight computed, summed and divided in Pillow's order.  Read-only: the
+    cache hands the same arrays to every caller."""
+    kernel, kernel_support = _PIL_FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
+    support = kernel_support * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
     first = np.zeros(out_size, np.int64)
     k = np.zeros((out_size, ksize), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _pil_bicubic((np.arange(xmax) + xmin - center + 0.5)
-                         / filterscale)
-        ww = w.sum()
+        w = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
         if ww != 0.0:
-            w = w / ww
-        f = w * (1 << _PIL_PRECISION_BITS)
-        k[xx, :xmax] = np.where(w < 0, -0.5 + f, 0.5 + f).astype(np.int64)
+            w = [v / ww for v in w]
+        for x, v in enumerate(w):
+            f = v * (1 << _PIL_PRECISION_BITS)
+            k[xx, x] = int(-0.5 + f) if v < 0 else int(0.5 + f)
         first[xx] = xmin
+    first.setflags(write=False)
+    k.setflags(write=False)
     return first, k
 
 
-def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _pil_pass(img: np.ndarray, out_size: int, axis: int,
+              method: str = "bicubic") -> np.ndarray:
     """One pass of Pillow's separable resample along ``axis`` (uint8 in and
     out: each pass rounds and clips)."""
     in_size = img.shape[axis]
-    first, k = _pil_coeffs(in_size, out_size)
+    first, k = _pil_coeffs(in_size, out_size, method)
     src = np.moveaxis(img, axis, 0).astype(np.int64)
     src = np.concatenate([src, np.zeros((k.shape[1],) + src.shape[1:],
                                         np.int64)])
@@ -222,14 +322,21 @@ def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_bicubic_u8(img: np.ndarray, size) -> np.ndarray:
+def resize_u8(img: np.ndarray, size, method: str = "bicubic") -> np.ndarray:
     """uint8 (H, W[, C]) → (h, w[, C]) for ``size`` = (w, h) (PIL's order),
-    as Pillow's ``Image.resize(size, Image.BICUBIC)``: the horizontal pass
-    first, then the vertical one, each in 22-bit fixed point."""
+    as Pillow's ``Image.resize(size, BICUBIC)`` or ``LANCZOS``
+    (``method``): the horizontal pass first, then the vertical one, each in
+    22-bit fixed point; an axis whose size does not change is not
+    resampled."""
     w, h = size
     out = img
     if out.shape[1] != w:
-        out = _pil_pass(out, w, 1)
+        out = _pil_pass(out, w, 1, method)
     if out.shape[0] != h:
-        out = _pil_pass(out, h, 0)
+        out = _pil_pass(out, h, 0, method)
     return out
+
+
+def resize_bicubic_u8(img: np.ndarray, size) -> np.ndarray:
+    """``resize_u8`` with Pillow's BICUBIC."""
+    return resize_u8(img, size, "bicubic")

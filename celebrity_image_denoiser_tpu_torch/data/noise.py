@@ -16,8 +16,10 @@ so the streams differ and the tests compare distributions, or feed both
 sides the same draws through the ``*_from_draws`` halves.  Those halves,
 the variants' parameters and the kind codes are the noise kernel's
 (``ops/cuda/noise.py``, whose plain version is made of them); they are
-imported from there.  ``poisson_v3_exact`` (the host-side per-image scale
-of the offline renderer) is not ported.
+imported from there.  ``poisson_v3_exact`` is variant 3's poisson with the
+reference's per-image scale (``noise.py:144-163``), for the offline
+renderer (``cli/noise_gen.py``): a plain function of tensors and a
+generator, not a mode of the kernel, whose table fixes the scale at 256.
 
 ``random_noise_batch`` and ``blind_gaussian_batch`` are the input stage
 itself.  They differ from the JAX functions (``noise.py:207-242``) in what
@@ -41,6 +43,7 @@ tensor functions with a generator, for srgan's quality battery
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -63,6 +66,7 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda.noise import (
     gaussian_v1_from_draws,
     gaussian_v3_from_draws,
     poisson_v1_from_draws,
+    poisson_v2_from_draws,
     salt_pepper_v1_from_draws,
     salt_pepper_v2_from_draws,
     salt_pepper_v3_from_draws,
@@ -165,6 +169,24 @@ def uniform_v3(gen, img, low=UNIFORM3_LOW, high=UNIFORM3_HIGH):
     return uniform_v3_from_draws(img, _rand(gen, img.shape, img), low, high)
 
 
+def v3_poisson_vals(img: torch.Tensor) -> float:
+    """Variant 3's exact poisson scale, ``2^ceil(log2(#unique))`` over the
+    image's values (``v3_poisson_vals:144``, esrgan_addNoise.py:32-34).
+    Data-dependent, so it is read on the host."""
+    n = int(torch.unique(img).numel()) if img.numel() else 1
+    return float(2.0 ** math.ceil(math.log2(max(n, 1))))
+
+
+def poisson_v3_exact(gen: torch.Generator, img: torch.Tensor) -> torch.Tensor:
+    """Variant 3's poisson with the reference's per-image scale
+    (``poisson_v3_exact:157``): ``Pois(img · vals) / vals`` clipped to
+    [0, 1], vals from ``v3_poisson_vals``; ``img`` one float image on [0,
+    1], the counts drawn by ``torch.poisson`` from ``gen`` on its device."""
+    vals = v3_poisson_vals(img)
+    return poisson_v2_from_draws(img, torch.poisson(img * vals,
+                                                    generator=gen), vals)
+
+
 _VARIANTS = {
     1: {
         "gaussian": gaussian_v1,
@@ -228,7 +250,7 @@ def _check_uint8_batch(gen: torch.Generator, batch_uint8: torch.Tensor):
                          f"{batch_uint8.device}")
 
 
-def _seed(gen: torch.Generator, device) -> torch.Tensor:
+def stream_seed(gen: torch.Generator, device) -> torch.Tensor:
     """The kernel stream's seed, drawn on ``device``."""
     return torch.randint(0, 1 << 62, (1,), generator=gen, device=device)
 
@@ -251,7 +273,7 @@ def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
     dev = batch_uint8.device
     kinds = torch.randint(0, len(types), batch_uint8.shape[:1], generator=gen,
                           device=dev)
-    noisy, clean = noise_kernel.noise_batch(kinds, _seed(gen, dev),
+    noisy, clean = noise_kernel.noise_batch(kinds, stream_seed(gen, dev),
                                             batch_uint8, tuple(types),
                                             variant, domain)
     return noisy, clean, kinds
@@ -270,5 +292,5 @@ def blind_gaussian_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
     stream on the card (``ops/cuda/noise.py::blind_sigmas``): one launch
     of ``blind_noise_batch``, no host read."""
     _check_uint8_batch(gen, batch_uint8)
-    return noise_kernel.blind_noise_batch(_seed(gen, batch_uint8.device),
+    return noise_kernel.blind_noise_batch(stream_seed(gen, batch_uint8.device),
                                           batch_uint8, domain)

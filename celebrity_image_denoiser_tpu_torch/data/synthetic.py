@@ -11,8 +11,9 @@ package's for the same seed (another generator, and PyTorch's cubic kernel
 has a = −0.75 where JAX's has −0.5); the statistics a denoiser needs — flat
 regions, sharp edges, fine texture — are the same.  ``calibration_batch``
 (:93) is the int8 calibration batch, ``lr_batch`` (:120) the low-resolution
-recipe (the ×4 bicubic downscale is ``ops/resize.py``'s, JAX's function)
-and ``srgan_calibration_batch`` (:135) SRGAN's calibration mix.  Every
+recipe (the ×4 bicubic downscale is ``ops/resize.py``'s, JAX's function),
+``srgan_calibration_batch`` (:135) SRGAN's calibration mix and
+``heldout_noisy_batch`` (:158) the held-out agreement-probe batch.  Every
 batch is drawn from a ``torch.Generator`` on the CPU (seeded as the JAX
 function seeds its keys) whatever the device, so the card calibrates on
 the batch the CPU tests see.
@@ -119,3 +120,22 @@ def srgan_calibration_batch() -> torch.Tensor:
     σ 0.05 + 4 noisy full-resolution crops, (16, 64, 64, 3) in [-1, 1]."""
     return torch.cat([lr_batch(0, 8, 64), lr_batch(20, 4, 64, sigma=0.05),
                       calibration_batch(True)[:4, :64, :64, :]])
+
+
+def heldout_noisy_batch(tanh: bool, size: int = 48,
+                        sigmas=(0.08, 0.18)) -> torch.Tensor:
+    """Held-out agreement-probe batch (``heldout_noisy_batch:158``): the
+    calibration recipe with disjoint seeds and off-calibration σs, so a
+    probe never measures calibration pixels.  For the i-th σ, 4 clean
+    synthetics (a CPU generator seeded 1000 + i) plus σ·N(0, 1) (seeded
+    2000 + i), clipped to [0, 1]; (4·len(sigmas), size, size, 3) float32,
+    mapped to [-1, 1] when ``tanh``."""
+    parts = []
+    for i, sigma in enumerate(sigmas):
+        clean01 = synth_clean_batch(torch.Generator().manual_seed(1000 + i),
+                                    4, size)
+        noise = torch.randn(clean01.shape,
+                            generator=torch.Generator().manual_seed(2000 + i))
+        parts.append(torch.clamp(clean01 + sigma * noise, 0.0, 1.0))
+    batch01 = torch.cat(parts, dim=0)
+    return batch01 * 2.0 - 1.0 if tanh else batch01

@@ -1,14 +1,15 @@
 """Separable image resize, the function ``jax.image.resize`` computes.
 
 Port of ``celebrity_image_denoiser_tpu/ops/resize.py::resize`` (:16) for
-its bicubic and lanczos3 methods.  Each resized axis gets a
+its linear, bicubic and lanczos3 methods.  Each resized axis gets a
 weight matrix built the way ``jax.image.scale_and_translate`` builds it:
 output sample ``j`` sits at ``(j + 0.5) / scale - 0.5`` in input
-coordinates; the kernel (Keys cubic with a = -0.5, or Lanczos-3) is taken
-at the distance to each input sample, widened by ``1 / scale`` on a
-downscale when ``antialias`` is set; each output sample's weights are
-normalised to sum 1; and an output sample that lies outside the input is
-dropped (weight 0).  The two matrices are applied with two ``einsum``s.
+coordinates; the kernel (the triangle, Keys cubic with a = -0.5, or
+Lanczos-3) is taken at the distance to each input sample, widened by
+``1 / scale`` on a downscale when ``antialias`` is set; each output
+sample's weights are normalised to sum 1; and an output sample that lies
+outside the input is dropped (weight 0).  The two matrices are applied
+with two ``einsum``s.
 The weights are computed in float32, in the order JAX computes them.
 
 ``F.interpolate(mode="bicubic")`` is another function (a = -0.75, the
@@ -23,6 +24,10 @@ from typing import Tuple
 import torch
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +46,8 @@ def _lanczos(radius: int):
     return kernel
 
 
-_KERNELS = {"bicubic": _keys_cubic, "lanczos3": _lanczos(3)}
+_KERNELS = {"linear": _triangle, "bicubic": _keys_cubic,
+            "lanczos3": _lanczos(3)}
 
 
 def weight_matrix(in_size: int, out_size: int, method: str = "bicubic",

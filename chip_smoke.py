@@ -235,7 +235,33 @@ Phases, each printing its own lines; any failure exits non-zero:
              3 s (its launches one a step too) and peak memory; then the
              noise kernel in each mode the trainers run at the train batch,
              bit-equal to its plain version, on the device's clock beside
-             its bytes bound (1 byte read, 8 written an element).
+             its bytes bound (1 byte read, 8 written an element);
+13. data   — 80 synthetic PNGs of mixed sizes (256², 300×260, the 178×218
+             CelebA frame, one 255×257), a corrupt file and 8 CelebA frames
+             cropped in by ``prepare_clean_dataset``; ``cli.noise_gen`` on
+             the card in variant 1 (batch 64: exactly one noise kernel
+             launch per batch and type, each type's first batch bit-equal
+             to the plain version with the same kinds and seed, the files
+             the truncation of that output, the tree at the clean files'
+             paths; images/s, and the kernel per render launch at
+             64×256²×3 on the device's clock beside its bytes bound),
+             variant 2 in srgan's layout (64² LR, clean HR copies) and
+             variant 3 (its poisson through ``poisson_v3_exact``, no launch,
+             its vals printed); ``cli.train --no-on-the-fly`` on the
+             rendered pairs (denoise 256², batch 16, bf16 and f32; srgan on
+             the LR tree, the shipped VGG tower, bf16) and ``cli.train
+             --model esrgan --tensor-cache`` on a ``build_tensor_cache``
+             npz cache and a ``.pt`` tree (the domain each took): finite
+             metrics, no noise kernel launch, exact resume, steps/s; the
+             native batch assembly built by the port's g++ build (a failed
+             build fails the phase; a missing compiler must make
+             ``DataPipeline(use_native=True)`` raise), its uint8 batches
+             equal to ``native.resize_u8`` image by image, its float paired
+             batches within 1e-5 of the loader's plan in numpy, both within
+             2 counts (mean) and 30 (max) of the Pillow-exact python path;
+             native and python assembly images/s with the host's CPU count
+             (host numbers); and a ``cli.train`` epoch over the mixed sizes
+             on the native stage with one noise kernel launch a step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -248,6 +274,7 @@ import base64
 import contextlib
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3505,6 +3532,27 @@ def phase_train(conv3x3, double_conv, noise):
             step_sec["bfloat16"])
 
 
+def check_resume(tr, argv, label: str) -> None:
+    """The checkpoint that ``cli.train`` run with ``argv`` wrote resumes
+    with the trainer's state: modules and the generator's optimiser."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    again = cli_train.build_trainer(
+        cli_train.build_parser().parse_args(argv + ["--resume"]))
+    if again.start_epoch != 1 or again.opt[0].step != tr.steps:
+        fail(f"{label}: resume found no checkpoint")
+    pairs = [(tr.generator, again.generator)]
+    if tr.discriminator is not None:
+        pairs.append((tr.discriminator, again.discriminator))
+    for a, b in pairs:
+        for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
+            if not k.endswith("num_batches_tracked") and not torch.equal(v, w):
+                fail(f"{label}: {k} differs after resume")
+    if not all(torch.equal(v, again.opt[0].nu[k])
+               for k, v in tr.opt[0].nu.items()):
+        fail(f"{label}: optimiser state differs after resume")
+
+
 def write_train_pngs(tmp) -> np.ndarray:
     """TRAIN_IMAGES synthetic clean images of TRAIN_SIZE² as PNGs in
     ``tmp``; returns them as uint8 NHWC."""
@@ -3564,25 +3612,7 @@ def phase_train_families(noise):
                          f"{noise.GAUSSIAN_LAUNCHES} gaussian-only) for "
                          f"{tr.steps} steps")
                 launches += k4
-                # the checkpoint resumes with identical state
-                again = cli_train.build_trainer(
-                    cli_train.build_parser().parse_args(argv + ["--resume"]))
-                if again.start_epoch != 1 or again.opt[0].step != 4:
-                    fail(f"{family} {cdt}: resume found no checkpoint")
-                pairs = [(tr.generator, again.generator)]
-                if tr.discriminator is not None:
-                    pairs.append((tr.discriminator, again.discriminator))
-                for a, b in pairs:
-                    for (k, v), w in zip(a.state_dict().items(),
-                                         b.state_dict().values()):
-                        if not k.endswith("num_batches_tracked") \
-                                and not torch.equal(v, w):
-                            fail(f"{family} {cdt}: {k} differs after resume")
-                if not all(torch.equal(v, again.opt[0].nu[k])
-                           for k, v in tr.opt[0].nu.items()):
-                    fail(f"{family} {cdt}: optimiser state differs after "
-                         "resume")
-                del again
+                check_resume(tr, argv, f"{family} {cdt}")
                 # steady state on a resident batch, input stage included
                 step = functools.partial(tr.step_fn, tr.opt, None, batch,
                                          tr.noise_gen, 1e-4, 1e-4)
@@ -3828,6 +3858,463 @@ def phase_train_profile(_build, probes, noise, trainer, batch, step_sec,
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the data layer
+DATA_BATCH = 64  # the renderer's batch
+# (H, W) of the clean tree's files per person: 256², 300×260, the CelebA
+# frame (178 wide, 218 tall) and one odd 255×257; 80 files
+DATA_SIZES = {"person0": [(256, 256)] * 30, "person1": [(300, 260)] * 20,
+              "person2": [(218, 178)] * 29, "person3": [(255, 257)]}
+CELEBA_FRAMES = 8  # raw frames that prepare_clean_dataset crops into the tree
+CELEBA_FRAME = (218, 178)  # (H, W) of an aligned CelebA image
+
+
+def data_rels(root) -> list:
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+
+    return sorted(os.path.relpath(p, root) for p in imageio.list_images(root))
+
+
+def write_data_tree(tmp) -> str:
+    """Phase 13's clean tree: DATA_SIZES of synthetic PNGs, one corrupt
+    file, and CELEBA_FRAMES raw 178×218 frames put in by
+    ``prepare_clean_dataset`` (centre crop, 256² bicubic)."""
+    from celebrity_image_denoiser_tpu_torch.data import celeba, imageio
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        synth_clean_batch,
+    )
+
+    gen = make_gen()
+
+    def synth(n, h, w):
+        imgs = synth_clean_batch(gen, n, max(h, w))[:, :h, :w]
+        return (imgs * 255).round().to(torch.uint8).cpu().numpy()
+
+    clean = f"{tmp}/clean"
+    for person, sizes in DATA_SIZES.items():
+        os.makedirs(f"{clean}/{person}")
+        for i, img in enumerate(synth(len(sizes), *sizes[0])):
+            imageio.imwrite(f"{clean}/{person}/{i:03d}.png", img)
+    with open(f"{clean}/person3/broken.png", "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\nnot a png")
+    os.makedirs(f"{tmp}/raw/celeb")
+    frames = synth(CELEBA_FRAMES, *CELEBA_FRAME)
+    for i, img in enumerate(frames):
+        imageio.imwrite(f"{tmp}/raw/celeb/{i:03d}.png", img)
+    n = celeba.prepare_clean_dataset(f"{tmp}/raw", clean, (TRAIN_SIZE,
+                                                           TRAIN_SIZE))
+    got = imageio.imread_rgb(f"{clean}/celeb/000.png")
+    want = imageio.resize_u8(celeba.center_face_crop(frames[0]),
+                             (TRAIN_SIZE, TRAIN_SIZE))
+    if n != CELEBA_FRAMES or not np.array_equal(got, want):
+        fail(f"prepare_clean_dataset: {n} crops, the first "
+             f"{'equal' if np.array_equal(got, want) else 'NOT equal'} to "
+             "the crop's bicubic resize")
+    return clean
+
+
+def render(noise, clean, out, extra) -> tuple:
+    """``cli.noise_gen`` (on the card) of ``clean`` into ``out``: each call
+    of ``noise_batch`` recorded (its arguments and noisy output; the first
+    batch's of each type only, to hold them to the plain version) and the
+    vals of each ``poisson_v3_exact`` call; the launch count from 0."""
+    from celebrity_image_denoiser_tpu_torch.cli import noise_gen
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+
+    calls, vals = [], []
+    real, real_exact = noise.noise_batch, noise_lib.poisson_v3_exact
+
+    def recorded(kinds, seed, x, types, variant, domain):
+        noisy, clean_out = real(kinds, seed, x, types, variant, domain)
+        first = types not in [c["types"] for c in calls]
+        calls.append({"types": types, "variant": variant, "domain": domain,
+                      "kinds": kinds, "seed": seed.clone(),
+                      "x": x if first else None,
+                      "noisy": noisy.clone() if first else None})
+        return noisy, clean_out
+
+    def exact(gen, img):
+        vals.append(noise_lib.v3_poisson_vals(img))
+        return real_exact(gen, img)
+
+    argv = ["--clean-dir", clean, "--out-dir", out, "--image-size",
+            str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch", str(DATA_BATCH),
+            "--seed", "11"] + extra
+    noise.noise_batch, noise_lib.poisson_v3_exact = recorded, exact
+    try:
+        noise.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if noise_gen.main(argv) != 0:
+            fail(f"cli.noise_gen {' '.join(extra)} failed")
+        sec = time.perf_counter() - t0
+        launches = noise.LAUNCHES
+    finally:
+        noise.noise_batch, noise_lib.poisson_v3_exact = real, real_exact
+    return calls, vals, launches, sec
+
+
+def check_render(noise, clean, out, calls, launches, kinds_per_batch, lr):
+    """A render's launches (one per batch and type), its tree, and each
+    type's first batch: bit-equal to ``noise_batch_plain`` with the same
+    kinds and seed, and its files the truncation of that output (the LR
+    downscale first in srgan's layout).  Returns the worst error."""
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.ops.resize import resize
+
+    rels = [r for r in data_rels(clean) if not r.endswith("broken.png")]
+    batches = -(-(len(rels) + 1) // DATA_BATCH)
+    if launches != len(calls) or launches != kinds_per_batch * batches:
+        fail(f"cli.noise_gen: {launches} noise kernel launches ({len(calls)} "
+             f"calls) for {kinds_per_batch} types x {batches} batches")
+    dirs = sorted(noise.KIND_CODES) + (["clean_hr"] if lr else [])
+    if sorted(os.listdir(out)) != sorted(dirs):
+        fail(f"cli.noise_gen: {sorted(os.listdir(out))} under {out}")
+    for d in dirs:
+        if data_rels(f"{out}/{d}") != rels:
+            fail(f"cli.noise_gen: the {d} tree's paths differ from the "
+                 "clean tree's")
+    err = 0.0
+    for kind in sorted({c["types"][0] for c in calls}):
+        c = next(c for c in calls if c["types"] == (kind,))
+        if c["domain"] != "unit" or c["kinds"].tolist() != \
+                [0] * c["x"].shape[0]:
+            fail(f"cli.noise_gen {kind}: launched on {c['domain']} with "
+                 f"kinds {c['kinds'].tolist()}")
+        ref, _ = noise.noise_batch_plain(c["kinds"], c["seed"], c["x"],
+                                         c["types"], c["variant"], "unit")
+        err = max(err, check_noise(
+            f"render v{c['variant']} {kind} {tuple(c['x'].shape)}",
+            torch.float32, c["noisy"], ref))
+        noisy = c["noisy"] if lr is None else resize(c["noisy"], lr,
+                                                     "bicubic")
+        want = torch.clamp(noisy * 255.0, 0, 255).to(torch.uint8).cpu()
+        for i, rel in enumerate(rels[:c["x"].shape[0]]):
+            if not np.array_equal(imageio.imread_rgb(f"{out}/{kind}/{rel}"),
+                                  want[i].numpy()):
+                fail(f"cli.noise_gen {kind} {rel}: the file is not the "
+                     "truncation of the kernel's output")
+    return err
+
+
+def train_data(argv, noise, label) -> dict:
+    """``cli.train`` with ``argv`` for one epoch on the card: finite
+    metrics, no noise kernel launch, the checkpoint resumed exactly;
+    steps/s over the epoch (loading and the checkpoint's save included, the
+    trainer's set-up not)."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
+    tr = cli_train.build_trainer(cli_train.build_parser().parse_args(
+        argv + ["--num-epochs", "1"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    hist = {k: v[-1] for k, v in tr.metric_history.items() if v}
+    if tr.steps < 1 or not all(np.isfinite(v) for v in hist.values()):
+        fail(f"{label}: {tr.steps} steps, metrics {hist}")
+    if noise.LAUNCHES or noise.GAUSSIAN_LAUNCHES:
+        fail(f"{label}: {noise.LAUNCHES} noise kernel launches on a path "
+             "whose pairs carry their noise")
+    check_resume(tr, argv + ["--num-epochs", "1"], label)
+    row = {"steps": tr.steps, "steps_per_s": tr.steps / sec,
+           "native": tr.pipeline.use_native, "dataset":
+           type(tr.pipeline.dataset).__name__}
+    say(f"  {label}: {tr.steps} steps in {sec:.2f} s ({row['steps_per_s']:.3f}"
+        f" steps/s, loading included; batch assembly "
+        f"{'native' if row['native'] else 'python'}), g_loss "
+        f"{hist['g_loss']:.5f} psnr {hist['psnr']:.3f}; no noise kernel "
+        "launch; resumed with identical state")
+    return row
+
+
+def assembly_rate(pipe, batches: int = 4) -> float:
+    """Images/s of the host's batch assembly (decode, resize, stack) over
+    the first ``batches`` batches of an epoch's order."""
+    idx = pipe._indices()
+    t0 = time.perf_counter()
+    for b in range(batches):
+        pipe._load_batch(idx[b * pipe.batch_size:(b + 1) * pipe.batch_size])
+    return batches * pipe.batch_size / (time.perf_counter() - t0)
+
+
+def phase_data(noise):
+    """Phase 13: the data layer on the card."""
+    import tempfile
+
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+    from celebrity_image_denoiser_tpu_torch.data import (
+        caching,
+        datasets,
+        imageio,
+        native,
+    )
+    from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
+
+    say(f"== phase 13: the data layer — cli.noise_gen on the card (one noise "
+        f"kernel launch per batch of {DATA_BATCH} and type), cli.train on "
+        "disk pairs and caches, the native batch assembly")
+    t_phase = time.perf_counter()
+    out = {}
+    size = (TRAIN_SIZE, TRAIN_SIZE)
+    with tempfile.TemporaryDirectory(prefix="cid_data_") as tmp:
+        clean = write_data_tree(tmp)
+        n_files = len(data_rels(clean))
+        sizes = ", ".join(f"{len(v)} of {v[0][0]}x{v[0][1]}"
+                          for v in DATA_SIZES.values())
+        say(f"  clean tree: {n_files} files ({n_files - 1} decodable: "
+            f"{sizes}, {CELEBA_FRAMES} CelebA frames through "
+            "prepare_clean_dataset)")
+        # 1. variant 1, all five types
+        calls, _, launches, sec = render(noise, clean, f"{tmp}/v1",
+                                         ["--variant", "1"])
+        err = check_render(noise, clean, f"{tmp}/v1", calls, launches, 5,
+                           None)
+        x = next(c["x"] for c in calls if c["x"] is not None)
+        if tuple(x.shape) != (DATA_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3):
+            fail(f"render batch {tuple(x.shape)}")
+        bound = x.numel() * 9 / PEAK_BYTES * 1e3
+        kernel_ms = {}
+        for kind in noise.KIND_CODES:
+            c = next(c for c in calls if c["types"] == (kind,))
+            kernel_ms[kind] = device_ms(functools.partial(
+                noise.noise_batch, c["kinds"], c["seed"], x, (kind,), 1,
+                "unit"))
+        plain_ms = time_ms(functools.partial(
+            noise.noise_batch_plain, c["kinds"], c["seed"], x, ("gaussian",),
+            1, "unit"))
+        rate = (n_files - 1) * 5 / sec
+        # where the render's host time goes: a file's decode and resize (the
+        # Pillow-exact python path, person1's files), and its PNG encode
+        # (the first batch's truncated gaussian output)
+        files = [f"{clean}/{r}" for r in data_rels(clean)
+                 if r.startswith("person1/")][:8]
+        t0 = time.perf_counter()
+        for f in files:
+            imageio.imread_rgb(f, size)
+        read_ms = (time.perf_counter() - t0) / len(files) * 1e3
+        c = next(c for c in calls if c["types"] == ("gaussian",))
+        imgs = torch.clamp(c["noisy"][:16] * 255.0, 0, 255).to(
+            torch.uint8).cpu().numpy()
+        t0 = time.perf_counter()
+        for img in imgs:
+            imageio.encode_png(img)
+        encode_ms = (time.perf_counter() - t0) / len(imgs) * 1e3
+        h, w, _ = imageio.imread_rgb(files[0]).shape
+        say(f"  render host stages: decode + resize of a {h}x{w} file "
+            f"{read_ms:.2f} ms, PNG encode of a noisy {TRAIN_SIZE}x"
+            f"{TRAIN_SIZE} file {encode_ms:.2f} ms (host numbers)")
+        say(f"  render v1: {launches} launches ({len(calls)} calls), "
+            f"{rate:.1f} images/s ({(n_files - 1) * 5} files in {sec:.2f} "
+            f"s); noise_batch per render launch {tuple(x.shape)} on the "
+            f"device's clock: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in kernel_ms.items())
+            + f" ms; bound {bound:.4f} ms (bytes: {x.numel() * 9} at 3.35 "
+            f"TB/s), plain {plain_ms:.3f} ms")
+        out["render"] = {"launches": launches, "images_per_s": rate,
+                         "ms": kernel_ms, "bound_ms": bound,
+                         "plain_ms": plain_ms, "max_abs_err": err,
+                         "read_ms": read_ms, "encode_ms": encode_ms}
+        # 2. variant 2 in srgan's layout (LR a quarter of the size, clean
+        # HR copies), and variant 3, whose poisson takes the per-image scale
+        lr = TRAIN_SIZE // 4
+        calls2, _, launches2, sec2 = render(
+            noise, clean, f"{tmp}/v2", ["--variant", "2", "--lr-size",
+                                        str(lr), str(lr)])
+        err = max(err, check_render(noise, clean, f"{tmp}/v2", calls2,
+                                    launches2, 5, (lr, lr)))
+        hr = data_rels(f"{tmp}/v2/clean_hr")
+        first = imageio.imread_rgb(f"{tmp}/v2/clean_hr/{hr[0]}")
+        resized = imageio.imread_rgb(f"{clean}/{hr[0]}", size)
+        if len(hr) != n_files - 1 or np.abs(first.astype(int)
+                                            - resized).max() > 1:
+            fail("cli.noise_gen --lr-size: clean HR copies")
+        calls3, vals, launches3, sec3 = render(noise, clean, f"{tmp}/v3",
+                                               ["--variant", "3"])
+        err = max(err, check_render(noise, clean, f"{tmp}/v3", calls3,
+                                    launches3, 4, None))
+        if len(vals) != n_files - 1:
+            fail(f"variant 3 poisson: {len(vals)} poisson_v3_exact calls")
+        say(f"  render v2 ({lr}x{lr} LR): {launches2} launches, "
+            f"{(n_files - 1) * 5 / sec2:.1f} images/s; v3: {launches3} "
+            f"launches (poisson through poisson_v3_exact, no launch: vals "
+            f"{sorted(set(vals))} over {len(vals)} images), "
+            f"{(n_files - 1) * 5 / sec3:.1f} images/s")
+        out["render"]["launches"] += launches2 + launches3
+        out["render"]["max_abs_err"] = err
+        # 3. cli.train on the disk pairs, and srgan on the LR tree
+        base = ["--clean-dir", clean, "--image-size", str(TRAIN_SIZE),
+                str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
+                "--no-on-the-fly"]
+        out["pairs"] = {}
+        for cdt in ("bfloat16", "float32"):
+            out["pairs"][f"denoise {cdt}"] = train_data(
+                base + ["--noisy-dir", f"{tmp}/v1", "--compute-dtype", cdt,
+                        "--checkpoint-dir", f"{tmp}/ck_pairs_{cdt}"],
+                noise, f"cli.train denoise --no-on-the-fly {cdt}")
+        srgan = ["--model", "srgan", "--clean-dir", f"{tmp}/v2/clean_hr",
+                 "--noisy-dir", f"{tmp}/v2", "--image-size", str(TRAIN_SIZE),
+                 str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
+                 "--no-on-the-fly", "--checkpoint-dir", f"{tmp}/ck_srgan"]
+        args = cli_train.build_parser().parse_args(srgan)
+        ds = cli_train.build_dataset(args, cli_train.build_config(args))
+        if ds[0][0].shape != (lr, lr, 3) or ds[0][1].shape != size + (3,):
+            fail(f"srgan pairs: {ds[0][0].shape} / {ds[0][1].shape}")
+        out["pairs"]["srgan bfloat16"] = train_data(
+            srgan, noise, f"cli.train srgan --no-on-the-fly ({lr}x{lr} LR) "
+            "bf16")
+        # 4. caches: the npz cache of the rendered pairs, and a .pt tree
+        n = caching.build_tensor_cache(f"{tmp}/v1/gaussian", clean,
+                                       f"{tmp}/cache", image_size=size)
+        pt = f"{tmp}/Pre_dataset/gaussian"
+        pairs = datasets.collect_pairs(f"{tmp}/v1", clean, ("speckle",))[:32]
+        for i, (noisy_path, clean_path) in enumerate(pairs):
+            for side, path in (("noisy", noisy_path), ("clean", clean_path)):
+                os.makedirs(f"{pt}/{side}_tensor/p{i % 2}", exist_ok=True)
+                arr = imageio.to_float01(imageio.imread_rgb(path, size))
+                torch.save(torch.from_numpy(arr).permute(2, 0, 1).contiguous(),
+                           f"{pt}/{side}_tensor/p{i % 2}/{i:03d}.pt")
+        out["caches"] = {}
+        for label, path, kind in (("npz", f"{tmp}/cache",
+                                   caching.TensorPairDataset),
+                                  (".pt", f"{tmp}/Pre_dataset",
+                                   caching.TorchTensorPairDataset)):
+            argv = ["--model", "esrgan", "--tensor-cache", path,
+                    "--image-size", str(TRAIN_SIZE), str(TRAIN_SIZE),
+                    "--batch-size", str(TRAIN_BATCH), "--checkpoint-dir",
+                    f"{tmp}/ck_cache_{label}"]
+            args = cli_train.build_parser().parse_args(argv)
+            ds = cli_train.build_dataset(args, cli_train.build_config(args))
+            if not isinstance(ds, kind) or ds.normalized is not False:
+                fail(f"--tensor-cache {label}: {type(ds).__name__} "
+                     f"normalized {getattr(ds, 'normalized', None)}")
+            row = train_data(argv, noise,
+                             f"cli.train esrgan --tensor-cache {label}")
+            row.update(pairs=len(ds), domain="[0,1]",
+                       recorded=ds.domain_recorded)
+            made = (f"build_tensor_cache of the v1 gaussian pairs, {n}"
+                    if label == "npz" else "torch.save of v1 speckle pairs")
+            how = ("recorded in meta.json" if ds.domain_recorded
+                   else "assumed (torchvision ToTensor)")
+            say(f"  --tensor-cache {label}: {len(ds)} pairs ({made}), domain "
+                f"[0, 1] {how}, esrgan's: no remap")
+            out["caches"][label] = row
+        # 5. the native batch assembly: the port's own build
+        try:
+            native.load(rebuild=True)
+        except RuntimeError as e:
+            fail(f"the native loader did not build: {e}")
+        old = os.environ.get("CXX")
+        os.environ["CXX"] = f"{tmp}/no-such-compiler"
+        try:
+            native.load(rebuild=True)
+            fail("the native loader built with a missing compiler")
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0]
+        try:
+            DataPipeline(datasets.CleanImageDataset(clean, size), 4,
+                         use_native=True)
+            fail("use_native=True ran with a failed build")
+        except RuntimeError:
+            pass
+        finally:
+            if old is None:
+                del os.environ["CXX"]
+            else:
+                os.environ["CXX"] = old
+        try:
+            native.load(rebuild=True)
+        except RuntimeError as e:
+            fail(f"the native loader did not build again: {e}")
+        lib = native._build.output_path().name
+        say(f"  native loader: built by g++ ({lib}); a failed build raises "
+            f"({refused[:80]}...) and "
+            "DataPipeline(use_native=True) refuses before the first batch")
+        clean_ds = datasets.CleanImageDataset(clean, size)
+        pipe = DataPipeline(clean_ds, TRAIN_BATCH, use_native=True,
+                            num_threads=4)
+        python = DataPipeline(clean_ds, TRAIN_BATCH, use_native=False)
+        order = pipe._indices()
+        worst = 0.0
+        for b, (got, slow) in enumerate(zip(pipe, python)):
+            raws = [r for r in (clean_ds.raw(int(i)) for i in
+                                order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH])
+                    if r is not None]
+            raws += raws[:TRAIN_BATCH - len(raws)]
+            if got.dtype != torch.uint8 or got.device.type != "cuda":
+                fail(f"native clean batch {got.dtype} on {got.device}")
+            got, slow = got.cpu().numpy(), slow.cpu().numpy()
+            for k, raw in enumerate(raws):
+                if not np.array_equal(got[k], native.resize_u8(raw, size)):
+                    fail("a native uint8 batch image differs from "
+                         "native.resize_u8")
+            d = np.abs(got.astype(int) - slow)
+            worst = max(worst, d.mean())
+            if d.mean() >= 2.0 or d.max() > 30:
+                fail(f"native vs the Pillow-exact path: mean {d.mean():.3f}, "
+                     f"max {d.max()} counts")
+        paired = datasets.PairedImageDataset(f"{tmp}/v1", clean,
+                                             image_size=size)
+        ppipe = DataPipeline(paired, TRAIN_BATCH, use_native=True,
+                             num_threads=4)
+        porder = ppipe._indices()
+        plain_err = 0.0
+        for b, (noisy, cl) in enumerate(ppipe):
+            if b == 2:
+                break
+            part = [int(i) for i in
+                    porder[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]]
+            raws = [paired.raw(i) for i in part]
+            for j, side in enumerate((noisy, cl)):
+                ref = native.assemble_batch_plain([r[j] for r in raws], size)
+                e = float(np.abs(side.cpu().numpy() - ref).max())
+                plain_err = max(plain_err, e)
+                slow = np.stack([paired[i][j] for i in part])
+                d = np.abs(side.cpu().numpy() - slow) * 127.5
+                if e > 1e-5 or d.mean() >= 2.0 or d.max() > 30:
+                    fail(f"native paired batch: {e:.2e} from the numpy plan, "
+                         f"{d.mean():.3f} / {d.max():.1f} counts from the "
+                         "Pillow-exact path")
+        rates = {"native": assembly_rate(DataPipeline(
+            clean_ds, TRAIN_BATCH, use_native=True, num_threads=4)),
+            "python": assembly_rate(python),
+            # pairs/s, with cli.train's two decode threads
+            "paired": assembly_rate(DataPipeline(paired, TRAIN_BATCH,
+                                                 use_native=True))}
+        say(f"  native clean batches: uint8 on the card, every image equal "
+            f"to native.resize_u8; within {worst:.3f} counts (mean) of the "
+            f"Pillow-exact path; paired float batches within {plain_err:.2e} "
+            f"of the loader's plan in numpy; assembly at {TRAIN_SIZE}x"
+            f"{TRAIN_SIZE}, batch "
+            f"{TRAIN_BATCH}: native (4 threads) {rates['native']:.1f} "
+            f"images/s, python {rates['python']:.1f} images/s; the v1 pairs "
+            f"with cli.train's 2 decode threads {rates['paired']:.1f} "
+            f"pairs/s; host CPUs {os.cpu_count()} (host numbers)")
+        # the on-the-fly trainer over the mixed sizes, native by default
+        argv = ["--clean-dir", clean, "--image-size", str(TRAIN_SIZE),
+                str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
+                "--num-epochs", "1", "--checkpoint-dir", f"{tmp}/ck_native"]
+        noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
+        tr = cli_train.run(argv)
+        k4 = noise.LAUNCHES
+        if not tr.pipeline.use_native or tr.steps < 1 or k4 != tr.steps \
+                or noise.GAUSSIAN_LAUNCHES \
+                or not np.isfinite(tr.metric_history["g_loss"]).all():
+            fail(f"cli.train over the native stage: native "
+                 f"{tr.pipeline.use_native}, {tr.steps} steps, {k4} noise "
+                 "kernel launches")
+        check_resume(tr, argv, "cli.train denoise (native)")
+        say(f"  cli.train denoise over the mixed sizes: native batch "
+            f"assembly, {tr.steps} steps, {k4} noise kernel launches (one a "
+            "step), resumed with identical state")
+        out["native"] = {"images_per_s": rates, "cpus": os.cpu_count(),
+                         "max_plain_err": plain_err, "k4_launches": k4}
+    say(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     # the port first: run outside a checkout, this fails before anything
     from celebrity_image_denoiser_tpu_torch import bench
@@ -3882,6 +4369,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_noise_launches, train_rows, noise_modes = \
         phase_train_families(noise)
+    data = phase_data(noise)
 
     replaces = {
         "conv3x3_bias_relu":
@@ -3971,10 +4459,13 @@ def main() -> int:
                   "normalize_gaussian_noise.cu",
         "replaces":
             "celebrity_image_denoiser_tpu/ops/pallas/noise_kernel.py:46",
-        # the cli.train runs of phases 10 (denoise) and 12 (dncnn, esrgan,
-        # cgan, srgan) and their timed windows, counts set to 0 just before
-        # each: one launch per step
-        "launches": noise_launches + family_noise_launches,
+        # the cli.train runs of phases 10 (denoise), 12 (dncnn, esrgan,
+        # cgan, srgan) and 13 (denoise over the native stage) and their
+        # timed windows, one launch per step; and phase 13's renders, one
+        # per batch and type; counts set to 0 just before each
+        "launches": (noise_launches + family_noise_launches
+                     + data["render"]["launches"]
+                     + data["native"]["k4_launches"]),
         "max_abs_err": max(noise_err, noise_stats["max_abs_err"]),
         # one launch at the train batch (16 x 256 x 256 x 3, f32 noisy and
         # clean), phase 11; no single PyTorch call computes this
@@ -3984,6 +4475,11 @@ def main() -> int:
         "library_ms": None,
         # each mode the trainers run, at the train batch (phase 12)
         "modes": noise_modes,
+        # cli.noise_gen's launches: every sample one kind on [0, 1], at the
+        # renderer's batch (phase 13; ms per kind, bound by bytes)
+        "render": {k: data["render"][k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "max_abs_err",
+            "images_per_s")},
         # the same kernel through the Pallas function's counterpart (every
         # element gaussian, one f32 output), at the same batch; its own
         # count over the same cli.train runs (0: not on the main path)
@@ -3996,6 +4492,7 @@ def main() -> int:
     })
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"train_families": train_rows}), flush=True)
+    print(json.dumps({"data": data}), flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,10 @@ def test_port_has_modules_to_check():
                  "models.folded", "models.registry", "ops.padding",
                  "ops.resize",
                  # the cgan family
-                 "models.cgan", "models.cgan_torch", "ckpt.keras"):
+                 "models.cgan", "models.cgan_torch", "ckpt.keras",
+                 # the data layer and the noisy-dataset renderer
+                 "data.imageio", "data.caching", "data.celeba", "data.native",
+                 "data._native.build", "cli.noise_gen"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 
@@ -130,6 +133,14 @@ def test_cli_train_defaults_to_the_card(no_cuda, tmp_path):
 
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--clean-dir", str(tmp_path), "--num-epochs", "1"])
+
+
+def test_cli_noise_gen_defaults_to_the_card(no_cuda, tmp_path):
+    from celebrity_image_denoiser_tpu_torch.cli import noise_gen
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        noise_gen.main(["--clean-dir", str(tmp_path), "--out-dir",
+                        str(tmp_path / "out")])
 
 
 def test_noise_kernel_never_falls_back_off_the_cpu(no_cuda):

@@ -271,14 +271,38 @@ def test_unknown_kind_and_waiting_variants():
         port_noise.add_noise(_gen(), IMG, "perlin", variant=1)
     # variants 2 and 3 run (tests/test_torch_port_families.py and
     # tests/test_torch_port_train_families.py hold their distributions);
-    # the host-side poisson_v3_exact waits, and a fourth variant is unknown
+    # a fourth variant is unknown
     for variant in (2, 3):
         assert port_noise.add_noise(_gen(), IMG, "gaussian",
                                     variant=variant).shape == IMG.shape
     with pytest.raises(ValueError, match="unknown noise variant"):
         port_noise.add_noise(_gen(), IMG, "gaussian", variant=4)
     assert hasattr(port_noise, "blind_gaussian_batch")
-    assert not hasattr(port_noise, "poisson_v3_exact")
+    # the renderer's variant-3 poisson with the per-image scale: vals
+    # exactly JAX's, and the image equal to JAX's function given JAX's
+    # counts (the port's torch.poisson draw replaced by them)
+    from unittest import mock
+
+    img = (np.random.default_rng(5).integers(0, 7, (6, 5, 3)) * 9
+           / 255.0).astype(np.float32)
+    vals = jax_noise.v3_poisson_vals(img)
+    assert vals == 8.0  # 7 unique values
+    assert port_noise.v3_poisson_vals(torch.from_numpy(img)) == vals
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jax_noise.poisson_v3_exact(key, img))
+    counts = torch.from_numpy(np.asarray(
+        jax.random.poisson(key, jnp.asarray(img) * vals, img.shape),
+        np.float32))
+    seen = []
+
+    def jax_counts(lam, generator=None):
+        seen.append(lam)
+        return counts
+
+    with mock.patch.object(port_noise.torch, "poisson", jax_counts):
+        got = port_noise.poisson_v3_exact(_gen(), torch.from_numpy(img))
+    assert torch.equal(seen[0], torch.from_numpy(img) * vals)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-7)
 
 
 def test_variant1_parameters_are_defined_once():

@@ -45,7 +45,6 @@ from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
 from celebrity_image_denoiser_tpu_torch.data.datasets import (
     CleanImageDataset,
-    SizeMismatch,
     train_test_split_pairs,
 )
 from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
@@ -442,7 +441,9 @@ def test_on_the_fly_step_trains_on_the_trainer_normalisation(jax_nets,
 def test_other_families_and_options_wait():
     """Every family trains (tests/test_torch_port_train_families.py); what
     waits raises naming its ROADMAP.md queue 1 item: ``remat`` and
-    ``extras_fn`` (item 5), ``mesh=`` (item 7), the native loader (item 4)."""
+    ``extras_fn`` (item 5), ``mesh=`` (item 7).  The native loader runs
+    (tests/test_torch_port_data.py) and refuses, before any batch, a
+    dataset with no ``raw_batch_spec``."""
     from celebrity_image_denoiser_tpu_torch.core.config import (
         FAMILY_NOISE_VARIANT,
     )
@@ -458,7 +459,7 @@ def test_other_families_and_options_wait():
         gan_trainer.make_train_step(pg, pd, extras_fn=lambda f, c: {})
     with pytest.raises(NotImplementedError, match="item 7"):
         gan_trainer.make_train_step(pg, pd, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="raw_batch_spec"):
         DataPipeline([], 2, device="cpu", use_native=True)
 
 
@@ -670,13 +671,24 @@ def png_dir(tmp_path):
 
 
 def test_clean_dataset_yields_uint8_and_refuses_other_sizes(png_dir):
+    """uint8 at ``image_size``; a file of another size is resized to it,
+    Pillow's bicubic bit for bit (the uint8 of the JAX dataset before its
+    ``to_float01``; tests/test_torch_port_data.py holds the rest)."""
+    from celebrity_image_denoiser_tpu.data.datasets import (
+        CleanImageDataset as JaxClean,
+    )
+
     ds = CleanImageDataset(str(png_dir), image_size=(16, 16))
     assert len(ds) == 8 and len(ds.test_paths) == 2
     x = ds[0]
     assert x.dtype == np.uint8 and x.shape == (16, 16, 3)
     assert ds.get_test(0).shape == (16, 16, 3)
-    with pytest.raises(SizeMismatch, match="item 4"):
-        CleanImageDataset(str(png_dir), image_size=(32, 32))[0]
+    big = CleanImageDataset(str(png_dir), image_size=(32, 24))
+    jax_big = JaxClean(str(png_dir), image_size=(32, 24))
+    assert big.train_paths == jax_big.train_paths
+    y = big[0]
+    assert y.dtype == np.uint8 and y.shape == (32, 24, 3)
+    np.testing.assert_array_equal(imageio.to_float01(y), jax_big[0])
     (png_dir / "person" / "00.png").write_bytes(b"not a png")
     ds = CleanImageDataset(str(png_dir), image_size=(16, 16))
     loaded = [ds[i] for i in range(len(ds))]
@@ -707,9 +719,14 @@ def test_cli_train_on_the_cpu(png_dir, tmp_path):
     assert len(tr.gaussian_counts) == 2
     assert all(type(c) is int and 0 <= c <= 4 for c in tr.gaussian_counts)
     assert len(tr.metric_history["psnr"]) == 2
-    for flag in ("--remat", "--tensor-cache", "--no-on-the-fly"):
+    for flag in ("--remat", "--extra-metrics", "--profile-dir"):
         with pytest.raises(SystemExit):  # absent, not accepted and ignored
             cli_train.build_parser().parse_args(args + [flag])
+    # the disk pairs and tensor caches train (tests/test_torch_port_data.py)
+    parsed = cli_train.build_parser().parse_args(
+        args + ["--no-on-the-fly", "--tensor-cache", "c",
+                "--tensor-cache-domain", "unit"])
+    assert parsed.no_on_the_fly and parsed.tensor_cache == "c"
     # --model srgan trains (tests/test_torch_port_train_families.py), and
     # --noise-variant 2 now runs on the noise kernel's variant 2
     tr = cli_train.run(args + ["--noise-variant", "2", "--num-epochs", "1",
