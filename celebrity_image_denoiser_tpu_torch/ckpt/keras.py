@@ -19,6 +19,12 @@ Anything else (a chunked, compact or filtered dataset, another datatype, a
 shared message, a newer superblock or new-style link groups) raises
 ``H5FormatError`` naming what it met.
 
+``write_h5`` writes that same subset (``ckpt/export.py`` writes Keras
+files with it; the card machine has no h5py): the members of a group sorted
+by name in one symbol-table node under one B-tree node, so a group takes at
+most 8 members (the superblock's leaf K of 4; a Keras weights file has at
+most 8) and a larger one raises.
+
 The layers land in the port's module by position (Keras' Sequential order
 against the module's definition order), class and shape checked at every
 step, as in the JAX loader: Conv2D kernels (kH, kW, I, O) and
@@ -252,6 +258,116 @@ class H5File:
         raise H5FormatError(f"{path}: datatype class {cls} of {size} bytes "
                             "(bit fields " f"{d[1:4].hex()}): only "
                             "little-endian IEEE float32 is read")
+
+
+_LEAF_K, _NODE_K = 4, 16  # symbol-table node and group B-tree node K
+_MAX_MEMBERS = 2 * _LEAF_K  # one full symbol-table node
+_F32_TYPE = (bytes([0x11, 0x20, 0x1F, 0x00]) + struct.pack("<I", 4)
+             + struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127))
+
+
+class _H5Writer:
+    """Lays the file out front to back; ``alloc`` returns 8-byte aligned
+    addresses (the base address is 0)."""
+
+    def __init__(self):
+        self.buf = bytearray(96)  # the superblock, written last
+
+    def alloc(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += data + bytes(-len(data) % 8)
+        return addr
+
+    def patch(self, addr: int, data: bytes) -> None:
+        self.buf[addr:addr + len(data)] = data
+
+    @staticmethod
+    def _header(messages) -> bytes:
+        """A version-1 object header of ``(type, flags, data)`` messages,
+        each padded to 8 bytes, plus a NIL message to a 32-byte minimum."""
+        body = b""
+        for mtype, flags, data in messages:
+            data += bytes(-len(data) % 8)
+            body += struct.pack("<HHB3x", mtype, len(data), flags) + data
+        n = len(messages)
+        if len(body) < 32:
+            body += struct.pack("<HHB3x", _MSG_NIL, 24 - len(body), 0)
+            body += bytes(32 - len(body))
+            n += 1
+        return struct.pack("<BBHII4x", 1, 0, n, 1, len(body)) + body
+
+    def dataset(self, arr: np.ndarray) -> int:
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype != np.dtype("<f4"):
+            raise ValueError(f"only little-endian float32 datasets are "
+                             f"written, got {arr.dtype}")
+        data_addr = self.alloc(arr.tobytes()) if arr.size else _UNDEFINED
+        rank = arr.ndim
+        space = struct.pack("<BBBB4x", 1, rank, 1, 0) + struct.pack(
+            f"<{2 * rank}Q", *arr.shape, *arr.shape)
+        fill = bytes([2, 2, 2, 1]) + struct.pack("<I", 0)
+        layout = struct.pack("<BBQQ", 3, 1, data_addr, arr.nbytes)
+        return self.alloc(self._header([
+            (_MSG_DATASPACE, 0, space), (_MSG_DATATYPE, 1, _F32_TYPE),
+            (0x5, 1, fill), (_MSG_LAYOUT, 0, layout)]))
+
+    def group(self, members: Dict[str, object]) -> Tuple[int, int, int]:
+        """Write a group and everything under it; (object header, B-tree,
+        local heap) addresses."""
+        names = sorted(members, key=lambda n: n.encode())
+        if len(names) > _MAX_MEMBERS:
+            raise ValueError(f"a group of {len(names)} members: the writer "
+                             f"takes at most {_MAX_MEMBERS}")
+        entries = []
+        for name in names:
+            if not name or "/" in name or "." == name:
+                raise ValueError(f"bad HDF5 link name {name!r}")
+            v = members[name]
+            if isinstance(v, dict):
+                hdr, btree, heap = self.group(v)
+                entries.append((hdr, 1, struct.pack("<QQ", btree, heap)))
+            else:
+                entries.append((self.dataset(np.asarray(v)), 0, bytes(16)))
+        # the local heap: "" at offset 0, then each name, 8-byte padded
+        heap_data, offsets = bytearray(8), []
+        for name in names:
+            offsets.append(len(heap_data))
+            raw = name.encode() + b"\0"
+            heap_data += raw + bytes(-len(raw) % 8)
+        data_addr = self.alloc(bytes(heap_data))
+        heap = self.alloc(b"HEAP" + bytes(4) + struct.pack(
+            "<QQQ", len(heap_data), 1, data_addr))  # 1: no free block
+        # one symbol-table node of up to 2·K entries under one B-tree node
+        node = bytearray(b"SNOD" + struct.pack("<BBH", 1, 0, len(names)))
+        for off, (hdr, cache, scratch) in zip(offsets, entries):
+            node += struct.pack("<QQI4x", off, hdr, cache) + scratch
+        node += bytes(8 + 40 * _MAX_MEMBERS - len(node))
+        last = offsets[-1] if offsets else 0
+        tree = bytearray(b"TREE" + struct.pack(
+            "<BBHQQ", 0, 0, 1, _UNDEFINED, _UNDEFINED))
+        tree += struct.pack("<QQQ", 0, self.alloc(bytes(node)), last)
+        tree += bytes(24 + 8 * (4 * _NODE_K + 1) - len(tree))
+        btree = self.alloc(bytes(tree))
+        hdr = self.alloc(self._header([(_MSG_SYMBOL_TABLE, 0,
+                                        struct.pack("<QQ", btree, heap))]))
+        return hdr, btree, heap
+
+    def finish(self, root: Dict[str, object]) -> bytes:
+        hdr, btree, heap = self.group(root)
+        self.patch(0, _SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                   + struct.pack("<HHI", _LEAF_K, _NODE_K, 0)
+                   + struct.pack("<QQQQ", 0, _UNDEFINED, len(self.buf),
+                                 _UNDEFINED)
+                   + struct.pack("<QQI4xQQ", 0, hdr, 1, btree, heap))
+        return bytes(self.buf)
+
+
+def write_h5(tree: Dict[str, object]) -> bytes:
+    """The HDF5 file of ``tree`` (nested dicts of float32 arrays, a dict a
+    group, an array a dataset) in the subset ``H5File`` reads; a
+    ``ValueError`` (nothing returned) for another dtype, a bad name or a
+    group of more than 8 members."""
+    return _H5Writer().finish(tree)
 
 
 def read_keras_file(path: str) -> Tuple[List[dict], Dict[str, List[np.ndarray]]]:

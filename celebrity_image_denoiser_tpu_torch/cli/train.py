@@ -37,10 +37,16 @@ default: one launch of the noise kernel a step, the clean batch resized to
 in [-1, 1]); or a tensor cache (``--tensor-cache``, whose numeric domain
 follows ``--tensor-cache-domain``, the cache's ``meta.json`` or a probe,
 and is remapped to the family's).  The last two launch no noise kernel.
-The flags are those of the JAX CLI that the port can honour.  Flags whose
-machinery is not ported (``--extra-metrics``, ``--profile-dir``,
-``--remat``, ``--graph-dir``, data parallelism) are absent rather than
-accepted and ignored; ROADMAP.md queue 1 items 5-8 list them.
+
+``--extra-metrics batch`` fills the history's LPIPS and MS-SSIM columns from
+every batch inside the step (``epoch`` samples a test pair, which the CLI
+does not set, as in the JAX CLI: zeros); ``--remat`` recomputes the
+generator's activations in the backward; ``--profile-dir`` runs the
+training inside ``utils.profiling.trace`` (a Chrome trace); the history is
+plotted into ``--graph-dir`` at the end, or, where matplotlib is missing,
+one warning says so and the run still succeeds.  Data parallelism
+(``--no-data-parallel``) is not ported (ROADMAP.md queue 1 item 7), and the
+flag is absent rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -68,6 +74,10 @@ from celebrity_image_denoiser_tpu_torch.train.losses import (
     make_vgg_perceptual,
 )
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
+from celebrity_image_denoiser_tpu_torch.utils.profiling import trace
+from celebrity_image_denoiser_tpu_torch.viz.training_plots import (
+    plot_metrics,
+)
 
 logger = get_logger("cid_torch.cli.train")
 
@@ -83,6 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image-size", type=int, nargs=2, default=(256, 256))
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--checkpoint-dir", default="checkpoint")
+    p.add_argument("--graph-dir", default="graphs")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-on-the-fly", action="store_true",
                    help="read pre-rendered noisy pairs from --noisy-dir "
@@ -115,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "loss; default: the shipped trained tower "
                         "(weights/perceptual) when present, else random "
                         "features with a loud warning")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the generator's activations in the "
+                        "backward (torch.utils.checkpoint)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
@@ -122,6 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16 with float32 accumulation; parameters, "
                         "optimiser state, losses and metrics stay float32. "
                         "float32: the reference's numeric behaviour")
+    p.add_argument("--extra-metrics", default="off",
+                   choices=["off", "epoch", "batch"],
+                   help="LPIPS-style + MS-SSIM history: 'batch' computes "
+                        "them on every batch inside the step; 'epoch' "
+                        "samples a held-out test pair once per epoch")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "training run into this directory "
+                        "(utils/profiling.py)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises when no card is present) or "
                         "cpu")
@@ -290,9 +313,11 @@ def build_config(args) -> TrainConfig:
         lr=args.lr,
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,
+        graph_dir=args.graph_dir,
         on_the_fly_noise=not args.no_on_the_fly and not args.tensor_cache,
         noise_variant=args.noise_variant,
         compute_dtype=args.compute_dtype,
+        remat=args.remat,
     )
 
 
@@ -307,17 +332,36 @@ def build_trainer(args) -> GANTrainer:
         args.model, cfg.image_size, sr_scale=args.sr_scale,
         vgg_pth=args.vgg_pth,
         generator=torch.Generator().manual_seed(cfg.seed))
+    extra = False if args.extra_metrics == "off" else args.extra_metrics
     trainer = GANTrainer(gen, disc, pipeline, cfg, family=args.model,
-                         perceptual=perceptual, device=device)
+                         perceptual=perceptual, extra_metrics=extra,
+                         device=device)
     if args.resume:
         trainer.resume()
     return trainer
 
 
+def plot_history(history, graph_dir: str) -> None:
+    """``viz.training_plots.plot_metrics``, or one warning where matplotlib
+    is missing."""
+    try:
+        plot_metrics(history, graph_dir)
+    except ImportError as e:
+        logger.warning("no training plots written to %s: %s is not "
+                       "installed", graph_dir, e.name or e)
+
+
 def run(argv=None) -> GANTrainer:
-    """Parse ``argv``, train, and return the trainer."""
-    trainer = build_trainer(build_parser().parse_args(argv))
-    trainer.train()
+    """Parse ``argv``, train (inside a profiler trace with
+    ``--profile-dir``), plot the history, and return the trainer."""
+    args = build_parser().parse_args(argv)
+    trainer = build_trainer(args)
+    if args.profile_dir:
+        with trace(args.profile_dir):
+            trainer.train()
+    else:
+        trainer.train()
+    plot_history(trainer.metric_history, args.graph_dir)
     return trainer
 
 

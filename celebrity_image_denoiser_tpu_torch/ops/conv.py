@@ -11,8 +11,9 @@ XLA's convs and never through a Pallas kernel.
 
 ``conv2d_layer`` and ``conv2d_transpose`` consult ``ops/quant.py::
 conv_hook`` before their float conv, as the JAX package's ``ops.conv2d``
-does: under the generic int8 transform's replay the hook returns the int8
-path's output, and the layer adds its bias to that instead.
+does: under the generic int8 transform's replay, or under ``fake_quant``
+(quantization-aware training), the hook returns that path's output, and the
+layer adds its bias to that instead.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
         lambda xq, wq, ws, rw: quant.int8_conv_transpose2d(
             xq, wq, ws, stride, padding, rw),
         lambda xf, wf: F.conv_transpose2d(xf, wf, None, stride=stride,
-                                          padding=padding))
+                                          padding=padding),
+        transposed=True)
     if y is None:
         return F.conv_transpose2d(x, weight, bias, stride=stride,
                                   padding=padding)

@@ -51,8 +51,19 @@ constant.
 ``make_indexed_skip`` / ``ESRGAN_TRUNK_CALLS`` are esrgan's second rung: the
 convs whose input is the residual trunk stay float.
 
-Not ported here: ``fake_quant`` / ``_FakeQuant`` (quantization-aware
-training, with the esrgan trainer); ``ROADMAP.md`` queue 1, item 5.
+``fake_quant`` is the quantization-aware mode (``_FakeQuant:81``,
+``_ste_round:105``, ``fake_quant:112``, its branch of ``conv_hook``
+:194-230): every conv the skip policy takes runs the serving arithmetic in
+float32 with straight-through rounding — a per-input-channel scale of the
+batch's own ``max|x|`` (no gradient) folded into the weight (a grouped conv
+takes the largest, a scalar), a per-output-channel weight scale (no
+gradient), ``x`` and the folded weight rounded and clipped to ±127, the
+float conv of the two with autograd, one dequant multiply, cast back to
+x's dtype — so gradients reach the weights through the quantizer.  It
+fires wherever the layers of ``ops/conv.py`` run: a generator's
+``route="autograd"``, where QAT runs it in eval mode with gradients on.
+The clip is ``min(max(v, -127), 127)``, whose gradient halves where ``v``
+sits on a bound, as ``jnp.clip``'s does.
 """
 
 from __future__ import annotations
@@ -86,6 +97,59 @@ class _BiasCorrectCollect(_Int8Apply):
     def __init__(self, entries: List[Optional[tuple]]):
         super().__init__(entries)
         self.corrections: List[Optional[torch.Tensor]] = []
+
+
+class _FakeQuant:
+    """The quantization-aware mode: convs the ``skip`` policy takes run the
+    int8 arithmetic in float32 with straight-through rounding."""
+
+    def __init__(self, skip: Callable):
+        self.skip = skip
+
+
+@contextlib.contextmanager
+def fake_quant(skip: Optional[Callable] = None):
+    """Context manager: the layers of ``ops/conv.py`` run inside simulate
+    the int8 serving path with straight-through gradients.  ``skip``
+    defaults to the serving policy; a stateful policy
+    (``make_indexed_skip``) must be fresh for each forward."""
+    mode = _FakeQuant(skip or default_skip_policy)
+    with _mode(mode):
+        yield mode
+
+
+def _ste_round(v: torch.Tensor) -> torch.Tensor:
+    """round() with a straight-through (identity) gradient."""
+    return v + (torch.round(v) - v).detach()
+
+
+def _clip127(v: torch.Tensor) -> torch.Tensor:
+    """Clip to ±127 as ``jnp.clip`` does: a value on a bound takes half
+    the gradient."""
+    return torch.minimum(torch.maximum(v, v.new_tensor(-127.0)),
+                         v.new_tensor(127.0))
+
+
+def _fake_quant_conv(x: torch.Tensor, weight: torch.Tensor, run: Callable,
+                     transposed: bool) -> torch.Tensor:
+    """The ``_FakeQuant`` branch of the JAX hook in PyTorch's layouts
+    ((C_out, C_in, kH, kW), or (C_in, C_out, kH, kW) transposed); NCHW
+    ``x``; the product before the bias, in x's dtype."""
+    xf = x.float()
+    s_c = act_scale(xf.detach().abs().amax(dim=(0, 2, 3)))
+    out_axis, in_axis = (1, 0) if transposed else (0, 1)
+    if int(weight.shape[in_axis]) != int(s_c.shape[0]):
+        s_c = s_c.max().reshape(1)  # grouped conv: one scalar scale
+    fold = [1] * weight.dim()
+    fold[in_axis] = -1
+    wf = weight.float() * s_c.view(fold)
+    dims = tuple(i for i in range(wf.dim()) if i != out_axis)
+    w_scale = torch.clamp_min(wf.detach().abs().amax(dim=dims, keepdim=True),
+                              1e-12) / 127.0
+    x_q = _ste_round(_clip127(xf / s_c.view(1, -1, 1, 1)))
+    w_q = _ste_round(_clip127(wf / w_scale))
+    y = run(x_q, w_q)
+    return (y * w_scale.reshape(1, -1, 1, 1)).to(x.dtype)
 
 
 @contextlib.contextmanager
@@ -371,16 +435,22 @@ def _no_kernel(x, what, shape, stride, padding=0):
 
 
 def conv_hook(x: torch.Tensor, weight: torch.Tensor, run_int8: Callable,
-              run_float: Callable) -> Optional[torch.Tensor]:
+              run_float: Callable, transposed: bool = False
+              ) -> Optional[torch.Tensor]:
     """Called by ``ops/conv.py`` before its float conv.  Under a replay:
     ``run_int8(x_i8, w_i8, w_scale, rewrite)`` gives the f32 dequantized
     product (``rewrite``: the entry's ``rewrite_weights``, or None) and
-    ``run_float(x_f32, w_f32)`` the float conv (bias excluded); returns the
-    int8 path's output in x's dtype before the bias, or None for the float
-    path."""
+    ``run_float(x_f32, w_f32)`` the float conv (bias excluded, with
+    autograd); returns the int8 path's output in x's dtype before the bias,
+    or None for the float path.  Under ``fake_quant`` the conv (a transpose
+    conv when ``transposed``) is simulated through ``run_float``."""
     mode = _MODE.get()
     if mode is None:
         return None
+    if isinstance(mode, _FakeQuant):
+        if mode.skip(weight):
+            return None  # the float path, as the serving skip
+        return _fake_quant_conv(x, weight, run_float, transposed)
     if mode.i >= len(mode.entries):
         raise ValueError(
             f"int8 replay over-consumed: conv call #{mode.i} but only "

@@ -101,7 +101,7 @@ def quantize_apply_denoise_unet(model: nn.Module, calib_x: torch.Tensor,
         raise NotImplementedError(
             "split_concat is a rejected experiment of the JAX package (kept "
             "there for its receipt) and is not ported (ROADMAP.md queue 1, "
-            "item 5)")
+            "'Not queued')")
     taps = quant.calibrate(model, calib_x)
     got = [_jax_shape(t[1]) for t in taps]
     if got != EXPECTED or [i for i, t in enumerate(taps) if t[2]] != list(

@@ -52,21 +52,34 @@ What differs from the JAX step, and why:
   for srgan [0, 1] before the downscale, then ``·2 − 1``.
 
 PSNR/SSIM are computed on the device inside the step and returned as device
-scalars; the loop reads them once per epoch (:582-600).
+scalars; the loop reads them once per epoch (:582-600).  ``extras_fn`` adds
+metrics of its own to them the same way (:225-226, 283-284): the trainer's
+``extra_metrics="batch"`` puts the perceptual distance and MS-SSIM of every
+batch there, and ``"epoch"`` samples the test pair once an epoch instead
+(:546-566).
 
-Waiting for later slices (``ROADMAP.md`` queue 1): ``remat`` and
-``extras_fn`` (item 5), ``mesh=`` (item 7), and ``test_random_images``
-(item 8), which raise or are absent.
+``remat`` recomputes the generator's train-mode forward in the backward
+(``torch.utils.checkpoint``, non-reentrant; JAX: ``jax.checkpoint``,
+:165-171).  The recomputation runs BatchNorm in train mode a second time,
+which would update its running statistics twice, where the functional JAX
+step returns the state once; so every buffer of the generator is restored
+after each recomputation, and a step takes the same statistics with
+``remat`` as without.
+
+``mesh=`` waits for a later slice (``ROADMAP.md`` queue 1 item 7) and
+raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from celebrity_image_denoiser_tpu_torch.ckpt import checkpoint as ckpt_lib
 from celebrity_image_denoiser_tpu_torch.ckpt import convert
@@ -76,7 +89,14 @@ from celebrity_image_denoiser_tpu_torch.core.config import (
 )
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
 from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
-from celebrity_image_denoiser_tpu_torch.metrics import psnr, ssim, ssim_tf
+from celebrity_image_denoiser_tpu_torch.metrics import (
+    PerceptualDistance,
+    ms_ssim,
+    psnr,
+    ssim,
+    ssim_tf,
+)
+from celebrity_image_denoiser_tpu_torch.metrics.msssim import min_size
 from celebrity_image_denoiser_tpu_torch.ops.resize import resize
 from celebrity_image_denoiser_tpu_torch.train import losses as L
 from celebrity_image_denoiser_tpu_torch.train import optim
@@ -121,6 +141,44 @@ def family_eval_metrics(family: str, fake: torch.Tensor, clean: torch.Tensor
             ssim(fake, clean, data_range=2.0).mean())
 
 
+def to_unit(family: str, t: torch.Tensor) -> torch.Tensor:
+    """A family-domain tensor on [0, 1], clipped (the extra metrics'
+    domain, :357-363)."""
+    if family not in UNIT_FAMILIES:
+        t = t * 0.5 + 0.5
+    return t.clamp(0.0, 1.0)
+
+
+def batch_extras_fn(family: str, pd: PerceptualDistance) -> Callable:
+    """The JAX trainer's per-batch ``extras_fn`` (:357-371): ``lpips`` (the
+    mean perceptual distance) and ``msssim`` of ``(fake, clean)`` in
+    ``family``'s domain, clipped to [0, 1], as device scalars; below
+    MS-SSIM's 176 px SSIM (``data_range=1.0``) fills the ``msssim`` slot, as
+    the JAX step decides by shape."""
+    def extras_fn(fake, clean):
+        f01, c01 = to_unit(family, fake), to_unit(family, clean)
+        out = {"lpips": pd(f01, c01).mean()}
+        if min(f01.shape[1], f01.shape[2]) >= min_size():
+            out["msssim"] = ms_ssim(f01, c01, data_range=1.0).mean()
+        else:
+            out["msssim"] = ssim(f01, c01, data_range=1.0).mean()
+        return out
+    return extras_fn
+
+
+@contextlib.contextmanager
+def _buffers_kept(module: torch.nn.Module):
+    """Restore every buffer of ``module`` (BatchNorm's running statistics
+    and batch count) on exit."""
+    saved = [(b, b.detach().clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
 def make_train_step(
     generator: torch.nn.Module,
     discriminator: Optional[torch.nn.Module],
@@ -158,19 +216,15 @@ def make_train_step(
     Gaussian for dncnn, ``FAMILY_NOISE_VARIANT`` for the others.
 
     ``perceptual`` (srgan's content loss, ``make_vgg_perceptual``) takes
-    NCHW tensors.  ``mesh``, ``remat`` and ``extras_fn`` are the JAX
-    factory's and are not ported yet."""
+    NCHW tensors.  ``remat`` recomputes the generator's forward in the
+    backward, its BatchNorm statistics updated once.  ``extras_fn(fake,
+    clean) -> dict`` (NHWC, the family's domain, no gradient) adds device
+    scalars to ``metrics``.  ``mesh`` is not ported yet."""
     _check_family(family)
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (data parallelism) is not ported yet (ROADMAP.md queue 1 "
             "item 7)")
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP.md queue 1 item 5)")
-    if extras_fn is not None:
-        raise NotImplementedError(
-            "extras_fn is not ported yet (ROADMAP.md queue 1 item 5)")
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32, bfloat16 or "
                          f"float64, got {compute_dtype!r}")
@@ -191,8 +245,16 @@ def make_train_step(
     d_params = (dict(discriminator.named_parameters())
                 if family != "dncnn" and discriminator is not None else {})
 
-    def g_fwd(x):
+    def g_apply(x):
         return generator(x.to(cdt), route="autograd").float()
+
+    def g_fwd(x):
+        if not remat:
+            return g_apply(x)
+        return torch.utils.checkpoint.checkpoint(
+            g_apply, x, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _buffers_kept(generator)))
 
     def d_fwd(x):
         return discriminator(x.to(cdt)).float()
@@ -282,8 +344,10 @@ def make_train_step(
         with torch.no_grad():
             fake_nhwc = fake.detach().permute(0, 2, 3, 1)
             psnr_v, ssim_v = family_eval_metrics(family, fake_nhwc, clean)
-        out.update(g_loss=g_loss.detach(), d_loss=d_loss.detach(),
-                   psnr=psnr_v, ssim=ssim_v)
+            out.update(g_loss=g_loss.detach(), d_loss=d_loss.detach(),
+                       psnr=psnr_v, ssim=ssim_v)
+            if extras_fn is not None:
+                out.update(extras_fn(fake_nhwc, clean))
         return out
 
     return init_fn, step_fn
@@ -300,7 +364,15 @@ class GANTrainer:
     ``device`` (the card unless the caller names the CPU) and stay float32.
     ``discriminator`` is None for dncnn.  srgan's ``sr_scale`` is the
     generator's ``scale_factor``; dncnn trains on the blind-σ Gaussian when
-    ``cfg.noise_variant`` is None, on that variant otherwise."""
+    ``cfg.noise_variant`` is None, on that variant otherwise.
+
+    ``test_pair``: a held-out (noisy, clean) pair, HWC or NHWC float32 in
+    the family's domain; with it the loop writes a test image into
+    ``cfg.test_image_dir`` every epoch (``test_random_images``).
+    ``extra_metrics``: False, True or ``"epoch"`` (the perceptual distance
+    and MS-SSIM of the test pair once an epoch; 0 without one), or
+    ``"batch"`` (of every batch, inside the step) — the history's ``lpips``
+    and ``msssim`` columns."""
 
     def __init__(
         self,
@@ -312,11 +384,16 @@ class GANTrainer:
         family: Optional[str] = None,
         perceptual: Optional[torch.nn.Module] = None,
         val_pipeline=None,
+        test_pair: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        extra_metrics=False,
         device="cuda",
     ):
         self.cfg = cfg
         self.family = family or cfg.model
         _check_family(self.family)
+        if extra_metrics not in (False, True, "epoch", "batch"):
+            raise ValueError(f"extra_metrics must be False, True, 'epoch' or "
+                             f"'batch', got {extra_metrics!r}")
         self.device = resolve_device(device)
         self.generator = generator.to(self.device, torch.float32)
         self.discriminator = discriminator
@@ -331,6 +408,14 @@ class GANTrainer:
                 m.to(memory_format=torch.channels_last)
         self.pipeline = pipeline
         self.val_pipeline = val_pipeline
+        self.test_pair = test_pair
+        self.extra_metrics = extra_metrics
+        self._pd = None
+        if extra_metrics:
+            # the shipped tower when present, random features otherwise
+            self._pd = PerceptualDistance.default(seed=0)
+            self._pd.net.to(self.device)
+        self._viz_warned = False
 
         self.init_fn, self.step_fn = make_train_step(
             self.generator, self.discriminator,
@@ -346,6 +431,8 @@ class GANTrainer:
                       if self.family == "srgan" else 1),
             compute_dtype=cfg.compute_dtype,
             remat=cfg.remat,
+            extras_fn=(batch_extras_fn(self.family, self._pd)
+                       if extra_metrics == "batch" else None),
         )
         self.opt = self.init_fn()
         self.schedule_g = optim.step_lr(cfg.lr, cfg.step_lr_step_size,
@@ -483,6 +570,77 @@ class GANTrainer:
         arr = torch.stack(vals).double().mean(dim=0).tolist()
         return {"psnr": arr[0], "ssim": arr[1], "batches": len(vals)}
 
+    def _viz_missing(self, e: ImportError) -> None:
+        """One warning per trainer for a figure that a missing package
+        keeps from being drawn."""
+        if not self._viz_warned:
+            logger.warning("test images are not written: %s is not "
+                           "installed (metrics and checkpoints are "
+                           "unaffected)", e.name or e)
+            self._viz_warned = True
+
+    def test_random_images(self, epoch: int) -> Optional[str]:
+        """The per-epoch visual of the test pair (:507-544): the labelled
+        noisy / denoised JPEG for the denoise, srgan and dncnn families, the
+        noisy / generated / clean triptych PNG for esrgan and cgan; returns
+        its path (None without a test pair, or without PIL or matplotlib,
+        which logs one warning)."""
+        if self.test_pair is None:
+            logger.info("No test image selected for testing.")
+            return None
+        from celebrity_image_denoiser_tpu_torch.viz.side_by_side import (
+            combine_test_images,
+            triptych,
+        )
+
+        noisy, clean = self.test_pair
+        noisy_b = noisy[None] if noisy.ndim == 3 else noisy
+        clean0 = clean if clean.ndim == 3 else clean[0]
+        fake = self.generate(noisy_b)[0]
+        if self.family in UNIT_FAMILIES:
+            denoised01, noisy01, clean01 = fake, noisy_b[0], clean0
+        else:
+            denoised01 = fake * 0.5 + 0.5
+            noisy01 = noisy_b[0] * 0.5 + 0.5
+            clean01 = clean0 * 0.5 + 0.5
+        os.makedirs(self.cfg.test_image_dir, exist_ok=True)
+        try:
+            if self.family in ("esrgan", "cgan"):
+                out_path = os.path.join(self.cfg.test_image_dir,
+                                        f"testimg_epoch{epoch}.png")
+                triptych(noisy01, denoised01, clean01, out_path)
+            else:
+                denoised_u8 = np.clip(denoised01 * 255, 0, 255).astype(
+                    np.uint8)
+                noisy_u8 = np.clip(noisy01 * 255, 0, 255).astype(np.uint8)
+                out_path = os.path.join(self.cfg.test_image_dir,
+                                        f"testimg_epoch{epoch}.jpg")
+                combine_test_images(noisy_u8, denoised_u8).save(out_path)
+        except ImportError as e:
+            self._viz_missing(e)
+            return None
+        logger.info("Saved test image: %s", out_path)
+        return out_path
+
+    @torch.inference_mode()
+    def _epoch_extras(self) -> Tuple[float, float]:
+        """The perceptual distance and MS-SSIM of the test pair through
+        ``generate`` (:546-566); (0, 0) without extra metrics or a test
+        pair, MS-SSIM 0 below 176 px."""
+        if not self.extra_metrics or self.test_pair is None:
+            return 0.0, 0.0
+        noisy, clean = self.test_pair
+        fake = self.generate(noisy[None] if noisy.ndim == 3 else noisy)
+        cb = clean[None] if clean.ndim == 3 else clean
+        f01 = to_unit(self.family, torch.as_tensor(fake).to(self.device))
+        c01 = to_unit(self.family,
+                      torch.as_tensor(cb).to(self.device, torch.float32))
+        lp = float(self._pd(f01, c01).mean())
+        ms = 0.0
+        if min(f01.shape[1], f01.shape[2]) >= min_size():
+            ms = float(ms_ssim(f01, c01, data_range=1.0).mean())
+        return lp, ms
+
     # ---- the loop -----------------------------------------------------------
     def train(self, epoch_callback: Optional[Callable] = None):
         try:
@@ -531,10 +689,14 @@ class GANTrainer:
                     "(resume from the last checkpoint).",
                     epoch + 1, cfg.num_epochs, avgs)
                 break
+            if self.extra_metrics == "batch":  # the epoch's batch means
+                lp, ms = avgs["lpips"], avgs["msssim"]
+            else:
+                lp, ms = self._epoch_extras()
             for k in ("g_loss", "d_loss", "psnr", "ssim"):
                 self.metric_history[k].append(avgs[k])
-            self.metric_history["lpips"].append(0.0)   # extra metrics wait
-            self.metric_history["msssim"].append(0.0)
+            self.metric_history["lpips"].append(lp)
+            self.metric_history["msssim"].append(ms)
             logger.info(
                 "Epoch [%d/%d] G %.4f D %.4f | PSNR %.3f SSIM %.4f | "
                 "%.1f img/s", epoch + 1, cfg.num_epochs, avgs["g_loss"],
@@ -546,6 +708,8 @@ class GANTrainer:
                     "Epoch [%d/%d] val PSNR %.3f SSIM %.4f (%d batches)",
                     epoch + 1, cfg.num_epochs, val["psnr"], val["ssim"],
                     val["batches"])
+            if self.test_pair is not None:
+                self.test_random_images(epoch)
             is_best = avgs["psnr"] > self.best_psnr
             if is_best:
                 self.best_psnr = avgs["psnr"]

@@ -261,7 +261,44 @@ Phases, each printing its own lines; any failure exits non-zero:
              2 counts (mean) and 30 (max) of the Pillow-exact python path;
              native and python assembly images/s with the host's CPU count
              (host numbers); and a ``cli.train`` epoch over the mixed sizes
-             on the native stage with one noise kernel launch a step.
+             on the native stage with one noise kernel launch a step;
+14. train to ship — ``ms_ssim`` at 16×256²×3 and a 176² HWC pair within
+             1e-5 of a CPU float64 evaluation (ms a batch); ``cli.train
+             --extra-metrics batch`` for denoise and esrgan (full width,
+             256², batch 16, bf16, one 8-step epoch over 160 synthetic
+             PNGs): the history's LPIPS and MS-SSIM finite and non-zero, one
+             noise kernel launch a step and no conv kernel, steps/s with the
+             extras beside the same step without them (in turns); the epoch
+             extras of a 256² test pair through ``generate``: exactly two
+             forwards' K3/K2 launches (the extras and the test image, a
+             JPEG where PIL is installed, else one warning); ``remat``: one f32 step of dncnn,
+             esrgan and cgan with and without it from the same state (loss
+             1e-5 relative, BatchNorm statistics 1e-6, parameters 2.5e-4),
+             esrgan's bf16 step at 256² batch 16 with and without it
+             (steps/s, peak memory); ``fake_quant``: ``DnCNN(depth=5)``
+             against its int8 program (K5) above 40 dB (the shipped dncnn's
+             agreement printed), skip-all bit-equal to float, the STE
+             gradients finite and non-zero; ``cli.qat`` of the shipped esrgan
+             (100 steps, batch 32, 128²): one noise launch a step, the ship
+             guard passed, the QAT provenance and fixture gain in
+             ``meta.json``, served from the output on ``int8-generic`` with
+             16 K5 launches a forward, its gate ≥ 40 dB and fixture gain ≥
+             4.767 dB; ``--qat-lr 10`` refused with ``arrays.npz``
+             byte-identical; 10 steps each of denoise and dncnn; ``cli.export``:
+             the QAT'd esrgan as a ``.pth`` that loads to the npz state and
+             serves bit-equal in f32 from a directory holding only it, the
+             shipped ``.keras`` through an npz checkpoint to a new
+             ``.keras`` whose datasets equal the shipped file's and whose
+             cgan response (label 5, f32) equals the shipped one's, and both
+             refusals (a tree not ``--model``'s, BatchNorm without
+             ``generator_state``); ``cli.eval --iterations 2 --clean-dir`` of
+             denoise, dncnn, esrgan (256²) and srgan (64² LR) over 16 images:
+             K2/K3 launches exactly images × 2 × per forward, the first
+             output within 1 count of the plain route, images/s, PSNR/SSIM;
+             ``cli.train --profile-dir --graph-dir`` (run right after
+             phase 2, before any other profiler of the script: 14h): a
+             Chrome trace that parses and names each of the noise kernel's
+             8 launches, one warning for the missing matplotlib, exit 0.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -274,6 +311,7 @@ import base64
 import contextlib
 import functools
 import json
+import logging
 import os
 import re
 import shutil
@@ -3433,7 +3471,8 @@ def phase_train(conv3x3, double_conv, noise):
             argv = ["--model", "denoise", "--clean-dir", tmp, "--image-size",
                     str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
                     str(TRAIN_BATCH), "--num-epochs", "1", "--compute-dtype",
-                    cdt, "--checkpoint-dir", f"{tmp}/ckpt_{cdt}"]
+                    cdt, "--checkpoint-dir", f"{tmp}/ckpt_{cdt}",
+                    "--graph-dir", f"{tmp}/graphs"]
             noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
             conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
             t0 = time.perf_counter()
@@ -3553,15 +3592,15 @@ def check_resume(tr, argv, label: str) -> None:
         fail(f"{label}: optimiser state differs after resume")
 
 
-def write_train_pngs(tmp) -> np.ndarray:
-    """TRAIN_IMAGES synthetic clean images of TRAIN_SIZE² as PNGs in
-    ``tmp``; returns them as uint8 NHWC."""
+def write_train_pngs(tmp, n: int = TRAIN_IMAGES) -> np.ndarray:
+    """``n`` synthetic clean images of TRAIN_SIZE² as PNGs in ``tmp``;
+    returns them as uint8 NHWC."""
     from celebrity_image_denoiser_tpu_torch.data import imageio
     from celebrity_image_denoiser_tpu_torch.data.synthetic import (
         synth_clean_batch,
     )
 
-    imgs = synth_clean_batch(make_gen(), TRAIN_IMAGES, TRAIN_SIZE)
+    imgs = synth_clean_batch(make_gen(), n, TRAIN_SIZE)
     imgs = (imgs * 255).round().to(torch.uint8).cpu().numpy()
     for i, im in enumerate(imgs):
         with open(f"{tmp}/{i:03d}.png", "wb") as f:
@@ -3593,7 +3632,8 @@ def phase_train_families(noise):
                         "--image-size", str(TRAIN_SIZE), str(TRAIN_SIZE),
                         "--batch-size", str(TRAIN_BATCH), "--num-epochs",
                         "1", "--compute-dtype", cdt, "--checkpoint-dir",
-                        f"{tmp}/ckpt_{family}_{cdt}"]
+                        f"{tmp}/ckpt_{family}_{cdt}", "--graph-dir",
+                        f"{tmp}/graphs"]
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
@@ -4295,7 +4335,8 @@ def phase_data(noise):
         # the on-the-fly trainer over the mixed sizes, native by default
         argv = ["--clean-dir", clean, "--image-size", str(TRAIN_SIZE),
                 str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
-                "--num-epochs", "1", "--checkpoint-dir", f"{tmp}/ck_native"]
+                "--num-epochs", "1", "--checkpoint-dir", f"{tmp}/ck_native",
+                "--graph-dir", f"{tmp}/graphs"]
         noise.LAUNCHES = noise.GAUSSIAN_LAUNCHES = 0
         tr = cli_train.run(argv)
         k4 = noise.LAUNCHES
@@ -4312,6 +4353,634 @@ def phase_data(noise):
         out["native"] = {"images_per_s": rates, "cpus": os.cpu_count(),
                          "max_plain_err": plain_err, "k4_launches": k4}
     say(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: train to ship
+SHIP_IMAGES = 160  # 128 train images after the 20% split: 8 steps of 16
+SHIP_STEPS = 8
+SHIP_WINDOW = 12  # steps per timed window (extras off / on, remat)
+QAT_STEPS, QAT_CHUNK, QAT_BATCH, QAT_SIZE = 100, 50, 32, 128
+# a gentle lr for the shipped (already QAT'd) esrgan: at the script's 2e-5,
+# 100 steps took its held-out gain from 10.14 to 8.40 dB on the port's draw
+# on an H100 and the guard refused, and the JAX script falls alike on the
+# same batches (tests/torch_port_qat_witness.py, PERF.md §6); gentler still
+# for the 10-step runs: dncnn's fake quant agrees with its float forward at
+# only ~20 dB at batch 32 (batch-dynamic scales, in the JAX package too),
+# and 10 steps at 2e-6 lost 0.8 dB and were refused
+QAT_LR, QAT_LR_SHORT = "2e-6", "2e-7"
+EVAL_IMAGES = 16
+# (K2, K3) launches per forward of each family's kernel route
+EVAL_PER_FORWARD = {"denoise": (2, 4), "dncnn": (1, 8), "esrgan": (16, 0),
+                    "srgan": (13, 0)}
+ESRGAN_FIXTURE_FLOOR = 4.767  # 70% of weights/esrgan's recorded 6.81 dB
+
+
+def weights_dir() -> str:
+    from celebrity_image_denoiser_tpu_torch.core.config import (
+        default_weights_dir,
+    )
+
+    return default_weights_dir()
+
+
+class LogLines(logging.Handler):
+    """The records of one logger while attached (``with``)."""
+
+    def __init__(self, name):
+        super().__init__(logging.WARNING)
+        self.logger = logging.getLogger(name)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def ship_metrics() -> dict:
+    """``ms_ssim`` on the card against a CPU float64 evaluation."""
+    from celebrity_image_denoiser_tpu_torch.metrics import ms_ssim
+
+    gen = make_gen()
+    a = torch.rand((16, 256, 256, 3), generator=gen, device="cuda")
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen, device="cuda")
+         ).clamp(0, 1)
+    errs = []
+    for x, y in ((a, b), (a[0, :176, :176], b[0, 40:216, 30:206])):
+        got = ms_ssim(x, y).double().cpu()
+        ref = ms_ssim(x.double().cpu(), y.double().cpu())
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            fail(f"ms_ssim {tuple(x.shape)}: {got} against {ref}")
+        errs.append(float((got - ref).abs().max()))
+    if max(errs) > 1e-5:
+        fail(f"ms_ssim on the card {errs} off the CPU float64 evaluation")
+    ms = time_ms(lambda: ms_ssim(a, b), reps=10)
+    say(f"  ms_ssim: 16x256x256x3 and a 176x176 HWC pair within "
+        f"{max(errs):.2e} of a CPU float64 evaluation; {ms:.3f} ms a batch")
+    return {"max_abs_err": max(errs), "ms": ms}
+
+
+def step_rates(trainers, batch, steps=SHIP_WINDOW, rounds=2) -> list:
+    """Steps/s of each trainer's step on a resident uint8 batch, in turns
+    (a, b, a, b, ...): the best of ``rounds`` windows each."""
+    best = [0.0] * len(trainers)
+    for tr in trainers:  # warm-up
+        for _ in range(2):
+            tr.step_fn(tr.opt, None, batch, tr.noise_gen, 1e-4, 1e-4)
+    for _ in range(rounds):
+        for i, tr in enumerate(trainers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tr.step_fn(tr.opt, None, batch, tr.noise_gen, 1e-4, 1e-4)
+            torch.cuda.synchronize()
+            best[i] = max(best[i], steps / (time.perf_counter() - t0))
+    return best
+
+
+def ship_extras(conv3x3, double_conv, noise, tmp, imgs) -> dict:
+    """``cli.train --extra-metrics batch`` (denoise, esrgan) and the epoch
+    extras of a test pair."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    out = {"k4": 0, "k2": 0, "k3": 0}
+    batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+    for family in ("denoise", "esrgan"):
+        argv = ["--model", family, "--clean-dir", f"{tmp}/clean", "--image-size",
+                str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
+                str(TRAIN_BATCH), "--num-epochs", "1", "--compute-dtype",
+                "bfloat16", "--graph-dir", f"{tmp}/graphs"]
+        noise.LAUNCHES = conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+        tr = cli_train.run(argv + ["--extra-metrics", "batch",
+                                   "--checkpoint-dir", f"{tmp}/ck_{family}"])
+        k4, convs = noise.LAUNCHES, conv3x3.LAUNCHES + double_conv.LAUNCHES
+        hist = {k: v[-1] for k, v in tr.metric_history.items()}
+        if tr.steps != SHIP_STEPS or k4 != SHIP_STEPS or convs:
+            fail(f"{family} --extra-metrics batch: {tr.steps} steps, {k4} "
+                 f"noise kernel launches, {convs} conv kernel launches")
+        if not all(np.isfinite(v) for v in hist.values()) or \
+                not hist["lpips"] > 0 or not 0 < hist["msssim"] <= 1:
+            fail(f"{family} --extra-metrics batch: history {hist}")
+        off = cli_train.build_trainer(cli_train.build_parser().parse_args(
+            argv + ["--checkpoint-dir", f"{tmp}/ck_off"]))
+        noise.LAUNCHES = 0
+        on_rate, off_rate = step_rates([tr, off], batch)
+        if noise.LAUNCHES != 2 * (2 + 2 * SHIP_WINDOW):
+            fail(f"{family}: {noise.LAUNCHES} noise launches in the timed "
+                 "windows")
+        out["k4"] += k4 + noise.LAUNCHES
+        out[family] = {"steps_per_s_extras": on_rate,
+                       "steps_per_s_off": off_rate, "lpips": hist["lpips"],
+                       "msssim": hist["msssim"]}
+        say(f"  cli.train --model {family} --extra-metrics batch, bf16, "
+            f"{TRAIN_SIZE}², batch {TRAIN_BATCH}: {tr.steps} steps, lpips "
+            f"{hist['lpips']:.5f} msssim {hist['msssim']:.4f}, one noise "
+            f"launch a step, no conv kernel; {on_rate:.3f} steps/s with the "
+            f"extras, {off_rate:.3f} without")
+        del tr, off
+        torch.cuda.empty_cache()
+    # "epoch": the test pair through generate, once for the extras and once
+    # for the test image (a JPEG where PIL is installed, else a warning)
+    tr = cli_train.build_trainer(cli_train.build_parser().parse_args(
+        ["--clean-dir", f"{tmp}/clean", "--image-size", str(TRAIN_SIZE),
+         str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH), "--num-epochs",
+         "1", "--checkpoint-dir", f"{tmp}/ck_epoch", "--extra-metrics",
+         "epoch"]))
+    rng = np.random.default_rng(SEED)
+    clean = imgs[-1].astype(np.float32) / 127.5 - 1.0
+    noisy = np.clip(clean + 0.2 * rng.standard_normal(clean.shape), -1,
+                    1).astype(np.float32)
+    tr.test_pair = (noisy, clean)
+    tr.cfg.test_image_dir = f"{tmp}/test_images"
+    noise.LAUNCHES = conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+    with LogLines("cid_torch.train") as log:
+        hist = tr.train()
+    k2, k3 = conv3x3.LAUNCHES, double_conv.LAUNCHES
+    if (k2, k3) != (2 * 2, 2 * 4) or noise.LAUNCHES != SHIP_STEPS:
+        fail(f"epoch extras: K2 {k2}, K3 {k3} (want 4, 8: two forwards), "
+             f"noise {noise.LAUNCHES}")
+    if not (hist["lpips"][-1] > 0 and 0 < hist["msssim"][-1] <= 1):
+        fail(f"epoch extras: {hist}")
+    try:  # the denoise family's test image is a PIL JPEG
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    image = f"{tmp}/test_images/testimg_epoch0.jpg"
+    if os.path.exists(image) != has_pil or has_pil == any(
+            "not installed" in line for line in log.lines):
+        fail(f"the test image: PIL {'present' if has_pil else 'missing'}, "
+             f"file {os.path.exists(image)}, warnings {log.lines}")
+    out["k4"] += noise.LAUNCHES
+    out["k2"] += k2
+    out["k3"] += k3
+    out["epoch"] = {"lpips": hist["lpips"][-1], "msssim": hist["msssim"][-1]}
+    say(f"  GANTrainer(extra_metrics='epoch', test_pair=256²): lpips "
+        f"{hist['lpips'][-1]:.5f} msssim {hist['msssim'][-1]:.4f}; K3 {k3} "
+        f"+ K2 {k2} (two forwards: the extras and the test image, "
+        f"{'written' if has_pil else 'not written: no PIL, one warning'})")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def ship_remat(noise, tmp, imgs) -> dict:
+    """One f32 step with and without ``remat`` from the same state; then
+    esrgan's bf16 step at the train shape: peak memory and steps/s."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+    from celebrity_image_denoiser_tpu_torch.train import gan_trainer
+
+    out = {}
+    for family in ("dncnn", "esrgan", "cgan"):
+        runs = []
+        for remat in (False, True):
+            g, d, p = cli_train.build_modules(
+                family, (64, 64), generator=torch.Generator().manual_seed(
+                    SEED))
+            g = g.cuda()
+            d = None if d is None else d.cuda()
+            gen = make_gen()
+            lo = 0.0 if family in gan_trainer.UNIT_FAMILIES else -1.0
+            clean = torch.rand((2, 64, 64, 3), generator=gen,
+                               device="cuda") * (1 - lo) + lo
+            noisy = (clean + 0.1 * torch.randn(clean.shape, generator=gen,
+                                               device="cuda")).clamp(lo, 1)
+            init, step = gan_trainer.make_train_step(
+                g, d, family=family, remat=remat, perceptual=p)
+            # lr 1e-4: a weight whose gradient is ~0 moves ±lr by the sign
+            # cuDNN's atomics give it, so the runs stand up to 2·lr apart
+            m = step(init(), noisy, clean, None, 1e-4, 1e-4)
+            runs.append((float(m["g_loss"]),
+                         {k: v.detach().clone() for k, v in
+                          g.state_dict().items()}))
+        (l0, s0), (l1, s1) = runs
+        rel = abs(l1 - l0) / abs(l0)
+        stats = max(float((s0[k].double() - s1[k].double()).abs().max())
+                    for k in s0 if "running" in k)
+        params = max(float((s0[k] - s1[k]).abs().max()) for k in s0
+                     if "running" not in k and "num_batches" not in k)
+        if rel > 1e-5 or stats > 1e-6 or params > 2.5e-4:
+            fail(f"{family} remat: g_loss {rel:.2e} rel, BN stats {stats:.2e}"
+                 f", parameters {params:.2e} off the plain step")
+        out[family] = {"loss_rel": rel, "bn_stats": stats, "params": params}
+        say(f"  {family} f32 step, remat against plain: g_loss {rel:.2e} "
+            f"rel, BN running stats {stats:.2e}, parameters {params:.2e}")
+    batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+    argv = ["--model", "esrgan", "--clean-dir", f"{tmp}/clean", "--image-size",
+            str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
+            str(TRAIN_BATCH), "--compute-dtype", "bfloat16",
+            "--checkpoint-dir", f"{tmp}/ck_remat"]
+    noise.LAUNCHES = 0
+    for remat in (False, True):
+        tr = cli_train.build_trainer(cli_train.build_parser().parse_args(
+            argv + (["--remat"] if remat else [])))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (rate,) = step_rates([tr], batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        key = "remat" if remat else "plain"
+        out["esrgan_bf16_" + key] = {"steps_per_s": rate, "peak_gib": peak}
+        say(f"  esrgan bf16 {TRAIN_SIZE}² batch {TRAIN_BATCH}, {key}: "
+            f"{rate:.3f} steps/s, peak {peak:.2f} GiB")
+        del tr
+    out["k4"] = noise.LAUNCHES
+    torch.cuda.empty_cache()
+    return out
+
+
+def ship_fake_quant(k5) -> dict:
+    """``fake_quant`` on the card: tests/test_quant.py:695's check against
+    the int8 program, the shipped dncnn's agreement, skip-all, STE."""
+    from celebrity_image_denoiser_tpu_torch.ckpt.convert import (
+        load_npz_state_dict,
+    )
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        calibration_batch,
+    )
+    from celebrity_image_denoiser_tpu_torch.models.dncnn import DnCNN
+    from celebrity_image_denoiser_tpu_torch.ops import quant
+
+    calib = calibration_batch(False, 32).cuda()
+    x = calib[:4].permute(0, 3, 1, 2)
+    out = {}
+    small = DnCNN(depth=5, generator=torch.Generator().manual_seed(SEED))
+    shipped = DnCNN()
+    shipped.load_state_dict(load_npz_state_dict(
+        os.path.join(weights_dir(), "dncnn"), module=shipped), strict=False)
+    for label, m in (("DnCNN(depth=5)", small), ("shipped dncnn", shipped)):
+        m = m.cuda().eval()
+        with torch.no_grad():
+            yf = m(x, route="autograd")
+            with quant.fake_quant():
+                yfq = m(x, route="autograd")
+            with quant.fake_quant(skip=lambda w: True):
+                y_id = m(x, route="autograd")
+        k5.LAUNCHES = 0
+        yq = quant.quantize_apply(m, calib)(calib[:4]).permute(0, 3, 1, 2)
+        if k5.LAUNCHES < 1:
+            fail(f"{label}: the int8 program launched no K5")
+        db = 10 * np.log10(1.0 / max(float(((yfq - yq) ** 2).mean()), 1e-12))
+        if not torch.equal(y_id, yf) or torch.equal(yfq, yf):
+            fail(f"{label}: skip-all must equal float and fake quant differ")
+        m.zero_grad()
+        with quant.fake_quant():
+            ((m(x, route="autograd") - x) ** 2).mean().backward()
+        grads = [c.weight.grad for c in m.modules()
+                 if isinstance(c, torch.nn.Conv2d)]
+        if not all(bool(torch.isfinite(g).all()) for g in grads) or not any(
+                float(g.abs().max()) > 0 for g in grads):
+            fail(f"{label}: the STE gradient is not finite and non-zero")
+        if label.startswith("DnCNN") and db <= 40.0:
+            fail(f"{label}: fake quant {db:.2f} dB against the int8 program")
+        out[label] = db
+        say(f"  {label}: fake quant {db:.2f} dB against the int8 program "
+            f"({k5.LAUNCHES} K5 launches)"
+            f"{'' if label.startswith('DnCNN') else ' (no bar)'}; skip-all "
+            "bit-equal to float; STE gradients finite, non-zero")
+    return out
+
+
+def png_of(img) -> bytes:
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+
+    return imageio.encode_png(np.ascontiguousarray(img))
+
+
+def ship_qat(conv3x3, k5, noise, tmp, imgs) -> dict:
+    """``cli.qat`` on the shipped esrgan (then served on the all-int8 rung),
+    its refusal, and short fine-tunes of denoise and dncnn."""
+    from celebrity_image_denoiser_tpu_torch.cli import qat as cli_qat
+    from celebrity_image_denoiser_tpu_torch.serve import quality
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    out = {"k4": 0, "k5": 0}
+    dst = f"{tmp}/qat"
+    with open(os.path.join(weights_dir(), "esrgan", "meta.json")) as f:
+        src_meta = json.load(f)
+    noise.LAUNCHES = k5.LAUNCHES = conv3x3.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = cli_qat.run(["--family", "esrgan", "--qat-steps", str(QAT_STEPS),
+                       "--chunk", str(QAT_CHUNK), "--batch", str(QAT_BATCH),
+                       "--size", str(QAT_SIZE), "--qat-lr", QAT_LR,
+                       "--init-from", os.path.join(weights_dir(), "esrgan"),
+                       "--out", dst])
+    wall = time.perf_counter() - t0
+    if noise.LAUNCHES != QAT_STEPS + 2:  # a step each, two held-out sets
+        fail(f"QAT: {noise.LAUNCHES} noise kernel launches for "
+             f"{QAT_STEPS} steps and two evaluations")
+    out["k4"] += noise.LAUNCHES
+    out["k5"] += k5.LAUNCHES  # the fixture recording, int8
+    with open(f"{dst}/esrgan/meta.json") as f:
+        meta = json.load(f)
+    want = {"qat_steps": QAT_STEPS, "qat_lr": float(QAT_LR),
+            "qat_agree": 2.0}
+    if any(meta.get(k) != v for k, v in want.items()) or \
+            "fixture_gain_db" not in meta:
+        fail(f"QAT meta {meta}")
+    chunks = res["chunks"]
+    rate = QAT_STEPS / sum(c["seconds"] for c in chunks)
+    st = ServeState(weights_dir=dst, quantize="int8")
+    rung = st.ladder("esrgan")
+    gate = st.int8_gate_db.get("esrgan")
+    k5.LAUNCHES = 0
+    st.enhance("esrgan", png_of(imgs[0]), include_graph=False)
+    per_forward = k5.LAUNCHES
+    fg = quality.fixture_gain_db(st, "esrgan")
+    out["k5"] += k5.LAUNCHES
+    if rung != "int8-generic" or gate is None or gate < 40.0 or \
+            per_forward != 16 or fg < ESRGAN_FIXTURE_FLOOR or \
+            st.last_compute_backend() != "int8":
+        fail(f"QAT'd esrgan served on {rung} at {gate} dB, {per_forward} K5 "
+             f"launches a forward, fixture {fg:.3f} dB")
+    say(f"  cli.qat esrgan (8 blocks): {QAT_STEPS} steps, batch "
+        f"{QAT_BATCH}, {QAT_SIZE}², "
+        f"{rate:.3f} steps/s ({wall:.1f} s with evaluation and the fixture "
+        "recording), agreement by chunk "
+        f"{[round(c['agree_db'], 2) for c in chunks]} dB; held-out gain "
+        f"{meta['gain_db']:.3f} dB (the source {res['before']['gain_db']} "
+        f"on the same draw, recorded {src_meta['gain_db']}); one noise "
+        f"launch a step; served on {rung} at {gate:.2f} dB, 16 K5 a "
+        f"forward, fixture gain {fg:.3f} dB (recorded "
+        f"{meta['fixture_gain_db']}, floor {ESRGAN_FIXTURE_FLOOR})")
+    out["esrgan"] = {"steps_per_s": rate, "agree_db": [
+        c["agree_db"] for c in chunks], "gain_db": meta["gain_db"],
+        "source_gain_db": src_meta["gain_db"],
+        "source_gain_db_same_draw": res["before"]["gain_db"], "gate_db": gate,
+        "fixture_gain_db": fg}
+    with open(f"{dst}/esrgan/arrays.npz", "rb") as f:
+        before = f.read()
+    try:
+        cli_qat.run(["--family", "esrgan", "--qat-steps", "2", "--chunk",
+                     "2", "--batch", str(QAT_BATCH), "--size", str(QAT_SIZE),
+                     "--qat-lr", "10", "--init-from", os.path.join(weights_dir(), "esrgan"),
+                     "--out", dst])
+        fail("QAT at lr 10 shipped")
+    except SystemExit as e:
+        if "REFUSING to ship" not in str(e):
+            raise
+    with open(f"{dst}/esrgan/arrays.npz", "rb") as f:
+        if f.read() != before:
+            fail("the refused fine-tune changed arrays.npz")
+    say("  cli.qat --qat-lr 10: REFUSING to ship, arrays.npz byte-identical")
+    for fam in ("denoise", "dncnn"):
+        noise.LAUNCHES = 0
+        res = cli_qat.run(["--family", fam, "--qat-steps", "10", "--chunk",
+                           "10", "--batch", str(QAT_BATCH), "--size",
+                           str(QAT_SIZE), "--qat-lr", QAT_LR_SHORT,
+                           "--init-from",
+                           os.path.join(weights_dir(), fam), "--out",
+                           f"{tmp}/qat_{fam}"])
+        if noise.LAUNCHES != 12:
+            fail(f"QAT {fam}: {noise.LAUNCHES} noise launches for 10 steps "
+                 "and two evaluations")
+        out["k4"] += noise.LAUNCHES
+        m = res["meta"]
+        out[fam] = {"gain_db": m["gain_db"], "agree_db":
+                    res["chunks"][0]["agree_db"],
+                    "fixture_gain_db": m["fixture_gain_db"]}
+        say(f"  cli.qat {fam}: 10 steps, agreement "
+            f"{res['chunks'][0]['agree_db']:.2f} dB, held-out gain "
+            f"{m['gain_db']:.3f} dB (the source {res['before']['gain_db']}), "
+            f"fixture {m['fixture_gain_db']:.3f} dB")
+    # K2: the held-out evaluations' forwards, the denoise gate's s8 mode
+    out["k2"] = conv3x3.LAUNCHES
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def ship_export(conv3x3, tmp, imgs) -> dict:
+    """The QAT'd esrgan as a ``.pth`` and the shipped cgan as a new
+    ``.keras``, each loaded and served against its source."""
+    from celebrity_image_denoiser_tpu_torch.ckpt import checkpoint
+    from celebrity_image_denoiser_tpu_torch.ckpt import convert
+    from celebrity_image_denoiser_tpu_torch.ckpt.keras import (
+        H5File,
+        load_keras_model,
+    )
+    from celebrity_image_denoiser_tpu_torch.cli import export as cli_export
+    from celebrity_image_denoiser_tpu_torch.models.cgan import (
+        CGANKerasGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.models.esrgan import (
+        ESRGANGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    import zipfile
+
+    conv3x3.LAUNCHES = 0
+    os.makedirs(f"{tmp}/pth")
+    pth = f"{tmp}/pth/esrgan_epoch_500.pth"
+    cli_export.main(["--model", "esrgan", "--checkpoint", f"{tmp}/qat/esrgan",
+                     "--format", "pth", "--out", pth])
+    a, b = ESRGANGenerator(), ESRGANGenerator()
+    a.load_state_dict(convert.load_pth_state_dict(pth), strict=True)
+    b.load_state_dict(convert.load_npz_state_dict(f"{tmp}/qat/esrgan",
+                                                  module=b), strict=False)
+    if any(not torch.equal(v, w) for v, w in zip(a.state_dict().values(),
+                                                 b.state_dict().values())):
+        fail("the exported .pth does not load to the npz checkpoint's state")
+    png = png_of(imgs[1])
+    r_pth = ServeState(weights_dir=f"{tmp}/pth").enhance(
+        "esrgan", png, include_graph=False)
+    r_npz = ServeState(weights_dir=f"{tmp}/qat").enhance(
+        "esrgan", png, include_graph=False)
+    if r_pth["denoised_image_base64"] != r_npz["denoised_image_base64"]:
+        fail("esrgan served from the .pth differs from the npz checkpoint")
+    say("  cli.export --format pth (the QAT'd esrgan): loads to the npz "
+        "state exactly; served f32 from a weights dir holding only "
+        "esrgan_epoch_500.pth, bit-equal to the npz-served response")
+    shipped = os.path.join(weights_dir(), "cgan_epoch_500.keras")
+    m = CGANKerasGenerator()
+    load_keras_model(m, shipped)
+    params, state = convert.state_dict_to_jax_params(m.state_dict(), module=m)
+    checkpoint.save_checkpoint(f"{tmp}/cgan_ck", {
+        "generator": params, "generator_state": state})
+    os.makedirs(f"{tmp}/keras")
+    keras = f"{tmp}/keras/cgan_epoch_500.keras"
+    cli_export.main(["--model", "cgan", "--checkpoint", f"{tmp}/cgan_ck",
+                     "--format", "keras", "--out", keras])
+    old = H5File(zipfile.ZipFile(shipped).read("model.weights.h5"))
+    new = H5File(zipfile.ZipFile(keras).read("model.weights.h5"))
+    n = 0
+    for layer in new.list("layers"):
+        for v in new.list(f"layers/{layer}/vars"):
+            path = f"layers/{layer}/vars/{v}"
+            if not np.array_equal(old[path], new[path]):
+                fail(f"{path} of the exported .keras differs")
+            n += 1
+    png = png_of(imgs[2])
+    r_new = ServeState(weights_dir=f"{tmp}/keras").enhance(
+        "cgan", png, label=5, include_graph=False)
+    r_old = ServeState().enhance("cgan", png, label=5, include_graph=False)
+    if r_new["denoised_image_base64"] != r_old["denoised_image_base64"] or \
+            r_new.get("backend") != "keras":
+        fail("cgan served from the exported .keras differs from the shipped")
+    for argv, what in (
+            (["--model", "denoise", "--checkpoint", os.path.join(weights_dir(), "srgan")],
+             "does not hold"),
+            (["--model", "dncnn", "--checkpoint", f"{tmp}/dncnn_no_state"],
+             "generator_state")):
+        if what == "generator_state":
+            sections, _ = checkpoint.load_checkpoint(os.path.join(weights_dir(), "dncnn"))
+            checkpoint.save_checkpoint(argv[-1], {
+                "generator": sections["generator"]})
+        bad = f"{tmp}/refused.pth"
+        try:
+            cli_export.main(argv + ["--out", bad])
+            fail(f"cli.export {argv} wrote a file")
+        except SystemExit as e:
+            if what not in str(e) or os.path.exists(bad):
+                fail(f"cli.export {argv}: {e}")
+    say(f"  cli.export --model cgan --format keras: {n} datasets bit-equal "
+        "to the shipped file's; served (label 5, f32) bit-equal to the "
+        "shipped .keras; the two refusals (a tree that is not --model's, "
+        "BatchNorm without generator_state): SystemExit, no file")
+    return {"k2": conv3x3.LAUNCHES, "datasets": n}
+
+
+def ship_eval(conv3x3, double_conv, tmp) -> dict:
+    """``cli.eval`` on the shipped weights, exact launches, the first output
+    against the plain route."""
+    from celebrity_image_denoiser_tpu_torch.cli import eval as cli_eval
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        synth_clean_batch,
+    )
+
+    os.makedirs(f"{tmp}/eval/in")
+    os.makedirs(f"{tmp}/eval/clean")
+    clean = (synth_clean_batch(make_gen(), EVAL_IMAGES, TRAIN_SIZE) * 255
+             ).round().to(torch.uint8).cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    noisy = np.clip(clean + rng.normal(0, 20, clean.shape), 0,
+                    255).astype(np.uint8)
+    for i in range(EVAL_IMAGES):
+        imageio.imwrite(f"{tmp}/eval/in/{i:02d}.png", noisy[i])
+        imageio.imwrite(f"{tmp}/eval/clean/{i:02d}.png", clean[i])
+    out = {"k2": 0, "k3": 0}
+    for model, (k2f, k3f) in EVAL_PER_FORWARD.items():
+        side = TRAIN_SIZE // 4 if model == "srgan" else TRAIN_SIZE
+        size = ["--image-size", str(side), str(side)]
+        dst = f"{tmp}/eval/out_{model}"
+        conv3x3.LAUNCHES = double_conv.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = cli_eval.run(["--model", model, "--input-dir",
+                            f"{tmp}/eval/in", "--output-dir", dst,
+                            "--clean-dir", f"{tmp}/eval/clean",
+                            "--iterations", "2"] + size)
+        wall = time.perf_counter() - t0
+        n = EVAL_IMAGES * 2
+        got = (conv3x3.LAUNCHES, double_conv.LAUNCHES)
+        if got != (n * k2f, n * k3f) or res["forwards"] != n:
+            fail(f"cli.eval {model}: (K2, K3) launches {got} for {n} "
+                 f"forwards, want {(n * k2f, n * k3f)}")
+        out["k2"] += got[0]
+        out["k3"] += got[1]
+        net = cli_eval.load_model(model, None).cuda()
+        x = imageio.to_float01(imageio.imread_rgb(f"{tmp}/eval/in/00.png",
+                                                  (side, side)))
+        tanh = model in ("denoise", "srgan")
+        xt = torch.from_numpy(x * 2 - 1 if tanh else x)[None].cuda()
+        with torch.inference_mode():
+            y = net(xt.permute(0, 3, 1, 2), route="plain").permute(
+                0, 2, 3, 1)[0].cpu().numpy()
+        y01 = np.clip(y * 0.5 + 0.5 if tanh else y, 0, 1)
+        ref = (y01 * 255).astype(np.uint8).astype(int)
+        written = imageio.imread_rgb(f"{dst}/00_iter1.png").astype(int)
+        diff = int(np.abs(written - ref).max())
+        if diff > 1 or res["psnr"] is None or not np.isfinite(res["psnr"]):
+            fail(f"cli.eval {model}: the first output {diff} counts off the "
+                 f"plain route; PSNR {res['psnr']}")
+        out[model] = {"images_per_s": EVAL_IMAGES / wall,
+                      "forwards_per_s": n / res["forward_seconds"],
+                      "psnr": res["psnr"], "ssim": res["ssim"]}
+        say(f"  cli.eval --model {model} --iterations 2 ({EVAL_IMAGES} "
+            f"images at {side}²): K2 {got[0]} "
+            f"+ K3 {got[1]} (exact), the first output within {diff} count "
+            f"of the plain route; {EVAL_IMAGES / wall:.2f} images/s end to "
+            f"end, {n / res['forward_seconds']:.1f} forwards/s; PSNR "
+            f"{res['psnr']:.3f} SSIM {res['ssim']:.4f}")
+    return out
+
+
+def ship_profile(noise, tmp) -> dict:
+    """``cli.train --profile-dir --graph-dir`` for one denoise epoch."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    noise.LAUNCHES = 0
+    with LogLines("cid_torch.cli.train") as log:
+        rc = cli_train.main([
+            "--clean-dir", f"{tmp}/clean", "--image-size", str(TRAIN_SIZE),
+            str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
+            "--num-epochs", "1", "--checkpoint-dir", f"{tmp}/ck_prof",
+            "--profile-dir", f"{tmp}/prof", "--graph-dir",
+            f"{tmp}/graphs_prof"])
+    traces = os.listdir(f"{tmp}/prof")
+    if rc != 0 or len(traces) != 1:
+        fail(f"cli.train --profile-dir: rc {rc}, traces {traces}")
+    with open(f"{tmp}/prof/{traces[0]}") as f:
+        events = json.load(f)["traceEvents"]
+    k4 = [e for e in events if "noise_batch_kernel" in str(e.get("name"))]
+    if len(k4) != SHIP_STEPS or noise.LAUNCHES != SHIP_STEPS:
+        fail(f"the trace names {len(k4)} noise_batch_kernel launches for "
+             f"{noise.LAUNCHES} launched")
+    if not any("matplotlib" in line for line in log.lines) or \
+            os.path.exists(f"{tmp}/graphs_prof"):
+        fail(f"--graph-dir without matplotlib: {log.lines}")
+    say(f"  cli.train --profile-dir: a Chrome trace of {len(events)} events "
+        f"naming {len(k4)} noise_batch_kernel launches of {noise.LAUNCHES} "
+        "(one a step); --graph-dir: "
+        f"'{next(l for l in log.lines if 'matplotlib' in l)}', exit 0")
+    return {"k4": noise.LAUNCHES, "events": len(events),
+            "k4_in_trace": len(k4)}
+
+
+def phase_ship_trace(noise) -> dict:
+    """Phase 14's profiling step (``ship_profile``), run before any other
+    ``torch.profiler`` session of this process: after phases 4e, 7 and 11
+    had profiled, its trace once held 7 of the 8 kernel records."""
+    import tempfile
+
+    say("== phase 14h (run first, before the other profilers): cli.train "
+        "--profile-dir")
+    with tempfile.TemporaryDirectory(prefix="cid_trace_") as tmp:
+        os.makedirs(f"{tmp}/clean")
+        write_train_pngs(f"{tmp}/clean", SHIP_IMAGES)
+        return ship_profile(noise, tmp)
+
+
+def phase_ship(conv3x3, double_conv, k5, noise, profile) -> dict:
+    """Phase 14: train to ship; ``profile`` is ``phase_ship_trace``'s."""
+    import tempfile
+
+    say("== phase 14: train to ship (MS-SSIM and the extra metrics, remat, "
+        "fake quant and QAT onto the int8 gate, .pth/.keras export, the "
+        "eval CLI, profiling)")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="cid_ship_") as tmp:
+        os.makedirs(f"{tmp}/clean")  # the training PNGs, alone in their tree
+        imgs = write_train_pngs(f"{tmp}/clean", SHIP_IMAGES)
+        out["metrics"] = ship_metrics()
+        out["extras"] = ship_extras(conv3x3, double_conv, noise, tmp, imgs)
+        out["remat"] = ship_remat(noise, tmp, imgs)
+        out["fake_quant"] = ship_fake_quant(k5)
+        out["qat"] = ship_qat(conv3x3, k5, noise, tmp, imgs)
+        out["export"] = ship_export(conv3x3, tmp, imgs)
+        out["eval"] = ship_eval(conv3x3, double_conv, tmp)
+    out["profile"] = profile
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 14: {out['seconds']:.1f} s")
     return out
 
 
@@ -4338,6 +5007,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     probes, issue = phase_build(_build, noise)
+    ship_trace = phase_ship_trace(noise)
     worst = phase_kernels(_build, conv3x3, double_conv)
     worst8 = phase_int8_kernels(_build, conv3x3, k5, k6)
     launches = phase_serve(conv3x3, double_conv)
@@ -4370,6 +5040,17 @@ def main() -> int:
     family_noise_launches, train_rows, noise_modes = \
         phase_train_families(noise)
     data = phase_data(noise)
+    torch.cuda.empty_cache()
+    ship = phase_ship(conv3x3, double_conv, k5, noise, ship_trace)
+    # (K2, K3, K4, K5) launched on phase 14's paths: the extras' epoch,
+    # cli.eval, the export round trip, cli.qat (its steps, evaluations and
+    # served gate), the trainings' input stage
+    ship_k2 = ship["extras"]["k2"] + ship["eval"]["k2"] + \
+        ship["export"]["k2"] + ship["qat"]["k2"]
+    ship_k3 = ship["extras"]["k3"] + ship["eval"]["k3"]
+    ship_k4 = ship["extras"]["k4"] + ship["remat"]["k4"] + \
+        ship["qat"]["k4"] + ship["profile"]["k4"]
+    ship_k5 = ship["qat"]["k5"]
 
     replaces = {
         "conv3x3_bias_relu":
@@ -4390,9 +5071,12 @@ def main() -> int:
             # tiled and micro-batched; the dncnn, esrgan and srgan requests
             # of phase 4e, the cgan ones of 4f) and the bench run (the int8
             # requests launch K2 in its s8 mode only)
+            # and phase 14's (cli.eval, the epoch extras, cli.qat, the
+            # export round trip)
             "launches": (launches[name] + bench_launches[name]
-                         + (served[0] if name == "conv3x3_bias_relu"
-                            else served[1])),
+                         + (served[0] + ship_k2
+                            if name == "conv3x3_bias_relu"
+                            else served[1] + ship_k3)),
             "max_abs_err": worst[name],
             # the largest error of a phase 4e/4f launch, × max|ref|
             "families_max_rel_err": max(family_err, cgan_err),
@@ -4421,7 +5105,8 @@ def main() -> int:
     # convs in XLA; no library call computes an int8 conv on the card
     for name, kind, where, n_launch in (
             ("conv3x3_s8", "k5", "celebrity_image_denoiser_tpu/ops/"
-             "quant_unet.py:55 (_conv_q, an XLA conv)", served[2]),
+             "quant_unet.py:55 (_conv_q, an XLA conv)",
+             served[2] + ship_k5),
             ("convt2x2_s8", "k6", "celebrity_image_denoiser_tpu/ops/"
              "quant_unet.py:62 (_convt_q, an XLA conv)", served[3])):
         if n_launch < 1 or bench_launches[name] < 1:
@@ -4465,7 +5150,7 @@ def main() -> int:
         # per batch and type; counts set to 0 just before each
         "launches": (noise_launches + family_noise_launches
                      + data["render"]["launches"]
-                     + data["native"]["k4_launches"]),
+                     + data["native"]["k4_launches"] + ship_k4),
         "max_abs_err": max(noise_err, noise_stats["max_abs_err"]),
         # one launch at the train batch (16 x 256 x 256 x 3, f32 noisy and
         # clean), phase 11; no single PyTorch call computes this
@@ -4493,6 +5178,7 @@ def main() -> int:
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"train_families": train_rows}), flush=True)
     print(json.dumps({"data": data}), flush=True)
+    print(json.dumps({"ship": ship}), flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -879,7 +879,8 @@ def test_cli_train_on_pairs_and_caches_with_resume(tree, tmp_path, mode):
         steps = 3  # 13 pairs, batch 4
     argv += ["--image-size", "16", "16", "--batch-size", "4",
              "--checkpoint-dir", str(tmp_path / "ck"), "--device", "cpu",
-             "--compute-dtype", "float32"]
+             "--compute-dtype", "float32", "--graph-dir",
+             str(tmp_path / "graphs")]
     calls = []
     with mock.patch.object(noise_kernel, "noise_batch",
                            lambda *a, **k: calls.append(a)), \

@@ -58,7 +58,11 @@ def test_port_has_modules_to_check():
                  "models.cgan", "models.cgan_torch", "ckpt.keras",
                  # the data layer and the noisy-dataset renderer
                  "data.imageio", "data.caching", "data.celeba", "data.native",
-                 "data._native.build", "cli.noise_gen"):
+                 "data._native.build", "cli.noise_gen",
+                 # training to the shipped file: metrics, QAT, export, CLIs
+                 "metrics.msssim", "train.qat", "ckpt.export", "cli.qat",
+                 "cli.export", "cli.eval", "cli.bench", "utils.profiling",
+                 "viz.training_plots", "viz.side_by_side"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 

@@ -439,9 +439,10 @@ def test_on_the_fly_step_trains_on_the_trainer_normalisation(jax_nets,
 
 
 def test_other_families_and_options_wait():
-    """Every family trains (tests/test_torch_port_train_families.py); what
-    waits raises naming its ROADMAP.md queue 1 item: ``remat`` and
-    ``extras_fn`` (item 5), ``mesh=`` (item 7).  The native loader runs
+    """Every family trains (tests/test_torch_port_train_families.py), and
+    ``remat`` and ``extras_fn`` work (tests/test_torch_port_extras.py holds
+    them against the plain step and the JAX package); ``mesh=`` waits and
+    raises naming its ROADMAP.md queue 1 item 7.  The native loader runs
     (tests/test_torch_port_data.py) and refuses, before any batch, a
     dataset with no ``raw_batch_spec``."""
     from celebrity_image_denoiser_tpu_torch.core.config import (
@@ -452,11 +453,16 @@ def test_other_families_and_options_wait():
     assert set(gan_trainer.FAMILIES) == set(FAMILY_NOISE_VARIANT)
     with pytest.raises(ValueError, match="unknown family"):
         gan_trainer.make_train_step(pg, pd, family="vae")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        gan_trainer.GANTrainer(pg, pd, [], TrainConfig(remat=True),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        gan_trainer.make_train_step(pg, pd, extras_fn=lambda f, c: {})
+    tr = gan_trainer.GANTrainer(pg, pd, [], TrainConfig(remat=True),
+                                device="cpu")
+    assert tr.step_fn is not None
+    init, step = gan_trainer.make_train_step(
+        pg, pd, remat=True,
+        extras_fn=lambda f, c: {"extra": (f - c).abs().mean()})
+    x, y = _batch(n=2)
+    m = step(init(), _t(x), _t(y), None, 1e-4, 1e-4)
+    assert {"g_loss", "d_loss", "psnr", "ssim", "extra"} <= set(m)
+    assert m["extra"].dim() == 0 and bool(torch.isfinite(m["extra"]))
     with pytest.raises(NotImplementedError, match="item 7"):
         gan_trainer.make_train_step(pg, pd, mesh=object())
     with pytest.raises(ValueError, match="raw_batch_spec"):
@@ -702,7 +708,7 @@ def test_cli_train_on_the_cpu(png_dir, tmp_path):
     step → checkpoint, on a tiny PNG directory; then --resume."""
     args = ["--clean-dir", str(png_dir), "--image-size", "16", "16",
             "--batch-size", "4", "--checkpoint-dir", str(tmp_path / "ck"),
-            "--device", "cpu"]
+            "--graph-dir", str(tmp_path / "graphs"), "--device", "cpu"]
     assert cli_train.main(args + ["--num-epochs", "1"]) == 0
     path = port_ckpt.latest_checkpoint(str(tmp_path / "ck"), "denoise_")
     sections, meta = port_ckpt.load_checkpoint(path)
@@ -719,9 +725,15 @@ def test_cli_train_on_the_cpu(png_dir, tmp_path):
     assert len(tr.gaussian_counts) == 2
     assert all(type(c) is int and 0 <= c <= 4 for c in tr.gaussian_counts)
     assert len(tr.metric_history["psnr"]) == 2
-    for flag in ("--remat", "--extra-metrics", "--profile-dir"):
-        with pytest.raises(SystemExit):  # absent, not accepted and ignored
-            cli_train.build_parser().parse_args(args + [flag])
+    # the flags of the JAX CLI's extras are accepted and reach the trainer
+    # (tests/test_torch_port_extras.py runs them); data parallelism waits
+    parsed = cli_train.build_parser().parse_args(
+        args + ["--remat", "--extra-metrics", "batch", "--profile-dir", "p"])
+    assert parsed.remat and parsed.extra_metrics == "batch"
+    assert parsed.profile_dir == "p"
+    assert cli_train.build_config(parsed).remat
+    with pytest.raises(SystemExit):  # absent, not accepted and ignored
+        cli_train.build_parser().parse_args(args + ["--no-data-parallel"])
     # the disk pairs and tensor caches train (tests/test_torch_port_data.py)
     parsed = cli_train.build_parser().parse_args(
         args + ["--no-on-the-fly", "--tensor-cache", "c",

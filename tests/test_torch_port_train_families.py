@@ -750,7 +750,7 @@ def test_cli_train_each_family_on_the_cpu(family, png_dir, tmp_path):
     args = ["--model", family, "--clean-dir", str(png_dir), "--image-size",
             str(HW), str(HW), "--batch-size", "4", "--checkpoint-dir",
             str(tmp_path / "ck"), "--device", "cpu", "--compute-dtype",
-            "float32"]
+            "float32", "--graph-dir", str(tmp_path / "graphs")]
     tr = cli_train.run(args + ["--num-epochs", "1"])
     assert tr.steps == 2 and tr.family == family
     assert np.isfinite(tr.metric_history["g_loss"]).all()
