@@ -13,13 +13,24 @@ the float32 forwards.  Inputs taller or wider than
 ``--tile-threshold-rows`` are tiled exactly; ``--microbatch-ms`` coalesces
 concurrent same-shape requests into one batch; ``--precompile`` runs the
 given sizes for every family (and, with micro-batching, every batch size)
-before the server listens, as the JAX ``warmup(models=None)`` does.  Not ported: ``--spatial-shard`` (needs a mesh), ``--framework
-fastapi`` and ``--compilation-cache`` (XLA's).
+before the server listens, as the JAX ``warmup(models=None)`` does.
+``--spatial-shard`` serves over a mesh of every card of the machine
+(``parallel/mesh.py::make_mesh``): inputs over the threshold whose extent
+divides by the card count are cut into one strip per card, and
+micro-batches are split over the cards; with one card visible it logs the
+JAX CLI's warning and serves with the single-device tiler (:74-88).  Not
+ported: ``--framework fastapi`` and ``--compilation-cache`` (XLA's).
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
+
+from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("cid_torch.serve")
 
 
 def build_parser():
@@ -35,6 +46,10 @@ def build_parser():
                         "every family (e.g. 256x256,512x512): builds the "
                         "kernels and launches every shape those sizes need "
                         "before the first request")
+    p.add_argument("--spatial-shard", action="store_true",
+                   help="serve over a mesh of every visible card: tall or "
+                        "wide inputs cut into one exact strip per card, "
+                        "micro-batches split over the cards")
     p.add_argument("--tile-threshold-rows", type=int, default=2048,
                    help="inputs taller or wider than this (after padding) "
                         "are served by exact tiling, in tiles of this many "
@@ -70,21 +85,44 @@ def _parse_sizes(parser, spec):
     return sizes
 
 
+def build_mesh(args):
+    """The serving mesh of ``--spatial-shard``: every card, or None (with
+    the JAX CLI's warning) where one device is visible."""
+    if not args.spatial_shard:
+        return None
+    from celebrity_image_denoiser_tpu_torch.parallel import make_mesh
+
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card and torch.cuda.device_count() > 1:
+        return make_mesh()
+    logger.warning("--spatial-shard requested but only 1 device is visible "
+                   "— tall inputs will use the sequential single-device "
+                   "tiler")
+    return None
+
+
+def build_state(args):
+    """The ``ServeState`` of parsed ``args``."""
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    return ServeState(weights_dir=args.weights_dir,
+                      tile_threshold_rows=args.tile_threshold_rows,
+                      mesh=build_mesh(args),
+                      microbatch_window_ms=args.microbatch_ms,
+                      microbatch_max=args.microbatch_max,
+                      quantize=None if args.quantize == "off"
+                      else args.quantize,
+                      device=args.device)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     sizes = _parse_sizes(parser, args.precompile) if args.precompile else None
     from celebrity_image_denoiser_tpu_torch.serve.app import run_server
-    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
 
-    state = ServeState(weights_dir=args.weights_dir,
-                       tile_threshold_rows=args.tile_threshold_rows,
-                       microbatch_window_ms=args.microbatch_ms,
-                       microbatch_max=args.microbatch_max,
-                       quantize=None if args.quantize == "off"
-                       else args.quantize,
-                       device=args.device)
-    run_server(args.host, args.port, state=state, precompile=sizes)
+    run_server(args.host, args.port, state=build_state(args),
+               precompile=sizes)
     return 0
 
 

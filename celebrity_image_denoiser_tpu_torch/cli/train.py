@@ -22,6 +22,10 @@
   # resume from the newest checkpoint under --checkpoint-dir
   python -m celebrity_image_denoiser_tpu_torch.cli.train ... --resume
 
+  # data parallelism: one rank per card, --batch-size the global batch
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m celebrity_image_denoiser_tpu_torch.cli.train --model denoise ...
+
 Every family trains: denoise, srgan, esrgan, cgan (the Keras generator and
 discriminator, Keras Adam) and dncnn (no discriminator; the blind-σ
 Gaussian unless ``--noise-variant`` is given).  srgan's content loss runs
@@ -42,18 +46,31 @@ and is remapped to the family's).  The last two launch no noise kernel.
 every batch inside the step (``epoch`` samples a test pair, which the CLI
 does not set, as in the JAX CLI: zeros); ``--remat`` recomputes the
 generator's activations in the backward; ``--profile-dir`` runs the
-training inside ``utils.profiling.trace`` (a Chrome trace); the history is
-plotted into ``--graph-dir`` at the end, or, where matplotlib is missing,
-one warning says so and the run still succeeds.  Data parallelism
-(``--no-data-parallel``) is not ported (ROADMAP.md queue 1 item 7), and the
-flag is absent rather than accepted and ignored.
+training inside ``utils.profiling.trace`` (a Chrome trace, one per rank);
+the history is plotted into ``--graph-dir`` at the end, or, where
+matplotlib is missing, one warning says so and the run still succeeds.
+
+Data parallelism (the JAX CLI's mesh over every chip, :130-134, 252-255):
+launched by ``torch.distributed.run`` (its ``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK`` in the environment), each rank trains on ``cuda:LOCAL_RANK``
+over NCCL, or over gloo with ``--device cpu``, on its share of every
+global batch of ``--batch-size`` (``GANTrainer(mesh=)``): the gradients and
+BatchNorm statistics are the global batch's and rank 0 alone writes the
+checkpoints and plots.  ``--no-data-parallel`` turns it off, as in JAX: it
+is refused under a world size above 1 (that would be as many separate
+trainings) and trains alone at world size 1.  A ``LOCAL_RANK`` without a
+card of its own is refused; nothing falls back to gloo where NCCL is the
+backend.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 
 import torch
+import torch.distributed as dist
 
 from celebrity_image_denoiser_tpu_torch.core.config import TrainConfig
 from celebrity_image_denoiser_tpu_torch.core.device import resolve_device
@@ -65,6 +82,7 @@ from celebrity_image_denoiser_tpu_torch.data.datasets import (
 from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
 from celebrity_image_denoiser_tpu_torch.metrics import PerceptualDistance
 from celebrity_image_denoiser_tpu_torch.models import registry
+from celebrity_image_denoiser_tpu_torch.parallel.mesh import process_mesh
 from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
     FAMILIES,
     UNIT_FAMILIES,
@@ -130,6 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the generator's activations in the "
                         "backward (torch.utils.checkpoint)")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--no-data-parallel", action="store_true",
+                   help="under torch.distributed.run, train this process "
+                        "alone (refused at a world size above 1)")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 (default): model forward and backward in "
@@ -321,13 +342,64 @@ def build_config(args) -> TrainConfig:
     )
 
 
-def build_trainer(args) -> GANTrainer:
-    """The trainer that ``run`` and ``main`` train."""
+def launched_by_torchrun() -> bool:
+    """Whether this process is a rank that ``torch.distributed.run``
+    started."""
+    return "TORCHELASTIC_RUN_ID" in os.environ or (
+        "LOCAL_RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
+@contextlib.contextmanager
+def data_parallel(args):
+    """The ``DeviceMesh`` of this rank's data-parallel run and its device
+    (None and ``--device`` when not launched by ``torch.distributed.run``,
+    or with ``--no-data-parallel`` at world size 1).  The process group is
+    made here and destroyed on exit, unless the caller had initialised one
+    already (a launcher of its own), which is then taken as it is."""
+    owned = not dist.is_initialized()
+    if owned and not launched_by_torchrun():
+        yield None, resolve_device(args.device)
+        return
+    world = int(os.environ["WORLD_SIZE"]) if owned else dist.get_world_size()
+    if args.no_data_parallel:
+        if world > 1:
+            raise SystemExit(
+                f"--no-data-parallel with a world size of {world} would run "
+                f"{world} separate trainings on the same files; launch one "
+                "process instead")
+        yield None, resolve_device(args.device)
+        return
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        if local >= torch.cuda.device_count():
+            raise SystemExit(
+                f"LOCAL_RANK={local} has no card: this machine has "
+                f"{torch.cuda.device_count()} (NCCL takes one card a rank)")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    if owned:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    logger.info("data parallel: rank %d of %d over %s on %s",
+                dist.get_rank(), dist.get_world_size(), dist.get_backend(),
+                device)
+    try:
+        yield process_mesh(), device
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def build_trainer(args, mesh=None, device=None) -> GANTrainer:
+    """The trainer that ``run`` and ``main`` train; under ``mesh`` (a
+    data-parallel run) on this rank's share of each batch."""
+    device = device or resolve_device(args.device)
     cfg = build_config(args)
+    rank, world = (0, 1) if mesh is None else (dist.get_rank(),
+                                                dist.get_world_size())
     pipeline = DataPipeline(build_dataset(args, cfg), cfg.batch_size,
                             shuffle=True, seed=cfg.seed, drop_last=True,
-                            device=device)
+                            device=device, rank=rank, world=world)
     gen, disc, perceptual = build_modules(
         args.model, cfg.image_size, sr_scale=args.sr_scale,
         vgg_pth=args.vgg_pth,
@@ -335,7 +407,7 @@ def build_trainer(args) -> GANTrainer:
     extra = False if args.extra_metrics == "off" else args.extra_metrics
     trainer = GANTrainer(gen, disc, pipeline, cfg, family=args.model,
                          perceptual=perceptual, extra_metrics=extra,
-                         device=device)
+                         device=device, mesh=mesh)
     if args.resume:
         trainer.resume()
     return trainer
@@ -353,15 +425,18 @@ def plot_history(history, graph_dir: str) -> None:
 
 def run(argv=None) -> GANTrainer:
     """Parse ``argv``, train (inside a profiler trace with
-    ``--profile-dir``), plot the history, and return the trainer."""
+    ``--profile-dir``; data-parallel under ``torch.distributed.run``), plot
+    the history (rank 0), and return the trainer."""
     args = build_parser().parse_args(argv)
-    trainer = build_trainer(args)
-    if args.profile_dir:
-        with trace(args.profile_dir):
+    with data_parallel(args) as (mesh, device):
+        trainer = build_trainer(args, mesh, device)
+        if args.profile_dir:
+            with trace(args.profile_dir):
+                trainer.train()
+        else:
             trainer.train()
-    else:
-        trainer.train()
-    plot_history(trainer.metric_history, args.graph_dir)
+    if trainer.rank == 0:
+        plot_history(trainer.metric_history, args.graph_dir)
     return trainer
 
 

@@ -48,7 +48,10 @@
 //     counter by its third word.
 // So a gaussian sample gets exactly what the gaussian-only kernel gives at
 // the same index, and the output depends on (seed, index, kinds) only,
-// never on the launch grid.  Every float operation the compiler could
+// never on the launch grid.  A launch over samples [k, k + n) of a batch
+// (first_sample = k: one rank's share of a data-parallel step) takes their
+// indices and blind-sigma blocks in the whole batch, so it writes rows k ..
+// k + n - 1 of the whole batch's launch, bit for bit.  Every float operation the compiler could
 // contract into an FMA is written with a round-to-nearest intrinsic, and
 // logf / cosf / sqrtf are the precise ones torch.log / torch.cos /
 // torch.sqrt call on the card, so the arithmetic is the plain version's,
@@ -121,8 +124,8 @@ noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
                    float* __restrict__ clean,
                    const long long* __restrict__ kinds, uint32_t codes,
                    const unsigned long long* __restrict__ seed_ptr,
-                   unsigned long long seed, long long total,
-                   long long per_sample, int channels,
+                   unsigned long long seed, long long first_sample,
+                   long long total, long long per_sample, int channels,
                    const uint32_t* __restrict__ table,
                    const uint8_t* __restrict__ guide, Params p, int aligned) {
   const long long i0 =
@@ -130,6 +133,9 @@ noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
   if (i0 >= total) return;
   if (seed_ptr != nullptr) seed = *seed_ptr;
   const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  // i indexes this launch's tensors, base + i the stream (the element's
+  // index in the whole batch); s the kinds, first_sample + s the blind sigma
+  const long long base = first_sample * per_sample;
   const long long s0 = i0 / per_sample;
 
   if (aligned && i0 + kChunk <= total && i0 + kChunk <= (s0 + 1) * per_sample) {
@@ -138,30 +144,30 @@ noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
     float out[kChunk];
     if constexpr (V == kBlind) {
       Params q = p;
-      q.sigma01 = blind_sigma01(s0, k0, k1, p);
-      chunk_of<kGaussian, 1, UNIT>(xs, i0, channels, k0, k1, q, table, guide,
-                                   out);
+      q.sigma01 = blind_sigma01(first_sample + s0, k0, k1, p);
+      chunk_of<kGaussian, 1, UNIT>(xs, base + i0, channels, k0, k1, q, table,
+                                   guide, out);
     } else {
       switch (kind_of(kinds, codes, s0)) {
         case kGaussian:
-          chunk_of<kGaussian, V, UNIT>(xs, i0, channels, k0, k1, p, table,
-                                       guide, out);
+          chunk_of<kGaussian, V, UNIT>(xs, base + i0, channels, k0, k1,
+                                       p, table, guide, out);
           break;
         case kSaltPepper:
-          chunk_of<kSaltPepper, V, UNIT>(xs, i0, channels, k0, k1, p, table,
-                                         guide, out);
+          chunk_of<kSaltPepper, V, UNIT>(xs, base + i0, channels, k0, k1,
+                                         p, table, guide, out);
           break;
         case kSpeckle:
-          chunk_of<kSpeckle, V, UNIT>(xs, i0, channels, k0, k1, p, table,
-                                      guide, out);
+          chunk_of<kSpeckle, V, UNIT>(xs, base + i0, channels, k0, k1,
+                                      p, table, guide, out);
           break;
         case kPoisson:
-          chunk_of<kPoisson, V, UNIT>(xs, i0, channels, k0, k1, p, table,
-                                      guide, out);
+          chunk_of<kPoisson, V, UNIT>(xs, base + i0, channels, k0, k1,
+                                      p, table, guide, out);
           break;
         case kUniform:
-          chunk_of<kUniform, V, UNIT>(xs, i0, channels, k0, k1, p, table,
-                                      guide, out);
+          chunk_of<kUniform, V, UNIT>(xs, base + i0, channels, k0, k1,
+                                      p, table, guide, out);
           break;
         default:
 #pragma unroll
@@ -181,14 +187,14 @@ noise_batch_kernel(const uint8_t* __restrict__ x, T* __restrict__ noisy,
     uint32_t a, b;
     if constexpr (V == kBlind) {
       Params q = p;
-      q.sigma01 = blind_sigma01(s, k0, k1, p);
-      words_of(i, k0, k1, a, b);
+      q.sigma01 = blind_sigma01(first_sample + s, k0, k1, p);
+      words_of(base + i, k0, k1, a, b);
       v = noisy_of<kGaussian, 1, UNIT>(xe, a, b, q, table, guide);
     } else {
       const int kind = kind_of(kinds, codes, s);
       // variant 1's salt & pepper takes the words of the pixel's channel 0
-      words_of(V == 1 && kind == kSaltPepper ? i - i % channels : i, k0, k1,
-               a, b);
+      words_of(base + (V == 1 && kind == kSaltPepper ? i - i % channels : i),
+               k0, k1, a, b);
       switch (kind) {
         case kGaussian:
           v = noisy_of<kGaussian, V, UNIT>(xe, a, b, p, table, guide);
@@ -221,18 +227,22 @@ template <typename T, int V, bool UNIT>
 cudaError_t launch(const void* x, void* noisy, float* clean,
                    const long long* kinds, uint32_t codes,
                    const unsigned long long* seed_ptr, unsigned long long seed,
-                   long long total, long long per_sample, int channels,
-                   const uint32_t* table, const uint8_t* guide,
-                   const Params& p, cudaStream_t stream) {
+                   long long first_sample, long long total,
+                   long long per_sample, int channels, const uint32_t* table,
+                   const uint8_t* guide, const Params& p,
+                   cudaStream_t stream) {
   const long long chunks = (total + kChunk - 1) / kChunk;
   const long long blocks = (chunks + kThreads - 1) / kThreads;
   if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
-  const int aligned =
-      aligned_to(x, 8) && aligned_to(noisy, 16) && aligned_to(clean, 16);
+  // a chunk takes its words from whole Philox blocks (pairs of elements
+  // from an even index): an odd stream offset takes the scalar loop
+  const int aligned = aligned_to(x, 8) && aligned_to(noisy, 16) &&
+                      aligned_to(clean, 16) &&
+                      (first_sample * per_sample) % 2 == 0;
   noise_batch_kernel<T, V, UNIT><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<T*>(noisy), clean, kinds,
-      codes, seed_ptr, seed, total, per_sample, channels, table, guide, p,
-      aligned);
+      codes, seed_ptr, seed, first_sample, total, per_sample, channels, table,
+      guide, p, aligned);
   return cudaGetLastError();
 }
 
@@ -241,16 +251,18 @@ template <int V>
 cudaError_t launch_f32(bool unit, const void* x, void* noisy, float* clean,
                        const long long* kinds, uint32_t codes,
                        const unsigned long long* seed_ptr,
-                       unsigned long long seed, long long total,
-                       long long per_sample, int channels,
+                       unsigned long long seed, long long first_sample,
+                       long long total, long long per_sample, int channels,
                        const uint32_t* table, const uint8_t* guide,
                        const Params& p, cudaStream_t stream) {
   return unit ? launch<float, V, true>(x, noisy, clean, kinds, codes,
-                                       seed_ptr, seed, total, per_sample,
-                                       channels, table, guide, p, stream)
+                                       seed_ptr, seed, first_sample, total,
+                                       per_sample, channels, table, guide, p,
+                                       stream)
               : launch<float, V, false>(x, noisy, clean, kinds, codes,
-                                        seed_ptr, seed, total, per_sample,
-                                        channels, table, guide, p, stream);
+                                        seed_ptr, seed, first_sample, total,
+                                        per_sample, channels, table, guide, p,
+                                        stream);
 }
 
 }  // namespace
@@ -260,15 +272,19 @@ cudaError_t launch_f32(bool unit, const void* x, void* noisy, float* clean,
 // variant 1 on [-1, 1] only); clean: `total` floats or null; kinds: one
 // int64 per sample, an index into the 4-bit `codes`, or null (every sample
 // entry 0); the seed from seed_ptr (8 bytes on the device) or, if that is
-// null, `seed`; table (256 x 256 uint32) and guide (256 x 1025 uint8): the
+// null, `seed`; first_sample: the index of x's first sample in the batch
+// whose stream it takes (x's sample s draws what sample first_sample + s
+// draws in a launch over the whole batch: one rank's share of a
+// data-parallel step; 0 for a whole batch); table (256 x 256 uint32) and guide (256 x 1025 uint8): the
 // poisson inversion of the variant, needed where a code is poisson;
 // variant: 0 (the blind-sigma Gaussian: kinds, codes, table and guide
 // unread), 1, 2 or 3; unit: outputs on [0, 1] (else [-1, 1]).
 extern "C" int cid_noise_batch(const void* x, void* noisy, void* clean,
                                const void* kinds, unsigned int codes,
                                const void* seed_ptr, unsigned long long seed,
-                               long long total, long long per_sample,
-                               int channels, const void* table,
+                               long long first_sample, long long total,
+                               long long per_sample, int channels,
+                               const void* table,
                                const void* guide, int variant, int unit,
                                float sigma01, float speckle, float uniform,
                                float low, float sp_a, float sp_b,
@@ -277,7 +293,7 @@ extern "C" int cid_noise_batch(const void* x, void* noisy, void* clean,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total <= 0 || per_sample <= 0 || channels <= 0 ||
       per_sample % channels != 0 || total % per_sample != 0 || variant < 0 ||
-      variant > 3)
+      variant > 3 || first_sample < 0)
     return (int)cudaErrorInvalidValue;
   if (variant != kBlind)
     for (uint32_t c = codes; c != 0; c >>= 4)
@@ -293,24 +309,29 @@ extern "C" int cid_noise_batch(const void* x, void* noisy, void* clean,
   if (dtype == cid::kDtypeBF16) {
     if (variant != 1 || unit) return (int)cudaErrorInvalidValue;
     return (int)launch<__nv_bfloat16, 1, false>(x, noisy, c, k, codes, sp,
-                                                seed, total, per_sample,
-                                                channels, t, g, p, s);
+                                                seed, first_sample, total,
+                                                per_sample, channels, t, g, p,
+                                                s);
   }
   if (dtype != cid::kDtypeF32) return (int)cudaErrorInvalidValue;
   const bool u = unit != 0;
   switch (variant) {
     case kBlind:
       return (int)launch_f32<kBlind>(u, x, noisy, c, k, codes, sp, seed,
-                                     total, per_sample, channels, t, g, p, s);
+                                     first_sample, total, per_sample,
+                                     channels, t, g, p, s);
     case 1:
-      return (int)launch_f32<1>(u, x, noisy, c, k, codes, sp, seed, total,
-                                per_sample, channels, t, g, p, s);
+      return (int)launch_f32<1>(u, x, noisy, c, k, codes, sp, seed,
+                                first_sample, total, per_sample, channels, t,
+                                g, p, s);
     case 2:
-      return (int)launch_f32<2>(u, x, noisy, c, k, codes, sp, seed, total,
-                                per_sample, channels, t, g, p, s);
+      return (int)launch_f32<2>(u, x, noisy, c, k, codes, sp, seed,
+                                first_sample, total, per_sample, channels, t,
+                                g, p, s);
     default:
-      return (int)launch_f32<3>(u, x, noisy, c, k, codes, sp, seed, total,
-                                per_sample, channels, t, g, p, s);
+      return (int)launch_f32<3>(u, x, noisy, c, k, codes, sp, seed,
+                                first_sample, total, per_sample, channels, t,
+                                g, p, s);
   }
 }
 
@@ -322,7 +343,7 @@ extern "C" int cid_normalize_gaussian_noise(const void* x, void* y,
                                             float sigma01, int dtype,
                                             void* stream) {
   return cid_noise_batch(x, y, nullptr, nullptr, (unsigned)kGaussian, nullptr,
-                         seed, total, total, 1, nullptr, nullptr, 1, 0,
+                         seed, 0, total, total, 1, nullptr, nullptr, 1, 0,
                          sigma01, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, dtype,
                          stream);
 }

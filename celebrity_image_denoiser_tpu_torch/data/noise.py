@@ -255,9 +255,17 @@ def stream_seed(gen: torch.Generator, device) -> torch.Tensor:
     return torch.randint(0, 1 << 62, (1,), generator=gen, device=device)
 
 
+def _share(batch_uint8: torch.Tensor, rank: int, world: int) -> int:
+    """The first sample of ``rank``'s share of the global batch of ``world``
+    shares, each of ``batch_uint8``'s size."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    return rank * batch_uint8.shape[0]
+
+
 def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
                        types: Sequence[str] = NOISE_TYPES, variant: int = 1,
-                       domain: str = "tanh"
+                       domain: str = "tanh", rank: int = 0, world: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-sample random noise kind of ``variant`` over a uint8 NHWC batch;
     returns the noisy batch and the clean target, float32 NHWC in [-1, 1]
@@ -268,19 +276,29 @@ def random_noise_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
     ``randint``) and then the stream's seed are drawn from ``gen`` on the
     batch's device; neither comes to the host, and the noise takes one
     launch of ``noise_batch`` (which refuses unknown kinds, variants and
-    domains)."""
+    domains).
+
+    ``rank`` of ``world`` (data parallelism): ``batch_uint8`` is rank's
+    share, samples ``rank·n .. (rank+1)·n - 1``, of a global batch of
+    ``world·n``.  Every rank draws the global batch's kinds and the seed
+    from its identically seeded ``gen``, takes its slice of the kinds and
+    launches at its ``first_sample``, so its rows are bit-equal to those of
+    the single launch over the global batch; the kinds returned are its
+    share's."""
     _check_uint8_batch(gen, batch_uint8)
     dev = batch_uint8.device
-    kinds = torch.randint(0, len(types), batch_uint8.shape[:1], generator=gen,
-                          device=dev)
+    first = _share(batch_uint8, rank, world)
+    n = batch_uint8.shape[0]
+    kinds = torch.randint(0, len(types), (n * world,), generator=gen,
+                          device=dev)[first:first + n]
     noisy, clean = noise_kernel.noise_batch(kinds, stream_seed(gen, dev),
                                             batch_uint8, tuple(types),
-                                            variant, domain)
+                                            variant, domain, first)
     return noisy, clean, kinds
 
 
 def blind_gaussian_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
-                         domain: str = "unit"
+                         domain: str = "unit", rank: int = 0, world: int = 1
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blind-σ Gaussian noise for DnCNN training (``noise.py:232-242``):
     per-sample σ ~ U[5, 50] on the 0-255 scale
@@ -290,7 +308,10 @@ def blind_gaussian_batch(gen: torch.Generator, batch_uint8: torch.Tensor,
     dncnn's) or in [-1, 1].  The stream's
     seed is drawn from ``gen`` on the batch's device, and each σ from the
     stream on the card (``ops/cuda/noise.py::blind_sigmas``): one launch
-    of ``blind_noise_batch``, no host read."""
+    of ``blind_noise_batch``, no host read.  ``rank`` of ``world`` as in
+    ``random_noise_batch``: this rank's rows of the global batch's
+    launch."""
     _check_uint8_batch(gen, batch_uint8)
+    first = _share(batch_uint8, rank, world)
     return noise_kernel.blind_noise_batch(stream_seed(gen, batch_uint8.device),
-                                          batch_uint8, domain)
+                                          batch_uint8, domain, first)

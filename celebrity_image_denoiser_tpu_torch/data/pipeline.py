@@ -15,6 +15,16 @@ With ``use_native`` the batches are assembled by the port's C++ stage
 dataset's ``raw_batch_spec`` in its own thread pool — a float32 side
 normalised to ``(x/255 - mean)/std``, or a uint8 side (mean None, the
 clean images of the on-the-fly path) with ``native.resize_u8``'s rounding.
+
+``rank`` of ``world`` is the counterpart of the JAX pipeline's
+``sharding=`` (:48, :151), where the loader is the data-parallel boundary:
+every rank shuffles with the same seed and assembles only its share of
+each global batch of ``batch_size`` — samples ``rank·b .. (rank+1)·b − 1``
+with ``b = batch_size / world`` — through the same stage (the native
+assembly too), so the ranks' shares make up the global batch the
+single-process pipeline yields.  A sample that fails to load is replaced
+from the rank's own share (the single-process pipeline tops up from the
+whole batch), so the two differ only where a file is unreadable.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ class DataPipeline:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
                  device="cuda", num_threads: int = 2,
-                 use_native: Optional[bool] = None):
+                 use_native: Optional[bool] = None, rank: int = 0,
+                 world: int = 1):
         """``use_native``: assemble batches in the C++ stage when the
         dataset advertises a ``raw_batch_spec``.  None (the default) is
         auto: on when the library builds, with a log line naming the stage
@@ -54,7 +65,15 @@ class DataPipeline:
         has no spec (``ValueError``) or the library does not build
         (``RuntimeError``); False keeps the python path, whose resize is
         Pillow's bit for bit (the C++ bicubic stands within about 2 counts
-        of it)."""
+        of it).  ``rank`` of ``world``: yield only this rank's share of
+        each global batch of ``batch_size`` (which ``world`` must divide;
+        ``drop_last`` only)."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        if world > 1 and (batch_size % world or not drop_last):
+            raise ValueError(f"a batch of {batch_size} shared by {world} "
+                             "ranks must divide evenly, with drop_last")
+        self.rank, self.world = rank, world
         self._spec = getattr(dataset, "raw_batch_spec", None)
         if use_native is None:
             use_native = self._spec is not None and native.available()
@@ -170,7 +189,9 @@ class DataPipeline:
             end = min(start + self.batch_size, n)
             if end - start < self.batch_size and self.drop_last:
                 break
-            bounds.append(idx[start:end])
+            share = (end - start) // self.world
+            bounds.append(idx[start + self.rank * share:
+                              start + (self.rank + 1) * share])
         if self.device.type == "cuda" and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
 

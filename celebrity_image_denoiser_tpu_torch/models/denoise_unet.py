@@ -57,7 +57,7 @@ from celebrity_image_denoiser_tpu_torch.ops.conv import (
     conv2d_layer,
 )
 from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3, double_conv
-from celebrity_image_denoiser_tpu_torch.ops.norm import batch_norm
+from celebrity_image_denoiser_tpu_torch.ops.norm import BatchNorm2d, batch_norm
 from celebrity_image_denoiser_tpu_torch.ops.pool import (
     global_avg_pool,
     max_pool2d,
@@ -215,13 +215,13 @@ class DenoiseDiscriminator(nn.Module):
             nn.Conv2d(3, 64, 3, padding=1),
             nn.LeakyReLU(0.2),
             nn.Conv2d(64, 64, 3, stride=2, padding=1),
-            nn.BatchNorm2d(64),
+            BatchNorm2d(64),
             nn.LeakyReLU(0.2),
             nn.Conv2d(64, 128, 3, padding=1),
-            nn.BatchNorm2d(128),
+            BatchNorm2d(128),
             nn.LeakyReLU(0.2),
             nn.Conv2d(128, 128, 3, stride=2, padding=1),
-            nn.BatchNorm2d(128),
+            BatchNorm2d(128),
             nn.LeakyReLU(0.2),
             nn.AdaptiveAvgPool2d(1),
             nn.Conv2d(128, 1, 1),
@@ -240,7 +240,8 @@ def discriminator_layers(model: nn.Sequential, x: torch.Tensor,
     """The layers of a torch-family discriminator's ``model`` (convs,
     BatchNorm, LeakyReLU, the global average pool, the sigmoid) as the JAX
     layers run them: ``conv2d_layer``, ``batch_norm`` (batch statistics and
-    an in-place running update in train mode)."""
+    an in-place running update in train mode; those of the layer's
+    ``group``'s global batch when it has one)."""
     for layer in model:
         if isinstance(layer, nn.Conv2d):
             x = conv2d_layer(x, layer.weight, layer.bias,
@@ -248,7 +249,8 @@ def discriminator_layers(model: nn.Sequential, x: torch.Tensor,
         elif isinstance(layer, nn.BatchNorm2d):
             x = batch_norm(x, layer.weight, layer.bias, layer.running_mean,
                            layer.running_var, train=training, eps=layer.eps,
-                           momentum=layer.momentum)
+                           momentum=layer.momentum,
+                           group=getattr(layer, "group", None))
         elif isinstance(layer, nn.LeakyReLU):
             x = leaky_relu(x, layer.negative_slope)
         elif isinstance(layer, nn.AdaptiveAvgPool2d):

@@ -27,6 +27,7 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
 )
 from celebrity_image_denoiser_tpu_torch.models.folded import FoldedConvNet
 from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d
+from celebrity_image_denoiser_tpu_torch.ops.norm import BatchNorm2d
 
 
 class DnCNN(FoldedConvNet):
@@ -39,7 +40,7 @@ class DnCNN(FoldedConvNet):
         layers = [Conv2d(image_channels, channels, 3, padding=1), nn.ReLU()]
         for _ in range(depth - 2):
             layers += [Conv2d(channels, channels, 3, padding=1, bias=False),
-                       nn.BatchNorm2d(channels), nn.ReLU()]
+                       BatchNorm2d(channels), nn.ReLU()]
         layers.append(Conv2d(channels, image_channels, 3, padding=1,
                              bias=False))
         self.body = nn.Sequential(*layers)

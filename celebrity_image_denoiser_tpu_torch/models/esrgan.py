@@ -40,6 +40,7 @@ from celebrity_image_denoiser_tpu_torch.ops.activations import (
     prelu,
 )
 from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d
+from celebrity_image_denoiser_tpu_torch.ops.norm import BatchNorm2d
 
 
 class ResidualBlock(nn.Module):
@@ -48,9 +49,9 @@ class ResidualBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.block = nn.Sequential(
-            Conv2d(channels, channels, 3, 1, 1), nn.BatchNorm2d(channels),
+            Conv2d(channels, channels, 3, 1, 1), BatchNorm2d(channels),
             PReLU(),
-            Conv2d(channels, channels, 3, 1, 1), nn.BatchNorm2d(channels))
+            Conv2d(channels, channels, 3, 1, 1), BatchNorm2d(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.block(x)

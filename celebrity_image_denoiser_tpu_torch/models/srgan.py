@@ -37,6 +37,7 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
 from celebrity_image_denoiser_tpu_torch.models.folded import FoldedConvNet
 from celebrity_image_denoiser_tpu_torch.ops.activations import PReLU, prelu
 from celebrity_image_denoiser_tpu_torch.ops.conv import Conv2d
+from celebrity_image_denoiser_tpu_torch.ops.norm import BatchNorm2d
 
 
 def pixel_shuffle_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -60,8 +61,8 @@ class SRGANGenerator(FoldedConvNet):
         self.scale_factor = scale_factor
         self.initial = nn.Sequential(Conv2d(3, 64, 9, padding=4), PReLU())
         self.res_blocks = nn.Sequential(*[nn.Sequential(
-            Conv2d(64, 64, 3, padding=1), nn.BatchNorm2d(64), PReLU(),
-            Conv2d(64, 64, 3, padding=1), nn.BatchNorm2d(64))
+            Conv2d(64, 64, 3, padding=1), BatchNorm2d(64), PReLU(),
+            Conv2d(64, 64, 3, padding=1), BatchNorm2d(64))
             for _ in range(5)])
         self.mid = Conv2d(64, 64, 3, padding=1)
         ups = []
@@ -104,13 +105,13 @@ class SRGANDiscriminator(nn.Module):
         super().__init__()
         self.model = nn.Sequential(
             nn.Conv2d(3, 64, 3, padding=1), nn.LeakyReLU(0.2),
-            nn.Conv2d(64, 64, 3, stride=2, padding=1), nn.BatchNorm2d(64),
+            nn.Conv2d(64, 64, 3, stride=2, padding=1), BatchNorm2d(64),
             nn.LeakyReLU(0.2),
-            nn.Conv2d(64, 128, 3, padding=1), nn.BatchNorm2d(128),
+            nn.Conv2d(64, 128, 3, padding=1), BatchNorm2d(128),
             nn.LeakyReLU(0.2),
-            nn.Conv2d(128, 128, 3, stride=2, padding=1), nn.BatchNorm2d(128),
+            nn.Conv2d(128, 128, 3, stride=2, padding=1), BatchNorm2d(128),
             nn.LeakyReLU(0.2),
-            nn.Conv2d(128, 256, 3, padding=1), nn.BatchNorm2d(256),
+            nn.Conv2d(128, 256, 3, padding=1), BatchNorm2d(256),
             nn.LeakyReLU(0.2),
             nn.AdaptiveAvgPool2d(1),
             nn.Conv2d(256, 512, 1), nn.LeakyReLU(0.2),

@@ -148,8 +148,8 @@ def library() -> ctypes.CDLL:
             lib.cid_normalize_gaussian_noise.restype = I
             F = ctypes.c_float
             lib.cid_noise_batch.argtypes = (
-                [P] * 4 + [ctypes.c_uint, P, ctypes.c_ulonglong, L, L, I, P,
-                           P, I, I] + [F] * 8 + [I, P])
+                [P] * 4 + [ctypes.c_uint, P, ctypes.c_ulonglong, L, L, L, I,
+                           P, P, I, I] + [F] * 8 + [I, P])
             lib.cid_noise_batch.restype = I
             lib.cid_probe_mma_sync.argtypes = [P] * 4
             lib.cid_probe_mma_sync.restype = I

@@ -52,6 +52,10 @@ plain version reproduces the kernel bit for bit:
 
 A sample that draws gaussian gets exactly what the gaussian-only entry
 gives at that index.  The output depends on (seed, index, kinds) only.
+With ``first_sample = k`` the batch entries take x as samples ``k ..`` of
+a larger batch: their element indices and blind-σ blocks are those
+samples', so each rank of a data-parallel step writes its rows of the
+whole batch's launch, bit for bit.
 
 On a CUDA tensor each entry launches the kernel or raises; on a CPU tensor
 it runs its plain version (``noise_batch_plain``,
@@ -385,13 +389,16 @@ def poisson_counts(x_uint8: torch.Tensor, a: torch.Tensor,
         max=255 if variant == 1 else 256)
 
 
-def blind_sigmas(seed: torch.Tensor, n: int, device) -> torch.Tensor:
-    """The blind σ of samples 0..n-1 on the [0, 1] scale, float32 (n,):
-    ``(lo + u·(hi − lo))·RN(1/255)``, ``u`` from the stream's per-sample
-    block (counter ``(lo32(s), hi32(s), 1, 0)``, word 0)."""
+def blind_sigmas(seed: torch.Tensor, n: int, device,
+                 first_sample: int = 0) -> torch.Tensor:
+    """The blind σ of samples ``first_sample .. first_sample + n - 1`` on
+    the [0, 1] scale, float32 (n,): ``(lo + u·(hi − lo))·RN(1/255)``,
+    ``u`` from the stream's per-sample block (counter ``(lo32(s), hi32(s),
+    1, 0)``, word 0)."""
     s = seed.reshape(()).to(torch.int64)
     key = (s & _MASK32, (s >> 32) & _MASK32)
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = torch.arange(first_sample, first_sample + n, dtype=torch.int64,
+                     device=device)
     w0 = philox4x32_10((i & _MASK32, (i >> 32) & _MASK32,
                         torch.ones_like(i), torch.zeros_like(i)), key)[0]
     u = (w0 >> 8).to(torch.float32) * 2.0 ** -24
@@ -416,6 +423,14 @@ def _codes(types: tuple) -> int:
             code = 0xF
         codes |= code << (4 * j)
     return codes
+
+
+def _check_first_sample(first_sample) -> int:
+    if isinstance(first_sample, bool) or not isinstance(first_sample, int) \
+            or first_sample < 0:
+        raise ValueError(f"first_sample must be an int >= 0, got "
+                         f"{first_sample!r}")
+    return first_sample
 
 
 def _check_x_seed(seed, x) -> None:
@@ -451,10 +466,13 @@ def _u24(w):
     return (w >> 8).to(torch.float32) * 2.0 ** -24
 
 
-def _words(seed, x_uint8):
+def _words(seed, x_uint8, first_sample: int = 0):
+    """The words ``(a, b)`` of x's elements, x being samples
+    ``first_sample ..`` of a larger batch."""
     shape = x_uint8.shape
     return tuple(w.reshape(shape) for w in uniform_bits(
-        seed, x_uint8.numel(), x_uint8.device))
+        seed, x_uint8.numel(), x_uint8.device,
+        first_sample * x_uint8[0].numel()))
 
 
 def _kind_plain(kind, variant, x_uint8, img, a, b, normal):
@@ -487,14 +505,15 @@ def _in_domain(v01: torch.Tensor, domain: str) -> torch.Tensor:
 
 def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
                       x_uint8: torch.Tensor, types=tuple(KIND_CODES),
-                      variant: int = 1, domain: str = "tanh"):
+                      variant: int = 1, domain: str = "tanh",
+                      first_sample: int = 0):
     """Plain PyTorch version of ``noise_batch``: the stream's words fed into
     the functions above that the CPU tests hold against JAX
     (``*_from_draws``), every kind computed for the whole batch and each
     sample's picked; ``x / 255`` as PyTorch computes it on x's device.  No
     host sync either."""
     _check_batch(kinds, seed, x_uint8, types, variant, domain)
-    a, b = _words(seed, x_uint8)
+    a, b = _words(seed, x_uint8, _check_first_sample(first_sample))
     img = x01(x_uint8)
     normal = normals_from_bits(a, b)
     noisy = torch.full(x_uint8.shape, float("nan"), device=x_uint8.device)
@@ -507,13 +526,15 @@ def noise_batch_plain(kinds: torch.Tensor, seed: torch.Tensor,
 
 
 def blind_noise_batch_plain(seed: torch.Tensor, x_uint8: torch.Tensor,
-                            domain: str = "unit"):
+                            domain: str = "unit", first_sample: int = 0):
     """Plain PyTorch version of ``blind_noise_batch``."""
     check_domain(domain)
     _check_x_seed(seed, x_uint8)
-    a, b = _words(seed, x_uint8)
+    first_sample = _check_first_sample(first_sample)
+    a, b = _words(seed, x_uint8, first_sample)
     img = x01(x_uint8)
-    sigma = blind_sigmas(seed, x_uint8.shape[0], x_uint8.device)
+    sigma = blind_sigmas(seed, x_uint8.shape[0], x_uint8.device,
+                         first_sample)
     noisy = blind_gaussian_from_draws(img, normals_from_bits(a, b), sigma)
     return _in_domain(noisy, domain), _in_domain(img, domain)
 
@@ -538,7 +559,7 @@ def _constants(variant: int, channels: int):
 
 
 def _launch(label, x, kinds, codes, seed, variant, domain, consts, table,
-            guide):
+            guide, first_sample):
     global LAUNCHES
     # one allocation for both outputs: the host's time is the step's
     noisy, clean = torch.empty((2, *x.shape), dtype=torch.float32,
@@ -550,7 +571,8 @@ def _launch(label, x, kinds, codes, seed, variant, domain, consts, table,
     with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
         rc = lib.cid_noise_batch(
             x.data_ptr(), noisy.data_ptr(), clean.data_ptr(), kinds, codes,
-            seed.data_ptr(), 0, n * h * w * c, h * w * c, c, table, guide,
+            seed.data_ptr(), 0, first_sample, n * h * w * c, h * w * c, c,
+            table, guide,
             variant, int(domain == "unit"), *consts, lo, hi - lo,
             _build.dtype_code(torch.float32), stream)
         _build.check(rc, label)
@@ -560,35 +582,44 @@ def _launch(label, x, kinds, codes, seed, variant, domain, consts, table,
 
 def noise_batch(kinds: torch.Tensor, seed: torch.Tensor,
                 x_uint8: torch.Tensor, types=tuple(KIND_CODES),
-                variant: int = 1, domain: str = "tanh"):
+                variant: int = 1, domain: str = "tanh",
+                first_sample: int = 0):
     """x_uint8 (N, H, W, C) uint8 → ``(noisy, clean)``, (N, H, W, C) float32
     in [-1, 1] or on [0, 1] (``domain``), in one launch: sample n takes
     noise kind ``types[kinds[n]]`` of ``variant`` (``kinds`` (N,) int64 on
     x's device, each in ``range(len(types))``; any other index gives NaN)
     with the stream of ``seed`` (a one-element int64 tensor on x's device,
-    read there)."""
+    read there).  ``first_sample``: x is samples ``first_sample ..
+    first_sample + N - 1`` of a larger batch (a rank's share of a
+    data-parallel step) and draws what they draw in a launch over that
+    batch, bit for bit; 0 (the default) for a whole batch."""
     codes = _check_batch(kinds, seed, x_uint8, types, variant, domain)
+    first_sample = _check_first_sample(first_sample)
     if x_uint8.device.type == "cpu":
-        return noise_batch_plain(kinds, seed, x_uint8, types, variant, domain)
+        return noise_batch_plain(kinds, seed, x_uint8, types, variant, domain,
+                                 first_sample)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
     _, table, guide = poisson_tables(x_uint8.device, variant)
     return _launch("noise_batch", x_uint8, kinds.data_ptr(), codes, seed,
                    variant, domain, _constants(variant, x_uint8.shape[3]),
-                   table.data_ptr(), guide.data_ptr())
+                   table.data_ptr(), guide.data_ptr(), first_sample)
 
 
 def blind_noise_batch(seed: torch.Tensor, x_uint8: torch.Tensor,
-                      domain: str = "unit"):
+                      domain: str = "unit", first_sample: int = 0):
     """x_uint8 (N, H, W, C) uint8 → ``(noisy, clean)`` in ``domain``, in one
     launch of the noise kernel: every sample gaussian with its own σ,
     ``U[BLIND_SIGMA]/255`` drawn from the stream of ``seed`` (a one-element
-    int64 tensor on x's device, read there; ``blind_sigmas``)."""
+    int64 tensor on x's device, read there; ``blind_sigmas``).
+    ``first_sample`` as in ``noise_batch``: the σ and the normals of
+    samples ``first_sample ..`` of a larger batch."""
     check_domain(domain)
     _check_x_seed(seed, x_uint8)
+    first_sample = _check_first_sample(first_sample)
     if x_uint8.device.type == "cpu":
-        return blind_noise_batch_plain(seed, x_uint8, domain)
+        return blind_noise_batch_plain(seed, x_uint8, domain, first_sample)
     if x_uint8.device.type != "cuda":
         raise ValueError(f"unsupported device {x_uint8.device}")
     return _launch("blind_noise_batch", x_uint8, None, 0, seed, 0, domain,
-                   (0.0,) * 6, None, None)
+                   (0.0,) * 6, None, None, first_sample)

@@ -492,6 +492,18 @@ class QuantizedApply:
         self.model = model
         self.entries = entries
 
+    def to(self, device) -> "QuantizedApply":
+        """Move the model and the int8 entries to ``device`` (a serving
+        mesh's replica, ``parallel/dataparallel.py::replicate``)."""
+        def moved(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device)
+            return tuple(map(moved, v)) if isinstance(v, tuple) else v
+
+        self.model.to(device)
+        self.entries = [moved(e) for e in self.entries]
+        return self
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         ctx = _Int8Apply(list(self.entries))
         with torch.inference_mode(), _mode(ctx):

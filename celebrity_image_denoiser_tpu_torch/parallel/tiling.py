@@ -1,9 +1,10 @@
-"""Exact overlap-tiled inference on one device, for inputs too large to run
-whole.
+"""Big inputs: exact overlap tiling on one device, and the two mesh paths.
 
-Port of ``celebrity_image_denoiser_tpu/parallel/tiling.py::
-tiled_apply_single_device`` (:156-221).  Tensors are NHWC, as in the JAX
-package: ``axis`` 1 tiles the height, 2 the width.
+Port of ``celebrity_image_denoiser_tpu/parallel/tiling.py``: 
+``tiled_apply_single_device`` (:156-221), ``spatial_sharded_apply``
+(:115-153) and ``tiled_apply`` with ``_exchange_halos`` (:45-112).
+Tensors are NHWC, as in the JAX package: ``axis`` 1 tiles the height, 2
+the width.
 
 Each tile ``[start, stop)`` of ``tile_h`` rows (or columns) runs with
 ``halo`` rows of true context on either side, ``[max(start - halo, 0),
@@ -31,16 +32,45 @@ the last, and the one before the last when the last is shorter than the
 halo (that tile's halo then runs into the border).  The JAX docstring says
 three; its jit compiles one program per shape.
 
-Not ported yet: ``tiled_apply`` (:64) with ``_exchange_halos`` (:45) and
-``spatial_sharded_apply`` (:115), which need a mesh (``ROADMAP.md`` queue
-1, item 7).
+The mesh paths run on a serving mesh (``parallel/mesh.py::Mesh``), shard
+``k`` on the device of entry ``k`` along ``axis`` with a replica of its own
+(``parallel/dataparallel.py::replicate``); the output is gathered on the
+first device.
+
+* ``spatial_sharded_apply`` — the exact path.  JAX jits the forward with
+  the image sharded and lets XLA insert a halo exchange at every conv and
+  pool; the port does not replay that.  Shard ``k`` runs on its strip
+  plus ``halo`` (32) rows of true context on either side, clipped at the
+  image border, and is cropped back: the single-device tiler's arithmetic
+  spread over devices, so the output equals the untiled forward bit for
+  bit.  The strip bounds are multiples of ``multiple``: the JAX server's
+  routing only asks that the extent divide by the device count, and 2052
+  rows over 4 devices would give 513-row strips off the U-Net's 2×2-pool
+  grid, so the strips may differ in height.
+* ``tiled_apply`` — the single-exchange path: strips of equal height, each
+  device receives its neighbours' ``halo`` boundary rows by one
+  device-to-device copy (``_exchange_halos``, JAX's ``ppermute``) and the
+  outer edges get zeros, exactly as in JAX.  Interior seams are exact when
+  the halo covers the receptive field; the outer band of about 28 rows
+  deviates from the untiled forward as JAX's does (the zeros are not the
+  per-layer padding after the first bias and ReLU).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
+
+from celebrity_image_denoiser_tpu_torch.parallel.dataparallel import (
+    nhwc_forward,
+    replicate,
+)
+from celebrity_image_denoiser_tpu_torch.parallel.mesh import Mesh
+
+# the receptive field of every family: the U-Net's about 28 px, esrgan's
+# 24, srgan's 18 input px, dncnn's 17 (the server's tiles take the same)
+TILE_HALO = 32
 
 
 def tiled_apply_single_device(
@@ -87,5 +117,110 @@ def tiled_apply_single_device(
             outs.append(y.narrow(axis, (start - lo) * scale,
                                  (stop - start) * scale))
         return torch.cat(outs, dim=axis)
+
+    return fn
+
+
+def strip_bounds(extent: int, n: int, multiple: int) -> List[int]:
+    """``n + 1`` bounds cutting ``extent`` into ``n`` strips as equal as
+    multiples of ``multiple`` allow (the last takes the remainder)."""
+    if extent % multiple:
+        raise ValueError(f"extent {extent} must be divisible by {multiple} "
+                         "(pad first)")
+    bounds = [(k * extent // n) // multiple * multiple for k in range(n)]
+    bounds.append(extent)
+    if any(b >= e for b, e in zip(bounds, bounds[1:])):
+        raise ValueError(f"extent {extent} is too small for {n} strips of a "
+                         f"multiple of {multiple}")
+    return bounds
+
+
+def spatial_sharded_apply(model, mesh: Mesh, *, axis: str = "data",
+                          spatial_dim: int = 1,
+                          apply_fn: Optional[Callable] = None,
+                          halo: int = TILE_HALO, scale: int = 1,
+                          multiple: int = 4
+                          ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build ``fn(x)``: NHWC ``x`` cut along ``spatial_dim`` (1 the height,
+    2 the width) into one strip per device of ``axis``; strip ``k`` runs on
+    device ``k``'s replica of ``model`` over ``[lo - halo, hi + halo)``
+    clipped to the image, is cropped to ``[lo, hi)`` (× ``scale`` on the
+    output side) and gathered on the first device.  Bit-equal to the
+    untiled forward when ``halo`` covers the receptive field.
+
+    ``apply_fn(replica, tile) -> y`` is the per-strip forward on NHWC
+    tensors (the server passes its int8 forward's; default an NCHW
+    module's).  ``multiple``: 4 for a model with the U-Net's two 2×2 pools,
+    1 for one without pooling; the extent and ``halo`` must be multiples of
+    it."""
+    if spatial_dim not in (1, 2):
+        raise ValueError(f"spatial_dim must be 1 (height) or 2 (width), "
+                         f"got {spatial_dim}")
+    if multiple not in (1, 4) or halo % multiple:
+        raise ValueError(f"multiple must be 1 or 4 and divide halo {halo}, "
+                         f"got {multiple}")
+    devices = mesh.axis_devices(axis)
+    replicas = replicate(model, mesh, axis)
+    fwd = apply_fn or nhwc_forward
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        e = x.shape[spatial_dim]
+        bounds = strip_bounds(e, len(devices), multiple)
+        outs = []
+        for r, d, lo, hi in zip(replicas, devices, bounds, bounds[1:]):
+            wlo, whi = max(lo - halo, 0), min(hi + halo, e)
+            tile = x.narrow(spatial_dim, wlo, whi - wlo).contiguous()
+            y = fwd(r, tile.to(d))
+            outs.append(y.narrow(spatial_dim, (lo - wlo) * scale,
+                                 (hi - lo) * scale))
+        return torch.cat([y.to(devices[0]) for y in outs], dim=spatial_dim)
+
+    return fn
+
+
+def _exchange_halos(strips: List[torch.Tensor], halo: int
+                    ) -> List[torch.Tensor]:
+    """Per device, its (N, h, W, C) strip with its neighbours' ``halo``
+    boundary rows above and below (copied to its device), zeros at the
+    outer edges: (N, h + 2·halo, W, C) each (``_exchange_halos:45-61``)."""
+    out = []
+    for k, s in enumerate(strips):
+        above = (strips[k - 1][:, -halo:].to(s.device) if k > 0
+                 else torch.zeros_like(s[:, :halo]))
+        below = (strips[k + 1][:, :halo].to(s.device)
+                 if k + 1 < len(strips) else torch.zeros_like(s[:, -halo:]))
+        out.append(torch.cat([above, s, below], dim=1))
+    return out
+
+
+def tiled_apply(model, mesh: Mesh, *, halo: int = TILE_HALO, scale: int = 1,
+                axis: str = "data") -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build ``fn(x)``: NHWC ``x`` of height H (a multiple of n·4, n the
+    size of ``axis``) cut into n strips of H/n rows, one per device; each
+    takes its neighbours' ``halo`` rows (zeros at the image's top and
+    bottom), runs ``model``'s replica on its device and keeps its own rows
+    (× ``scale``): the stitched (N, H·scale, W·scale, C') output on the
+    first device (``tiled_apply:64-112``); ``model`` is an NCHW module."""
+    if halo % 4 != 0:
+        raise ValueError(f"halo must be divisible by 4 (pooling alignment), "
+                         f"got {halo}")
+    devices = mesh.axis_devices(axis)
+    n = len(devices)
+    replicas = replicate(model, mesh, axis)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        h = x.shape[1]
+        if h % (n * 4) != 0:
+            raise ValueError(f"height {h} must be divisible by "
+                             f"n_shards*4={n * 4}")
+        if h // n < halo:
+            raise ValueError(f"per-shard strip {h // n} < halo {halo}: use "
+                             "fewer shards or a smaller halo")
+        strips = [c.to(d) for c, d in zip(x.chunk(n, dim=1), devices)]
+        outs = []
+        for r, ext in zip(replicas, _exchange_halos(strips, halo)):
+            y = nhwc_forward(r, ext.contiguous())
+            outs.append(y[:, halo * scale:y.shape[1] - halo * scale])
+        return torch.cat([y.to(devices[0]) for y in outs], dim=1)
 
     return fn

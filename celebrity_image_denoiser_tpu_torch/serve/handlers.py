@@ -91,8 +91,27 @@ shapes when it is over the threshold) and, with micro-batching on, every
 batch size the batcher can dispatch, so that the kernels are built and
 each shape launched before the first request.
 
-Not ported yet: there is no mesh (spatial sharding and data-parallel
-batches, ``ROADMAP.md`` queue 1, item 7).
+The mesh (``mesh=``, a serving ``parallel/mesh.py::Mesh``: one process,
+a weight replica per device, repeats allowed), as the JAX server routes it
+(:316-359, :552-585):
+
+* an input over the threshold on one axis only, or on both with
+  ``use_tiling=False``, whose extent on that axis (the height first) is a
+  multiple of the mesh's ``data`` size, is cut into one strip per device
+  (``parallel/tiling.py::spatial_sharded_apply``: each strip with 32 rows
+  of true context, bit-equal to the untiled forward), labelled
+  ``float+sharded`` or ``int8+sharded``; under int8 each strip runs the
+  forward the ladder built.  Over on both axes with tiling on, the tiler
+  runs; over with tiling off and no shard, the whole image runs at once
+  (and through the micro-batcher, as in JAX);
+* a coalesced micro-batch is padded to a multiple of the ``data`` size by
+  repeating its last row, split over the devices
+  (``parallel/dataparallel.py::data_parallel_apply``) and cropped back;
+  ``warmup`` warms those padded batches through the same dispatch.
+
+``bucket_divisor`` (e.g. 64) rounds every pad-to size up to its multiple,
+in ``warmup`` as in a request (:601, :756): fewer distinct shapes, at the
+cost of a wider zero border than the reference's divisor.
 """
 
 from __future__ import annotations
@@ -133,7 +152,13 @@ from celebrity_image_denoiser_tpu_torch.models.dncnn import DnCNN
 from celebrity_image_denoiser_tpu_torch.models.esrgan import ESRGANGenerator
 from celebrity_image_denoiser_tpu_torch.models.srgan import SRGANGenerator
 from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
+from celebrity_image_denoiser_tpu_torch.parallel.dataparallel import (
+    data_parallel_apply,
+)
+from celebrity_image_denoiser_tpu_torch.parallel.mesh import Mesh
 from celebrity_image_denoiser_tpu_torch.parallel.tiling import (
+    TILE_HALO,
+    spatial_sharded_apply,
     tiled_apply_single_device,
 )
 from celebrity_image_denoiser_tpu_torch.serve.batching import (
@@ -147,9 +172,6 @@ logger = get_logger("cid_torch.serve")
 
 MAX_UPLOAD = 50 * 1024 * 1024  # app.py:374-375
 GATE_DB = 40.0  # the runtime agreement gate (handlers.py:448-468)
-# covers every family's receptive field (parallel/tiling.py): the U-Net's
-# about 28 px, esrgan's 24, srgan's 18 input px, dncnn's 17
-TILE_HALO = 32
 
 # default checkpoint names, matching the reference weights dir layout
 # (handlers.py:50-56): a reference .pth first, else the native npz directory
@@ -235,10 +257,13 @@ class ServeState:
 
     ``microbatch_window_ms``: coalesce concurrent same-shape requests into
     batches of up to ``microbatch_max`` (off by default: it adds up to that
-    much latency)."""
+    much latency).  ``mesh``, ``use_tiling`` and ``bucket_divisor``: the
+    module docstring; the mesh's devices are of ``device``'s type."""
 
     def __init__(self, weights_dir: Optional[str] = None, seed: int = 0,
-                 tile_threshold_rows: int = 2048,
+                 tile_threshold_rows: int = 2048, use_tiling: bool = True,
+                 bucket_divisor: Optional[int] = None,
+                 mesh: Optional[Mesh] = None,
                  microbatch_window_ms: Optional[float] = None,
                  microbatch_max: int = 16,
                  quantize: Optional[str] = None, device="cuda"):
@@ -246,6 +271,14 @@ class ServeState:
             raise ValueError(f"quantize must be None or 'int8', got "
                              f"{quantize!r}")
         self.device = resolve_device(device)
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices.flat):
+            raise ValueError(f"mesh {mesh} is not on {self.device.type}")
+        self.use_tiling = use_tiling
+        self.bucket_divisor = bucket_divisor
+        self.mesh = mesh
+        # the mesh paths' forwards, built once per (kind, model, ...)
+        self._mesh_fns: Dict[tuple, object] = {}
         if self.device.type == "cuda":
             # float32 serving means float32 arithmetic, as in the JAX
             # server: the transpose convs go to cuDNN, which would otherwise
@@ -282,6 +315,7 @@ class ServeState:
         self.int8_gate_db: Dict[str, Optional[float]] = {}
         self.int8_rung: Dict[str, Optional[str]] = {}
         self._ladder_lock = threading.Lock()
+        self._mesh_lock = threading.Lock()
 
     def _model(self, name: str) -> torch.nn.Module:
         """The image-to-image model ``name`` serves with (``KERAS``: the Keras
@@ -375,8 +409,8 @@ class ServeState:
         self.int8_rung[name] = None
 
     def last_compute_backend(self) -> str:
-        """``int8`` or ``float`` (``+tiled``): how this thread's last request
-        ran."""
+        """``int8`` or ``float`` (``+tiled``, ``+sharded``): how this
+        thread's last request ran."""
         return getattr(self._path_note, "value", "n/a")
 
     # -- weight loading (warn-and-continue, app.py:327-345) -----------------
@@ -435,20 +469,66 @@ class ServeState:
             logger.warning("Keras cGAN not loaded (%s).", e)
 
     # -- the forward (_build_forward:278-301, _dispatch_forward:303-407) ----
-    def _apply(self, name: str, route: str):
-        """The model's forward on NHWC f32 in the family's domain: the int8
-        forward where the ladder built one, else the float model."""
+    def _served(self, name: str, route: str):
+        """``(obj, fwd)``: what serves ``name`` — the int8 forward where the
+        ladder built one, else the float model — and ``fwd(obj, x)``, its
+        forward by ``route`` on NHWC f32 in the family's domain (``obj``
+        or a replica of it on a mesh device)."""
         self.ladder(name)
         qapply = self._qapply.get(name)
         if qapply is None:
-            model = self._model(name)
-            return lambda x: model(x.permute(0, 3, 1, 2), route=route
-                                   ).permute(0, 2, 3, 1)
+            return self._model(name), lambda m, x: m(
+                x.permute(0, 3, 1, 2), route=route).permute(0, 2, 3, 1)
         if isinstance(qapply, quant_unet.QuantizedDenoiseUNet):
-            return lambda x: qapply(x, route=route)
+            return qapply, lambda q, x: q(x, route=route)
         if route == "plain":
             raise ValueError("the generic int8 rung has no plain route")
-        return qapply
+        return qapply, lambda q, x: q(x)
+
+    def _apply(self, name: str, route: str):
+        """The model's forward on NHWC f32 in the family's domain."""
+        obj, fwd = self._served(name, route)
+        return lambda x: fwd(obj, x)
+
+    def _mesh_size(self) -> int:
+        return 0 if self.mesh is None else self.mesh.shape["data"]
+
+    def _mesh_fn(self, key: tuple, build):
+        """The mesh path ``key``, built by ``build()`` once (its replicas
+        are copies of the weights)."""
+        if key not in self._mesh_fns:
+            with self._mesh_lock:
+                if key not in self._mesh_fns:
+                    self._mesh_fns[key] = build()
+        return self._mesh_fns[key]
+
+    def _big_route(self, shape) -> tuple:
+        """How an input of NHWC ``shape`` runs (JAX's rule, :316-359):
+        ``(None, None)`` whole (under the threshold, or over it with tiling
+        off and no shard), ``("sharded", dim)`` over the mesh along
+        ``dim`` (1 the height, preferred, or 2), ``("tiled", None)``."""
+        over_h = shape[1] > self.tile_threshold_rows
+        over_w = shape[2] > self.tile_threshold_rows
+        if not (over_h or over_w):
+            return None, None
+        n_dev = self._mesh_size()
+        if n_dev > 1 and (not self.use_tiling or not (over_h and over_w)):
+            for dim, over in ((1, over_h), (2, over_w)):
+                if over and shape[dim] % n_dev == 0:
+                    return "sharded", dim
+        return ("tiled", None) if self.use_tiling else (None, None)
+
+    def _sharded(self, name: str, dim: int, route: str):
+        """The forward over the mesh's devices, ``dim`` cut into one strip
+        per device."""
+        def build():
+            obj, fwd = self._served(name, route)
+            cfg = self._cfg(name)
+            return spatial_sharded_apply(
+                obj, self.mesh, spatial_dim=dim, apply_fn=fwd,
+                halo=TILE_HALO, scale=cfg.get("scale", 1),
+                multiple=1 if cfg["normalize"] is None else 4)
+        return self._mesh_fn(("sharded", name, dim, route), build)
 
     def _to_u8(self, name: str, y: torch.Tensor) -> torch.Tensor:
         """The served output map: clip(y·0.5+0.5) in the tanh domain, clip(y)
@@ -473,44 +553,70 @@ class ServeState:
 
     def _batched_dispatch(self, name: str):
         """How the micro-batcher runs a coalesced batch: the forward and the
-        output map on the card (the batcher's fence copies it back)."""
-        apply = self._apply(name, "kernel")
+        output map on the card (the batcher's fence copies it back).  With a
+        mesh of more than one device: padded to a multiple of its size by
+        repeating the last row, split over the devices, cropped back."""
+        n_dev = self._mesh_size()
+        if n_dev <= 1:
+            apply = self._apply(name, "kernel")
 
-        def dispatch(xs: torch.Tensor) -> torch.Tensor:
+            def dispatch(xs: torch.Tensor) -> torch.Tensor:
+                with torch.inference_mode():
+                    return self._to_u8(name, apply(xs))
+            return dispatch
+
+        def build():
+            obj, fwd = self._served(name, "kernel")
+            return data_parallel_apply(
+                obj, self.mesh,
+                apply_fn=lambda r, x: self._to_u8(name, fwd(r, x)))
+        dp = self._mesh_fn(("dp", name), build)
+
+        def dispatch_dp(xs: torch.Tensor) -> torch.Tensor:
+            n = xs.shape[0]
+            rem = (-n) % n_dev
+            if rem:
+                xs = torch.cat([xs, xs[-1:].expand(rem, *xs.shape[1:])])
             with torch.inference_mode():
-                return self._to_u8(name, apply(xs))
-        return dispatch
+                return dp(xs)[:n]
+        return dispatch_dp
 
     def _forward(self, name: str, x: np.ndarray, plain: bool = False
                  ) -> np.ndarray:
         """(N, H, W, 3) float32 in the family's domain → (N, H·s, W·s, 3)
         uint8, truncated;
-        through the int8 forward where one was built; tiled when H or W is
-        over ``tile_threshold_rows``; through the micro-batcher for a batch-1
-        input under it when micro-batching is on."""
+        through the int8 forward where one was built; sharded over the mesh
+        or tiled when H or W is over ``tile_threshold_rows``
+        (``_big_route``); through the micro-batcher for a batch-1 input
+        that runs whole when micro-batching is on."""
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         route = "plain" if plain else "kernel"
         label = "float" if self.ladder(name) is None else "int8"
-        over_h = x.shape[1] > self.tile_threshold_rows
-        over_w = x.shape[2] > self.tile_threshold_rows
-        tiled = over_h or over_w
+        big, dim = self._big_route(x.shape)
         # the label is this thread's: a micro-batch may run in another
-        self._path_note.value = label + ("+tiled" if tiled else "")
-        if not tiled and not plain and self.batchers is not None \
+        self._path_note.value = label + ("" if big is None else "+" + big)
+        if big is None and not plain and self.batchers is not None \
                 and x.shape[0] == 1:
             batcher = self.batchers.get((name, tuple(x.shape[1:])),
                                         self._batched_dispatch(name))
             return batcher(xt)
-        fn = (self._tiler(name, over_h, over_w, route) if tiled
-              else self._apply(name, route))
+        if big == "sharded":
+            fn = self._sharded(name, dim, route)
+        elif big == "tiled":
+            fn = self._tiler(name, x.shape[1] > self.tile_threshold_rows,
+                             x.shape[2] > self.tile_threshold_rows, route)
+        else:
+            fn = self._apply(name, route)
         with torch.inference_mode():
             u8 = self._to_u8(name, fn(xt))
         return u8.cpu().numpy()
 
     def _padding(self, name: str, h: int, w: int):
-        """(left, top, right, bottom) padding of an (h, w) input."""
+        """(left, top, right, bottom) padding of an (h, w) input, to the
+        family's divisor or ``bucket_divisor`` if that is larger."""
         cfg = self._cfg(name)
-        return get_padding((w, h), cfg["pad_divisor"], cfg.get("scale", 1))
+        divisor = max(cfg["pad_divisor"], self.bucket_divisor or 0)
+        return get_padding((w, h), divisor, cfg.get("scale", 1))
 
     def _input_shape(self, name: str, h: int, w: int):
         """The forward's (H, W) for an (h, w) upload: padded, or as it is
@@ -594,10 +700,12 @@ class ServeState:
         """Run each (H, W) input size once per model (sizes before padding)
         so that first requests do not pay for the kernels' build (nvcc at
         first use) or a first launch at their shapes: a size over the
-        threshold runs its tile shapes.  With micro-batching on, also every
-        batch size the batcher can dispatch at that padded shape (the pow2
-        series up to ``microbatch_max``, the cap included), for the sizes
-        the batcher serves (not those that are tiled).  ``models``: only
+        threshold runs its tile shapes (or its strips over the mesh).  With
+        micro-batching on, also every batch size the batcher can dispatch
+        at that padded shape (the pow2 series up to ``microbatch_max``, the
+        cap included; with a mesh each padded to a multiple of its size and
+        split over it), for the sizes the batcher serves (those that run
+        whole).  ``models``: only
         these families (default: every family, as the JAX
         ``warmup(models=None)``).  The [0, 1] families run unpadded; cgan
         warms its Keras generator (the torch one draws from a latent, at one
@@ -614,8 +722,8 @@ class ServeState:
                 hh, ww = self._input_shape(name, h, w)
                 t0 = time.perf_counter()
                 self._forward(which, np.zeros((1, hh, ww, 3), np.float32))
-                tiled = max(hh, ww) > self.tile_threshold_rows
-                if self.batchers is not None and not tiled:
+                whole = self._big_route((1, hh, ww, 3))[0] is None
+                if self.batchers is not None and whole:
                     dispatch = self._batched_dispatch(which)
                     mb = self.batchers.max_batch
                     for b in sorted({_pow2_at_least(n, mb)

@@ -66,8 +66,29 @@ step returns the state once; so every buffer of the generator is restored
 after each recomputation, and a step takes the same statistics with
 ``remat`` as without.
 
-``mesh=`` waits for a later slice (``ROADMAP.md`` queue 1 item 7) and
-raises.
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, ``parallel/mesh.py::
+process_mesh``) is data parallelism, one process per rank (JAX: one jit
+over the global batch with the batch sharded over ``data``, :288-297).
+Each rank steps on its share of the global batch (``rank`` = its
+coordinates flattened, ``world`` = the mesh's size; a 2-D
+``("replica", "data")`` mesh shares the batch over both axes, as JAX's
+``P(("replica", "data"))``):
+
+* on the fly, every rank draws the global batch's noise kinds and seed and
+  launches the noise kernel at its first sample (``data/noise.py``), so its
+  noisy rows are those of the single-process draw, bit for bit;
+* every BatchNorm of G and D takes its train-mode statistics over the mesh
+  (``ops/norm.py::set_batch_norm_group``), as JAX's over the global batch;
+* each rank's losses are scaled by ``1/world`` before the backward and the
+  gradients summed over the mesh (one all-reduce of the flattened
+  gradients per optimiser step, over each axis in turn): the sum is the
+  global batch's gradient, and every rank takes the same Adam step;
+* the metrics are averaged over the mesh (``psum_mean``).
+
+``GANTrainer(mesh=)`` broadcasts the parameters, statistics and optimiser
+states from rank 0 when it is built and after a resume, and only rank 0
+writes checkpoints and test images, which are the single-process
+trainer's files: they resume with or without a mesh, in either package.
 """
 
 from __future__ import annotations
@@ -80,6 +101,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.device_mesh import DeviceMesh
 
 from celebrity_image_denoiser_tpu_torch.ckpt import checkpoint as ckpt_lib
 from celebrity_image_denoiser_tpu_torch.ckpt import convert
@@ -97,7 +119,14 @@ from celebrity_image_denoiser_tpu_torch.metrics import (
     ssim_tf,
 )
 from celebrity_image_denoiser_tpu_torch.metrics.msssim import min_size
+from celebrity_image_denoiser_tpu_torch.ops.norm import set_batch_norm_group
 from celebrity_image_denoiser_tpu_torch.ops.resize import resize
+from celebrity_image_denoiser_tpu_torch.parallel import collectives
+from celebrity_image_denoiser_tpu_torch.parallel.mesh import (
+    axis_groups,
+    shard_count,
+    shard_index,
+)
 from celebrity_image_denoiser_tpu_torch.train import losses as L
 from celebrity_image_denoiser_tpu_torch.train import optim
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
@@ -219,12 +248,12 @@ def make_train_step(
     NCHW tensors.  ``remat`` recomputes the generator's forward in the
     backward, its BatchNorm statistics updated once.  ``extras_fn(fake,
     clean) -> dict`` (NHWC, the family's domain, no gradient) adds device
-    scalars to ``metrics``.  ``mesh`` is not ported yet."""
+    scalars to ``metrics``.
+
+    ``mesh``: a ``DeviceMesh`` over the ranks of a data-parallel run (the
+    module docstring); ``noisy`` and ``clean`` are then this rank's share
+    of the global batch, and the metrics the global batch's."""
     _check_family(family)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data parallelism) is not ported yet (ROADMAP.md queue 1 "
-            "item 7)")
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32, bfloat16 or "
                          f"float64, got {compute_dtype!r}")
@@ -244,6 +273,17 @@ def make_train_step(
     g_params = dict(generator.named_parameters())
     d_params = (dict(discriminator.named_parameters())
                 if family != "dncnn" and discriminator is not None else {})
+    groups, rank, world = None, 0, 1
+    if mesh is not None:
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(parallel.mesh.process_mesh), got "
+                            f"{type(mesh).__name__}")
+        groups = axis_groups(mesh)
+        rank, world = shard_index(mesh), shard_count(mesh)
+        for m in (generator, discriminator if d_params else None):
+            if m is not None:
+                set_batch_norm_group(m, groups)
 
     def g_apply(x):
         return generator(x.to(cdt), route="autograd").float()
@@ -271,11 +311,12 @@ def make_train_step(
         in the family's domain (srgan: the noisy side downscaled)."""
         domain = "unit" if unit or sr_scale > 1 else "tanh"
         if blind:
-            noisy, clean = noise_lib.blind_gaussian_batch(gen, clean_u8,
-                                                          domain=domain)
+            noisy, clean = noise_lib.blind_gaussian_batch(
+                gen, clean_u8, domain=domain, rank=rank, world=world)
         else:
             noisy, clean, out["noise_kinds"] = noise_lib.random_noise_batch(
-                gen, clean_u8, variant=noise_variant, domain=domain)
+                gen, clean_u8, variant=noise_variant, domain=domain,
+                rank=rank, world=world)
         if sr_scale > 1:
             n, h, w, c = noisy.shape
             noisy = resize(noisy, (h // sr_scale, w // sr_scale), "bicubic")
@@ -287,8 +328,25 @@ def make_train_step(
         return adam_init(g_params), adam_init(d_params)
 
     def grads_of(loss, params, retain=False):
-        return dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()), retain_graph=retain)))
+        """The gradient of the global batch's ``loss``: under a mesh this
+        rank's share scaled by 1/world, summed over the mesh."""
+        if groups is None:
+            return dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), retain_graph=retain)))
+        grads = torch.autograd.grad(loss / world, list(params.values()),
+                                    retain_graph=retain)
+        flat = collectives.psum(torch.cat([g.reshape(-1) for g in grads]),
+                                groups)
+        return dict(zip(params, (f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in grads]), grads))))
+
+    def mean_over_mesh(out):
+        """The device scalars of ``out`` averaged over the mesh, in one
+        all-reduce (the kinds stay this rank's)."""
+        keys = [k for k in out if k != "noise_kinds"]
+        vals = collectives.psum_mean(torch.stack([out[k].float()
+                                                  for k in keys]), groups)
+        out.update(zip(keys, vals.unbind()))
 
     def step_fn(opt, noisy, clean, gen, lr_g, lr_d) -> Dict[str, object]:
         g_opt, d_opt = opt
@@ -348,6 +406,8 @@ def make_train_step(
                        psnr=psnr_v, ssim=ssim_v)
             if extras_fn is not None:
                 out.update(extras_fn(fake_nhwc, clean))
+            if groups is not None:
+                mean_over_mesh(out)
         return out
 
     return init_fn, step_fn
@@ -372,7 +432,14 @@ class GANTrainer:
     ``extra_metrics``: False, True or ``"epoch"`` (the perceptual distance
     and MS-SSIM of the test pair once an epoch; 0 without one), or
     ``"batch"`` (of every batch, inside the step) — the history's ``lpips``
-    and ``msssim`` columns."""
+    and ``msssim`` columns.
+
+    ``mesh``: a ``DeviceMesh`` of a data-parallel run (``make_train_step``);
+    ``pipeline`` then yields this rank's share of each global batch
+    (``DataPipeline(rank=, world=)``), the modules and optimiser states are
+    broadcast from rank 0 here and after ``resume``, and only rank 0 writes
+    checkpoints and test images.  ``steps_with_gaussian`` counts this
+    rank's samples."""
 
     def __init__(
         self,
@@ -387,8 +454,11 @@ class GANTrainer:
         test_pair: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         extra_metrics=False,
         device="cuda",
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else torch.distributed.get_rank()
         self.family = family or cfg.model
         _check_family(self.family)
         if extra_metrics not in (False, True, "epoch", "batch"):
@@ -433,8 +503,10 @@ class GANTrainer:
             remat=cfg.remat,
             extras_fn=(batch_extras_fn(self.family, self._pd)
                        if extra_metrics == "batch" else None),
+            mesh=mesh,
         )
         self.opt = self.init_fn()
+        self._broadcast_from_rank0()
         self.schedule_g = optim.step_lr(cfg.lr, cfg.step_lr_step_size,
                                         cfg.step_lr_gamma)
         self.schedule_d = optim.step_lr(cfg.lr, cfg.step_lr_step_size,
@@ -456,6 +528,20 @@ class GANTrainer:
     def steps_with_gaussian(self) -> int:
         """Steps in which a sample drew gaussian."""
         return sum(1 for c in self.gaussian_counts if c)
+
+    def _broadcast_from_rank0(self) -> None:
+        """Under a mesh: every parameter, buffer and optimiser moment of G
+        and D takes rank 0's value (one broadcast a tensor)."""
+        if self.mesh is None:
+            return
+        tensors = []
+        for (_, m), st in zip(self._modules(), self.opt):
+            if m is not None:
+                tensors += list(m.parameters()) + list(m.buffers())
+                tensors += list(st.mu.values()) + list(st.nu.values())
+        with torch.no_grad():
+            for t in tensors:
+                torch.distributed.broadcast(t.data, src=0)
 
     # ---- checkpointing ------------------------------------------------------
     def _modules(self):
@@ -479,8 +565,11 @@ class GANTrainer:
 
     def save_checkpoint(self, epoch: int, is_best: bool = False) -> None:
         """Cadence of ``gan_trainer.py:430-438``: first, last and even
-        epochs, plus ``best/`` on a new best PSNR; written off-thread."""
+        epochs, plus ``best/`` on a new best PSNR; written off-thread, by
+        rank 0 alone under a mesh."""
         cfg = self.cfg
+        if self.rank != 0:
+            return
         regular = epoch == 0 or epoch == cfg.num_epochs - 1 or epoch % 2 == 0
         if not (regular or is_best):
             return
@@ -532,6 +621,7 @@ class GANTrainer:
         if hist:
             self.metric_history = {k: list(v) for k, v in hist.items()}
         self.start_epoch = int(meta.get("epoch", -1)) + 1
+        self._broadcast_from_rank0()
         logger.info("resumed from %s at epoch %d", path, self.start_epoch)
         return self.start_epoch
 
@@ -584,7 +674,9 @@ class GANTrainer:
         noisy / denoised JPEG for the denoise, srgan and dncnn families, the
         noisy / generated / clean triptych PNG for esrgan and cgan; returns
         its path (None without a test pair, or without PIL or matplotlib,
-        which logs one warning)."""
+        which logs one warning; None on a rank other than 0)."""
+        if self.rank != 0:
+            return None
         if self.test_pair is None:
             logger.info("No test image selected for testing.")
             return None

@@ -171,7 +171,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              f32, for every kind at the train shape, at ragged shapes whose
              chunks straddle samples, without a gaussian sample, with other
              types and on an unaligned view, the clean target equal to
-             ``x.to(float32) / 255.0 * 2.0 - 1.0``; each kind's distribution
+             ``x.to(float32) / 255.0 * 2.0 - 1.0``; at a first sample (a
+             data-parallel rank's share: half the train batch, and an odd
+             stream offset) in variants 1–3 and the blind σ, bit-equal to
+             its plain version and to those rows of the whole batch's
+             launch; each kind's distribution
              on constant images (gaussian and speckle σ, the uniform mean,
              the salt and pepper rates, a Poisson chi-square against scipy);
              the gaussian-only entry (the Pallas counterpart, same kernel)
@@ -298,7 +302,36 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``cli.train --profile-dir --graph-dir`` (run right after
              phase 2, before any other profiler of the script: 14h): a
              Chrome trace that parses and names each of the noise kernel's
-             8 launches, one warning for the missing matplotlib, exit 0.
+             8 launches, one warning for the missing matplotlib, exit 0;
+15. multi-device — one card, so every run here shows exactness and
+             overhead, not scaling: (a) two gloo ranks on cuda:0
+             (``make_train_step(mesh=)`` over ``process_mesh``) fine-tune
+             the full-width denoise GAN (the shipped generator, a seeded
+             discriminator) on the fly, global batch 16 at 256², 3 steps in
+             f32 and in bf16, against the same steps in one process: each
+             rank's noise (variant 1 and the blind σ) bit-equal to its rows
+             of the whole-batch launch (K4's first sample); after step 1
+             the BatchNorm statistics (1e-4) and parameters (2.5e-4) as
+             phase 9 holds the card against the CPU, and the first moments
+             against a float64 step in one process within 4× the f32
+             single process's own gap (``moment_gaps``); the losses 1e-4
+             relative at step 1 and 1e-3 after; bf16 two ulps relative
+             (its first moments 4× the gap or a tenth of the leaf: DP_TOL);
+             one noise launch a step a rank; (b) ``python -m
+             torch.distributed.run --standalone --nproc-per-node 1 -m
+             ...cli.train``: NCCL at world size 1 on cuda:0, one 4-step
+             epoch, its checkpoint resumed without a mesh for one more;
+             (c) ``ServeState(mesh=make_mesh(devices=["cuda:0"] * 4),
+             use_tiling=False)`` on the shipped weights, f32 and int8: a
+             3072×4096 denoise and a 2100×600 esrgan request served
+             ``+sharded`` with 4 × the per-forward launches, their response
+             bytes equal to the mesh-free (tiled) server's; 32 clients × 8
+             requests of 256² micro-batched over the mesh, every response
+             equal to the same request served alone, requests/s;
+             (d) ``tiled_apply`` of the denoise U-Net (seeded weights)
+             over 4 strips at halo 32 against its untiled forward: the
+             interior (rows 28 to −28) within 1e-5, the border band under
+             0.1; at halo 4 above 1e-4.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2934,20 +2967,25 @@ def noise_inputs(gen, n, types=5):
 
 
 def check_noise_batch(noise, label, kinds, seed, x, types=None, variant=1,
-                      domain="tanh") -> float:
+                      domain="tanh", first_sample=0) -> float:
     """``noise_batch`` (``kinds`` None: ``blind_noise_batch``) against its
     plain version, noisy and clean bit-equal, and the clean target the
-    trainer's ``clean.to(float32) / 255.0`` (``* 2.0 - 1.0`` in [-1, 1])."""
+    trainer's ``clean.to(float32) / 255.0`` (``* 2.0 - 1.0`` in [-1, 1]);
+    ``x`` samples ``first_sample ..`` of a larger batch."""
     types = tuple(noise.KIND_CODES) if types is None else types
     if kinds is None:
-        got = noise.blind_noise_batch(seed, x, domain)
-        ref = noise.blind_noise_batch_plain(seed, x, domain)
-        entry = f"blind {domain}"
+        got = noise.blind_noise_batch(seed, x, domain, first_sample)
+        ref = noise.blind_noise_batch_plain(seed, x, domain, first_sample)
+        entry = f"blind {domain} "
     else:
-        got = noise.noise_batch(kinds, seed, x, types, variant, domain)
-        ref = noise.noise_batch_plain(kinds, seed, x, types, variant, domain)
+        got = noise.noise_batch(kinds, seed, x, types, variant, domain,
+                                first_sample)
+        ref = noise.noise_batch_plain(kinds, seed, x, types, variant, domain,
+                                      first_sample)
         entry = "" if (variant, domain) == (1, "tanh") else \
             f"v{variant} {domain} "
+    if first_sample:
+        entry += f"first_sample {first_sample} "
     err = check_noise(f"noise_batch noisy {entry}{label}", torch.float32,
                       got[0], ref[0])
     err = max(err, check_noise(f"noise_batch clean {entry}{label}",
@@ -2960,6 +2998,41 @@ def check_noise_batch(noise, label, kinds, seed, x, types=None, variant=1,
     if domain == "unit" and got[0].min().item() < 0:
         fail(f"noise_batch {entry}{label}: a value below 0 on [0, 1]")
     return err
+
+
+def check_first_sample(noise, gen) -> float:
+    """The kernel at a first sample (a data-parallel rank's share): rows
+    ``k ..`` of the train batch (an even stream offset) and of 5×5×7×3
+    samples (105 elements: an odd one, the scalar path), in variants 1–3
+    and the blind σ: bit-equal to its plain version and to those rows of
+    the launch over the whole batch."""
+    worst = 0.0
+    for shape, k in (((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                      TRAIN_BATCH // 2), ((5, 5, 7, 3), 3)):
+        x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                          device="cuda")
+        kinds = torch.arange(shape[0], device="cuda") % 5
+        seed = torch.randint(0, 1 << 62, (1,), generator=gen, device="cuda")
+        share = x[k:].contiguous()
+        for variant in (0, 1, 2, 3):
+            ks = None if variant == 0 else kinds[k:].contiguous()
+            worst = max(worst, check_noise_batch(
+                noise, f"{tuple(share.shape)} of {shape}", ks, seed, share,
+                variant=max(variant, 1), first_sample=k))
+            if variant == 0:
+                whole = noise.blind_noise_batch(seed, x, "unit")
+                part = noise.blind_noise_batch(seed, share, "unit", k)
+            else:
+                whole = noise.noise_batch(kinds, seed, x, variant=variant)
+                part = noise.noise_batch(ks, seed, share, variant=variant,
+                                         first_sample=k)
+            if not (torch.equal(part[0], whole[0][k:])
+                    and torch.equal(part[1], whole[1][k:])):
+                fail(f"noise_batch v{variant} at first_sample {k}: not rows "
+                     f"{k}.. of the whole batch's launch")
+    say("  noise_batch at a first sample (variants 1-3, blind): bit-equal "
+        "to its plain version and to the whole batch's rows")
+    return worst
 
 
 def phase_noise_kernel(noise) -> float:
@@ -2991,6 +3064,7 @@ def phase_noise_kernel(noise) -> float:
         seed = torch.randint(0, 1 << 62, (1,), generator=gen, device="cuda")
         worst = max(worst, check_noise_batch(
             noise, f"{shape} kinds {k.tolist()[:6]}", k, seed, x, types))
+    worst = max(worst, check_first_sample(noise, gen))
     flat = torch.randint(0, 256, (1 + 3 * 16 * 16 * 3,), generator=gen,
                          dtype=torch.uint8, device="cuda")
     x = flat[1:].view(3, 16, 16, 3)
@@ -3325,7 +3399,7 @@ TRAIN_FAMILIES = ("dncnn", "esrgan", "cgan", "srgan")
 CHECK_HW = 32  # phase 9's families: 2 x 32² (srgan 8² LR -> 32² HR)
 
 
-def moment_gaps(opts):
+def moment_gaps(opts, leaf_rel=1e-4, module_rel=1e-5):
     """{"G"/"D": (worst ratio, leaf, card gap, CPU gap)}: each leaf's first
     moment after the step, on the card and on the CPU in f32, against the
     CPU's in f64 (``compute_dtype="float64"``).  After one Adam step the
@@ -3339,7 +3413,9 @@ def moment_gaps(opts):
     of the module's largest (a bias feeding a train-mode BatchNorm has a
     gradient of exactly 0, so both sides hold rounding there, up to 1e-6 of
     it on the CPU).  The gaps are the differences over the leaf's largest
-    f64 value, floored at 1e-5 of the module's largest."""
+    f64 value, floored at 1e-5 of the module's largest.  ``leaf_rel`` and
+    ``module_rel`` set the two floors (phase 15a's bf16 steps take
+    wider ones)."""
     out = {}
     for i, name in enumerate(("G", "D")):
         ref = opts["cpu64"][i].mu
@@ -3351,8 +3427,8 @@ def moment_gaps(opts):
             card, cpu = ((opts[dev][i].mu[k].cpu().double() - v).abs().max()
                          .item() for dev in ("cuda", "cpu"))
             big = v.abs().max().item()
-            ratio = card / max(4 * cpu, 1e-4 * big, 1e-5 * top)
-            scale = max(big, 1e-5 * top)
+            ratio = card / max(4 * cpu, leaf_rel * big, module_rel * top)
+            scale = max(big, module_rel * top)
             worst = max(worst, (ratio, k, card / scale, cpu / scale))
         out[name] = worst
     return out
@@ -4984,6 +5060,429 @@ def phase_ship(conv3x3, double_conv, k5, noise, profile) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multiple devices
+DP_RANKS, DP_BATCH, DP_STEPS = 2, 16, 3  # 15a: the global batch, 256²
+MESH_SIZE = 4  # 15c, 15d: a serving mesh naming cuda:0 four times
+MESH_BIG = (3072, 4096)  # 15c: (H, W) of the sharded denoise request
+MESH_ESRGAN = (2100, 600)  # 15c: over the threshold on the height only
+# 15a's bounds after step 1, against the same steps in one process: f32 as
+# phase 9 holds the card against the CPU (losses 1e-4 relative, BatchNorm
+# statistics 1e-4, parameters 2.5e-4; the first moments by moment_gaps
+# against a float64 step, within 4× the single process's own gap); bf16
+# two ulps (TOL) relative for the losses and statistics; its first moments
+# within 4× the single process's gap to float64 or a tenth of the leaf (5%
+# of the module's largest): bf16 sums lose a leaf to cancellation (D's
+# last bias sums real and fake terms of opposite sign; on the card the
+# single process's own bf16 gradient stands 45% of one G leaf from
+# float64); steps 2 and 3's losses 1e-3 (f32) relative
+DP_TOL = {"float32": {"loss": 1e-4, "later": 1e-3, "stats": 1e-4,
+                      "mu": (1e-4, 1e-5)},
+          "bfloat16": {"loss": 1.6e-2, "later": 1.6e-2, "stats": 1.6e-2,
+                       "mu": (1e-1, 5e-2)}}
+
+
+def dp_steps(mesh, clean_u8, dtypes=("float32", "bfloat16")) -> dict:
+    """Phase 15a's work on one rank of ``mesh`` (None: the whole batch in
+    this process): K4's share of the whole-batch draw in variant 1 and the
+    blind σ; then DP_STEPS on-the-fly steps of the full-width denoise GAN
+    (the shipped generator, a seeded discriminator: a fine-tune) in each of
+    ``dtypes`` (float64: one step, the reference), on its share; the first moments, parameters and BatchNorm statistics after
+    step 1, every step's losses, and the K4 launches of the steps."""
+    from types import SimpleNamespace
+
+    from celebrity_image_denoiser_tpu_torch.ckpt.convert import (
+        load_npz_state_dict,
+    )
+    from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
+    from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+        DenoiseDiscriminator,
+        DenoiseGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import noise
+    from celebrity_image_denoiser_tpu_torch.parallel.mesh import (
+        shard_count,
+        shard_index,
+    )
+    from celebrity_image_denoiser_tpu_torch.train.gan_trainer import (
+        make_train_step,
+    )
+
+    rank, world = ((0, 1) if mesh is None
+                   else (shard_index(mesh), shard_count(mesh)))
+    n = clean_u8.shape[0] // world
+    local = torch.from_numpy(clean_u8[rank * n:(rank + 1) * n]).cuda()
+    res = {"k4": {}, "steps": {}}
+    for label in ("v1", "blind"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        if label == "v1":
+            y = noise_lib.random_noise_batch(gen, local, variant=1,
+                                             rank=rank, world=world)[0]
+        else:
+            y = noise_lib.blind_gaussian_batch(gen, local, rank=rank,
+                                               world=world)[0]
+        res["k4"][label] = y.cpu()
+    noise.LAUNCHES = 0
+    for cdt in dtypes:
+        init = torch.Generator().manual_seed(SEED)
+        g = DenoiseGenerator(generator=init)
+        g.load_state_dict(load_npz_state_dict(weights_dir() + "/denoise",
+                                              module=g))
+        g = g.cuda()
+        d = DenoiseDiscriminator(generator=init).cuda()
+        for m in (g, d):
+            m.to(torch.float64 if cdt == "float64" else torch.float32,
+                 memory_format=torch.channels_last)
+        init_fn, step_fn = make_train_step(g, d, on_the_fly_noise=True,
+                                           compute_dtype=cdt, mesh=mesh)
+        opt = init_fn()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1 if cdt == "float64" else DP_STEPS):
+            out = step_fn(opt, None, local, gen, 1e-4, 1e-4)
+            losses.append([float(out["g_loss"]), float(out["d_loss"])])
+            if s == 0:
+                first = {
+                    "opt": tuple(SimpleNamespace(mu={
+                        k: v.detach().cpu().double() for k, v in
+                        st.mu.items()}) for st in opt),
+                    "params": {f"{w}.{k}": v.detach().cpu().double()
+                               for w, m in (("G", g), ("D", d))
+                               for k, v in m.named_parameters()},
+                    "stats": {f"D.{k}": v.cpu().double() for k, v in
+                              d.named_buffers() if "running_" in k}}
+        torch.cuda.synchronize()
+        res["steps"][cdt] = {"losses": losses, "first": first,
+                             "s": time.perf_counter() - t0}
+    res["k4_launches"] = noise.LAUNCHES
+    return res
+
+
+def dp_rank(rank, world, init, out_dir, clean_u8) -> None:
+    """A rank of phase 15a (spawned): ``dp_steps`` over a process group of
+    ``world`` ranks on cuda:0, gloo."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from celebrity_image_denoiser_tpu_torch.parallel.mesh import process_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        res = dp_steps(process_mesh(), clean_u8)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_dp_train(noise, tmp) -> dict:
+    """15a: two gloo ranks on cuda:0 against the single-process run."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    say(f"  15a: data-parallel training, {DP_RANKS} gloo ranks on cuda:0, "
+        f"full-width denoise GAN, global batch {DP_BATCH}, {TRAIN_SIZE}², "
+        f"on the fly, {DP_STEPS} steps f32 and bf16")
+    clean = write_train_pngs(tmp, DP_BATCH)
+    single = dp_steps(None, clean, ("float64", "float32", "bfloat16"))
+    with tempfile.TemporaryDirectory(prefix="cid_dp_") as d:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_RANKS, f"file://{d}/pg", d, clean),
+                 nprocs=DP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    n = DP_BATCH // DP_RANKS
+    for label in ("v1", "blind"):
+        for r, res in enumerate(ranks):
+            if not torch.equal(res["k4"][label],
+                               single["k4"][label][r * n:(r + 1) * n]):
+                fail(f"rank {r}'s {label} noise is not its rows of the "
+                     "whole-batch launch")
+    say(f"  K4 at first_sample {', '.join(str(r * n) for r in range(DP_RANKS))}"
+        ": each rank's noisy rows bit-equal to the whole-batch launch's "
+        "(variant 1 and the blind sigma)")
+    out = {"spawn_s": spawn_s, "k4_launches": sum(r["k4_launches"]
+                                                   for r in ranks)}
+    if out["k4_launches"] != DP_RANKS * 2 * DP_STEPS:
+        fail(f"15a: {out['k4_launches']} noise launches, expected "
+             f"{DP_RANKS * 2 * DP_STEPS} (one a step a rank)")
+    ref64 = single["steps"]["float64"]["first"]["opt"]
+    for cdt, tol in DP_TOL.items():
+        ref = single["steps"][cdt]
+        row = {"single_steps_per_s": DP_STEPS / ref["s"]}
+        for r, res in enumerate(ranks):
+            got = res["steps"][cdt]
+            rel = [max(abs(a - b) / abs(b) for a, b in zip(ga, gb))
+                   for ga, gb in zip(got["losses"], ref["losses"])]
+            gaps = moment_gaps({"cpu64": ref64, "cuda": got["first"]["opt"],
+                                "cpu": ref["first"]["opt"]}, *tol["mu"])
+            stats = max(float((got["first"]["stats"][k] - v).abs().max())
+                        / (1.0 if cdt == "float32" else
+                           max(1.0, float(v.abs().max())))
+                        for k, v in ref["first"]["stats"].items())
+            params = max(float((got["first"]["params"][k] - v).abs().max())
+                         for k, v in ref["first"]["params"].items())
+            row[f"rank{r}"] = {"loss_rel": rel, "stats": stats,
+                               "params": params,
+                               "mu": {k: v[:2] for k, v in gaps.items()},
+                               "steps_per_s": DP_STEPS / got["s"]}
+            if r > 0 and got["losses"] != ranks[0]["steps"][cdt]["losses"]:
+                fail(f"15a {cdt}: the ranks report different losses")
+            if not (rel[0] <= tol["loss"] and max(rel) <= tol["later"]
+                    and stats <= tol["stats"] and params <= 2.5e-4
+                    and all(v[0] <= 1.0 for v in gaps.values())):
+                fail(f"15a {cdt} rank {r}: losses {rel}, BatchNorm "
+                     f"statistics {stats:.2e}, parameters {params:.2e}, "
+                     f"first moments {gaps} against the single-process run "
+                     f"(bounds {tol}, parameters 2.5e-4, moments ratio 1)")
+        r0 = row["rank0"]
+        say(f"  {cdt}: losses {[round(v, 6) for v in ref['losses'][-1]]} "
+            f"(single, step {DP_STEPS}); rank 0 vs single: losses "
+            f"{max(r0['loss_rel']):.2e} rel (step 1 {r0['loss_rel'][0]:.2e}),"
+            f" after step 1 BatchNorm statistics {r0['stats']:.2e}, "
+            f"parameters {r0['params']:.2e}, first moments against float64 "
+            + ", ".join(f"{w} ratio {v[0]:.3f} ({v[1]})"
+                        for w, v in r0["mu"].items())
+            + f"; steps/s over the {DP_STEPS} steps, the first included: "
+            f"single {row['single_steps_per_s']:.3f}, a rank "
+            f"{r0['steps_per_s']:.3f} (two ranks share the card)")
+        out[cdt] = row
+    return out
+
+
+def phase_torchrun(noise, tmp) -> dict:
+    """15b: ``cli.train`` under ``torch.distributed.run`` at world size 1
+    (NCCL), one 4-step epoch; its checkpoint resumes without a mesh."""
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+
+    os.makedirs(f"{tmp}/clean", exist_ok=True)
+    write_train_pngs(f"{tmp}/clean")
+    argv = ["--model", "denoise", "--clean-dir", f"{tmp}/clean",
+            "--image-size", str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--checkpoint-dir",
+            f"{tmp}/ck", "--graph-dir", f"{tmp}/graphs"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m",
+           "celebrity_image_denoiser_tpu_torch.cli.train", *argv]
+    say("  15b: " + " ".join(cmd[1:4] + ["..."] + cmd[4:8]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        print(log[-4000:], file=sys.stderr)
+        fail(f"15b: torch.distributed.run exited {proc.returncode}")
+    if "data parallel: rank 0 of 1 over nccl on cuda:0" not in log:
+        print(log[-4000:], file=sys.stderr)
+        fail("15b: the run did not report NCCL at world size 1 on cuda:0")
+    noise.LAUNCHES = 0
+    tr = cli_train.build_trainer(cli_train.build_parser().parse_args(
+        argv + ["--resume", "--num-epochs", "2"]))
+    if tr.mesh is not None or tr.start_epoch != 1:
+        fail(f"15b: resumed with mesh {tr.mesh}, epoch {tr.start_epoch}")
+    hist = tr.train()
+    ok = len(hist["g_loss"]) == 2 and np.isfinite(hist["g_loss"]).all()
+    if not ok or noise.LAUNCHES != 4:
+        fail(f"15b: the resumed epoch: history {hist['g_loss']}, "
+             f"{noise.LAUNCHES} noise launches (expected 4)")
+    say(f"  15b: exit 0 in {dt:.1f} s (process start and the kernels' build "
+        f"included), NCCL at world size 1 on cuda:0; rank 0's checkpoint "
+        f"resumed without a mesh at epoch 1, one more epoch: g_loss "
+        f"{hist['g_loss'][0]:.5f} -> {hist['g_loss'][1]:.5f}, 4 noise "
+        "launches")
+    return {"s": dt, "k4_launches": noise.LAUNCHES}
+
+
+def mesh_request(st, model, png, kind, label, counts, expect):
+    """One ``enhance`` of ``st``: its response and launches, held to
+    ``label`` and ``expect``."""
+    int8_counts(*counts, reset=True)
+    t0 = time.perf_counter()
+    r = st.enhance(model, png, "image/png", include_graph=False)
+    dt = (time.perf_counter() - t0) * 1e3
+    got = int8_counts(*counts)
+    if st.last_compute_backend() != f"{kind}+{label}":
+        fail(f"15c {kind} {model}: served {st.last_compute_backend()}, "
+             f"expected {kind}+{label}")
+    if expect is not None and got != expect:
+        fail(f"15c {kind} {model}: launches {got}, expected {expect}")
+    return r["denoised_image_base64"], got, dt
+
+
+def phase_mesh_serve(conv3x3, double_conv, k5, k6) -> dict:
+    """15c: the shipped weights over a mesh of cuda:0 four times."""
+    from celebrity_image_denoiser_tpu_torch.data import imageio
+    from celebrity_image_denoiser_tpu_torch.parallel import make_mesh
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    counts = (conv3x3, double_conv, k5, k6)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SIZE)
+    say(f"  15c: serving over {mesh}")
+    big = imageio.encode_png(test_image(*MESH_BIG, seed=150))
+    esr = imageio.encode_png(test_image(*MESH_ESRGAN, seed=151))
+    n = MB_CLIENTS * MB_REQUESTS
+    pngs = [imageio.encode_png(test_image(MB_SIZE, MB_SIZE, seed=300 + i))
+            for i in range(n)]
+    esrgan_per = {"float": (16, 0, 0, 0), "int8": (0, 0, 16, 0)}
+    out, totals = {}, [0, 0, 0, 0]
+    for kind, quantize in (("float", None), ("int8", "int8")):
+        # both axes are over the threshold: without tiling the height
+        # shards (3072 = 4 × 768); requests that run whole are
+        # micro-batched over the mesh
+        t0 = time.perf_counter()
+        st = ServeState(device="cuda", quantize=quantize, mesh=mesh,
+                        use_tiling=False, microbatch_window_ms=2,
+                        microbatch_max=16)
+        ref = ServeState(device="cuda", quantize=quantize)
+        if quantize and (st.ladder("denoise") != "int8-s8skip"
+                         or st.ladder("esrgan") != "int8-generic"):
+            fail(f"15c: the int8 ladder served {st.int8_rung}")
+        row = {}
+        for model, png, per in (("denoise", big, PER_FORWARD[kind]),
+                                ("esrgan", esr, esrgan_per[kind])):
+            y, got, dt = mesh_request(st, model, png, kind, "sharded",
+                                      counts, tuple(MESH_SIZE * c
+                                                    for c in per))
+            totals = [a + b for a, b in zip(totals, got)]
+            y_ref, _, dt_ref = mesh_request(ref, model, png, kind, "tiled",
+                                            counts, None)
+            if y != y_ref:
+                a = imageio.decode_png(base64.b64decode(y)).astype(np.int16)
+                b = imageio.decode_png(base64.b64decode(y_ref)).astype(
+                    np.int16)
+                fail(f"15c {kind} {model}: the sharded response differs "
+                     f"from the mesh-free server's (max {np.abs(a - b).max()}"
+                     ")")
+            h, w = MESH_BIG if model == "denoise" else MESH_ESRGAN
+            say(f"  {kind} {model} {w}x{h} (H x W {h}x{w}): {kind}+sharded "
+                f"in {dt:.1f} ms over {MESH_SIZE} strips, launches {got}; "
+                f"response bytes equal to the mesh-free server's "
+                f"({kind}+tiled, {dt_ref:.1f} ms)")
+            row[model] = {"ms": dt, "mesh_free_ms": dt_ref, "launches": got}
+        # 32 clients x 8 requests of 256², micro-batched over the mesh
+        mb = st
+        mb.warmup(((MB_SIZE, MB_SIZE),), models=("denoise",))
+        ref.warmup(((MB_SIZE, MB_SIZE),), models=("denoise",))
+        alone = []
+        for p in pngs:
+            alone.append(ref.enhance("denoise", p, "image/png",
+                                     include_graph=False)[
+                "denoised_image_base64"])
+        srv, thread, url = serve_in_thread(mb)
+        try:
+            b0 = batcher_totals(mb)
+            int8_counts(*counts, reset=True)
+            wall, lat, got = run_load(url, pngs)
+            launches = int8_counts(*counts)
+            batches, reqs = (a - b for a, b in zip(batcher_totals(mb), b0))
+        finally:
+            stop_server(srv, thread)
+        totals = [a + b for a, b in zip(totals, launches)]
+        differ = sum(a != b for a, b in zip(got, alone))
+        p50, p90 = np.percentile(lat, [50, 90])
+        say(f"  {kind} micro-batched over the mesh: {n} requests "
+            f"({MB_CLIENTS} clients x {MB_REQUESTS}, {MB_SIZE}^2) in "
+            f"{wall:.2f} s: {n / wall:.1f} requests/s, p50 {p50:.2f} ms p90 "
+            f"{p90:.2f} ms; {batches} batches, mean occupancy "
+            f"{reqs / batches:.2f}; launches {launches}; {differ} responses "
+            "differ from the same requests served alone")
+        if differ or reqs != n or ("dp", "denoise") not in mb._mesh_fns:
+            fail(f"15c {kind}: {differ} micro-batched responses differ, "
+                 f"{reqs} of {n} requests batched")
+        row["microbatch"] = {"requests_per_s": n / wall, "p50_ms": p50,
+                             "p90_ms": p90, "batches": batches,
+                             "occupancy": reqs / batches}
+        row["s"] = time.perf_counter() - t0
+        say(f"  15c {kind}: {row['s']:.1f} s")
+        out[kind] = row
+        del st, mb, ref
+        torch.cuda.empty_cache()
+    out["launches"] = totals
+    return out
+
+
+def phase_halo_tiling(conv3x3, double_conv, k5, k6) -> dict:
+    """15d: ``tiled_apply`` of the full-width denoise U-Net (seeded random
+    weights, as the JAX test's bound of 0.1 on the border band was set)
+    over MESH_SIZE strips against its untiled forward (kernel route)."""
+    from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+        DenoiseGenerator,
+    )
+    from celebrity_image_denoiser_tpu_torch.parallel import (
+        make_mesh,
+        tiled_apply,
+    )
+
+    g = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
+    g = g.cuda().eval()
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SIZE)
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1, 1, (1, 1024, 512, 3)).astype(np.float32)).cuda()
+    counts = (conv3x3, double_conv, k5, k6)
+    out = {}
+    with torch.inference_mode():
+        full = g(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        for halo in (32, 4):
+            fn = tiled_apply(g, mesh, halo=halo)
+            int8_counts(*counts, reset=True)
+            y = fn(x)
+            torch.cuda.synchronize()
+            got = int8_counts(*counts)
+            d = (y - full).abs()
+            out[halo] = {"interior": float(d[:, 28:-28].max()),
+                         "max": float(d.max()), "launches": got}
+    h32, h4 = out[32], out[4]
+    say(f"  15d: tiled_apply over {MESH_SIZE} strips of 256 rows (1x1024x512"
+        f", the denoise U-Net with seeded weights, f32): halo 32 interior (rows 28..-28) max "
+        f"diff {h32['interior']:.2e}, border band {h32['max']:.2e}; halo 4 "
+        f"max diff {h4['max']:.2e}; launches {h32['launches']}")
+    if h32["launches"] != tuple(MESH_SIZE * c for c in PER_FORWARD["float"]):
+        fail(f"15d: launches {h32['launches']}")
+    if not (h32["interior"] <= 1e-5 and h32["max"] < 0.1
+            and h4["max"] > 1e-4):
+        fail("15d: tiled_apply out of its bounds (interior 1e-5, band 0.1, "
+             "halo 4 above 1e-4)")
+    return {"halo32": h32, "halo4": h4,
+            "launches": [a + b for a, b in zip(h32["launches"],
+                                               h4["launches"])]}
+
+
+def phase_multidevice(conv3x3, double_conv, k5, k6, noise) -> dict:
+    """Phase 15: data-parallel training, the torch.distributed.run CLI,
+    the serving mesh and halo tiling."""
+    import tempfile
+
+    say("== phase 15: multiple devices (one H100: the ranks and the mesh's "
+        "entries share it, so these runs show exactness and overhead, not "
+        "scaling)")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="cid_multi_") as tmp:
+        os.makedirs(f"{tmp}/dp")
+        out["train"] = phase_dp_train(noise, f"{tmp}/dp")
+        out["train"]["s"] = time.perf_counter() - t_phase
+        say(f"  15a: {out['train']['s']:.1f} s")
+        out["torchrun"] = phase_torchrun(noise, tmp)
+    out["serve"] = phase_mesh_serve(conv3x3, double_conv, k5, k6)
+    t0 = time.perf_counter()
+    out["tiled"] = phase_halo_tiling(conv3x3, double_conv, k5, k6)
+    out["tiled"]["s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # the port first: run outside a checkout, this fails before anything
     from celebrity_image_denoiser_tpu_torch import bench
@@ -5051,6 +5550,14 @@ def main() -> int:
     ship_k4 = ship["extras"]["k4"] + ship["remat"]["k4"] + \
         ship["qat"]["k4"] + ship["profile"]["k4"]
     ship_k5 = ship["qat"]["k5"]
+    multi = phase_multidevice(conv3x3, double_conv, k5, k6, noise)
+    # (K2, K3, K5, K6) of phase 15's mesh paths: the sharded requests and
+    # micro-batches (15c) and tiled_apply (15d); K4 of its ranks' and the
+    # resumed epoch's steps (15a, 15b)
+    multi_k = [a + b for a, b in zip(multi["serve"]["launches"],
+                                     multi["tiled"]["launches"])]
+    multi_k4 = multi["train"]["k4_launches"] + \
+        multi["torchrun"]["k4_launches"]
 
     replaces = {
         "conv3x3_bias_relu":
@@ -5073,10 +5580,11 @@ def main() -> int:
             # requests launch K2 in its s8 mode only)
             # and phase 14's (cli.eval, the epoch extras, cli.qat, the
             # export round trip)
+            # and phase 15's mesh paths
             "launches": (launches[name] + bench_launches[name]
-                         + (served[0] + ship_k2
+                         + (served[0] + ship_k2 + multi_k[0]
                             if name == "conv3x3_bias_relu"
-                            else served[1] + ship_k3)),
+                            else served[1] + ship_k3 + multi_k[1])),
             "max_abs_err": worst[name],
             # the largest error of a phase 4e/4f launch, × max|ref|
             "families_max_rel_err": max(family_err, cgan_err),
@@ -5106,9 +5614,10 @@ def main() -> int:
     for name, kind, where, n_launch in (
             ("conv3x3_s8", "k5", "celebrity_image_denoiser_tpu/ops/"
              "quant_unet.py:55 (_conv_q, an XLA conv)",
-             served[2] + ship_k5),
+             served[2] + ship_k5 + multi_k[2]),
             ("convt2x2_s8", "k6", "celebrity_image_denoiser_tpu/ops/"
-             "quant_unet.py:62 (_convt_q, an XLA conv)", served[3])):
+             "quant_unet.py:62 (_convt_q, an XLA conv)",
+             served[3] + multi_k[3])):
         if n_launch < 1 or bench_launches[name] < 1:
             fail(f"{name} was not launched on the main path")
         s = stats8[name]
@@ -5148,9 +5657,10 @@ def main() -> int:
         # cgan, srgan) and 13 (denoise over the native stage) and their
         # timed windows, one launch per step; and phase 13's renders, one
         # per batch and type; counts set to 0 just before each
+        # and phase 15's ranks (15a) and resumed epoch (15b)
         "launches": (noise_launches + family_noise_launches
                      + data["render"]["launches"]
-                     + data["native"]["k4_launches"] + ship_k4),
+                     + data["native"]["k4_launches"] + ship_k4 + multi_k4),
         "max_abs_err": max(noise_err, noise_stats["max_abs_err"]),
         # one launch at the train batch (16 x 256 x 256 x 3, f32 noisy and
         # clean), phase 11; no single PyTorch call computes this
@@ -5179,6 +5689,7 @@ def main() -> int:
     print(json.dumps({"train_families": train_rows}), flush=True)
     print(json.dumps({"data": data}), flush=True)
     print(json.dumps({"ship": ship}), flush=True)
+    print(json.dumps({"multi": multi}), flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,10 @@ def test_port_has_modules_to_check():
                  # training to the shipped file: metrics, QAT, export, CLIs
                  "metrics.msssim", "train.qat", "ckpt.export", "cli.qat",
                  "cli.export", "cli.eval", "cli.bench", "utils.profiling",
-                 "viz.training_plots", "viz.side_by_side"):
+                 "viz.training_plots", "viz.side_by_side",
+                 # multiple devices: the serving and training meshes
+                 "parallel.mesh", "parallel.collectives",
+                 "parallel.dataparallel", "dryrun"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 

@@ -441,8 +441,9 @@ def test_on_the_fly_step_trains_on_the_trainer_normalisation(jax_nets,
 def test_other_families_and_options_wait():
     """Every family trains (tests/test_torch_port_train_families.py), and
     ``remat`` and ``extras_fn`` work (tests/test_torch_port_extras.py holds
-    them against the plain step and the JAX package); ``mesh=`` waits and
-    raises naming its ROADMAP.md queue 1 item 7.  The native loader runs
+    them against the plain step and the JAX package); ``mesh=`` takes a
+    ``DeviceMesh`` (data parallelism: tests/test_torch_port_parallel_train.py)
+    and refuses anything else.  The native loader runs
     (tests/test_torch_port_data.py) and refuses, before any batch, a
     dataset with no ``raw_batch_spec``."""
     from celebrity_image_denoiser_tpu_torch.core.config import (
@@ -463,7 +464,7 @@ def test_other_families_and_options_wait():
     m = step(init(), _t(x), _t(y), None, 1e-4, 1e-4)
     assert {"g_loss", "d_loss", "psnr", "ssim", "extra"} <= set(m)
     assert m["extra"].dim() == 0 and bool(torch.isfinite(m["extra"]))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gan_trainer.make_train_step(pg, pd, mesh=object())
     with pytest.raises(ValueError, match="raw_batch_spec"):
         DataPipeline([], 2, device="cpu", use_native=True)
@@ -726,14 +727,18 @@ def test_cli_train_on_the_cpu(png_dir, tmp_path):
     assert all(type(c) is int and 0 <= c <= 4 for c in tr.gaussian_counts)
     assert len(tr.metric_history["psnr"]) == 2
     # the flags of the JAX CLI's extras are accepted and reach the trainer
-    # (tests/test_torch_port_extras.py runs them); data parallelism waits
+    # (tests/test_torch_port_extras.py runs them); --no-data-parallel
+    # outside torch.distributed.run trains this process alone, as without
+    # it (tests/test_torch_port_parallel_train.py runs data parallelism)
     parsed = cli_train.build_parser().parse_args(
         args + ["--remat", "--extra-metrics", "batch", "--profile-dir", "p"])
     assert parsed.remat and parsed.extra_metrics == "batch"
     assert parsed.profile_dir == "p"
     assert cli_train.build_config(parsed).remat
-    with pytest.raises(SystemExit):  # absent, not accepted and ignored
-        cli_train.build_parser().parse_args(args + ["--no-data-parallel"])
+    parsed = cli_train.build_parser().parse_args(args + ["--no-data-parallel"])
+    assert parsed.no_data_parallel
+    with cli_train.data_parallel(parsed) as (mesh, device):
+        assert mesh is None and device == torch.device("cpu")
     # the disk pairs and tensor caches train (tests/test_torch_port_data.py)
     parsed = cli_train.build_parser().parse_args(
         args + ["--no-on-the-fly", "--tensor-cache", "c",
