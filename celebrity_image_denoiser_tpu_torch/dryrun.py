@@ -3,7 +3,7 @@
 Counterpart of ``__graft_entry__.py::dryrun_multichip`` (:99-220) of the
 JAX package:
 
-    python -m celebrity_image_denoiser_tpu_torch.dryrun 4 [--device cuda]
+    python -m celebrity_image_denoiser_tpu_torch.dryrun 4 [--device cpu]
 
 ``dryrun_multichip(n)`` spawns ``n`` gloo ranks that take one
 data-parallel step of the denoise GAN on the fly (``make_train_step(mesh=)``
@@ -13,9 +13,11 @@ and, when ``n ≥ 4`` is even, one step over a ``("replica", "data")`` mesh of
 ``n`` entries of ``device``: the exact spatial shard, the single-exchange
 halo tiling, and the float32 and int8 data-parallel micro-batches through
 ``ServeState.enhance``.  Random weights; each result must be finite, and
-the micro-batches must have run their data-parallel dispatch.  On a card
-the ranks share it (gloo carries CUDA tensors for the step's all-reduces
-and broadcasts; NCCL refuses two ranks on one card).
+the micro-batches must have run their data-parallel dispatch.  It runs on
+the card unless the caller passes ``device="cpu"`` (``--device cpu``), and
+raises where CUDA is absent.  On a card the ranks share it (gloo carries
+CUDA tensors for the step's all-reduces and broadcasts; NCCL refuses two
+ranks on one card).
 """
 
 from __future__ import annotations
@@ -120,7 +122,7 @@ def _serving(n: int, device: torch.device) -> dict:
             backend = st.last_compute_backend()
             if not r["denoised_image_base64"]:
                 raise RuntimeError(f"{quantize}: an empty response")
-            if ("dp", "denoise") not in st._mesh_fns:
+            if not st._replicas:
                 raise RuntimeError(f"{quantize}: the data-parallel "
                                    "micro-batch dispatch was not built")
             if quantize and not backend.startswith("int8"):
@@ -129,7 +131,7 @@ def _serving(n: int, device: torch.device) -> dict:
     return res
 
 
-def dryrun_multichip(n_devices: int, device="cpu") -> dict:
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     """Run the dry run over ``n_devices`` ranks and mesh entries on
     ``device``; returns what each part gave (raises on a failure)."""
     dev = resolve_device(device)
@@ -152,7 +154,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Dry-run the port's multi-device "
                                             "paths at a toy size")
     p.add_argument("n", type=int, nargs="?", default=2)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     dryrun_multichip(args.n, args.device)
     return 0

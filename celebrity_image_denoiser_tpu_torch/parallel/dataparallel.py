@@ -38,29 +38,37 @@ def shard_batch(x: torch.Tensor, mesh: Mesh, axis: str = "data"
     return [c.to(d) for c, d in zip(x.chunk(len(devices)), devices)]
 
 
-def replicate(module, mesh: Mesh, axis: Optional[str] = "data") -> list:
+def replicate(module, mesh: Mesh, axis: Optional[str] = "data", *,
+              home: Optional[torch.device] = None) -> list:
     """A copy of ``module`` (anything with ``.to(device)``: an
     ``nn.Module``, an int8 forward) on each device along ``axis`` (None:
     each entry of the mesh, flat); an entry that repeats a device gets a
-    copy of its own all the same.  Built once, kept by the caller; made
-    outside inference mode even when called inside it, so that the
-    replicas' tensors are ordinary ones, as the original's are."""
+    copy of its own all the same.  ``home``: the device ``module`` lives
+    on; the first entry there takes ``module`` itself (a server's own
+    weights are not copied onto their own card).  Built once, kept by the
+    caller; made outside inference mode even when called inside it, so that
+    the replicas' tensors are ordinary ones, as the original's are."""
     devices = (list(mesh.devices.flat) if axis is None
                else mesh.axis_devices(axis))
+    own = devices.index(home) if home in devices else -1
     with torch.inference_mode(False):
-        return [copy.deepcopy(module).to(d) for d in devices]
+        return [module if k == own else copy.deepcopy(module).to(d)
+                for k, d in enumerate(devices)]
 
 
 def data_parallel_apply(model, mesh: Mesh, axis: str = "data",
-                        apply_fn: Optional[Callable] = None
+                        apply_fn: Optional[Callable] = None,
+                        replicas: Optional[list] = None
                         ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``fn(x)``: NHWC ``x`` split along dim 0 over ``axis`` (its
     size must divide by the axis size), each chunk run on its device's
     replica of ``model``, the outputs concatenated on the first device.
     ``apply_fn(replica, chunk) -> y`` is the forward (default: an NCHW
     module's, ``nhwc_forward``); the caller sets the mode (``.eval()``,
-    ``inference_mode``)."""
-    replicas = replicate(model, mesh, axis)
+    ``inference_mode``).  ``replicas``: the caller's ``replicate(model,
+    mesh, axis)``, built once (default: built here)."""
+    if replicas is None:
+        replicas = replicate(model, mesh, axis)
     fwd = apply_fn or nhwc_forward
     first = mesh.axis_devices(axis)[0]
 

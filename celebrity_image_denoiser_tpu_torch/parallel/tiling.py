@@ -109,16 +109,27 @@ def tiled_apply_single_device(
         if h % multiple != 0:
             raise ValueError(f"axis-{axis} extent {h} must be divisible by "
                              f"{multiple} (pad first)")
-        outs = []
-        for start in range(0, h, tile_h):
-            stop = min(start + tile_h, h)
-            lo, hi = max(start - halo, 0), min(stop + halo, h)
-            y = apply_fn(x.narrow(axis, lo, hi - lo).contiguous())
-            outs.append(y.narrow(axis, (start - lo) * scale,
-                                 (stop - start) * scale))
-        return torch.cat(outs, dim=axis)
+        bounds = list(range(0, h, tile_h)) + [h]
+        return torch.cat(_windows(x, axis, bounds, halo, scale,
+                                  lambda k, t: apply_fn(t)), dim=axis)
 
     return fn
+
+
+def _windows(x: torch.Tensor, axis: int, bounds: List[int], halo: int,
+             scale: int, forward: Callable[[int, torch.Tensor], torch.Tensor]
+             ) -> List[torch.Tensor]:
+    """Tile ``k`` = ``[bounds[k], bounds[k + 1])`` along ``axis``, run by
+    ``forward(k, window)`` over its window ``[lo - halo, hi + halo)``
+    clipped to the image (made contiguous) and cropped back to ``[lo, hi)``
+    (× ``scale`` on the output side): the crops, in order."""
+    e = x.shape[axis]
+    outs = []
+    for k, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        wlo, whi = max(lo - halo, 0), min(hi + halo, e)
+        y = forward(k, x.narrow(axis, wlo, whi - wlo).contiguous())
+        outs.append(y.narrow(axis, (lo - wlo) * scale, (hi - lo) * scale))
+    return outs
 
 
 def strip_bounds(extent: int, n: int, multiple: int) -> List[int]:
@@ -139,7 +150,7 @@ def spatial_sharded_apply(model, mesh: Mesh, *, axis: str = "data",
                           spatial_dim: int = 1,
                           apply_fn: Optional[Callable] = None,
                           halo: int = TILE_HALO, scale: int = 1,
-                          multiple: int = 4
+                          multiple: int = 4, replicas: Optional[list] = None
                           ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``fn(x)``: NHWC ``x`` cut along ``spatial_dim`` (1 the height,
     2 the width) into one strip per device of ``axis``; strip ``k`` runs on
@@ -152,7 +163,8 @@ def spatial_sharded_apply(model, mesh: Mesh, *, axis: str = "data",
     tensors (the server passes its int8 forward's; default an NCHW
     module's).  ``multiple``: 4 for a model with the U-Net's two 2×2 pools,
     1 for one without pooling; the extent and ``halo`` must be multiples of
-    it."""
+    it.  ``replicas``: the caller's ``replicate(model, mesh, axis)``, built
+    once (default: built here)."""
     if spatial_dim not in (1, 2):
         raise ValueError(f"spatial_dim must be 1 (height) or 2 (width), "
                          f"got {spatial_dim}")
@@ -160,19 +172,14 @@ def spatial_sharded_apply(model, mesh: Mesh, *, axis: str = "data",
         raise ValueError(f"multiple must be 1 or 4 and divide halo {halo}, "
                          f"got {multiple}")
     devices = mesh.axis_devices(axis)
-    replicas = replicate(model, mesh, axis)
+    if replicas is None:
+        replicas = replicate(model, mesh, axis)
     fwd = apply_fn or nhwc_forward
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        e = x.shape[spatial_dim]
-        bounds = strip_bounds(e, len(devices), multiple)
-        outs = []
-        for r, d, lo, hi in zip(replicas, devices, bounds, bounds[1:]):
-            wlo, whi = max(lo - halo, 0), min(hi + halo, e)
-            tile = x.narrow(spatial_dim, wlo, whi - wlo).contiguous()
-            y = fwd(r, tile.to(d))
-            outs.append(y.narrow(spatial_dim, (lo - wlo) * scale,
-                                 (hi - lo) * scale))
+        bounds = strip_bounds(x.shape[spatial_dim], len(devices), multiple)
+        outs = _windows(x, spatial_dim, bounds, halo, scale,
+                        lambda k, t: fwd(replicas[k], t.to(devices[k])))
         return torch.cat([y.to(devices[0]) for y in outs], dim=spatial_dim)
 
     return fn

@@ -92,7 +92,9 @@ batch size the batcher can dispatch, so that the kernels are built and
 each shape launched before the first request.
 
 The mesh (``mesh=``, a serving ``parallel/mesh.py::Mesh``: one process,
-a weight replica per device, repeats allowed), as the JAX server routes it
+a weight replica per entry, repeats allowed; the served weights
+themselves on the first entry of their own device; one list of replicas a
+model, shared by both paths), as the JAX server routes it
 (:316-359, :552-585):
 
 * an input over the threshold on one axis only, or on both with
@@ -154,6 +156,7 @@ from celebrity_image_denoiser_tpu_torch.models.srgan import SRGANGenerator
 from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
 from celebrity_image_denoiser_tpu_torch.parallel.dataparallel import (
     data_parallel_apply,
+    replicate,
 )
 from celebrity_image_denoiser_tpu_torch.parallel.mesh import Mesh
 from celebrity_image_denoiser_tpu_torch.parallel.tiling import (
@@ -277,8 +280,8 @@ class ServeState:
         self.use_tiling = use_tiling
         self.bucket_divisor = bucket_divisor
         self.mesh = mesh
-        # the mesh paths' forwards, built once per (kind, model, ...)
-        self._mesh_fns: Dict[tuple, object] = {}
+        # the mesh's weight replicas, one list per served object
+        self._replicas: Dict[tuple, list] = {}
         if self.device.type == "cuda":
             # float32 serving means float32 arithmetic, as in the JAX
             # server: the transpose convs go to cuDNN, which would otherwise
@@ -493,14 +496,19 @@ class ServeState:
     def _mesh_size(self) -> int:
         return 0 if self.mesh is None else self.mesh.shape["data"]
 
-    def _mesh_fn(self, key: tuple, build):
-        """The mesh path ``key``, built by ``build()`` once (its replicas
-        are copies of the weights)."""
-        if key not in self._mesh_fns:
+    def _mesh_replicas(self, name: str, obj) -> list:
+        """``obj`` (what serves ``name``) on each device of the mesh's
+        ``data`` axis, built once and shared by the sharded and the
+        data-parallel paths; the entry on the server's own device is
+        ``obj`` itself."""
+        key = (name, "float" if obj is self._model(name) else "int8")
+        if key not in self._replicas:
             with self._mesh_lock:
-                if key not in self._mesh_fns:
-                    self._mesh_fns[key] = build()
-        return self._mesh_fns[key]
+                if key not in self._replicas:
+                    home = torch.empty(0, device=self.device).device
+                    self._replicas[key] = replicate(obj, self.mesh,
+                                                    home=home)
+        return self._replicas[key]
 
     def _big_route(self, shape) -> tuple:
         """How an input of NHWC ``shape`` runs (JAX's rule, :316-359):
@@ -521,14 +529,13 @@ class ServeState:
     def _sharded(self, name: str, dim: int, route: str):
         """The forward over the mesh's devices, ``dim`` cut into one strip
         per device."""
-        def build():
-            obj, fwd = self._served(name, route)
-            cfg = self._cfg(name)
-            return spatial_sharded_apply(
-                obj, self.mesh, spatial_dim=dim, apply_fn=fwd,
-                halo=TILE_HALO, scale=cfg.get("scale", 1),
-                multiple=1 if cfg["normalize"] is None else 4)
-        return self._mesh_fn(("sharded", name, dim, route), build)
+        obj, fwd = self._served(name, route)
+        cfg = self._cfg(name)
+        return spatial_sharded_apply(
+            obj, self.mesh, spatial_dim=dim, apply_fn=fwd, halo=TILE_HALO,
+            scale=cfg.get("scale", 1),
+            multiple=1 if cfg["normalize"] is None else 4,
+            replicas=self._mesh_replicas(name, obj))
 
     def _to_u8(self, name: str, y: torch.Tensor) -> torch.Tensor:
         """The served output map: clip(y·0.5+0.5) in the tanh domain, clip(y)
@@ -565,12 +572,10 @@ class ServeState:
                     return self._to_u8(name, apply(xs))
             return dispatch
 
-        def build():
-            obj, fwd = self._served(name, "kernel")
-            return data_parallel_apply(
-                obj, self.mesh,
-                apply_fn=lambda r, x: self._to_u8(name, fwd(r, x)))
-        dp = self._mesh_fn(("dp", name), build)
+        obj, fwd = self._served(name, "kernel")
+        dp = data_parallel_apply(
+            obj, self.mesh, apply_fn=lambda r, x: self._to_u8(name, fwd(r, x)),
+            replicas=self._mesh_replicas(name, obj))
 
         def dispatch_dp(xs: torch.Tensor) -> torch.Tensor:
             n = xs.shape[0]

@@ -59,6 +59,7 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
 )
 from celebrity_image_denoiser_tpu_torch.ops import quant_unet
 from celebrity_image_denoiser_tpu_torch.parallel.tiling import strip_bounds
+from celebrity_image_denoiser_tpu_torch.serve import handlers
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
 
 THRESHOLD = 64
@@ -127,6 +128,9 @@ def test_shard_batch_and_replicate():
     for r in reps:
         assert torch.equal(r.weight, m.weight)
         assert r.weight.data_ptr() != m.weight.data_ptr()
+    # the module's own device: its first entry there takes the module
+    reps = parallel.replicate(m, mesh, home=torch.device("cpu"))
+    assert reps[0] is m and len({id(r) for r in reps}) == 4
 
 
 def test_data_parallel_apply_matches_jax(weights):
@@ -357,7 +361,18 @@ def test_sharded_requests_equal_the_mesh_free_server(quantize):
         want = _served(ref, img, model)
         assert ref.last_compute_backend() == kind
         np.testing.assert_array_equal(out, want, err_msg=f"{model} {h}x{w}")
-    assert ("sharded", "denoise", 1, "kernel") in no_tiling._mesh_fns
+    # one replica list per served object, shared by every mesh path; the
+    # entry on the server's own device is the served object itself
+    for server in (st, no_tiling):
+        for (name, kind_of), reps in server._replicas.items():
+            obj = server._served(name, "kernel")[0]
+            assert kind_of == ("float" if obj is server._model(name)
+                               else "int8")
+            assert len(reps) == 4 and reps[0] is obj
+            assert len({id(r) for r in reps}) == 4
+    assert set(no_tiling._replicas) == {("denoise", kind)}
+    assert set(st._replicas) == {("denoise", kind)} | (
+        set() if quantize else {("esrgan", "float")})
 
 
 def _concurrently(fn, args):
@@ -387,16 +402,20 @@ def test_microbatches_over_the_mesh_equal_requests_served_alone(quantize):
         np.testing.assert_array_equal(out, _served(alone, img))
     assert st.batchers.stats() == {
         str(("denoise", (24, 24, 3))): {"batches": 1, "requests": n}}
-    assert ("dp", "denoise") in st._mesh_fns
+    assert [name for name, _ in st._replicas] == ["denoise"]
 
 
-def test_dp_dispatch_pads_to_a_device_multiple_and_crops(weights):
+def test_dp_dispatch_pads_to_a_device_multiple_and_crops(weights,
+                                                         monkeypatch):
     st = ServeState(device="cpu", mesh=_cpu_mesh(4))
     seen = []
-    st._batched_dispatch("denoise")  # builds the data-parallel forward
-    dp = st._mesh_fns[("dp", "denoise")]
-    st._mesh_fns[("dp", "denoise")] = lambda xs: (seen.append(xs.shape[0]),
-                                                  dp(xs))[1]
+    build = handlers.data_parallel_apply
+
+    def spy(*args, **kwargs):
+        dp = build(*args, **kwargs)
+        return lambda xs: (seen.append(xs.shape[0]), dp(xs))[1]
+
+    monkeypatch.setattr(handlers, "data_parallel_apply", spy)
     dispatch = st._batched_dispatch("denoise")
     xs = torch.from_numpy(_x((5, 16, 16, 3)))
     y = dispatch(xs)
@@ -410,7 +429,7 @@ def test_warmup_warms_the_data_parallel_dispatch():
     st = ServeState(device="cpu", mesh=_cpu_mesh(4),
                     microbatch_window_ms=5.0, microbatch_max=4)
     st.warmup(((16, 16),), models=("denoise",))
-    assert ("dp", "denoise") in st._mesh_fns
+    assert set(st._replicas) == {("denoise", "float")}
 
 
 def test_bucket_divisor_matches_the_jax_server():

@@ -294,7 +294,10 @@ def test_cli_train_on_two_ranks(spawned):
 def test_dryrun_multichip_two():
     from celebrity_image_denoiser_tpu_torch.dryrun import dryrun_multichip
 
-    res = dryrun_multichip(2)
+    if not torch.cuda.is_available():  # the card by default, no fallback
+        with pytest.raises(RuntimeError, match="cuda"):
+            dryrun_multichip(2)
+    res = dryrun_multichip(2, device="cpu")
     assert np.isfinite(res["g_loss"]) and "g2_loss" not in res
     assert res["sharded"] == res["halo"] == [1, 32, 16, 3]
     assert res["backend_float"] == "float"
