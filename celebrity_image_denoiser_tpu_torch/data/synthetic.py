@@ -80,6 +80,13 @@ def synth_clean_batch(gen: torch.Generator, n: int, size: int = 128,
     return torch.clamp(img, 0.0, 1.0)
 
 
+def synth_clean_u8(gen: torch.Generator, n: int, size: int = 128
+                   ) -> torch.Tensor:
+    """``synth_clean_batch`` rounded to uint8 NHWC, the noise kernel's
+    input (the trainers' corpus on the card)."""
+    return (synth_clean_batch(gen, n, size) * 255.0).round().to(torch.uint8)
+
+
 def calibration_batch(tanh: bool, size: int = 128, sigmas=(0.12,), *,
                       generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:

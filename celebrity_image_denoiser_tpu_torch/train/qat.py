@@ -50,9 +50,7 @@ from celebrity_image_denoiser_tpu_torch.core.config import (
     FAMILY_NOISE_VARIANT,
 )
 from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
-from celebrity_image_denoiser_tpu_torch.data.synthetic import (
-    synth_clean_batch,
-)
+from celebrity_image_denoiser_tpu_torch.data.synthetic import synth_clean_u8
 from celebrity_image_denoiser_tpu_torch.metrics import (
     PerceptualDistance,
     psnr,
@@ -95,8 +93,7 @@ def noisy_batch(family: str, gen: torch.Generator, n: int, size: int
     """(noisy, clean) float32 NHWC on ``gen``'s device: ``n`` synthetic
     images of ``size``² as uint8, the family's noise in one launch of the
     noise kernel, on [0, 1] (``domain="unit"``) whatever the family."""
-    clean01 = synth_clean_batch(gen, n, size)
-    u8 = (clean01 * 255.0).round().to(torch.uint8)
+    u8 = synth_clean_u8(gen, n, size)
     if family == "dncnn":
         return noise_lib.blind_gaussian_batch(gen, u8, domain="unit")
     noisy, clean, _ = noise_lib.random_noise_batch(
@@ -260,24 +257,28 @@ def qat_finetune(*, family: str, init_from: str, out: str, qat_steps: int,
                                    "generator_state": state}, meta=meta)
     log(f"[{family}-qat] saved {dst}  "
         f"({time.perf_counter() - t_start:.0f}s total)")
-    meta["fixture_gain_db"] = record_fixture_gain(out, family, device)
+    meta.update(record_fixture_gain(out, family, device))
     log(f"[{family}-qat] serving-fixture gain "
         f"{meta['fixture_gain_db']:+.2f} dB recorded")
     return {"meta": meta, "chunks": records, "before": before}
 
 
-def record_fixture_gain(weights_dir: str, family: str, device) -> float:
-    """The fixture gain of ``family`` served int8 from ``weights_dir``,
-    written into its ``meta.json``; returned."""
+def record_fixture_gain(weights_dir: str, family: str, device
+                        ) -> Dict[str, float]:
+    """The fixture gain of ``family`` served int8 from ``weights_dir`` (for
+    srgan also its battery gain), written into its ``meta.json``; returned
+    as the keys written."""
     from celebrity_image_denoiser_tpu_torch.serve import quality
     from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
 
     st = ServeState(weights_dir=weights_dir, quantize="int8", device=device)
-    fg = round(quality.fixture_gain_db(st, family), 3)
+    gains = {"fixture_gain_db": round(quality.fixture_gain_db(st, family), 3)}
+    if family == "srgan":
+        gains["battery_gain_db"] = round(quality.srgan_battery_gain_db(st), 3)
     meta_path = os.path.join(weights_dir, family, "meta.json")
     with open(meta_path) as f:
         meta = json.load(f)
-    meta["fixture_gain_db"] = fg
+    meta.update(gains)
     with open(meta_path, "w") as f:
         json.dump(meta, f, indent=1)
-    return fg
+    return gains

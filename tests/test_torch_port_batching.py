@@ -43,6 +43,7 @@ from celebrity_image_denoiser_tpu_torch.serve.batching import (
     _pow2_at_least,
 )
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 LONG_WINDOW_MS = 60_000.0  # a batch that is not full would wait a minute
 TIMEOUT = 60  # seconds for any one result

@@ -76,19 +76,11 @@ from celebrity_image_denoiser_tpu_torch.serve import quality
 from celebrity_image_denoiser_tpu_torch.serve.app import make_server
 from celebrity_image_denoiser_tpu_torch.serve.handlers import KERAS, ServeState
 from celebrity_image_denoiser_tpu_torch.utils import tree as treelib
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = default_weights_dir()
 SHIPPED = os.path.join(WEIGHTS, "cgan_epoch_500.keras")
 FLOOR = 1.0  # cgan records no margin: tests/test_serve.py:495-519
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """PyTorch's CPU ops on one thread: the suite runs several workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -61,6 +61,7 @@ from celebrity_image_denoiser_tpu_torch.data import noise as port_noise
 from celebrity_image_denoiser_tpu_torch.data.pipeline import DataPipeline
 from celebrity_image_denoiser_tpu_torch.ops.cuda import noise as noise_kernel
 from celebrity_image_denoiser_tpu_torch.ops.resize import resize
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 TYPES = port_noise.NOISE_TYPES
 SIZES = [(32, 32), (40, 36), (28, 30), (33, 31), (64, 48), (24, 40)]

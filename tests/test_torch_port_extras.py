@@ -31,6 +31,7 @@ from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.train import gan_trainer
 from celebrity_image_denoiser_tpu_torch.utils import profiling
 from celebrity_image_denoiser_tpu_torch.viz import training_plots
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 HW = 16  # the train steps' side
 

@@ -79,24 +79,13 @@ from celebrity_image_denoiser_tpu_torch.ops.padding import (
 from celebrity_image_denoiser_tpu_torch.ops.resize import resize
 from celebrity_image_denoiser_tpu_torch.serve import quality
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = default_weights_dir()
 FAMILIES = ("dncnn", "esrgan", "srgan")
 # a 0.7 × the margin recorded in weights/<family>/meta.json
 FLOORS = {"dncnn": 0.7 * 7.66, "esrgan": 0.7 * 6.81}
 SRGAN_BATTERY_FLOOR = 0.7 * 2.291
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """This module's PyTorch CPU ops on one thread.  The suite runs six
-    workers on the machine's cores; with a thread per core each of the many
-    small parallel regions here waited for threads the other workers had
-    preempted (the srgan int8 battery: 0.5 s alone, 90 s in the suite)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -20,10 +20,12 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "celebrity_image_denoiser_tpu_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "retrain_recipe.py"]
 JAX_PKG_IMPORT = re.compile(
     r"^\s*(from|import)\s+celebrity_image_denoiser_tpu(?!_torch)\b", re.M)
 JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax)\b", re.M)
@@ -65,7 +67,11 @@ def test_port_has_modules_to_check():
                  "viz.training_plots", "viz.side_by_side",
                  # multiple devices: the serving and training meshes
                  "parallel.mesh", "parallel.collectives",
-                 "parallel.dataparallel", "dryrun"):
+                 "parallel.dataparallel", "dryrun",
+                 # retraining the shipped weights, the walkthroughs
+                 "train.serving", "cli.train_serving_weights",
+                 "cli.srgan_frontier", "examples.quickstart",
+                 "examples.multichip"):
         assert f"celebrity_image_denoiser_tpu_torch.{name}" in mods, name
     assert len(PORT_FILES) > 35
 
@@ -148,6 +154,30 @@ def test_cli_noise_gen_defaults_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         noise_gen.main(["--clean-dir", str(tmp_path), "--out-dir",
                         str(tmp_path / "out")])
+
+
+def test_retraining_and_the_examples_default_to_the_card(no_cuda,
+                                                        tmp_path):
+    from celebrity_image_denoiser_tpu_torch.cli import (
+        srgan_frontier,
+        train_serving_weights,
+    )
+    from celebrity_image_denoiser_tpu_torch.examples import (
+        multichip,
+        quickstart,
+    )
+
+    for family in ("dncnn", "perceptual"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_serving_weights.main(["--family", family, "--out",
+                                        str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        quickstart.main(["--workdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        multichip.main([])
+    # the sweep reports each point's failure and exits 1
+    assert srgan_frontier.main(["--out", str(tmp_path / "sweep")]) == 1
+    assert not any(tmp_path.iterdir())  # nothing was written
 
 
 def test_noise_kernel_never_falls_back_off_the_cpu(no_cuda):

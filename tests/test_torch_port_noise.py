@@ -33,6 +33,7 @@ from celebrity_image_denoiser_tpu.data import noise as jax_noise
 from celebrity_image_denoiser_tpu.ops.pallas import noise_kernel as jax_kernel
 from celebrity_image_denoiser_tpu_torch.data import noise as port_noise
 from celebrity_image_denoiser_tpu_torch.ops.cuda import noise as k4
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 PHILOX_KAT = [  # Random123 kat_vectors: counter, key, output
     ((0, 0, 0, 0), (0, 0),

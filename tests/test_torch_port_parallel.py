@@ -61,6 +61,7 @@ from celebrity_image_denoiser_tpu_torch.ops import quant_unet
 from celebrity_image_denoiser_tpu_torch.parallel.tiling import strip_bounds
 from celebrity_image_denoiser_tpu_torch.serve import handlers
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 THRESHOLD = 64
 TIMEOUT = 60

@@ -41,6 +41,7 @@ from celebrity_image_denoiser_tpu_torch.data.synthetic import (
 from celebrity_image_denoiser_tpu_torch.models import registry
 from celebrity_image_denoiser_tpu_torch.ops import quant
 from celebrity_image_denoiser_tpu_torch.train import qat
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")

@@ -26,6 +26,7 @@ from celebrity_image_denoiser_tpu_torch.core.config import default_weights_dir
 from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.serve import quality
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = default_weights_dir()
 

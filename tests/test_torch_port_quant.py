@@ -60,6 +60,7 @@ from celebrity_image_denoiser_tpu_torch.serve.quality import (
     psnr_u8,
     structured_clean,
 )
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = "weights/denoise"
 BF16 = torch.bfloat16

@@ -32,6 +32,7 @@ from celebrity_image_denoiser_tpu_torch.ckpt.convert import load_npz_state_dict
 from celebrity_image_denoiser_tpu_torch.data import imageio
 from celebrity_image_denoiser_tpu_torch.serve.app import make_server
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 BOUNDARY = "portparityboundary"
 

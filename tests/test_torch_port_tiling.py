@@ -43,6 +43,7 @@ from celebrity_image_denoiser_tpu_torch.serve.handlers import (
     EnhanceError,
     ServeState,
 )
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 THRESHOLD = 64
 # (H, W) before padding to 4: over the threshold on one axis or both

@@ -57,6 +57,7 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3, double_conv
 from celebrity_image_denoiser_tpu_torch.train import gan_trainer
 from celebrity_image_denoiser_tpu_torch.train import losses as port_losses
 from celebrity_image_denoiser_tpu_torch.train import optim as port_optim
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _np_tree(tree):

@@ -52,20 +52,11 @@ from celebrity_image_denoiser_tpu_torch.ops.resize import resize
 from celebrity_image_denoiser_tpu_torch.train import gan_trainer
 from celebrity_image_denoiser_tpu_torch.train import losses as port_losses
 from celebrity_image_denoiser_tpu_torch.train import optim as port_optim
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 FAMILIES = ("dncnn", "esrgan", "cgan", "srgan")
 HW = 32
 LR_HW = 8  # srgan's input, ×4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """PyTorch's CPU ops on one thread: the suite runs six workers on the
-    machine's cores (see tests/test_torch_port_families.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -42,6 +42,7 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
     DenoiseGenerator,
     serve_step,
 )
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 WEIGHTS = "weights/denoise"
 

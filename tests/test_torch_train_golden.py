@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import jax.numpy as jnp
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
