@@ -377,30 +377,33 @@ def _tree_hash(root):
 def cli_runs(tmp_path_factory, script):
     """``cli.train_serving_weights`` on the CPU for dncnn, perceptual and
     srgan (2 stage-1 steps, EMA 0.5, a stage-1 cache), with ``weights/``
-    hashed before and after.  dncnn's fixture gain is recorded by its int8
-    server; srgan's recording runs with the server and its two gains
-    stubbed (its int8 server calibrates for about 14 s on the CPU; phase 16
-    records them on the card)."""
+    hashed before and after.  The gains' recording runs with its int8
+    server and the two gains stubbed (the server calibrates for 5–14 s on
+    the CPU): ``test_torch_port_qat_export.py`` records a real int8
+    server's gain through the same ``qat.record_fixture_gain``, and phase
+    16 of ``chip_smoke.py`` these families' on the card."""
     from celebrity_image_denoiser_tpu_torch.serve import handlers, quality
 
     before = _tree_hash(WEIGHTS)
     out = tmp_path_factory.mktemp("sw")
     common = ["--chunk", "1", "--batch", "2", "--out", str(out / "w"),
               "--device", "cpu"]
-    runs = {
-        "dncnn": train_serving_weights.run(
-            ["--family", "dncnn", "--steps", "2", "--size", "16"] + common),
-        "perceptual": train_serving_weights.run(
-            ["--family", "perceptual", "--steps", "3", "--size", "16"]
-            + common)}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(handlers, "ServeState", lambda **kw: "served")
-        mp.setattr(quality, "fixture_gain_db", lambda st, model: 1.25)
+        mp.setattr(quality, "fixture_gain_db",
+                   lambda st, model: {"dncnn": 2.5, "srgan": 1.25}[model])
         mp.setattr(quality, "srgan_battery_gain_db", lambda st: 0.5)
-        runs["srgan"] = train_serving_weights.run(
-            ["--family", "srgan", "--steps", "2", "--pretrain-steps", "2",
-             "--ema", "0.5", "--pretrain-ckpt", str(out / "s1"), "--size",
-             "32"] + common)
+        runs = {
+            "dncnn": train_serving_weights.run(
+                ["--family", "dncnn", "--steps", "2", "--size", "16"]
+                + common),
+            "perceptual": train_serving_weights.run(
+                ["--family", "perceptual", "--steps", "3", "--size", "16"]
+                + common),
+            "srgan": train_serving_weights.run(
+                ["--family", "srgan", "--steps", "2", "--pretrain-steps",
+                 "2", "--ema", "0.5", "--pretrain-ckpt", str(out / "s1"),
+                 "--size", "32"] + common)}
     return out, runs, before
 
 
@@ -419,6 +422,7 @@ def test_cli_writes_the_script_layout(cli_runs):
     assert runs["srgan"]["meta"]["stage_lr"] == 2e-4 / 4
     assert (runs["srgan"]["meta"]["fixture_gain_db"],
             runs["srgan"]["meta"]["battery_gain_db"]) == (1.25, 0.5)
+    assert runs["dncnn"]["meta"]["fixture_gain_db"] == 2.5
     assert "battery_gain_db" not in runs["dncnn"]["meta"]
     assert runs["srgan"]["meta"]["pretrain_steps"] == 2
     assert [c["stage"] for c in runs["srgan"]["chunks"]] == \
