@@ -9,15 +9,17 @@
 //
 // Layout: x (N,H,W,Cin) NHWC, W (3,3,Cin,Cout) HWIO in x's dtype, b (Cout,)
 // float32, y (N,H,W,Cout) NHWC.  Any H, W, Cin, Cout; ragged edges are
-// masked, and channels >= Cout are never stored.  In bf16 the input may come
-// as two tensors, x (ca channels) and x2 (cb channels, a strided NHWC view
-// with contiguous channels), standing for their concatenation: the U-Net's
-// skip concat before upconv1.0 is then never written to device memory.
+// masked, and channels >= Cout are never stored.  On the tensor-core paths
+// the input may come as two tensors, x (ca channels) and x2 (cb channels, a
+// strided NHWC view with contiguous channels), standing for their
+// concatenation: the U-Net's skip concat before upconv1.0 is then never
+// written to device memory, in bf16 or f32.
 //
-// What bounds it on an H100: upconv1.0 (Cin 128 -> Cout 64) is above the
-// card's bf16 ridge point, so bound by operations, and only the tensor
-// cores come near that bound; upconv1.2 (64 -> 3) is below it, bound by
-// reading its input once.
+// What bounds it on an H100: upconv1.0 (Cin 128 -> Cout 64) and the
+// families' 64 -> 64 and 64 -> 256 convs are above the card's ridge point
+// in bf16 and in f32, so bound by operations, and only the tensor cores
+// come near that bound; upconv1.2 (64 -> 3) is below it, bound by reading
+// its input once.
 //
 // bfloat16 runs on the tensor cores (blocks from conv_mma.cuh):
 //   * Cout > 8: an implicit GEMM per 16x16-pixel tile on wgmma m64n64k16.
@@ -61,8 +63,33 @@
 //     pair's constants read once into registers; the bytes are staged per
 //     warp (2 tile rows x 16 pixels x 64 channels) and leave as 16-byte
 //     stores of each pixel's contiguous channel run.
-// float32 keeps f32 FMA on the CUDA cores (no tensor-core type holds f32's
-// tolerance; TF32 must fail it):
+// float32 also runs on the tensor cores, at f32's tolerance, where Cout > 4
+// (cid_conv3x3_bias_relu_tf32): every multiply is three TF32 products
+// (conv_mma.cuh's last section).  One TF32 product keeps 11 bits of each
+// operand and misses the f32 check by 10-18x; with v = hi + lo (hi =
+// tf32(v), lo = tf32(v - hi)) the sum a_lo b_hi + a_hi b_lo + a_hi b_hi
+// drops only a_lo b_lo, ~2^-22 of the product.  Bound: operations at 495 /
+// 3 TFLOP/s (the TF32 rate over three).
+//   * the bf16 body's block, 16x16 tile, producer warps and persistent ring,
+//     on wgmma m64n64k8 tf32 with A from registers: the activations are
+//     split as ldmatrix delivers them, the weights come split and K-major
+//     (the only B layout wgmma takes for 32-bit types) from the wrapper,
+//     made once per loaded weights;
+//   * a work item is one 8-channel chunk (one k8 step): its 18x18 window
+//     (10,368 bytes) and its 9 taps' hi and lo B tiles (36,864), four
+//     stages (188,928 bytes) -- f32 doubles the window's bytes and the
+//     split doubles the weights', so the bf16 body's 32-channel chunks and
+//     resident weights do not fit;
+//   * each chunk's 72 products go into a fresh wgmma accumulator, added to
+//     the running total rounded to nearest: the tensor cores' own
+//     accumulation truncates, and one accumulator over all of K erred by
+//     1.04e-5 of max|ref| at upconv1.0 (K = 1152) against 1.76e-6 so
+//     (ops/cuda/ablation.py --only f32, H100);
+//   * each output's summation order is fixed (no split-K, no atomics), so
+//     two runs are bit-equal.
+// Cout <= 4 (upconv1.2, dncnn's last conv, the cGAN's tail) keeps f32 FMA
+// on the CUDA cores (cid_conv3x3_bias_relu): bound by bytes, where tensor
+// cores do not help, so N is not padded to 64 there:
 //   * one block computes a TH x TW output tile for COT output channels from
 //     a halo window staged in shared memory CIC channels at a time; each
 //     thread owns PPT pixels of one tile row x 4 output channels.
@@ -77,7 +104,7 @@
 
 namespace {
 
-// ---- float32: CUDA cores --------------------------------------------------
+// ---- float32, Cout <= 4: CUDA cores ---------------------------------------
 constexpr int kThreads = 256;
 
 template <int TH, int TW, int COT, int CIC>
@@ -204,15 +231,14 @@ cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* x, const void* w, const void* b, void* y,
-                         int n, int h, int wd, int cin, int cout, int relu,
-                         cudaStream_t stream) {
-  // Narrow outputs (upconv1.2: Cout = 3) take a 4-channel tile over a wide
-  // pixel tile instead of wasting 61 of 64 channel lanes.
-  if (cout <= 4)
-    return launch_f32<32, 64, 4, 4>(x, w, b, y, n, h, wd, cin, cout, relu,
-                                    stream);
-  return launch_f32<16, 8, 64, 8>(x, w, b, y, n, h, wd, cin, cout, relu,
+// Cout <= 4 (upconv1.2, dncnn body.47, the cGAN's tail: Cout = 3): bound by
+// bytes, where tensor cores do not help; a 4-channel tile over a wide pixel
+// tile.  Wider outputs take the TF32 body (dispatch_tf32).
+cudaError_t launch_f32_narrow(const void* x, const void* w, const void* b,
+                              void* y, int n, int h, int wd, int cin,
+                              int cout, int relu, cudaStream_t stream) {
+  if (cout > 4) return cudaErrorInvalidValue;
+  return launch_f32<32, 64, 4, 4>(x, w, b, y, n, h, wd, cin, cout, relu,
                                   stream);
 }
 
@@ -601,6 +627,135 @@ cudaError_t launch_narrow(const bf16* x, const bf16* w, const float* b,
   return cudaGetLastError();
 }
 
+// ---- float32, Cout > 4: tensor cores, three TF32 products -------------------
+// One work item = (tile, 64-channel output pass, 8-channel chunk): the
+// chunk's 18x18 window (10,368 bytes) and its 9 taps' hi and lo B tiles
+// (36,864 bytes), S stages of them.
+constexpr int kWin32Bytes = kWin * kWin * 32;
+constexpr int kW32Bytes = 9 * conv::kTapBytes32;
+constexpr int kStages32 = 4;
+
+template <int S>
+__global__ void __launch_bounds__(conv::kThreads, 1)
+conv3x3_tf32_kernel(conv::Input in, const float* __restrict__ wk,
+                    const float* __restrict__ bias, float* __restrict__ y,
+                    int H, int W, int Cout, int relu, int tiles_h,
+                    int tiles_w, int total_tiles, int pair_ok) {
+  const int Cin = (in.a.C + in.b.C) / 2;  // the loaders count bf16 halves
+  constexpr int MT = 2;  // position tiles (4 tile rows each) per warpgroup
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  unsigned char* wst = smem_mma;                  // [S][kW32Bytes]
+  unsigned char* xst = smem_mma + S * kW32Bytes;  // [S][kWin32Bytes]
+
+  const int tid = threadIdx.x;
+  const int nchunks = (Cin + conv::kKC32 - 1) / conv::kKC32;
+  const int npass = (Cout + conv::kNB - 1) / conv::kNB;
+  const int my_tiles =
+      (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nitems = my_tiles * npass * nchunks;
+  float* bs = reinterpret_cast<float*>(xst + S * kWin32Bytes);  // [npass*64]
+  conv::load_bias(bs, bias, Cout, npass * conv::kNB, tid, conv::kThreads);
+
+  if (tid >= conv::kConsumers) {
+    mma::setmaxnreg_dec<conv::kProducerRegs>();
+    const int ptid = tid - conv::kConsumers;
+    Cursor ahead;
+    ahead.start(tiles_h, tiles_w);
+    conv::produce<S>(nitems, [&](int, int stage) {
+      const int c0 = 2 * conv::kKC32 * ahead.chunk;  // in bf16 halves
+      conv::load_window<2 * conv::kKC32, kWin, kWin, conv::kProducers>(
+          xst + stage * kWin32Bytes, in.of(c0, ahead.at.n), H, W,
+          in.local(c0), ahead.at.y0 - 1, ahead.at.x0 - 1, ptid);
+      conv::load_weights_tf32<9, conv::kProducers>(
+          wst + stage * kW32Bytes,
+          wk + (size_t)(ahead.pass * nchunks + ahead.chunk) * 9 *
+                   conv::kTapFloats32,
+          ptid);
+      ahead.advance(nchunks, npass, tiles_h, tiles_w);
+    });
+    return;
+  }
+  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  int pbase[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    pbase[mt] = ((wg * MT + mt) * 4 + warp) * kWin + conv::ldm_row();
+
+  Cursor cur;
+  cur.start(tiles_h, tiles_w);
+  float acc[MT][32], part[MT][32];
+  conv::consume<S>(nitems, [&](int, int stage) {
+    conv::mma_taps_tf32<9, MT>(
+        part, conv::WindowAddr<2 * conv::kKC32>{
+                  mma::smem_u32(xst + stage * kWin32Bytes)},
+        pbase, 0, kWin, mma::smem_u32(wst + stage * kW32Bytes), true);
+    conv::add_part(acc, part, cur.chunk == 0);
+    if (cur.chunk == nchunks - 1) {
+      const int n0 = cur.pass * conv::kNB;
+      const TileAt at = cur.at;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int gy = at.y0 + (wg * MT + mt) * 4 + warp;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int gx = at.x0 + lane / 4 + 8 * hf;
+          if (gy >= H || gx >= W) continue;
+          float* out = y + ((size_t)at.n * H * W + (size_t)gy * W + gx) * Cout;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int co = n0 + 8 * i + 2 * (lane % 4);
+            conv::store_pair_f32(
+                out, co, Cout,
+                conv::finish_pair_f32(bs, co, Cout, acc[mt][4 * i + 2 * hf],
+                                      acc[mt][4 * i + 2 * hf + 1], relu),
+                pair_ok);
+          }
+        }
+      }
+    }
+    cur.advance(nchunks, npass, tiles_h, tiles_w);
+  });
+}
+
+// x2 (may be null): a second input of cb channels behind x's ca, read in
+// place; x's channels must end on a chunk boundary (ca % 8 == 0).  wk: the
+// split weights, (ceil(Cout / 64), ceil(Cin / 8), 9, 2, 64, 8) f32.
+cudaError_t dispatch_tf32(const void* xv, const void* x2v, const void* wk,
+                          const void* bv, void* yv, int n, int h, int wd,
+                          int ca, int cb, int cout, int relu, long long x2_sn,
+                          long long x2_sh, long long x2_sw, cudaStream_t s) {
+  const int cin = ca + cb;
+  if (cout <= 4 || wk == nullptr) return cudaErrorInvalidValue;
+  if (x2v != nullptr && (ca % conv::kKC32 != 0 || cb < 1 ||
+                         !conv::strides_fit(2 * x2_sh, 2 * x2_sw)))
+    return cudaErrorInvalidValue;
+  if (!conv::strides_fit(2LL * wd * ca, 2LL * ca)) return cudaErrorInvalidValue;
+  const conv::Input in{
+      conv::f32_image(static_cast<const float*>(xv), ca, (long long)h * wd * ca,
+                      (long long)wd * ca, ca),
+      conv::f32_image(static_cast<const float*>(x2v), cb, x2_sn, x2_sh,
+                      x2_sw)};
+  constexpr int S = kStages32;
+  const int smem = S * (kW32Bytes + kWin32Bytes) + bias_bytes(cout);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_tf32_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + kTile - 1) / kTile, tiles_w = (wd + kTile - 1) / kTile;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = conv::sm_count();
+  if (!cid::grid_fits(tiles) || sms <= 0 || cin < 1)
+    return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  float* y = static_cast<float*>(yv);
+  conv3x3_tf32_kernel<S><<<grid, conv::kThreads, smem, s>>>(
+      in, static_cast<const float*>(wk), static_cast<const float*>(bv), y, h,
+      wd, cout, relu, tiles_h, tiles_w, (int)tiles,
+      cout % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0);
+  return cudaGetLastError();
+}
+
 // x2 (may be null): a second input of cb channels, concatenated behind x's
 // ca; its strides in elements.  It needs the wgmma path and a first input
 // that ends on a chunk boundary; the wrapper concatenates otherwise.
@@ -658,11 +813,25 @@ extern "C" int cid_conv3x3_bias_relu(const void* x, const void* x2,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == cid::kDtypeF32 && x2 == nullptr)
-    return (int)dispatch_f32(x, w, b, y, n, h, wd, ca, cout, relu, s);
+    return (int)launch_f32_narrow(x, w, b, y, n, h, wd, ca, cout, relu, s);
   if (dtype == cid::kDtypeBF16)
     return (int)dispatch_bf16(x, x2, w, b, y, n, h, wd, ca, cb, cout, relu,
                               x2_sn, x2_sh, x2_sw, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// f32 x (N,H,W,ca) [and x2 (N,H,W,cb)] -> f32 y (N,H,W,Cout), Cout > 4, on
+// the tensor cores; wk: the split weights (dispatch_tf32).  Cout <= 4 takes
+// cid_conv3x3_bias_relu's narrow body.
+extern "C" int cid_conv3x3_bias_relu_tf32(const void* x, const void* x2,
+                                          const void* wk, const void* b,
+                                          void* y, int n, int h, int wd,
+                                          int ca, int cb, int cout, int relu,
+                                          long long x2_sn, long long x2_sh,
+                                          long long x2_sw, void* stream) {
+  return (int)dispatch_tf32(x, x2, wk, b, y, n, h, wd, ca, cb, cout, relu,
+                            x2_sn, x2_sh, x2_sw,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // bf16 x (N,H,W,Cin) -> s8 y (N,H,W,Cout) at the per-channel scales qscale

@@ -1,5 +1,6 @@
-// Building blocks of the bf16 3x3 convolutions as implicit GEMMs on the
-// tensor cores, shared by conv3x3_bias_relu.cu and double_conv3x3_relu.cu.
+// Building blocks of the bf16 and f32 3x3 convolutions as implicit GEMMs on
+// the tensor cores, shared by conv3x3_bias_relu.cu and
+// double_conv3x3_relu.cu.
 //
 // One conv stage is a GEMM per tile: M = positions of the tile (64 per
 // wgmma), N = output channels (64 per wgmma), K = 9 taps x input channels,
@@ -14,6 +15,14 @@
 // image, out of channels); tensors whose rows are not 16-byte aligned (Cin or
 // Cout not a multiple of 8, e.g. Cin = 3) are staged by plain 2-byte loads
 // into the same layout.
+//
+// float32 runs the same GEMMs as three TF32 products per multiply (the
+// section at the end): each operand v is split into hi = tf32(v) and lo =
+// tf32(v - hi), and a_lo b_hi + a_hi b_lo, then a_hi b_hi, are accumulated
+// in f32 on wgmma m64n64k8 (the dropped a_lo b_lo is ~2^-22 relative), a
+// partial sum a chunk of 8 input channels added to the running total.  A
+// (the activations) is split in registers as it leaves ldmatrix; B (the
+// weights) arrives split, K-major, from the wrapper.
 #pragma once
 
 #include "mma.cuh"
@@ -370,6 +379,143 @@ __device__ __forceinline__ void store_pair(bf16* out, int co, int Cout,
   }
   out[co] = pr.x;
   if (co + 1 < Cout) out[co + 1] = pr.y;
+}
+
+// ---- float32 on the tensor cores: three TF32 products ----------------------
+// K is walked 8 f32 channels at a time (one k8 step, 32 bytes a pixel).  The
+// activations are staged by the bf16 loaders above: an f32 channel is two
+// bf16 halves to them, so a window of 8 f32 channels is WindowAddr<16>'s
+// 32-byte pitch, and ldmatrix_x4 on it gives the tf32 A fragment (mma.cuh).
+// The weights come from the wrapper as (pass, chunk, tap, hi/lo, 64 n, 8 k)
+// f32 (ops/cuda/conv3x3.py::tf32_weights): one tap of one 8-channel chunk
+// is a hi and a lo B tile of 2048 bytes each, copied as they lie.
+constexpr int kKC32 = 8;                 // f32 input channels per chunk
+constexpr int kTileBytes32 = 64 * 32;    // one B tile: 64 n x 8 k f32
+constexpr int kTapBytes32 = 2 * kTileBytes32;  // hi and lo of one tap
+constexpr int kTapFloats32 = kTapBytes32 / 4;
+
+// An f32 NHWC image (strides in f32 elements) as the bf16 loaders see it.
+inline Image f32_image(const float* p, int C, long long sn, long long sh,
+                       long long sw) {
+  return strided_image(reinterpret_cast<const bf16*>(p), 2 * C, 2 * sn,
+                       2 * sh, 2 * sw);
+}
+
+// Stage TAPS taps of one (pass, chunk) of the split weights (src: its first
+// tap) at dst (256-aligned): row r of 32 bytes (tap, hi/lo, n), its piece j
+// at j ^ ((r >> 2) & 1), the 32-byte swizzle of the B descriptor.
+template <int TAPS, int NTHR>
+__device__ __forceinline__ void load_weights_tf32(unsigned char* dst,
+                                                  const float* src, int tid) {
+  constexpr int PIECES = TAPS * kTapBytes32 / 16;
+  static_assert(PIECES % NTHR == 0, "whole passes of the threads");
+  const uint32_t d0 = mma::smem_u32(dst);
+#pragma unroll
+  for (int pass = 0; pass < PIECES / NTHR; ++pass) {
+    const int i = tid + pass * NTHR, r = i / 2, j = i % 2;
+    mma::cp_async16(d0 + r * 32 + ((j ^ ((r >> 2) & 1)) << 4), src + 4 * i,
+                    true);
+  }
+}
+
+// part[mt] (+)= A_mt (64 positions x TAPS * 8) * B (TAPS * 8 x 64) for the
+// warpgroup's MT position tiles, three TF32 products a tap; fresh: the
+// first product sets part instead (wgmma's scale-d).  Tap t reads pixel
+// pbase[mt] + row_shift + (t / 3) * row_pitch + t % 3 of `addr` (pieces 0
+// and 1: the chunk's 8 channels) and the hi and lo B tiles at wstage + t *
+// kTapBytes32.  A tap's fragments are loaded and split while the tap
+// before is multiplied (two buffers, one commit group a tap); all products
+// are done on return.
+// part is a partial sum over one 8-channel chunk: the caller adds it into
+// its f32 total (round to nearest) chunk by chunk.  The tensor cores add
+// into their accumulator by truncation, and that error, biased one way,
+// grew with K (2.35e-5 of max|ref| at K = 2304 on the card when one wgmma
+// accumulator took every product, 2.0e-6 so); over a chunk's 72 products
+// it stays near the split's own.
+// CID_TF32_NO_CORRECTION (only the CPU tests' control build defines it)
+// leaves out the two correction products: one TF32 product, which must
+// fail the f32 tolerance.
+template <int TAPS, int MT, class Addr>
+__device__ __forceinline__ void mma_taps_tf32(float (&part)[MT][32],
+                                              const Addr& addr,
+                                              const int (&pbase)[MT],
+                                              int row_shift, int row_pitch,
+                                              uint32_t wstage, bool fresh) {
+  const int khalf = ldm_khalf();
+  uint32_t a[2][MT][2][4];  // [buffer][tile][hi, lo][register]
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) {
+    const int par = t & 1;
+    const int shift = row_shift + (t / 3) * row_pitch + t % 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t raw[4];
+      mma::ldmatrix_x4(raw, addr(pbase[mt] + shift, khalf));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma::tf32_split(raw[i], a[par][mt][0][i], a[par][mt][1][i]);
+    }
+    mma::wgmma_fence();
+    const uint32_t hi = wstage + t * kTapBytes32, lo = hi + kTileBytes32;
+    const bool keep = t > 0 || !fresh;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#ifdef CID_TF32_NO_CORRECTION
+      mma::wgmma_m64n64k8_tf32(part[mt], a[par][mt][0],
+                               mma::wgmma_desc_k32(hi), keep);
+#else
+      mma::wgmma_m64n64k8_tf32(part[mt], a[par][mt][1],
+                               mma::wgmma_desc_k32(hi), keep);
+      mma::wgmma_m64n64k8_tf32(part[mt], a[par][mt][0],
+                               mma::wgmma_desc_k32(lo), true);
+      mma::wgmma_m64n64k8_tf32(part[mt], a[par][mt][0],
+                               mma::wgmma_desc_k32(hi), true);
+#endif
+    }
+    mma::wgmma_commit();
+    mma::wgmma_wait<1>();  // the other buffer's products are done
+  }
+  mma::wgmma_wait<0>();
+}
+
+// acc = part (first) or acc + part, element by element, rounded to nearest.
+template <int MT>
+__device__ __forceinline__ void add_part(float (&acc)[MT][32],
+                                         const float (&part)[MT][32],
+                                         bool first) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      acc[mt][e] = first ? part[mt][e] : acc[mt][e] + part[mt][e];
+}
+
+// v + bias, ReLU if asked, for the channel pair co, co + 1 as finish_pair,
+// kept in f32.
+__device__ __forceinline__ float2 finish_pair_f32(const float* bias, int co,
+                                                  int Cout, float v0, float v1,
+                                                  bool relu) {
+  const float2 b = *reinterpret_cast<const float2*>(bias + co);
+  v0 = co < Cout ? v0 + b.x : 0.f;
+  v1 = co + 1 < Cout ? v1 + b.y : 0.f;
+  if (relu) {
+    v0 = relu_f32(v0);
+    v1 = relu_f32(v1);
+  }
+  return make_float2(v0, v1);
+}
+
+// Store such a pair of one output pixel; channels >= Cout are not stored.
+// pair_ok: out + co is 8-byte aligned.
+__device__ __forceinline__ void store_pair_f32(float* out, int co, int Cout,
+                                               float2 v, bool pair_ok) {
+  if (co >= Cout) return;
+  if (co + 1 < Cout && pair_ok) {
+    *reinterpret_cast<float2*>(out + co) = v;
+    return;
+  }
+  out[co] = v.x;
+  if (co + 1 < Cout) out[co + 1] = v.y;
 }
 
 }  // namespace conv

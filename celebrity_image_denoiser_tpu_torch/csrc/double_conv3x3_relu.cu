@@ -10,15 +10,16 @@
 //
 // Layout: x (N,H,W,C0) NHWC; w1 (3,3,C0,C1), w2 (3,3,C1,C2) HWIO in x's
 // dtype; b1 (C1,), b2 (C2,) float32; y (N,H,W,C2) NHWC.  Any C0, C1, C2, H,
-// W; ragged edges are masked.  In bf16 x may come as two tensors, x and x2 (a
+// W; ragged edges are masked.  x may come as two tensors, x and x2 (a
 // strided NHWC view), standing for their channel concatenation: upconv2
-// reads the upsampled tensor and the cropped skip tensor in place.
+// reads the upsampled tensor and the cropped skip tensor in place, in bf16
+// and in f32.
 //
-// What bounds it on an H100: every U-Net pair is far above the bf16 ridge
-// point (e.g. bottleneck 128->256->256), so it is bound by operations, and
-// only the tensor cores come near that bound.  Once the products run there,
-// the next limit is the weights: every block reads all of w1 and w2 from L2,
-// so the tile must be large enough to amortise them.
+// What bounds it on an H100: every U-Net pair is far above the ridge point
+// (e.g. bottleneck 128->256->256) in bf16 and in f32 alike, so it is bound
+// by operations, and only the tensor cores come near that bound.  Once the
+// products run there, the next limit is the weights: every block reads all
+// of w1 and w2 from L2, so the tile must be large enough to amortise them.
 //
 // bfloat16 runs on the tensor cores (blocks from conv_mma.cuh; wgmma
 // m64n64k16; two consumer warpgroups and two producer warpgroups a block, the
@@ -49,10 +50,47 @@
 //     layer's operations, so an im2col to K = 32 would not pay for its copy;
 //     its window (rows of 6 bytes, not 16-byte aligned) is staged by plain
 //     loads packed into 16-byte stores.
-// float32 keeps f32 FMA on the CUDA cores (no tensor-core type holds f32's
-// tolerance; TF32 must fail it): an 8x8 output tile, conv1 over its 10x10
-// halo, 64 channels per pass, 256 threads as 16 channel groups of 4 x 16
-// pixel groups, the input streamed 8 channels at a time.
+// float32 also runs on the tensor cores, at f32's tolerance: every multiply
+// is three TF32 products (conv_mma.cuh's last section).  One TF32 product
+// keeps 11 bits of each operand and misses the f32 check by 10-18x; with
+// v = hi + lo (hi = tf32(v), lo = tf32(v - hi)) the sum a_lo b_hi + a_hi b_lo
+// + a_hi b_hi drops only a_lo b_lo, ~2^-22 of the product.  The
+// activations are split in registers as ldmatrix delivers them (the conv1
+// window, and conv2's f32 intermediate as it is read); the weights come
+// split and K-major (the only B layout wgmma takes for 32-bit types) from
+// the wrapper, made once per loaded weights.  Bound: operations at 495 / 3
+// TFLOP/s (the TF32 rate over three) for every U-Net pair.
+//   * wgmma m64n64k8 tf32 with A from registers; the block, ring, producer
+//     warps and persistence are the bf16 kernel's.  A work item is one
+//     8-channel chunk (one k8 step) of a 64-channel pass of conv1 or conv2:
+//     its 9 taps' hi and lo B tiles (36,864 bytes) and, for conv1, its input
+//     window;
+//   * the intermediate stays f32 in shared memory (x's dtype, as the Pallas
+//     kernel keeps it), so the tile is chosen by C1p, its padded width:
+//     (TH + 2) x 18 x C1p x 4 bytes for a TH x 16 output tile.  C1p = 64:
+//     TH = 16, 82,944 bytes and three stages of 49,664 -- exactly the
+//     232,448 a block may have (C2 <= 64; a wider C2's biases leave room
+//     for six stages of one tap row).  C1p = 128: TH = 8, 92,160 bytes
+//     and three stages of 44,544 (a 16x16 tile, 165,888, leaves room for
+//     two stages of a third of an item only).  C1p = 256 (the bottleneck):
+//     a 16x16 tile's 331,776 bytes exceed the block's limit and an 8x16
+//     tile's 184,320 leave room for one stage of 9 taps, so its items are
+//     one tap row (12,288 bytes of B tiles, 6,400 of window), two stages
+//     (dispatch_tf32 has the measured cost of the smaller items);
+//   * the tensor cores add into a wgmma accumulator by truncation, an error
+//     biased one way that grew with K (2.35e-5 of max|ref| at the
+//     bottleneck when one accumulator took all 2304 products of an output,
+//     2.0e-6 as below; ops/cuda/ablation.py --only f32, H100).  So each
+//     chunk's 72 products go into a fresh accumulator (part) that is then
+//     added, rounded to nearest, to a running total: conv2's in registers,
+//     conv1's in the intermediate itself (no registers held across
+//     chunks, where conv1's three 64-row tiles already fill them);
+//   * conv1's halo positions fill 64-row tiles (324 in 384 at TH = 16, 180
+//     in 256 at TH = 8, where the second warpgroup's last tile is padding
+//     only and computed all the same); conv2 walks C1's chunks only;
+//   * C0 = 3 pads K per tap to one k8 step (72 instead of 27);
+//   * each output's summation order is fixed (no split-K, no atomics), so
+//     two runs are bit-equal.
 // The TPU artifacts (C0 < 8 padding, kpack, H % tile_h == 0) are not carried
 // over.
 
@@ -62,221 +100,6 @@
 #include "conv_mma.cuh"
 
 namespace {
-
-// ---- float32: CUDA cores --------------------------------------------------
-constexpr int kThreads = 256;
-constexpr int TH = 8, TW = 8;           // output tile
-constexpr int MH = TH + 2, MW = TW + 2;  // intermediate tile (1-pixel halo)
-constexpr int IH = TH + 4, IW = TW + 4;  // input window (2-pixel halo)
-constexpr int COT = 64;                  // channels per pass (conv1 and conv2)
-constexpr int CIC = 8;                   // input channels per staged chunk
-constexpr int CG = COT / 4;              // 16 channel groups of 4
-constexpr int PG = kThreads / CG;        // 16 pixel groups
-constexpr int P1 = (MH * MW + PG - 1) / PG;  // conv1 positions per thread (7)
-constexpr int P2 = TH * TW / PG;             // conv2 positions per thread (4)
-constexpr int kWsFloats = 9 * CIC * COT;
-constexpr int kXsFloats = CIC * IH * IW;
-
-using T = float;
-
-__global__ void __launch_bounds__(kThreads)
-double_conv3x3_f32_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                           const float* __restrict__ b1,
-                           const T* __restrict__ w2,
-                           const float* __restrict__ b2, T* __restrict__ y,
-                           int H, int W, int C0, int C1, int C2, int C1p,
-                           int tiles_h, int tiles_w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ws = reinterpret_cast<float*>(smem);   // [tap][c][co]
-  float* xs = ws + kWsFloats;                   // [c][row][col]
-  T* hs = reinterpret_cast<T*>(xs + kXsFloats);  // [pos][c1], pos = r*MW+c
-
-  const int tid = threadIdx.x;
-  const int cg = tid % CG;
-  const int pg = tid / CG;
-
-  int t = blockIdx.x;
-  const int tx = t % tiles_w;
-  t /= tiles_w;
-  const int ty = t % tiles_h;
-  const int n = t / tiles_h;
-  const int y0 = ty * TH, x0 = tx * TW;
-  const size_t img = (size_t)n * H * W;
-
-  // ---- conv1 + b1 + ReLU over the 10x10 halo -> hs ----------------------
-  // position p = pg + PG*i (i < P1, p < MH*MW); its window offset in xs
-  int woff[P1];
-#pragma unroll
-  for (int i = 0; i < P1; ++i) {
-    const int p = pg + PG * i;
-    woff[i] = (p / MW) * IW + p % MW;
-  }
-  for (int c10 = 0; c10 < C1p; c10 += COT) {
-    float acc[P1][4];
-#pragma unroll
-    for (int i = 0; i < P1; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-
-    for (int ci0 = 0; ci0 < C0; ci0 += CIC) {
-      __syncthreads();
-      for (int i = tid; i < kXsFloats; i += kThreads) {
-        const int c = i % CIC;
-        const int p = i / CIC;
-        const int gy = y0 - 2 + p / IW;
-        const int gx = x0 - 2 + p % IW;
-        const int gc = ci0 + c;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C0)
-          v = cid::to_f32(x[(img + (size_t)gy * W + gx) * C0 + gc]);
-        xs[c * IH * IW + p] = v;
-      }
-      for (int i = tid; i < kWsFloats; i += kThreads) {
-        const int co = i % COT;
-        const int r = i / COT;
-        const int c = r % CIC;
-        const int tap = r / CIC;
-        const int gc = ci0 + c, gco = c10 + co;
-        float v = 0.f;
-        if (gc < C0 && gco < C1)
-          v = cid::to_f32(w1[((size_t)tap * C0 + gc) * C1 + gco]);
-        ws[i] = v;
-      }
-      __syncthreads();
-
-      for (int c = 0; c < CIC; ++c) {
-        const float* xc = xs + c * IH * IW;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                &ws[((dy * 3 + dx) * CIC + c) * COT + cg * 4]);
-#pragma unroll
-            for (int i = 0; i < P1; ++i) {
-              if (pg + PG * i < MH * MW) {
-                const float a = xc[woff[i] + dy * IW + dx];
-                acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-                acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-                acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-                acc[i][3] = fmaf(a, wv.w, acc[i][3]);
-              }
-            }
-          }
-        }
-      }
-    }
-
-    // epilogue: bias, ReLU, zero outside the image (conv2's padding), store
-    // in x's dtype.  Channels in [C1, C1p) are written as zeros so conv2 can
-    // read whole chunks.
-#pragma unroll
-    for (int i = 0; i < P1; ++i) {
-      const int p = pg + PG * i;
-      if (p >= MH * MW) continue;
-      const int gy = y0 - 1 + p / MW;
-      const int gx = x0 - 1 + p % MW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c1 = c10 + cg * 4 + k;
-        float v = 0.f;
-        if (inside && c1 < C1) v = cid::relu_f32(acc[i][k] + b1[c1]);
-        hs[p * C1p + c1] = cid::from_f32<T>(v);
-      }
-    }
-  }
-
-  // ---- conv2 + b2 + ReLU over the 8x8 tile -> y -------------------------
-  int hoff[P2];
-#pragma unroll
-  for (int i = 0; i < P2; ++i) {
-    const int q = pg + PG * i;
-    hoff[i] = (q / TW) * MW + q % TW;
-  }
-  for (int c20 = 0; c20 < C2; c20 += COT) {
-    float acc[P2][4];
-#pragma unroll
-    for (int i = 0; i < P2; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-
-    for (int ci0 = 0; ci0 < C1p; ci0 += CIC) {
-      __syncthreads();  // hs complete; previous chunk's weight reads done
-      for (int i = tid; i < kWsFloats; i += kThreads) {
-        const int co = i % COT;
-        const int r = i / COT;
-        const int c = r % CIC;
-        const int tap = r / CIC;
-        const int gc = ci0 + c, gco = c20 + co;
-        float v = 0.f;
-        if (gc < C1 && gco < C2)
-          v = cid::to_f32(w2[((size_t)tap * C1 + gc) * C2 + gco]);
-        ws[i] = v;
-      }
-      __syncthreads();
-
-      for (int c = 0; c < CIC; ++c) {
-        const T* hc = hs + ci0 + c;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                &ws[((dy * 3 + dx) * CIC + c) * COT + cg * 4]);
-#pragma unroll
-            for (int i = 0; i < P2; ++i) {
-              const float a =
-                  cid::to_f32(hc[(size_t)(hoff[i] + dy * MW + dx) * C1p]);
-              acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-              acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-              acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-              acc[i][3] = fmaf(a, wv.w, acc[i][3]);
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < P2; ++i) {
-      const int q = pg + PG * i;
-      const int gy = y0 + q / TW;
-      const int gx = x0 + q % TW;
-      if (gy >= H || gx >= W) continue;
-      T* out = y + (img + (size_t)gy * W + gx) * C2;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c2 = c20 + cg * 4 + k;
-        if (c2 < C2) out[c2] = cid::from_f32<T>(cid::relu_f32(acc[i][k] + b2[c2]));
-      }
-    }
-  }
-}
-
-cudaError_t launch_f32(const void* x, const void* w1, const void* b1,
-                       const void* w2, const void* b2, void* y, int n, int h,
-                       int wd, int c0, int c1, int c2, cudaStream_t stream) {
-  const int c1p = (c1 + COT - 1) / COT * COT;
-  const size_t smem = sizeof(float) * (kWsFloats + kXsFloats) +
-                      sizeof(T) * (size_t)MH * MW * c1p;
-  // a C1 too wide for one block's shared memory is refused here, and the
-  // error comes back to the wrapper
-  cudaError_t err = cudaFuncSetAttribute(
-      double_conv3x3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int tiles_h = (h + TH - 1) / TH;
-  const int tiles_w = (wd + TW - 1) / TW;
-  const long long blocks = (long long)n * tiles_h * tiles_w;
-  if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
-  double_conv3x3_f32_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<T*>(y), h, wd, c0, c1, c2,
-      c1p, tiles_h, tiles_w);
-  return cudaGetLastError();
-}
 
 // ---- bfloat16: tensor cores -------------------------------------------------
 using cid::conv::bf16;
@@ -528,6 +351,309 @@ cudaError_t dispatch_bf16(const void* xv, const void* x2v, const void* w1v,
   return cudaErrorInvalidValue;
 }
 
+// ---- float32: tensor cores, three TF32 products ------------------------------
+// A TH x 16 output tile (TH = 16 or 8, chosen per layer by C1p: the f32
+// intermediate must fit), its (TH + 2) x 18 intermediate in shared memory
+// in f32, pixel-major, 16-byte pieces of 4 channels swizzled by pixel.  One
+// work item = TAPS taps (all 9, or one tap row of 3 where shared memory is
+// short) of one 8-channel chunk of one 64-channel pass of conv1 or conv2:
+// those taps' hi and lo B tiles (4,096 bytes a tap) and, for conv1, the
+// input rows they read ((TH + 4) x 20 pixels for 9 taps, (TH + 2) x 20 for
+// a tap row), S stages of them.  A chunk's products are summed apart and
+// added to the running total when its last item is done.
+constexpr int kTW32 = 16;            // output tile width
+constexpr int kMW32 = kTW32 + 2;     // intermediate width (1-pixel halo)
+constexpr int kWW32 = kTW32 + 4;     // input window width (2-pixel halo)
+
+template <int TH, int TAPS>
+struct Tile32 {
+  static_assert(TAPS == 3 || TAPS == 9, "a tap row or all taps an item");
+  static constexpr int kRows = TAPS / 3;            // tap rows an item
+  static constexpr int kMH = TH + 2;                // intermediate rows
+  static constexpr int kPos1 = kMH * kMW32;         // conv1 positions
+  static constexpr int kMT1 = (kPos1 + 127) / 128;  // 64-row tiles a warpgroup
+  // conv2's 64-row tiles (4 tile rows each) a warpgroup; rows past TH (at
+  // TH = 12) are padding
+  static constexpr int kMT2 = (TH / 4 + 1) / 2;
+  static constexpr int kXRows = kMH + kRows - 1;    // an item's window rows
+  static constexpr int kXBytes = kXRows * kWW32 * 32;
+  static constexpr int kWBytes = TAPS * conv::kTapBytes32;
+  static constexpr int kStageBytes = kWBytes + kXBytes;
+};
+template <int TH, int TAPS>
+inline long long smem_bytes_tf32(int stages, int c1p, int c2) {
+  using T = Tile32<TH, TAPS>;
+  return (long long)stages * T::kStageBytes + (long long)T::kPos1 * c1p * 4 +
+         (c1p + pad64(c2)) * 4;
+}
+
+struct Cursor32 {
+  int conv2, pass, chunk, row, tile, n, y0, x0;
+  __device__ __forceinline__ void set_tile(int t, int th, int tiles_h,
+                                           int tiles_w) {
+    tile = t;
+    x0 = (t % tiles_w) * kTW32;
+    t /= tiles_w;
+    y0 = (t % tiles_h) * th;
+    n = t / tiles_h;
+  }
+};
+
+template <int TH, int S, int TAPS>
+__global__ void __launch_bounds__(conv::kThreads, 1)
+double_conv3x3_tf32_kernel(conv::Input in, const float* __restrict__ w1k,
+                           const float* __restrict__ b1,
+                           const float* __restrict__ w2k,
+                           const float* __restrict__ b2,
+                           float* __restrict__ y, int H, int W, int C1,
+                           int C2, int C1p, int tiles_h, int tiles_w,
+                           int total_tiles, int pair_ok) {
+  using T = Tile32<TH, TAPS>;
+  constexpr int MT1 = T::kMT1, MT2 = T::kMT2, GROUPS = 3 / T::kRows;
+  const int C0 = (in.a.C + in.b.C) / 2;  // the loaders count bf16 halves
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  unsigned char* wst = smem_mma;                   // [S][kWBytes]
+  unsigned char* xst = smem_mma + S * T::kWBytes;  // [S][kXBytes]
+  unsigned char* hs = xst + S * T::kXBytes;       // [kPos1][C1p] f32
+  const int hpitch = C1p * 4;
+  float* bs1 = reinterpret_cast<float*>(hs + T::kPos1 * hpitch);  // [C1p]
+  float* bs2 = bs1 + C1p;                                         // [pad64(C2)]
+
+  const int tid = threadIdx.x;
+  conv::load_bias(bs1, b1, C1, C1p, tid, conv::kThreads);
+  conv::load_bias(bs2, b2, C2, pad64(C2), tid, conv::kThreads);
+  // conv2 walks C1's chunks only: the intermediate is zero beyond C1
+  const int nchunks1 = (C0 + conv::kKC32 - 1) / conv::kKC32;
+  const int nchunks2 = (C1 + conv::kKC32 - 1) / conv::kKC32;
+  const int npass1 = C1p / conv::kNB, npass2 = (C2 + conv::kNB - 1) / conv::kNB;
+  const int my_tiles =
+      (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nitems =
+      my_tiles * GROUPS * (npass1 * nchunks1 + npass2 * nchunks2);
+  auto start = [&](Cursor32& c) {
+    c.conv2 = c.pass = c.chunk = c.row = 0;
+    c.set_tile(blockIdx.x, TH, tiles_h, tiles_w);
+  };
+  auto advance = [&](Cursor32& c) {  // row: the item's first tap row
+    if ((c.row += T::kRows) < 3) return;
+    c.row = 0;
+    if (++c.chunk < (c.conv2 ? nchunks2 : nchunks1)) return;
+    c.chunk = 0;
+    if (++c.pass < (c.conv2 ? npass2 : npass1)) return;
+    c.pass = 0;
+    c.conv2 ^= 1;
+    if (!c.conv2) c.set_tile(c.tile + gridDim.x, TH, tiles_h, tiles_w);
+  };
+
+  if (tid >= conv::kConsumers) {
+    mma::setmaxnreg_dec<conv::kProducerRegs>();
+    const int ptid = tid - conv::kConsumers;
+    Cursor32 ahead;
+    start(ahead);
+    conv::produce<S>(nitems, [&](int, int stage) {
+      const size_t tap0 = 3 * ahead.row;
+      if (!ahead.conv2) {
+        const int c0 = 2 * conv::kKC32 * ahead.chunk;  // in bf16 halves
+        conv::load_window<2 * conv::kKC32, T::kXRows, kWW32,
+                          conv::kProducers>(
+            xst + stage * T::kXBytes, in.of(c0, ahead.n), H, W, in.local(c0),
+            ahead.y0 - 2 + ahead.row, ahead.x0 - 2, ptid);
+        conv::load_weights_tf32<TAPS, conv::kProducers>(
+            wst + stage * T::kWBytes,
+            w1k + ((size_t)(ahead.pass * nchunks1 + ahead.chunk) * 9 + tap0) *
+                      conv::kTapFloats32,
+            ptid);
+      } else {
+        conv::load_weights_tf32<TAPS, conv::kProducers>(
+            wst + stage * T::kWBytes,
+            w2k + ((size_t)(ahead.pass * nchunks2 + ahead.chunk) * 9 + tap0) *
+                      conv::kTapFloats32,
+            ptid);
+      }
+      advance(ahead);
+    });
+    return;
+  }
+  mma::setmaxnreg_inc<conv::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  // conv1: the halo positions in 64-row tiles; those past kPos1 are padding,
+  // which reads pixel 0 and stores nothing.  An item's window starts at its
+  // first tap row, so position (r, c) reads window pixel (r + tap / 3, c +
+  // tap % 3) for the item's taps.
+  int pbase1[MT1], pbase2[MT2];
+#pragma unroll
+  for (int mt = 0; mt < MT1; ++mt) {
+    const int q = (wg * MT1 + mt) * 64 + warp * 16 + conv::ldm_row();
+    pbase1[mt] = q < T::kPos1 ? (q / kMW32) * kWW32 + q % kMW32 : 0;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT2; ++mt) {
+    const int r = (wg * MT2 + mt) * 4 + warp;  // padding rows read row 0
+    pbase2[mt] = (r < TH ? r : 0) * kMW32 + conv::ldm_row();
+  }
+
+  // part: a chunk's partial sums (mma_taps_tf32), conv2 using the first
+  // MT2 tiles.  conv1's running total lives in the intermediate itself,
+  // conv2's in acc2.
+  Cursor32 cur;
+  start(cur);
+  float part[MT1 > MT2 ? MT1 : MT2][32], acc2[MT2][32];
+  float(&part1)[MT1][32] = reinterpret_cast<float(&)[MT1][32]>(part);
+  float(&part2)[MT2][32] = reinterpret_cast<float(&)[MT2][32]>(part);
+  conv::consume<S>(nitems, [&](int, int stage) {
+    const int y0 = cur.y0, x0 = cur.x0, n0 = cur.pass * conv::kNB;
+    const bool fresh = cur.row == 0;            // the chunk's first item
+    const bool last = cur.row + T::kRows == 3;  // the chunk's last item
+    const uint32_t wstage = mma::smem_u32(wst + stage * T::kWBytes);
+    if (!cur.conv2) {
+      // ---- conv1 + b1 + ReLU over the halo -> hs -------------------------
+      conv::mma_taps_tf32<TAPS, MT1>(
+          part1, conv::WindowAddr<2 * conv::kKC32>{
+                     mma::smem_u32(xst + stage * T::kXBytes)},
+          pbase1, 0, kWW32, wstage, fresh);
+      if (last) {
+        // the chunk's sums into the running total in hs; after the last
+        // chunk, + b1, ReLU, and 0 outside the image (conv2's padding)
+        const bool first_chunk = cur.chunk == 0;
+        const bool last_chunk = cur.chunk == nchunks1 - 1;
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int q =
+                (wg * MT1 + mt) * 64 + warp * 16 + lane / 4 + 8 * hf;
+            if (q >= T::kPos1) continue;
+            const int gy = y0 - 1 + q / kMW32, gx = x0 - 1 + q % kMW32;
+            const int c1 = gy >= 0 && gy < H && gx >= 0 && gx < W ? C1 : 0;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int c = n0 + 8 * i + 2 * (lane % 4);
+              float2* h = reinterpret_cast<float2*>(
+                  hs + (size_t)q * hpitch + (((c / 4) ^ (q & 7)) << 4) +
+                  (c % 4) * 4);
+              float2 v = make_float2(part1[mt][4 * i + 2 * hf],
+                                     part1[mt][4 * i + 2 * hf + 1]);
+              if (!first_chunk) {
+                const float2 o = *h;
+                v = make_float2(o.x + v.x, o.y + v.y);
+              }
+              if (last_chunk) v = conv::finish_pair_f32(bs1, c, c1, v.x, v.y,
+                                                        true);
+              *h = v;
+            }
+          }
+      }
+    } else {
+      // ---- conv2 + b2 + ReLU over the output tile -> y -----------------------
+      conv::mma_taps_tf32<TAPS, MT2>(
+          part2,
+          conv::WideAddr{mma::smem_u32(hs), hpitch,
+                         cur.chunk * (conv::kKC32 / 4)},
+          pbase2, cur.row * kMW32, kMW32, wstage, fresh);
+      if (last) conv::add_part(acc2, part2, cur.chunk == 0);
+      if (cur.chunk == nchunks2 - 1 && last) {
+#pragma unroll
+        for (int mt = 0; mt < MT2; ++mt) {
+          const int r = (wg * MT2 + mt) * 4 + warp, gy = y0 + r;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int gx = x0 + lane / 4 + 8 * hf;
+            if (r >= TH || gy >= H || gx >= W) continue;
+            float* out = y + ((size_t)cur.n * H * W + (size_t)gy * W + gx) * C2;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int co = n0 + 8 * i + 2 * (lane % 4);
+              conv::store_pair_f32(
+                  out, co, C2,
+                  conv::finish_pair_f32(bs2, co, C2, acc2[mt][4 * i + 2 * hf],
+                                        acc2[mt][4 * i + 2 * hf + 1], true),
+                  pair_ok);
+            }
+          }
+        }
+      }
+    }
+    advance(cur);
+  });
+}
+
+template <int TH, int S, int TAPS>
+cudaError_t launch_tf32(const conv::Input& in, const float* w1k,
+                        const float* b1, const float* w2k, const float* b2,
+                        float* y, int n, int h, int wd, int c1, int c2,
+                        int c1p, cudaStream_t stream) {
+  const int smem = (int)smem_bytes_tf32<TH, TAPS>(S, c1p, c2);
+  cudaError_t err = cudaFuncSetAttribute(
+      double_conv3x3_tf32_kernel<TH, S, TAPS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + TH - 1) / TH, tiles_w = (wd + kTW32 - 1) / kTW32;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = conv::sm_count();
+  if (!cid::grid_fits(tiles) || sms <= 0) return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  double_conv3x3_tf32_kernel<TH, S, TAPS>
+      <<<grid, conv::kThreads, smem, stream>>>(
+      in, w1k, b1, w2k, b2, y, h, wd, c1, c2, c1p, tiles_h, tiles_w,
+      (int)tiles, c2 % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0);
+  return cudaGetLastError();
+}
+
+// The tile and ring by C1p, the intermediate's channels (whole 64-channel
+// passes).  The f32 intermediate takes (TH + 2) x 18 x C1p x 4 bytes:
+//   C1p =  64, 16x16 tile:  82,944 bytes, beside it three stages of 9-tap
+//                          items (49,664 bytes each: exactly the 232,448 a
+//                          block may have with C2 <= 64), else six of 3-tap
+//                          items (23,808);
+//   C1p = 128,  8x16 tile:  92,160 bytes, three stages of 9-tap items
+//                          (44,544); a 16x16 tile (165,888) leaves room
+//                          for two stages of 3-tap items only, which took
+//                          1.2x as long at upconv2 (256 -> 128 -> 128,
+//                          256x256);
+//   C1p = 256,  8x16 tile: 184,320 bytes (a 16x16 one, 331,776, exceeds the
+//                          block's limit), two stages of 3-tap items
+//                          (18,688): one stage of 9 taps is all that fits.
+// Items of all 9 taps meet the block's barriers a third as often: 3-tap
+// items took 1.16-1.32x as long at C1p = 64 (down1, 64 -> 64 -> 64; both
+// at 512x512).  Times on an H100 80GB HBM3 at 700 W: ops/cuda/ablation.py
+// --only f32.
+// A wider C1 is refused, and the error comes back to the wrapper.  x2 (may
+// be null): a second input behind x's ca channels, read in place; x's
+// channels must end on a chunk boundary (ca % 8 == 0).  w1k, w2k: the
+// split weights (conv3x3.py::tf32_weights).
+cudaError_t dispatch_tf32(const void* xv, const void* x2v, const void* w1k,
+                          const void* b1v, const void* w2k, const void* b2v,
+                          void* yv, int n, int h, int wd, int ca, int cb,
+                          int c1, int c2, long long x2_sn, long long x2_sh,
+                          long long x2_sw, cudaStream_t s) {
+  if (w1k == nullptr || w2k == nullptr) return cudaErrorInvalidValue;
+  if (x2v != nullptr && (ca % conv::kKC32 != 0 || cb < 1 ||
+                         !conv::strides_fit(2 * x2_sh, 2 * x2_sw)))
+    return cudaErrorInvalidValue;
+  if (!conv::strides_fit(2LL * wd * ca, 2LL * ca)) return cudaErrorInvalidValue;
+  const conv::Input in{
+      conv::f32_image(static_cast<const float*>(xv), ca, (long long)h * wd * ca,
+                      (long long)wd * ca, ca),
+      conv::f32_image(static_cast<const float*>(x2v), cb, x2_sn, x2_sh,
+                      x2_sw)};
+  const float* w1 = static_cast<const float*>(w1k);
+  const float* w2 = static_cast<const float*>(w2k);
+  const float* b1 = static_cast<const float*>(b1v);
+  const float* b2 = static_cast<const float*>(b2v);
+  float* y = static_cast<float*>(yv);
+  const int c1p = pad64(c1);
+#define CID_TRY(TH, S, TAPS)                                              \
+  if (smem_bytes_tf32<TH, TAPS>(S, c1p, c2) <= conv::kMaxSmem)            \
+    return launch_tf32<TH, S, TAPS>(in, w1, b1, w2, b2, y, n, h, wd, c1, c2, \
+                                    c1p, s);
+  CID_TRY(16, 3, 9)
+  CID_TRY(16, 6, 3)
+  CID_TRY(8, 3, 9)
+  CID_TRY(8, 2, 3)
+#undef CID_TRY
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int cid_double_conv3x3_relu(const void* x, const void* x2,
@@ -538,10 +664,20 @@ extern "C" int cid_double_conv3x3_relu(const void* x, const void* x2,
                                        long long x2_sh, long long x2_sw,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == cid::kDtypeF32 && x2 == nullptr)
-    return (int)launch_f32(x, w1, b1, w2, b2, y, n, h, wd, ca, c1, c2, s);
   if (dtype == cid::kDtypeBF16)
     return (int)dispatch_bf16(x, x2, w1, b1, w2, b2, y, n, h, wd, ca, cb, c1,
                               c2, x2_sn, x2_sh, x2_sw, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// f32 x (N,H,W,ca) [and x2 (N,H,W,cb)] -> f32 y (N,H,W,C2) on the tensor
+// cores; w1k, w2k: the split weights (dispatch_tf32).
+extern "C" int cid_double_conv3x3_relu_tf32(
+    const void* x, const void* x2, const void* w1k, const void* b1,
+    const void* w2k, const void* b2, void* y, int n, int h, int wd, int ca,
+    int cb, int c1, int c2, long long x2_sn, long long x2_sh, long long x2_sw,
+    void* stream) {
+  return (int)dispatch_tf32(x, x2, w1k, b1, w2k, b2, y, n, h, wd, ca, cb, c1,
+                            c2, x2_sn, x2_sh, x2_sw,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,9 @@
 // The PTX the conv kernels need, and nothing else: asynchronous 16-byte
 // copies into shared memory, ldmatrix (x4 and x2), the warp matrix
 // instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
-// accumulation), the warpgroup ones (wgmma m64n64k16 in bf16 and m64n64k32
-// in s8, A in registers and B read from shared memory through a
-// descriptor), setmaxnreg and a warp barrier.
+// accumulation), the warpgroup ones (wgmma m64n64k16 in bf16, m64n64k32
+// in s8 and m64n64k8 in tf32, A in registers and B read from shared memory
+// through a descriptor), the tf32 rounding, setmaxnreg and a warp barrier.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -48,6 +48,15 @@
 //     start + (n / 8) * SBO + (n % 8) * 32, and its 16-byte piece j sits at
 //     piece j ^ (address bit 7), i.e. j ^ ((n >> 2) & 1) when start is a
 //     multiple of 256 -- conv_s8.cuh's row layout, with SBO = 256.
+//   tf32 wgmma (m64n64k8, f32 accumulators laid out as the f32 D above): a
+//     tf32 operand is an f32 whose low 13 bits the tensor cores ignore.  A,
+//     per warp, 16 rows x 8 k, one value a register: a[0] = A[g][q],
+//     a[1] = A[g+8][q], a[2] = A[g][q+4], a[3] = A[g+8][q+4] -- what
+//     ldmatrix_x4 gives from rows of 16-byte pieces (4 f32) with the bf16
+//     addressing above (piece = l / 16).  B, 8 k x 64 n, is K-major (the
+//     only form wgmma takes for 32-bit types): column n is the 32 bytes of
+//     its 8 k, laid out exactly as the s8 B above (32-byte swizzle, SBO 256,
+//     the same descriptor).
 #pragma once
 
 #include <cstdint>
@@ -74,8 +83,8 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t start,
          (1ull << 16) | (uint64_t)((start >> 4) & 0x3FFF);
 }
 
-// Descriptor of an s8 wgmma B tile (K-major, 32-byte swizzle) as laid out
-// above: start a multiple of 256, 8-column groups 256 bytes apart; the
+// Descriptor of an s8 or tf32 wgmma B tile (K-major, 32-byte swizzle) as
+// laid out above: start a multiple of 256, 8-column groups 256 bytes apart; the
 // leading-dimension offset is unused (one k32 step spans the swizzle's
 // width) and set to one unit.
 __device__ __forceinline__ uint64_t wgmma_desc_k32(uint32_t start) {
@@ -219,6 +228,45 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
         "r"((int)accumulate));
 }
 
+// d (64x64 f32, this warpgroup's) = A (64x8 tf32, registers) * B (8x64
+// tf32, shared memory, K-major, 32-byte swizzle) + (accumulate ? d : 0).
+// Asynchronous as above.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc,
+                                                    bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"((int)accumulate));
+}
+
+// The f32 value v (given as its bits) as hi + lo, two tf32 values: hi = v
+// rounded to tf32 (nearest, ties away from zero), lo = v - hi (exact in
+// f32) rounded the same way.  lo is formed from the rounded hi, never from
+// v's raw upper bits; |v - hi - lo| <= 2^-22 |v| or so.
+__device__ __forceinline__ void tf32_split(uint32_t v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(v)));
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(lo)
+      : "f"(__uint_as_float(v) - __uint_as_float(hi)));
+}
+
 // A barrier over the calling thread's warp (its shared-memory writes are
 // visible to the warp after it).
 __device__ __forceinline__ void warp_sync() { __syncwarp(); }
@@ -242,6 +290,22 @@ inline float bf16_at(uint32_t word, int half) {
 }
 inline int s8_at(uint32_t word, int byte) {
   return (int)(int8_t)((word >> (8 * byte)) & 0xFFu);
+}
+// the value the tensor cores read from a tf32 operand: its low 13 bits
+// dropped
+inline float tf32_at(uint32_t word) {
+  const uint32_t u = word & 0xFFFFE000u;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// cvt.rna.tf32.f32: to nearest on the magnitude, ties away from zero (NaN
+// and infinity kept)
+inline uint32_t tf32_rna(float v) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  if ((u & 0x7FFFFFFFu) >= 0x7F800000u) return u;
+  return (u + 0x1000u) & 0xFFFFE000u;
 }
 // element (row, k) of a 16x16 A tile whose fragments lie at frag[lane][4]
 inline float a_at(const uint32_t* frag, int row, int k) {
@@ -387,6 +451,43 @@ inline void wgmma_m64n64k32_s8(int (&d)[32], const uint32_t (&a)[4],
     d[e] = acc;
   }
   ::mock::warpgroup_sync();
+}
+
+inline void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                uint64_t desc, bool accumulate) {
+  uint32_t* sa = ::mock::warpgroup_scratch();  // [4 warps][32][4]
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  for (int i = 0; i < 4; ++i) sa[t * 4 + i] = a[i];
+  ::mock::warpgroup_sync();
+  // only K-major B with the 32-byte swizzle and 256 bytes between 8-column
+  // groups is used
+  if ((desc >> 62) != 3 || ((desc >> 32) & 0x3FFF) != 16) std::abort();
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t* fa = sa + warp * 128;
+  for (int e = 0; e < 32; ++e) {
+    const int row = lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    float acc = accumulate ? d[e] : 0.f;
+    for (int k = 0; k < 8; ++k) {
+      uint32_t off = start + (col / 8) * 256 + (col % 8) * 32 + k * 4;
+      off ^= ((off >> 7) & 1) << 4;
+      uint32_t b;
+      std::memcpy(&b, ::mock::smem_base() + off, 4);
+      acc += emu::tf32_at(fa[((row % 8) * 4 + k % 4) * 4 + row / 8 +
+                             2 * (k / 4)]) *
+             emu::tf32_at(b);
+    }
+    d[e] = acc;
+  }
+  ::mock::warpgroup_sync();
+}
+
+inline void tf32_split(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  float f, h;
+  std::memcpy(&f, &v, 4);
+  hi = emu::tf32_rna(f);
+  std::memcpy(&h, &hi, 4);
+  lo = emu::tf32_rna(f - h);
 }
 
 inline void warp_sync() { ::mock::warp_sync(); }

@@ -1,7 +1,7 @@
 // Probes of mma.cuh: each computes one small matrix product through the
 // wrappers exactly as the conv kernels use them (cp.async into the swizzled
 // shared-memory layouts of conv_mma.cuh and conv_s8.cuh, ldmatrix, then
-// mma.sync in bf16 or s8, or wgmma in bf16 or s8)
+// mma.sync in bf16 or s8, or wgmma in bf16, s8 or tf32)
 // and writes the result out by the documented fragment layout.  The CPU
 // tests run them under the g++ emulation and chip_smoke.py runs them on the
 // card, both against a plain product, so the emulation's layouts are held
@@ -163,6 +163,59 @@ __global__ void probe_wgmma_s8_kernel(const int8_t* __restrict__ a,
   }
 }
 
+// tf32 wgmma: d (64 x 64) = a (64 x 8*ksteps, row-major) * b^T, b (64 x
+// 8*ksteps) given as the f32 kernels stage weights, [n][k]; both f32 as they
+// are, of which the tensor cores read the upper 19 bits.  A by ldmatrix_x4
+// from 32-byte swizzled pixel rows (the f32 window's layout), B as the
+// K-major 32-byte swizzled tile by descriptor, one k8 step (2048 bytes of
+// each) at a time, the first overwriting the accumulators; one warpgroup,
+// ksteps <= 4.
+__global__ void probe_wgmma_tf32_kernel(const float* __restrict__ a,
+                                        const float* __restrict__ b,
+                                        float* __restrict__ d, int ksteps) {
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int K = 8 * ksteps;
+  const uint32_t bs = mma::smem_u32(smem_mma);  // [ks][64 n][32 bytes]
+  const uint32_t as = bs + 4 * 2048;            // [ks][64 rows][32 bytes]
+  for (int i = tid; i < 64 * 2 * ksteps; i += 128) {
+    const int ks = i / 128, r = (i / 2) % 64, j = i % 2;
+    const uint32_t at = ks * 2048 + r * 32 + ((j ^ ((r >> 2) & 1)) << 4);
+    mma::cp_async16(as + at, a + r * K + ks * 8 + 4 * j, true);
+    mma::cp_async16(bs + at, b + r * K + ks * 8 + 4 * j, true);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  float acc[32];
+  for (int e = 0; e < 32; ++e) acc[e] = -7.f;  // overwritten by the first step
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t fa[4];
+    mma::ldmatrix_x4(fa, conv::WindowAddr<16>{as + ks * 2048}(
+                             warp * 16 + conv::ldm_row(), conv::ldm_khalf()));
+    mma::wgmma_fence();
+    mma::wgmma_m64n64k8_tf32(acc, fa, mma::wgmma_desc_k32(bs + ks * 2048),
+                             ks > 0);
+    mma::wgmma_commit();
+    mma::wgmma_wait<0>();
+  }
+  for (int e = 0; e < 32; ++e) {
+    const int row = warp * 16 + lane / 4 + 8 * ((e % 4) / 2);
+    const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    d[row * 64 + col] = acc[e];
+  }
+}
+
+// hi[i], lo[i] = mma.cuh's split of v[i] into two tf32 values
+constexpr int kSplitThreads = 256;
+__global__ void probe_tf32_split_kernel(const uint32_t* __restrict__ v,
+                                        long long n, uint32_t* __restrict__ hi,
+                                        uint32_t* __restrict__ lo) {
+  for (long long i = (long long)blockIdx.x * kSplitThreads + threadIdx.x;
+       i < n; i += (long long)gridDim.x * kSplitThreads)
+    mma::tf32_split(v[i], hi[i], lo[i]);
+}
+
 // out[j * nh + i] = the s8 epilogue's quantization of h[i] at scale s[j]
 constexpr int kQuantizeThreads = 256;
 __global__ void probe_quantize_kernel(const float* __restrict__ h, int nh,
@@ -225,5 +278,25 @@ extern "C" int cid_probe_wgmma(const void* a, const void* b, void* d,
   probe_wgmma_kernel<<<1, 128, 2 * 64 * 128, s>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<float*>(d), ksteps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cid_probe_wgmma_tf32(const void* a, const void* b, void* d,
+                                    int ksteps, void* stream) {
+  if (ksteps < 1 || ksteps > 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_wgmma_tf32_kernel<<<1, 128, 8 * 2048, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(d), ksteps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cid_probe_tf32_split(const void* v, long long n, void* hi,
+                                    void* lo, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probe_tf32_split_kernel<<<64, kSplitThreads, 0, s>>>(
+      static_cast<const uint32_t*>(v), n, static_cast<uint32_t*>(hi),
+      static_cast<uint32_t*>(lo));
   return (int)cudaGetLastError();
 }

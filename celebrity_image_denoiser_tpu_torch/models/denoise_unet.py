@@ -132,9 +132,11 @@ class DenoiseGenerator(nn.Module):
         reset_conv_parameters(self, generator)
 
     def _kernel_params(self, name: str, conv: nn.Conv2d, dtype: torch.dtype):
-        """(HWIO weight in ``dtype``, f32 bias) for ``conv``, rebuilt only
-        when the parameters change (load_state_dict and in-place optimiser
-        updates bump ``_version``, ``.to()`` replaces the storage)."""
+        """(HWIO weight in ``dtype``, f32 bias, the weight's
+        ``conv3x3.tf32_weights`` copy in f32 else None) for ``conv``,
+        rebuilt only when the parameters change (load_state_dict and
+        in-place optimiser updates bump ``_version``, ``.to()`` replaces the
+        storage)."""
         w, b = conv.weight, conv.bias
         stamp = (w.data_ptr(), w._version, b.data_ptr(), b._version)
         hit = self._kparams.get((name, dtype))
@@ -142,9 +144,11 @@ class DenoiseGenerator(nn.Module):
             with torch.no_grad():
                 hwio = w.detach().permute(2, 3, 1, 0).to(dtype).contiguous()
                 bias = b.detach().float().contiguous()
-            hit = (stamp, hwio, bias)
+                split = (conv3x3.tf32_weights(hwio)
+                         if dtype == torch.float32 else None)
+            hit = (stamp, hwio, bias, split)
             self._kparams[(name, dtype)] = hit
-        return hit[1], hit[2]
+        return hit[1:]
 
     def _pair(self, name: str, x: torch.Tensor, route: str,
               skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -156,11 +160,14 @@ class DenoiseGenerator(nn.Module):
             if skip is not None:
                 x = torch.cat([x, skip], dim=1)
             return torch.relu(seq[2](torch.relu(seq[0](x))))
-        w1, b1 = self._kernel_params(f"{name}.0", seq[0], x.dtype)
-        w2, b2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
-        fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
-              else double_conv.double_conv3x3_relu)
-        return nchw(fn(nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip)))
+        w1, b1, s1 = self._kernel_params(f"{name}.0", seq[0], x.dtype)
+        w2, b2, s2 = self._kernel_params(f"{name}.2", seq[2], x.dtype)
+        if route == "plain":
+            return nchw(double_conv.double_conv3x3_relu_plain(
+                nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip)))
+        return nchw(double_conv.double_conv3x3_relu(
+            nhwc(x), w1, b1, w2, b2, x2=_nhwc_view(skip), w1_tf32=s1,
+            w2_tf32=s2))
 
     def _single(self, idx: int, x: torch.Tensor, relu: bool, route: str,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -170,10 +177,12 @@ class DenoiseGenerator(nn.Module):
                 x = torch.cat([x, skip], dim=1)
             y = conv(x)
             return torch.relu(y) if relu else y
-        w, b = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
-        fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
-              else conv3x3.conv3x3_bias_relu)
-        return nchw(fn(nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
+        w, b, split = self._kernel_params(f"upconv1.{idx}", conv, x.dtype)
+        if route == "plain":
+            return nchw(conv3x3.conv3x3_bias_relu_plain(
+                nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip)))
+        return nchw(conv3x3.conv3x3_bias_relu(
+            nhwc(x), w, b, relu=relu, x2=_nhwc_view(skip), kernel_tf32=split))
 
     def forward(self, x: torch.Tensor, *, route: str = "kernel"
                 ) -> torch.Tensor:

@@ -28,7 +28,8 @@ differed from the untiled one by up to 3 counts.  In NCHW memory cuDNN
 gave the same sums at every tile shape tried on the H100.  The folded,
 kernel-layout weights (HWIO in the activation dtype, f32 bias) are made
 once per loaded weights and rebuilt only when a parameter or statistic
-changes.
+changes; in float32 so is the f32 kernels' split, K-major copy of each
+weight (``conv3x3.tf32_weights``).
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ class FoldedConvNet(nn.Module):
 
     def _folded(self, name: str, conv: nn.Conv2d,
                 bn: Optional[nn.BatchNorm2d], dtype: torch.dtype):
-        """(HWIO weight in ``dtype``, f32 bias) of ``conv`` with ``bn``
+        """(HWIO weight in ``dtype``, f32 bias, the weight's
+        ``tf32_weights`` copy in f32 else None) of ``conv`` with ``bn``
         folded in; a conv without bias and BatchNorm gets a zero bias."""
         ts = [conv.weight] + ([] if conv.bias is None else [conv.bias])
         if bn is not None:
@@ -84,25 +86,29 @@ class FoldedConvNet(nn.Module):
                                            None if conv.bias is None
                                            else conv.bias.detach(), bn)
                 hwio = w.permute(2, 3, 1, 0).to(dtype).contiguous()
-            hit = (stamp, hwio, b.contiguous())
+                split = (conv3x3.tf32_weights(hwio)
+                         if dtype == torch.float32 else None)
+            hit = (stamp, hwio, b.contiguous(), split)
             self._kparams[(name, dtype)] = hit
-        return hit[1], hit[2]
+        return hit[1:]
 
     def _conv(self, name: str, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
               x: torch.Tensor, relu: bool, route: str) -> torch.Tensor:
         """One 3×3 conv (+ folded BN, + ReLU if asked) on NHWC ``x``: K2, or
         its plain version."""
-        w, b = self._folded(name, conv, bn, x.dtype)
-        fn = (conv3x3.conv3x3_bias_relu_plain if route == "plain"
-              else conv3x3.conv3x3_bias_relu)
-        return fn(x, w, b, relu=relu)
+        w, b, split = self._folded(name, conv, bn, x.dtype)
+        if route == "plain":
+            return conv3x3.conv3x3_bias_relu_plain(x, w, b, relu=relu)
+        return conv3x3.conv3x3_bias_relu(x, w, b, relu=relu,
+                                         kernel_tf32=split)
 
     def _pair(self, first: tuple, second: tuple, x: torch.Tensor,
               route: str) -> torch.Tensor:
         """Two 3×3 conv(+ folded BN)+ReLU layers on NHWC ``x``: K3, or its
         plain version; ``first`` and ``second`` are (name, conv, bn)."""
-        w1, b1 = self._folded(*first, x.dtype)
-        w2, b2 = self._folded(*second, x.dtype)
-        fn = (double_conv.double_conv3x3_relu_plain if route == "plain"
-              else double_conv.double_conv3x3_relu)
-        return fn(x, w1, b1, w2, b2)
+        w1, b1, s1 = self._folded(*first, x.dtype)
+        w2, b2, s2 = self._folded(*second, x.dtype)
+        if route == "plain":
+            return double_conv.double_conv3x3_relu_plain(x, w1, b1, w2, b2)
+        return double_conv.double_conv3x3_relu(x, w1, b1, w2, b2, w1_tf32=s1,
+                                               w2_tf32=s2)

@@ -133,6 +133,9 @@ def library() -> ctypes.CDLL:
             lib.cid_conv3x3_bias_relu.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_conv3x3_bias_relu.restype = I
+            lib.cid_conv3x3_bias_relu_tf32.argtypes = (
+                [P] * 5 + [I] * 7 + [L] * 3 + [P])
+            lib.cid_conv3x3_bias_relu_tf32.restype = I
             lib.cid_conv3x3_bias_relu_q8.argtypes = [P] * 5 + [I] * 6 + [P]
             lib.cid_conv3x3_bias_relu_q8.restype = I
             lib.cid_conv3x3_s8.argtypes = [P] * 7 + [I] * 8 + [L] * 3 + [P]
@@ -142,6 +145,9 @@ def library() -> ctypes.CDLL:
             lib.cid_double_conv3x3_relu.argtypes = (
                 [P] * 7 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.restype = I
+            lib.cid_double_conv3x3_relu_tf32.argtypes = (
+                [P] * 7 + [I] * 7 + [L] * 3 + [P])
+            lib.cid_double_conv3x3_relu_tf32.restype = I
             lib.cid_normalize_gaussian_noise.argtypes = [
                 P, P, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float,
                 I, P]
@@ -159,6 +165,10 @@ def library() -> ctypes.CDLL:
             lib.cid_probe_mma_s8.restype = I
             lib.cid_probe_wgmma_s8.argtypes = [P] * 3 + [I, P]
             lib.cid_probe_wgmma_s8.restype = I
+            lib.cid_probe_wgmma_tf32.argtypes = [P] * 3 + [I, P]
+            lib.cid_probe_wgmma_tf32.restype = I
+            lib.cid_probe_tf32_split.argtypes = [P, L, P, P, P]
+            lib.cid_probe_tf32_split.restype = I
             lib.cid_probe_quantize.argtypes = [P, I, P, I, P, P]
             lib.cid_probe_quantize.restype = I
             lib.cid_error_string.argtypes = [I]

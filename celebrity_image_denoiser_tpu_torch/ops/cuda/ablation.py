@@ -1,6 +1,6 @@
 """Where the conv kernels' time goes: the kernels timed with parts taken out.
 
-    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation [--only bf16|s8]
+    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation [--only bf16|s8|f32]
 
 Builds variants of the conv sources in which one or more parts are patched
 out of the source text (the matrix instructions, the ldmatrix loads, the
@@ -13,7 +13,13 @@ the int8 kernels K5 (``csrc/conv3x3_s8.cu``) and K6
 only its time is read: what a part costs is the time that goes away with
 it, and what is left when everything is out is the ring's skeleton (barriers
 and bookkeeping).  Where ncu and nsys cannot run, this takes the place of
-a kernel profile.  Needs one CUDA card and nvcc.
+a kernel profile.  ``f32``: the f32 bodies of K2 and K3 (three TF32
+products) beside the design's alternatives, which compute the right
+function: K3's items of one tap row where all 9 taps fit, its 16x16 tile
+at C1p = 128, and one wgmma accumulator taking every product instead of a
+partial sum a chunk; each launch's error against the plain version is
+printed too (batch 1, the f32 rows' 512x512 input).  Needs one CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -130,6 +136,28 @@ PARTS = {
         ("conv_s8.cuh", "                                              const Pair& k) {\n",
          "                                              const Pair& k) {\n"
          "  return float_bits(h0) ^ (float_bits(h1) << 8);\n")],
+    # the f32 bodies' alternatives (each computes the right function)
+    "k3 3-tap items at C1p 64": [("double_conv3x3_relu.cu",
+                                  "  CID_TRY(16, 3, 9)\n", "")],
+    "k3 16x16 tile at C1p 128": [("double_conv3x3_relu.cu",
+                                  "  CID_TRY(8, 3, 9)\n",
+                                  "  CID_TRY(16, 2, 3)\n  CID_TRY(8, 3, 9)\n")],
+    "k3 12x16 tile at C1p 128": [("double_conv3x3_relu.cu",
+                                  "  CID_TRY(8, 3, 9)\n",
+                                  "  CID_TRY(12, 2, 9)\n  CID_TRY(8, 3, 9)\n")],
+    "one accumulator": [
+        ("conv3x3_bias_relu.cu",
+         "mma::smem_u32(wst + stage * kW32Bytes), true);\n"
+         "    conv::add_part(acc, part, cur.chunk == 0);",
+         "mma::smem_u32(wst + stage * kW32Bytes), cur.chunk == 0);\n"
+         "    conv::add_part(acc, part, true);"),
+        ("double_conv3x3_relu.cu", "    const bool fresh = cur.row == 0;",
+         "    const bool fresh = cur.row == 0 && cur.chunk == 0;"),
+        ("double_conv3x3_relu.cu", "              if (!first_chunk) {",
+         "              if (false) {"),
+        ("double_conv3x3_relu.cu",
+         "      if (last) conv::add_part(acc2, part2, cur.chunk == 0);",
+         "      if (last) conv::add_part(acc2, part2, true);")],
 }
 # what each timed variant leaves out: the bf16 kernels (K2, K3) and K2's s8
 # mode
@@ -195,6 +223,53 @@ def _time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the f32 bodies and their alternatives
+F32_VARIANTS = {
+    "as built": (),
+    "K3: 3-tap items at C1p = 64": ("k3 3-tap items at C1p 64",),
+    "K3: 16x16 tile, 3-tap items at C1p = 128": ("k3 16x16 tile at C1p 128",),
+    "K3: 12x16 tile, 2 stages at C1p = 128": ("k3 12x16 tile at C1p 128",),
+    "one wgmma accumulator, no chunk partials": ("one accumulator",),
+}
+F32_SIZE = 512
+K3_F32 = {"down1": (1, F32_SIZE, F32_SIZE, 3, 64, 64),
+          "down2": (1, F32_SIZE // 2, F32_SIZE // 2, 64, 128, 128),
+          "bottleneck": (1, F32_SIZE // 4, F32_SIZE // 4, 128, 256, 256),
+          "upconv2": (1, F32_SIZE // 2, F32_SIZE // 2, 256, 128, 128),
+          "dncnn 5+8": (1, F32_SIZE, F32_SIZE, 64, 64, 64)}
+K2_F32 = {"upconv1.0": (1, F32_SIZE, F32_SIZE, 128, 64, 1),
+          "block conv": (1, F32_SIZE, F32_SIZE, 64, 64, 0)}
+
+
+def _f32_calls(gen):
+    """layer -> (C function name, its arguments, the output, the plain
+    version's output) for the f32 bodies, with their split weights."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3, double_conv
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    calls = {}
+    for layer, (n, h, w, c0, c1, c2) in K3_F32.items():
+        x, b1, b2 = rnd((n, h, w, c0)), rnd((c1,), 0.1), rnd((c2,), 0.1)
+        w1 = rnd((3, 3, c0, c1), (9 * c0) ** -0.5)
+        w2 = rnd((3, 3, c1, c2), (9 * c1) ** -0.5)
+        y = torch.empty((n, h, w, c2), device="cuda")
+        calls[layer] = ("cid_double_conv3x3_relu_tf32", [
+            x, None, conv3x3.tf32_weights(w1), b1, conv3x3.tf32_weights(w2),
+            b2, y, n, h, w, c0, 0, c1, c2, 0, 0, 0, None], y,
+            double_conv.double_conv3x3_relu_plain(x, w1, b1, w2, b2))
+    for layer, (n, h, w, cin, cout, relu) in K2_F32.items():
+        x, b = rnd((n, h, w, cin)), rnd((cout,), 0.1)
+        k = rnd((3, 3, cin, cout), (9 * cin) ** -0.5)
+        y = torch.empty((n, h, w, cout), device="cuda")
+        calls[layer] = ("cid_conv3x3_bias_relu_tf32", [
+            x, None, conv3x3.tf32_weights(k), b, y, n, h, w, cin, 0, cout,
+            relu, 0, 0, 0, None], y,
+            conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=bool(relu)))
+    return calls
 
 
 def _bf16_calls(rnd):
@@ -264,7 +339,9 @@ def _s8_calls(gen):
 # group -> (its variants, the sources a variant library is built from)
 GROUPS = {"bf16": (VARIANTS, ("conv3x3_bias_relu.cu",
                               "double_conv3x3_relu.cu")),
-          "s8": (S8_VARIANTS, ("conv3x3_s8.cu", "convt2x2_s8.cu"))}
+          "s8": (S8_VARIANTS, ("conv3x3_s8.cu", "convt2x2_s8.cu")),
+          "f32": (F32_VARIANTS, ("conv3x3_bias_relu.cu",
+                                 "double_conv3x3_relu.cu"))}
 
 
 def main(argv=None) -> int:
@@ -272,11 +349,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=sorted(GROUPS),
-                    help="time one group of kernels (default: both)")
+                    help="time one group of kernels (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablation: needs an NVIDIA card", file=sys.stderr)
         return 2
+    # the f32 group's plain versions are f32 convs, not TF32 ones
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)
@@ -294,7 +374,8 @@ def main(argv=None) -> int:
                  for g in groups
                  for i, (name, parts) in enumerate(GROUPS[g][0].items())}
         for g in groups:
-            calls = _bf16_calls(rnd) if g == "bf16" else _s8_calls(gen)
+            calls = (_bf16_calls(rnd) if g == "bf16" else _s8_calls(gen)
+                     if g == "s8" else _f32_calls(gen))
             _time_group(g, calls, procs, Path(tmp))
             del calls
             torch.cuda.empty_cache()
@@ -311,7 +392,12 @@ def _time_group(group, calls, procs, tmp: Path) -> None:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(tmp / f"{group}{i}" / "lib.so"))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if group == "bf16":
+        if group == "f32":
+            lib.cid_conv3x3_bias_relu_tf32.argtypes = (
+                [P] * 5 + [I] * 7 + [L] * 3 + [P])
+            lib.cid_double_conv3x3_relu_tf32.argtypes = (
+                [P] * 7 + [I] * 7 + [L] * 3 + [P])
+        elif group == "bf16":
             lib.cid_conv3x3_bias_relu.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
             lib.cid_double_conv3x3_relu.argtypes = (
@@ -320,15 +406,22 @@ def _time_group(group, calls, procs, tmp: Path) -> None:
         else:
             lib.cid_conv3x3_s8.argtypes = [P] * 7 + [I] * 8 + [L] * 3 + [P]
             lib.cid_convt2x2_s8.argtypes = [P] * 6 + [I] * 6 + [P]
-        row = []
-        for fn_name, spec in calls.values():
+        row, errs = [], []
+        for fn_name, spec, *checked in calls.values():
             fn = getattr(lib, fn_name)
             args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                     for a in spec]
             _build.check(fn(*args), f"{fn_name} ({name})")
+            if checked:  # (output, plain version's output)
+                y, ref = checked
+                errs.append(((y - ref).abs().max()
+                             / ref.abs().max()).item())
             row.append(_time_ms(lambda: fn(*args)))
         print(f"{name:38s}" + "".join(f"{ms:13.3f}" for ms in row),
               flush=True)
+        if errs:
+            print(f"{'  max|err| / max|ref|':38s}"
+                  + "".join(f"{e:13.2e}" for e in errs), flush=True)
 
 
 if __name__ == "__main__":

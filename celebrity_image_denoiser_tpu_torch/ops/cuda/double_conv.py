@@ -14,7 +14,13 @@ entry point raises on either device (``conv3x3.refuse_grad``).
 
 An optional second input ``x2`` makes the input ``torch.cat([x, x2], dim=3)``
 (``conv3x3``'s docstring has the rules): the U-Net's ``upconv2`` pair reads
-the upsampled tensor and the cropped skip tensor through two pointers.
+the upsampled tensor and the cropped skip tensor through two pointers, in
+bf16 and in f32.
+
+In float32 the kernel runs three TF32 products per multiply on the tensor
+cores and takes both weights split and K-major (``conv3x3.tf32_weights``):
+``w1_tf32`` and ``w2_tf32``, made once by a caller that keeps its weights,
+else made here for the one call.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from celebrity_image_denoiser_tpu_torch.ops.conv import conv2d
 from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
 from celebrity_image_denoiser_tpu_torch.ops.cuda.conv3x3 import (
     check_second_input,
+    check_tf32_weights,
     refuse_grad,
+    tf32_weights,
     two_pointer_ok,
 )
 
@@ -79,10 +87,15 @@ def double_conv3x3_relu_plain(x, w1, b1, w2, b2,
 
 def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor,
-                        x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        x2: Optional[torch.Tensor] = None, *,
+                        w1_tf32: Optional[torch.Tensor] = None,
+                        w2_tf32: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """x (N,H,W,C0) f32 or bf16; w1 (3,3,C0,C1), w2 (3,3,C1,C2) in x's
     dtype; b1, b2 f32.  Any C0 (3 included) and any H, W.  With ``x2``
-    (N,H,W,Cb) the input is ``cat([x, x2], 3)`` and w1 (3,3,C0+Cb,C1)."""
+    (N,H,W,Cb) the input is ``cat([x, x2], 3)`` and w1 (3,3,C0+Cb,C1).
+    ``w1_tf32``, ``w2_tf32``: ``tf32_weights`` of w1 and w2 (read in f32 on
+    the card; made here when absent)."""
     if x2 is not None:
         check_second_input(x, x2)
         if not two_pointer_ok(x, x2):
@@ -104,15 +117,27 @@ def double_conv3x3_relu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if y.numel() == 0 or c0 == 0 or c1 == 0:
         raise ValueError(f"empty double conv: x {tuple(x.shape)}, C1={c1}, "
                          f"C2={c2}")
+    tf32 = x.dtype == torch.float32
+    if tf32:
+        w1_tf32 = tf32_weights(w1) if w1_tf32 is None else w1_tf32
+        w2_tf32 = tf32_weights(w2) if w2_tf32 is None else w2_tf32
+        check_tf32_weights(w1_tf32, w1)
+        check_tf32_weights(w2_tf32, w2)
     lib = _build.library()
-    code = _build.dtype_code(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    strides = (0, 0, 0) if x2 is None else x2.stride()[:3]
+    x2p = None if x2 is None else x2.data_ptr()
     with torch.cuda.device(x.device), _build.LAUNCH_LOCK:
-        rc = lib.cid_double_conv3x3_relu(
-            x.data_ptr(), None if x2 is None else x2.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), n, h, w, ca, cb, c1, c2,
-            *((0, 0, 0) if x2 is None else x2.stride()[:3]), code, stream)
+        if tf32:
+            rc = lib.cid_double_conv3x3_relu_tf32(
+                x.data_ptr(), x2p, w1_tf32.data_ptr(), b1.data_ptr(),
+                w2_tf32.data_ptr(), b2.data_ptr(), y.data_ptr(), n, h, w, ca,
+                cb, c1, c2, *strides, stream)
+        else:
+            rc = lib.cid_double_conv3x3_relu(
+                x.data_ptr(), x2p, w1.data_ptr(), b1.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), y.data_ptr(), n, h, w, ca, cb,
+                c1, c2, *strides, _build.dtype_code(x.dtype), stream)
         _build.check(rc, "double_conv3x3_relu")
         LAUNCHES += 1
     return y

@@ -399,9 +399,15 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
-# × max|ref|.  f32: the kernels differ from the plain versions by summation
-# order only (≤ 1.5e-6 on the card); TF32 operands (10-bit mantissa) miss by
-# far more, so a kernel that quietly used TF32 fails.  bf16: two ulps.
+# f32 on the tensor cores as three TF32 products a multiply: the data
+# sheet's dense TF32 rate over three
+PEAK_TF32X3_FLOPS = 495e12 / 3
+# × max|ref|.  f32: the kernels' three TF32 products (the dropped lo·lo
+# term, ~2^-22 of a product), their partial sums a chunk and their
+# summation order kept them within 2.2e-6 of the plain versions in phase 3
+# and 3.1e-6 on phase 4e's served launches (H100 80GB HBM3; phase 3 prints
+# the worst); one TF32 product (10-bit mantissa) misses by 10-18x, so a
+# kernel that quietly used TF32 fails.  bf16: two ulps.
 TOL = {torch.float32: 3e-5, torch.bfloat16: 1.6e-2}
 BENCH_BATCH = 256
 BIG_BATCH = 2048  # the JAX bench's batch: tensors beyond 2^31 elements
@@ -604,8 +610,16 @@ def phase_build(_build, noise):
         f"IMMA (mma.sync s8) {imma}")
     if hgmma < 1 or igmma < 1 or hmma < 1 or imma < 1:
         fail("the built library lacks a tensor-core matrix instruction")
-    # the int8 kernels K5 (its Cout > 8 path) and K6 on the s8 wgmma
+    # the int8 kernels K5 (its Cout > 8 path) and K6 on the s8 wgmma, the
+    # f32 bodies of K2 (Cout > 4) and K3 on the tf32 wgmma
     funcs = re.split(r"\n\s*Function : ", sass)
+    for kernel in ("conv3x3_tf32_kernel", "double_conv3x3_tf32_kernel"):
+        body = "".join(f for f in funcs if f.split("\n", 1)[0].find(kernel)
+                       >= 0)
+        n = len(re.findall(r"\bHGMMA\.\w+\.F32\.TF32", body))
+        say(f"  tf32 HGMMA in {kernel}: {n}")
+        if n < 1:
+            fail(f"{kernel} does not run on the tf32 wgmma")
     for kernel in ("conv3x3_s8_wgmma_kernel", "convt2x2_s8_kernel"):
         body = "".join(f for f in funcs if f.split("\n", 1)[0].find(kernel)
                        >= 0)
@@ -749,6 +763,65 @@ def phase_mma_probes(_build):
             f"{16 * ksteps}: {'exact' if ok else 'FAIL'}")
         if not ok:
             fail("wgmma probe disagrees with the plain product")
+    phase_tf32_probes(lib, gen)
+
+
+def tf32_truncated(t):
+    """f32 ``t`` as the tensor cores read a tf32 operand: low 13 bits
+    dropped."""
+    return torch.bitwise_and(t.view(torch.int32), -0x2000).view(torch.float32)
+
+
+def phase_tf32_probes(lib, gen):
+    """The tf32 wgmma m64n64k8 (A by ldmatrix from 32-byte f32 rows, B
+    K-major with the 32-byte swizzle) against the exact product of its
+    operands with their low 13 bits dropped: integers in [-8, 8] with
+    random low bits, so the truncated product is exact and a card that
+    rounded those bits instead would differ; then mma.cuh's split of an
+    f32 into hi + lo tf32 values (cvt.rna) bit-equal to the wrappers'
+    ``round_tf32`` of the weights, ties included."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import _build, conv3x3
+
+    def operand(*shape):
+        ints = torch.randint(-8, 9, shape, generator=gen, device="cuda").float()
+        noise = torch.randint(1, 1 << 13, shape, generator=gen, device="cuda",
+                              dtype=torch.int32)
+        noisy = torch.bitwise_or(ints.view(torch.int32), noise)
+        return torch.where(ints != 0, noisy, 0).view(torch.float32)
+
+    for ksteps in (1, 2, 3, 4):
+        a, b = operand(64, 8 * ksteps), operand(64, 8 * ksteps)
+        d = torch.full((64, 64), float("nan"), device="cuda")
+        _build.check(lib.cid_probe_wgmma_tf32(a.data_ptr(), b.data_ptr(),
+                                              d.data_ptr(), ksteps, None),
+                     "tf32 wgmma probe")
+        torch.cuda.synchronize()
+        want = tf32_truncated(a).double() @ tf32_truncated(b).double().T
+        ok = torch.equal(d.double(), want)
+        say(f"  mma.cuh ldmatrix + wgmma m64n64k8 tf32 (K-major B), k = "
+            f"{8 * ksteps}: {'exact on the truncated operands' if ok else 'FAIL'}")
+        if not ok:
+            fail("tf32 wgmma probe disagrees with the truncated product")
+    v = torch.randn(1 << 20, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-30, 30, (1 << 20,), generator=gen,
+                      device="cuda").float())
+    ties = torch.bitwise_or(torch.bitwise_and(v.view(torch.int32), -0x2000),
+                            0x1000).view(torch.float32)
+    v = torch.cat([v, ties])
+    hi, lo = torch.empty_like(v), torch.empty_like(v)
+    _build.check(lib.cid_probe_tf32_split(v.data_ptr(), v.numel(),
+                                          hi.data_ptr(), lo.data_ptr(), None),
+                 "tf32 split probe")
+    want_hi = conv3x3.round_tf32(v)
+    ok = torch.equal(hi, want_hi) and torch.equal(
+        lo, conv3x3.round_tf32(v - want_hi))
+    rel = ((hi.double() + lo.double() - v.double()).abs()
+           / v.double().abs().clamp_min(1e-300)).max().item()
+    say(f"  mma.cuh tf32 split of {v.numel()} values (half ties): "
+        f"{'equal to round_tf32' if ok else 'FAIL'}, |v - hi - lo| <= "
+        f"{rel:.2e} |v|")
+    if not ok:
+        fail("the card's tf32 split differs from the wrappers' round_tf32")
 
 
 QUANTIZE_SCALES = 4096  # log-uniform over 2^-40..2^40, plus the edges
@@ -836,6 +909,16 @@ def phase_s8_probe(_build):
             fail("s8 mma.sync probe disagrees with the integer product")
 
 
+def in_place(module, xa, xb):
+    """The kernel reads x and the strided x2 through two pointers (no
+    concatenation is written), in bf16 and in f32."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3
+
+    if not conv3x3.two_pointer_ok(xa, xb):
+        fail(f"{module.__name__}: {xa.dtype} x {tuple(xa.shape)} with x2 "
+             f"{tuple(xb.shape)} is concatenated, not read in place")
+
+
 def phase_kernels(_build, conv3x3, double_conv):
     say("== phase 3: kernels vs plain (TF32 off)")
     phase_mma_probes(_build)
@@ -860,6 +943,7 @@ def phase_kernels(_build, conv3x3, double_conv):
                         double_conv.double_conv3x3_relu_plain, *args), ref))
                 if layer == "upconv2":  # the skip concat as two inputs
                     xa, xb = split_input(gen, args[0])
+                    in_place(double_conv, xa, xb)
                     worst["double_conv3x3_relu"] = max(
                         worst["double_conv3x3_relu"],
                         check("double_conv3x3_relu", layer + " 2 in", shape,
@@ -883,6 +967,7 @@ def phase_kernels(_build, conv3x3, double_conv):
                         ref))
                 if layer == "upconv1.0":  # the skip concat as two inputs
                     xa, xb = split_input(gen, args[0])
+                    in_place(conv3x3, xa, xb)
                     worst["conv3x3_bias_relu"] = max(
                         worst["conv3x3_bias_relu"],
                         check("conv3x3_bias_relu", layer + " 2 in", shape,
@@ -916,6 +1001,9 @@ def phase_kernels(_build, conv3x3, double_conv):
                   conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)))
     say("kernels: conv3x3_bias_relu, conv3x3_bias_relu_v2, "
         "double_conv3x3_relu")
+    say(f"  f32 (three TF32 products, the narrow K2 body on the CUDA cores): "
+        f"worst {F32_WORST[0]:.2e} x max|ref| over phase 3 (gate "
+        f"{TOL[torch.float32]:.0e})")
     # control: the f32 check must reject TF32 in the kernels' place
     torch.backends.cudnn.allow_tf32 = True
     tf32 = [(layer, shape, fn(), ref) for layer, shape, fn, ref in controls]
@@ -1066,6 +1154,11 @@ def phase_int8_kernels(_build, conv3x3, k5, k6):
     return worst
 
 
+# the largest error × max|ref| of an f32 check() so far: the TF32 split's
+# measured error on the card
+F32_WORST = [0.0]
+
+
 def check(name, layer, shape, dtype, got, ref) -> float:
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -1075,6 +1168,8 @@ def check(name, layer, shape, dtype, got, ref) -> float:
     scale = ref.float().abs().max().item()
     tol = TOL[dtype] * scale
     ok = err <= tol and bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        F32_WORST[0] = max(F32_WORST[0], err / scale)
     say(f"  {name:22s} {layer:10s} {str(shape):30s} {str(dtype):15s} "
         f"max_abs_err {err:.3e} ({err / scale:.2e} x max|ref|) tol "
         f"{tol:.3e} {'ok' if ok else 'FAIL'}")
@@ -1733,6 +1828,9 @@ FAMILY_REQUESTS = 30  # latency requests per family and mode
 FAMILY_K5_FIXTURE = 64  # the K5 holds' input, a side
 SRGAN_BIG = 2048  # the srgan LR side whose forward's memory is read
 FAMILY_TILE = 2048  # the forward-time tile, a side
+# f32 forwards at FAMILY_TILE² when K2 and K3 computed f32 on the CUDA
+# cores (NVIDIA H100 80GB HBM3, 700.00 W): the TF32 bodies' yardstick
+CUDA_CORE_F32_FORWARD_MS = {"dncnn": 278.7, "esrgan": 260.2}
 F32_TIMES_SIZE = 512  # the f32 kernel rows' input, a side
 
 
@@ -1762,7 +1860,9 @@ class Holds:
     def _wrap(self, name, entry, plain):
         def held(*args, **kw):
             y = entry(*args, **kw)
-            ref = plain(*args, **kw)
+            # the f32 kernels' split weights are the kernel's alone
+            ref = plain(*args, **{k: v for k, v in kw.items()
+                                  if not k.endswith("_tf32")})
             self.n += 1
             self.shapes.add((name, tuple(args[0].shape), tuple(y.shape)))
             if self.exact:
@@ -1991,8 +2091,13 @@ def phase_families(conv3x3, double_conv, k5, k6, device="cuda"):
                         ms = time_ms(lambda: sts[mode]._to_u8(fam, apply(x)),
                                      reps=3, warmup=1)
                     rec[f"{mode}_forward_ms_{side}"] = ms
+                    before = CUDA_CORE_F32_FORWARD_MS.get(fam) \
+                        if mode == "float" and side == FAMILY_TILE else None
                     say(f"  {fam} {mode} forward at {side}x{side}: "
-                        f"{ms:.3f} ms")
+                        f"{ms:.3f} ms" + (
+                            "" if before is None else
+                            f" (the CUDA-core f32 bodies: {before} ms, "
+                            f"{before / ms:.2f}x this)"))
                     del x
         # 7. srgan at 2048² LR (8192² out), batch 1: time and peak memory,
         # then the same forward under the profiler
@@ -2088,11 +2193,24 @@ def family_layout_probe(device="cuda"):
             fail(f"cuDNN's {label} conv in NCHW memory depends on the tile")
 
 
+def f32_bounds(flops, nbytes):
+    """An f32 conv's bound (ms) and what sets it: operations as three TF32
+    products on the tensor cores (495 / 3 TFLOP/s) or bytes at 3.35 TB/s;
+    and the CUDA-core bound the f32 rows had before (operations at 67
+    TFLOP/s), kept so that earlier shares stay comparable."""
+    b = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)
+    by = ("operations" if flops / PEAK_TF32X3_FLOPS >= nbytes / PEAK_BYTES
+          else "bytes")
+    return b, by, bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+
+
 def family_f32_times(conv3x3, double_conv, device="cuda"):
     """K2 and K3 in f32 at the families' shapes and the U-Net's (batch 1,
     ``F32_TIMES_SIZE``²), each checked against its plain version, timed
     beside it, beside cuDNN (``F.conv2d`` + bias + ReLU, NCHW, TF32 off) and
-    beside its bound (operations at 67 TFLOP/s, bytes at 3.35 TB/s)."""
+    beside its bound (``f32_bounds``: operations as three TF32 products,
+    bytes; and the old CUDA-core bound).  The kernels get their weights'
+    split copies made once, as the models' caches hand them over."""
     import torch.nn.functional as F
 
     s = F32_TIMES_SIZE
@@ -2113,16 +2231,17 @@ def family_f32_times(conv3x3, double_conv, device="cuda"):
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         if err > TOL[dt]:
             fail(f"f32 {kernel} {layer}: {err:.2e} x max|ref| off plain")
-        b = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-        by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES \
-            else "bytes"
+        b, by, old = f32_bounds(flops, nbytes)
         rows.append({"kernel": kernel, "layer": layer, "shape": shape,
                      "ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": b, "bound_by": by,
+                     "cuda_core_bound_ms": old, "max_rel_err": err,
                      "tflops": flops / ms / 1e9})
         say(f"  f32 {kernel:20s} {layer:24s} {str(shape):28s} {ms:8.3f} ms "
             f"plain {plain:8.3f} cuDNN {lib:8.3f} bound {b:.3f} ({by}) "
-            f"{flops / ms / 1e9:6.2f} TFLOP/s, {b / ms:.1%} of bound")
+            f"{flops / ms / 1e9:6.2f} TFLOP/s, {b / ms:.1%} of bound; "
+            f"CUDA-core bound {old:.3f} ({old / ms:.1%}); {err:.2e} x "
+            f"max|ref|")
 
     def rnd(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
@@ -2136,9 +2255,12 @@ def family_f32_times(conv3x3, double_conv, device="cuda"):
             w2.permute(3, 2, 0, 1).contiguous()
         with torch.inference_mode():
             args = (x, w1, b1, w2, b2)
-            got = double_conv.double_conv3x3_relu(*args)
+            split = {"w1_tf32": conv3x3.tf32_weights(w1),
+                     "w2_tf32": conv3x3.tf32_weights(w2)}
+            got = double_conv.double_conv3x3_relu(*args, **split)
             ref = double_conv.double_conv3x3_relu_plain(*args)
-            ms = time_ms(lambda: double_conv.double_conv3x3_relu(*args), 10)
+            ms = time_ms(lambda: double_conv.double_conv3x3_relu(
+                *args, **split), 10)
             plain = time_ms(
                 lambda: double_conv.double_conv3x3_relu_plain(*args), 10)
             lib = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(
@@ -2157,10 +2279,12 @@ def family_f32_times(conv3x3, double_conv, device="cuda"):
         wo = wt.permute(3, 2, 0, 1).contiguous()
         act = F.relu if relu else (lambda t: t)
         with torch.inference_mode():
-            got = conv3x3.conv3x3_bias_relu(x, wt, b, relu=relu)
+            split = conv3x3.tf32_weights(wt) if cout > 4 else None
+            got = conv3x3.conv3x3_bias_relu(x, wt, b, relu=relu,
+                                            kernel_tf32=split)
             ref = conv3x3.conv3x3_bias_relu_plain(x, wt, b, relu=relu)
-            ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, wt, b,
-                                                           relu=relu), 10)
+            ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(
+                x, wt, b, relu=relu, kernel_tf32=split), 10)
             plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
                 x, wt, b, relu=relu), 10)
             lib = time_ms(lambda: act(F.conv2d(xc, wo, b, padding=1)), 10)
@@ -2615,10 +2739,10 @@ def cgan_k5_times(k5, quant, device="cuda"):
 
 
 def cgan_tail_time(conv3x3, device="cuda"):
-    """K2 in f32 on the cGAN's tail (64 -> 3, bias, no ReLU) at a
-    ``CGAN_BIG``² input: checked against its plain version, timed beside
-    it, beside cuDNN (TF32 off) and beside its bound (operations at 67
-    TFLOP/s, bytes at 3.35 TB/s)."""
+    """K2 in f32 on the cGAN's tail (64 -> 3, bias, no ReLU: the narrow
+    CUDA-core body) at a ``CGAN_BIG``² input: checked against its plain
+    version, timed beside it, beside cuDNN (TF32 off) and beside its bound
+    (``f32_bounds``)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2641,15 +2765,14 @@ def cgan_tail_time(conv3x3, device="cuda"):
         lib = time_ms(lambda: F.conv2d(xc, wo, b, padding=1), 10)
     flops = 2 * s * s * 9 * 64 * 3
     nbytes = 4 * (x.numel() + wt.numel() + 3 + s * s * 3)
-    bnd = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-    by = ("operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
-          else "bytes")
+    bnd, by, old = f32_bounds(flops, nbytes)
     say(f"  f32 conv3x3_bias_relu cgan tail model.11 (1, {s}, {s}, 64, 3) "
         f"{ms:.3f} ms plain {plain:.3f} cuDNN {lib:.3f} bound {bnd:.3f} "
-        f"({by}), {bnd / ms:.1%} of bound, {err:.2e} x max|ref|")
+        f"({by}), {bnd / ms:.1%} of bound; CUDA-core bound {old:.3f} "
+        f"({old / ms:.1%}); {err:.2e} x max|ref|")
     return {"layer": "cgan tail model.11", "shape": [1, s, s, 64, 3],
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-            "bound_by": by, "max_rel_err": err}
+            "bound_by": by, "cuda_core_bound_ms": old, "max_rel_err": err}
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -6241,7 +6364,8 @@ def main() -> int:
         # f32 at the families' shapes and the U-Net's (phase 4e)
         entry["f32"] = [{k: r[k] for k in ("layer", "shape", "ms",
                                            "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")}
+                                           "bound_ms", "bound_by",
+                                           "cuda_core_bound_ms")}
                         for r in f32_rows if r.get("kernel") == name]
         if name == "conv3x3_bias_relu":
             entry["cgan_tail"] = cgan_tail  # phase 4f, 2048²
