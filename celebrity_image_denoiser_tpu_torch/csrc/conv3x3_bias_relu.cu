@@ -87,12 +87,29 @@
 //     (ops/cuda/ablation.py --only f32, H100);
 //   * each output's summation order is fixed (no split-K, no atomics), so
 //     two runs are bit-equal.
-// Cout <= 4 (upconv1.2, dncnn's last conv, the cGAN's tail) keeps f32 FMA
-// on the CUDA cores (cid_conv3x3_bias_relu): bound by bytes, where tensor
-// cores do not help, so N is not padded to 64 there:
-//   * one block computes a TH x TW output tile for COT output channels from
-//     a halo window staged in shared memory CIC channels at a time; each
-//     thread owns PPT pixels of one tile row x 4 output channels.
+// Cout <= 4 (upconv1.2, dncnn's last conv, the cGAN's tail) runs f32 FMA
+// on the CUDA cores (cid_conv3x3_bias_relu).  It is bound by reading its
+// input once: at 512^2, 64 -> 3 that is 67.1 MB in and 3.1 MB out, 0.021 ms
+// at 3.35 TB/s, while its 453 M FMAs take 0.0135 ms at 67 TFLOP/s -- so the
+// FMAs hide under the copies only if no output channel is padded and the
+// shared-memory reads stay few per FMA.  Hence:
+//   * persistent blocks (one per SM) walk (tile, 64-channel chunk) items of
+//     8 x 32-pixel tiles through a ring of two stages of 16-byte cp.async
+//     copies (4-byte ones where Cin % 4 != 0 or x is unaligned), which runs
+//     across tile boundaries; at Cin = 64 a chunk is a pixel's whole
+//     256-byte channel run, read in whole lines;
+//   * Cout is a template parameter (1-4): no FMA on a padded channel;
+//   * 16 lanes share a run of 16 pixels, one group of 4 channels each: a
+//     lane keeps its group's 9 x 4 x Cout weights in registers (loaded once
+//     per block where Cin <= 64) and, per window row, reads each of its 18
+//     pixels' float4 once for the three taps that use it (192 x Cout FMAs
+//     a row for 18 shared-memory reads, none of them weights); the run's
+//     lanes read one pixel's contiguous channels, so no bank conflict;
+//   * a tile's partial sums are summed over the run's 16 lanes by shuffles
+//     in a fixed tree, no split, no atomics: two runs are bit-equal.
+// ops/cuda/ablation.py --only narrow times the alternatives (on an H100):
+// runs of 8 pixels with four stages, chunks of 32 or 16 channels, and the
+// same ring on mma.sync TF32 (three products a multiply) were all slower.
 // The TPU artifacts of the Pallas version (channel padding to 128 lanes,
 // H % tile_h == 0) are not carried over.
 
@@ -105,141 +122,440 @@
 namespace {
 
 // ---- float32, Cout <= 4: CUDA cores ---------------------------------------
-constexpr int kThreads = 256;
+// A persistent block walks work items (tile, chunk of KC channels) through a
+// ring of S stages of 16-byte copies.  A stage holds the chunk's halo window,
+// pixel-major as the copies land it (each pixel's KC channels contiguous, its
+// 16-byte pieces swizzled by the pixel: group j at piece j ^ (p & 7)), and
+// the chunk's weights as [group][tap][c][co].  The KC / 4 lanes of a run
+// each own a group of 4 channels and one run of P pixels of a tile row: a
+// lane holds its group's 9 x 4 x Cout weights in registers (loaded once per
+// block where Cin <= KC) and its P x Cout partial sums; per window row it
+// reads the P + 2 pixels' float4 of its group once and applies all three
+// taps to them.  The run's lanes read one pixel's contiguous channels: no
+// bank conflict.  After a tile's last chunk the partial sums are summed over
+// the run's lanes by shuffles in a fixed tree (halving: each lane keeps half
+// of what it holds), so that each lane ends with one pixel's Cout outputs.
+// Each output's sum has one order: no split, no atomics.
+constexpr int kN32KC = 64;      // channels a chunk: a pixel's 256-byte run
+constexpr int kN32P = 16;       // pixels of a run
+constexpr int kN32Stages = 2;   // the ring
+constexpr int kN32Threads = 256;
+constexpr int kN32GL = kN32KC / 4;                // lanes of a run
+constexpr int kN32Runs = kN32Threads / kN32GL;    // runs of a tile
+constexpr int kN32Cols = 2 * kN32P;               // tile columns
+constexpr int kN32Rows = kN32Runs * kN32P / kN32Cols;  // tile rows
+constexpr int kN32WinCols = kN32Cols + 2, kN32WinRows = kN32Rows + 2;
+constexpr int kN32Pitch = kN32KC * 4;  // bytes a window pixel
+constexpr int kN32WinBytes = kN32WinRows * kN32WinCols * kN32Pitch;
+constexpr int kN32Swz = (kN32GL < 8 ? kN32GL : 8) - 1;  // the piece swizzle
+// The alternative design, timed beside this one by ops/cuda/ablation.py:
+// the same items, ring and stages on mma.sync m16n8k8, three TF32 products
+// a multiply (conv3x3_f32_narrow_tc_kernel).
+#ifdef CID_NARROW_TENSOR_CORES
+constexpr bool kN32TensorCores = true;
+#else
+constexpr bool kN32TensorCores = false;
+#endif
+static_assert(kN32GL >= 2 && 32 % kN32GL == 0, "a run's lanes in one warp");
+static_assert((kN32P & (kN32P - 1)) == 0, "the shuffle tree halves runs");
+template <int COUT>
+__host__ __device__ constexpr int n32_stage_bytes() {
+  return kN32WinBytes + 9 * kN32KC * COUT * 4;
+}
+// the address of channel group j of window pixel p in a stage
+__device__ __forceinline__ int n32_at(int p, int j) {
+  return p * kN32Pitch + ((j ^ (p & kN32Swz)) << 4);
+}
 
-template <int TH, int TW, int COT, int CIC>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y,
-                   int H, int W, int Cin, int Cout, int relu, int tiles_h,
-                   int tiles_w) {
-  constexpr int CG = COT / 4;        // groups of 4 output channels
-  constexpr int PG = kThreads / CG;  // pixel groups
-  constexpr int PPT = TH * TW / PG;  // pixels per thread, along one row
-  constexpr int GPR = TW / PPT;      // pixel groups per tile row
-  static_assert(COT % 4 == 0 && kThreads % CG == 0, "channel tiling");
-  static_assert((TH * TW) % PG == 0 && TW % PPT == 0 && PG == TH * GPR,
-                "pixel tiling");
-  constexpr int IH = TH + 2, IW = TW + 2, IHW = IH * IW;
+__device__ __forceinline__ float f4at(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
 
-  // window as [c][row][col]; weights as [tap][c][co]
-  __shared__ float xs[CIC * IHW];
-  __shared__ __align__(16) float ws[9 * CIC * COT];
+struct Tile32 { int n, y0, x0; };
 
-  const int tid = threadIdx.x;
-  const int cg = tid % CG;
-  const int pg = tid / CG;
-  const int pr = pg / GPR;          // tile row of this thread's pixels
-  const int pc = (pg % GPR) * PPT;  // first tile column
+// What a narrow block walks: its items, (tile, chunk) of tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...
+struct Narrow32 {
+  const float* x;
+  const float* w;
+  int H, W, Cin, nchunks, tiles_h, tiles_w, nitems;
+  bool vec_x;  // Cin % 4 == 0 and x 16-byte aligned
+  __device__ Narrow32(const float* x_, const float* w_, int H_, int W_,
+                      int Cin_, int tiles_h_, int tiles_w_, int total_tiles,
+                      int vec_x_)
+      : x(x_), w(w_), H(H_), W(W_), Cin(Cin_),
+        nchunks((Cin_ + kN32KC - 1) / kN32KC), tiles_h(tiles_h_),
+        tiles_w(tiles_w_), vec_x(vec_x_ != 0) {
+    const int my_tiles =
+        (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+    nitems = my_tiles * nchunks;
+  }
+  __device__ __forceinline__ Tile32 tile(int k) const {
+    int t = (int)blockIdx.x + k * (int)gridDim.x;
+    Tile32 r;
+    r.x0 = (t % tiles_w) * kN32Cols;
+    t /= tiles_w;
+    r.y0 = (t % tiles_h) * kN32Rows;
+    r.n = t / tiles_h;
+    return r;
+  }
 
-  int t = blockIdx.x;
-  const int tx = t % tiles_w;
-  t /= tiles_w;
-  const int ty = t % tiles_h;
-  const int n = t / tiles_h;
-  const int y0 = ty * TH, x0 = tx * TW;
-  const int co0 = blockIdx.y * COT;
-  const size_t img = (size_t)n * H * W;
-
-  float acc[PPT][4];
-#pragma unroll
-  for (int j = 0; j < PPT; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += CIC) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < CIC * IHW; i += kThreads) {
-      const int c = i % CIC;
-      const int p = i / CIC;
-      const int gy = y0 - 1 + p / IW;
-      const int gx = x0 - 1 + p % IW;
-      const int gc = ci0 + c;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < Cin)
-        v = x[(img + (size_t)gy * W + gx) * Cin + gc];
-      xs[c * IHW + p] = v;
-    }
-    for (int i = tid; i < 9 * CIC * COT; i += kThreads) {
-      const int co = i % COT;
-      const int r = i / COT;
-      const int c = r % CIC;
-      const int tap = r / CIC;
-      const int gc = ci0 + c, gco = co0 + co;
-      float v = 0.f;
-      if (gc < Cin && gco < Cout)
-        v = w[((size_t)tap * Cin + gc) * Cout + gco];
-      ws[i] = v;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < CIC; ++c) {
-      const float* xc = xs + c * IHW;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float xv[PPT + 2];
-#pragma unroll
-        for (int j = 0; j < PPT + 2; ++j) xv[j] = xc[(pr + dy) * IW + pc + j];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 wv = *reinterpret_cast<const float4*>(
-              &ws[((dy * 3 + dx) * CIC + c) * COT + cg * 4]);
-#pragma unroll
-          for (int j = 0; j < PPT; ++j) {
-            const float a = xv[j + dx];
-            acc[j][0] = fmaf(a, wv.x, acc[j][0]);
-            acc[j][1] = fmaf(a, wv.y, acc[j][1]);
-            acc[j][2] = fmaf(a, wv.z, acc[j][2]);
-            acc[j][3] = fmaf(a, wv.w, acc[j][3]);
-          }
+  // Start the copies of item `item` into the stage at `st` (NT threads):
+  // the window, 16 bytes (vec_x) or 4 bytes a copy, zeros outside the image
+  // and beyond Cin; and, unless every stage already holds them (one chunk
+  // per tile), the chunk's weights, 4 bytes a copy.
+  template <int COUT, int NT, int S>
+  __device__ __forceinline__ void fill(unsigned char* st, int item,
+                                       int tid) const {
+    namespace mma = cid::mma;
+    constexpr int WIN = kN32WinRows * kN32WinCols;
+    const int ci0 = (item % nchunks) * kN32KC;
+    const Tile32 at = tile(item / nchunks);
+    const float* img = x + (size_t)at.n * H * W * Cin;
+    const uint32_t d0 = mma::smem_u32(st);
+    if (vec_x) {
+      // a thread keeps its 16-byte piece and steps through the pixels
+      static_assert(NT % kN32GL == 0, "a thread keeps its piece");
+      constexpr int STEP = NT / kN32GL;
+      const int j = tid % kN32GL, c = ci0 + 4 * j;
+      int p = tid / kN32GL, py = p / kN32WinCols, px = p % kN32WinCols;
+      for (; p < WIN; p += STEP) {
+        const int gy = at.y0 - 1 + py, gx = at.x0 - 1 + px;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+        mma::cp_async16(d0 + n32_at(p, j),
+                        ok ? img + ((size_t)gy * W + gx) * Cin + c : x, ok);
+        py += STEP / kN32WinCols;
+        px += STEP % kN32WinCols;
+        if (px >= kN32WinCols) {
+          px -= kN32WinCols;
+          ++py;
         }
+      }
+    } else {
+      for (int u = tid; u < WIN * kN32KC; u += NT) {
+        const int p = u / kN32KC, e = u % kN32KC;
+        const int gy = at.y0 - 1 + p / kN32WinCols;
+        const int gx = at.x0 - 1 + p % kN32WinCols, c = ci0 + e;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+        mma::cp_async4(d0 + n32_at(p, e / 4) + (e % 4) * 4,
+                       ok ? img + ((size_t)gy * W + gx) * Cin + c : x, ok);
+      }
+    }
+    if (nchunks > 1 || item < S) {
+      for (int e = tid; e < 9 * kN32KC * COUT; e += NT) {
+        const int co = e % COUT, r = e / COUT;  // (j * 9 + tap) * 4 + c
+        const int tap = (r / 4) % 9, ci = ci0 + 4 * (r / 36) + r % 4;
+        const bool ok = ci < Cin;
+        mma::cp_async4(d0 + kN32WinBytes + e * 4,
+                       ok ? w + ((size_t)tap * Cin + ci) * COUT + co : w, ok);
       }
     }
   }
+};
 
-  const int gy = y0 + pr;
-  if (gy >= H) return;
+// The V values each of a run's GL lanes holds, summed over those lanes in a
+// fixed tree: H halving steps (lane bit M set: keep the upper half of what
+// it holds, send the lower), then whole steps.  Each lane ends with the
+// block of V >> H values whose index is its halving bits, summed.
+template <int N, int M, int H>
+__device__ __forceinline__ void n32_reduce(float* v, int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (H > 0) {
+      const bool up = (lane & M) != 0;
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int gx = x0 + pc + j;
-    if (gx >= W) continue;
-    float* out = y + (img + (size_t)gy * W + gx) * Cout;
+      for (int k = 0; k < N / 2; ++k) {
+        const float keep = up ? v[k + N / 2] : v[k];
+        v[k] = keep + cid::mma::shfl_xor(up ? v[k] : v[k + N / 2], M);
+      }
+      n32_reduce<N / 2, M / 2, H - 1>(v, lane);
+    } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int co = co0 + cg * 4 + k;
-      if (co >= Cout) continue;
-      float v = acc[j][k] + bias[co];
-      if (relu) v = cid::relu_f32(v);
-      out[co] = v;
+      for (int k = 0; k < N; ++k) v[k] += cid::mma::shfl_xor(v[k], M);
+      n32_reduce<N, M / 2, 0>(v, lane);
     }
   }
 }
 
-template <int TH, int TW, int COT, int CIC>
-cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y,
-                       int n, int h, int wd, int cin, int cout, int relu,
-                       cudaStream_t stream) {
-  const int tiles_h = (h + TH - 1) / TH;
-  const int tiles_w = (wd + TW - 1) / TW;
-  const long long blocks = (long long)n * tiles_h * tiles_w;
-  if (!cid::grid_fits(blocks)) return cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)blocks, (unsigned)((cout + COT - 1) / COT));
-  conv3x3_f32_kernel<TH, TW, COT, CIC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), h, wd, cin, cout,
-      relu, tiles_h, tiles_w);
+__host__ __device__ constexpr int n32_log2(int v) {
+  return v <= 1 ? 0 : 1 + n32_log2(v / 2);
+}
+
+template <int COUT, int S>
+__global__ void __launch_bounds__(kN32Threads, 1)
+conv3x3_f32_narrow_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ y, int H, int W, int Cin,
+                          int relu, int tiles_h, int tiles_w, int total_tiles,
+                          int vec_x) {
+  constexpr int NT = kN32Threads, P = kN32P, GL = kN32GL;
+  constexpr int SB = n32_stage_bytes<COUT>();
+  // the shuffle tree: halving steps, and pixels a lane ends with
+  constexpr int HALVE = n32_log2(GL < P ? GL : P), PX = P >> HALVE;
+  constexpr int WHOLE = n32_log2(GL) - HALVE;
+  static_assert(SB % 16 == 0, "stages on 16-byte boundaries");
+  namespace mma = cid::mma;
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+
+  const int tid = threadIdx.x, lane = tid % 32, g = lane % GL;
+  const int run = tid / GL, row = run / (kN32Cols / P);
+  const int c0 = (run % (kN32Cols / P)) * P;
+  const Narrow32 nw(x, w, H, W, Cin, tiles_h, tiles_w, total_tiles, vec_x);
+  const int nchunks = nw.nchunks, nitems = nw.nitems;
+
+  // start the copies of work item `item` into stage `stage`
+  auto fill32 = [&](int item, int stage) {
+    nw.fill<COUT, NT, S>(smem_mma + stage * SB, item, tid);
+  };
+
+  // this lane's group of 4 channels of its run, the window rows in turn:
+  // each pixel's float4 read once and given to the taps that use it
+  auto compute32 = [&](int stage, const float (&wr)[9][4][COUT],
+                       float (&acc)[P][COUT]) {
+    const unsigned char* st = smem_mma + stage * SB;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int p0 = (row + dy) * kN32WinCols + c0;
+#pragma unroll
+      for (int jc = 0; jc < P + 2; ++jc) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(st + n32_at(p0 + jc, g));
+#pragma unroll
+        for (int dx = 2; dx >= 0; --dx) {
+          const int j = jc - dx;
+          if (j < 0 || j >= P) continue;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int co = 0; co < COUT; ++co)
+              acc[j][co] = fmaf(f4at(v, c), wr[dy * 3 + dx][c][co],
+                                acc[j][co]);
+        }
+      }
+    }
+  };
+
+  // the run's sums over its lanes, bias, ReLU and stores: each lane that
+  // ends with a block stores its PX pixels
+  auto store32 = [&](int tile_k, float (&acc)[P][COUT]) {
+    float* v = &acc[0][0];
+    n32_reduce<P * COUT, GL / 2, HALVE>(v, lane);
+    if ((g & ((1 << WHOLE) - 1)) != 0) return;
+    const Tile32 at = nw.tile(tile_k);
+    const int gy = at.y0 + row, j0 = (g >> WHOLE) * PX;
+    if (gy >= H) return;
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int gx = at.x0 + c0 + j0 + j;
+      if (gx >= W) continue;
+      float* out = y + (((size_t)at.n * H + gy) * W + gx) * COUT;
+#pragma unroll
+      for (int co = 0; co < COUT; ++co) {
+        const float s = v[j * COUT + co] + bias[co];
+        out[co] = relu ? cid::relu_f32(s) : s;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nitems) fill32(s, s);
+    mma::cp_async_commit();
+  }
+  float wr[9][4][COUT];  // this lane's group's weights: [tap][c][co]
+  float acc[P][COUT];
+  for (int item = 0; item < nitems; ++item) {
+    mma::cp_async_wait<S - 2>();  // this item's copies (this thread's)
+    __syncthreads();              // everyone's; and item - 1's reads done
+    if (item + S - 1 < nitems) fill32(item + S - 1, (item + S - 1) % S);
+    mma::cp_async_commit();
+    const int chunk = item % nchunks;
+    if (nchunks > 1 || item == 0) {
+      const float4* ws = reinterpret_cast<const float4*>(
+          smem_mma + (item % S) * SB + kN32WinBytes) + g * 9 * COUT;
+#pragma unroll
+      for (int k = 0; k < 9 * COUT; ++k) {
+        const float4 t = ws[k];
+        const float e[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int f = 4 * k + i;  // (tap * 4 + c) * COUT + co
+          wr[f / (4 * COUT)][(f / COUT) % 4][f % COUT] = e[i];
+        }
+      }
+    }
+    if (chunk == 0) {
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) acc[j][co] = 0.f;
+    }
+#ifdef CID_NARROW_DROP_LAST_CHUNK  // the CPU tests' control build only
+    if (chunk != nchunks - 1)
+#endif
+    compute32(item % S, wr, acc);
+    if (chunk == nchunks - 1) store32(item / nchunks, acc);
+  }
+}
+
+// The alternative: the same items, ring and stages on the tensor cores.
+// The tile is cut into 16-pixel m16 tiles along its rows, MT of them for
+// each warp; a tap is a shift of ldmatrix's row addresses (the tf32 A
+// fragment: rows of 16-byte pieces, 4 f32 a piece), N = 8 (Cout padded in
+// the B fragments only), K = 8 channels a step.  Every multiply is three
+// TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi, the split of the wide
+// TF32 bodies), each chunk's products summed in a fresh accumulator and
+// added to the running total rounded to nearest.
+template <int COUT, int S>
+__global__ void __launch_bounds__(kN32Threads, 1)
+conv3x3_f32_narrow_tc_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w,
+                             const float* __restrict__ bias,
+                             float* __restrict__ y, int H, int W, int Cin,
+                             int relu, int tiles_h, int tiles_w,
+                             int total_tiles, int vec_x) {
+  constexpr int NT = kN32Threads, PER_ROW = kN32Cols / 16;
+  constexpr int MT = kN32Rows * PER_ROW / (NT / 32);  // m16 tiles a warp
+  constexpr int SB = n32_stage_bytes<COUT>();
+  static_assert(S > 1 && kN32Cols % 16 == 0 && MT >= 1, "m16 tiles");
+  namespace mma = cid::mma;
+  extern __shared__ __align__(1024) unsigned char smem_mma[];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const Narrow32 nw(x, w, H, W, Cin, tiles_h, tiles_w, total_tiles, vec_x);
+  const int nchunks = nw.nchunks, nitems = nw.nitems;
+  // this lane's ldmatrix row (pixel) and piece within an m16 tile
+  const int lrow = (lane % 8) + 8 * ((lane / 8) % 2), lpiece = lane / 16;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nitems) nw.fill<COUT, NT, S>(smem_mma + s * SB, s, tid);
+    mma::cp_async_commit();
+  }
+  float acc[MT][4];
+  for (int item = 0; item < nitems; ++item) {
+    mma::cp_async_wait<S - 2>();
+    __syncthreads();
+    if (item + S - 1 < nitems)
+      nw.fill<COUT, NT, S>(smem_mma + ((item + S - 1) % S) * SB, item + S - 1,
+                           tid);
+    mma::cp_async_commit();
+    const int chunk = item % nchunks;
+    const unsigned char* st = smem_mma + (item % S) * SB;
+    const float* ws = reinterpret_cast<const float*>(st + kN32WinBytes);
+    const uint32_t base = mma::smem_u32(st);
+    float part[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+    for (int ks = 0; ks < kN32KC / 8; ++ks) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        // B: b[i] = W[tap][8 ks + 4 i + q][g], zero for g >= Cout
+        uint32_t bhi[2], blo[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v =
+              g < COUT ? ws[(((2 * ks + i) * 9 + tap) * 4 + q) * COUT +
+                            (g < COUT ? g : 0)]
+                       : 0.f;
+          uint32_t bits;
+          memcpy(&bits, &v, 4);
+          mma::tf32_split(bits, bhi[i], blo[i]);
+        }
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int m = warp * MT + mt;
+          const int p = (m / PER_ROW + dy) * kN32WinCols +
+                        16 * (m % PER_ROW) + dx + lrow;
+          uint32_t a[4], ahi[4], alo[4];
+          mma::ldmatrix_x4(a, base + n32_at(p, 2 * ks + lpiece));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mma::tf32_split(a[e], ahi[e], alo[e]);
+#ifndef CID_TF32_NO_CORRECTION
+          mma::mma_m16n8k8_tf32(part[mt], alo, bhi);
+          mma::mma_m16n8k8_tf32(part[mt], ahi, blo);
+#endif
+          mma::mma_m16n8k8_tf32(part[mt], ahi, bhi);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mt][e] =
+            chunk == 0 ? part[mt][e] : __fadd_rn(acc[mt][e], part[mt][e]);
+    if (chunk == nchunks - 1) {
+      const Tile32 at = nw.tile(item / nchunks);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = warp * MT + mt;
+          const int gy = at.y0 + m / PER_ROW;
+          const int gx = at.x0 + 16 * (m % PER_ROW) + g + 8 * (e / 2);
+          const int co = 2 * q + e % 2;
+          if (co >= COUT || gy >= H || gx >= W) continue;
+          const float s = acc[mt][e] + bias[co];
+          y[(((size_t)at.n * H + gy) * W + gx) * COUT + co] =
+              relu ? cid::relu_f32(s) : s;
+        }
+    }
+  }
+}
+
+template <int COUT>
+cudaError_t launch_f32_narrow_t(const float* x, const float* w, const float* b,
+                                float* y, int n, int h, int wd, int cin,
+                                int relu, cudaStream_t stream) {
+  constexpr int S = kN32Stages;
+  constexpr int smem = S * n32_stage_bytes<COUT>();
+  const auto kernel = [] {  // only the body in use is instantiated
+    if constexpr (kN32TensorCores)
+      return conv3x3_f32_narrow_tc_kernel<COUT, S>;
+    else
+      return conv3x3_f32_narrow_kernel<COUT, S>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_h = (h + kN32Rows - 1) / kN32Rows;
+  const int tiles_w = (wd + kN32Cols - 1) / kN32Cols;
+  const long long tiles = (long long)n * tiles_h * tiles_w;
+  const int sms = cid::conv::sm_count();
+  if (!cid::grid_fits(tiles) || sms <= 0 || cin < 1)
+    return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kN32Threads, smem, stream>>>(
+      x, w, b, y, h, wd, cin, relu, tiles_h, tiles_w, (int)tiles,
+      cin % 4 == 0 && cid::conv::aligned16(x));
   return cudaGetLastError();
 }
 
 // Cout <= 4 (upconv1.2, dncnn body.47, the cGAN's tail: Cout = 3): bound by
-// bytes, where tensor cores do not help; a 4-channel tile over a wide pixel
-// tile.  Wider outputs take the TF32 body (dispatch_tf32).
-cudaError_t launch_f32_narrow(const void* x, const void* w, const void* b,
-                              void* y, int n, int h, int wd, int cin,
+// bytes; wider outputs take the TF32 body (dispatch_tf32).
+cudaError_t launch_f32_narrow(const void* xv, const void* wv, const void* bv,
+                              void* yv, int n, int h, int wd, int cin,
                               int cout, int relu, cudaStream_t stream) {
-  if (cout > 4) return cudaErrorInvalidValue;
-  return launch_f32<32, 64, 4, 4>(x, w, b, y, n, h, wd, cin, cout, relu,
-                                  stream);
+  const float* x = static_cast<const float*>(xv);
+  const float* w = static_cast<const float*>(wv);
+  const float* b = static_cast<const float*>(bv);
+  float* y = static_cast<float*>(yv);
+  switch (cout) {
+    case 1:
+      return launch_f32_narrow_t<1>(x, w, b, y, n, h, wd, cin, relu, stream);
+    case 2:
+      return launch_f32_narrow_t<2>(x, w, b, y, n, h, wd, cin, relu, stream);
+    case 3:
+      return launch_f32_narrow_t<3>(x, w, b, y, n, h, wd, cin, relu, stream);
+    case 4:
+      return launch_f32_narrow_t<4>(x, w, b, y, n, h, wd, cin, relu, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---- bfloat16: tensor cores -------------------------------------------------

@@ -1,9 +1,10 @@
-// The PTX the conv kernels need, and nothing else: asynchronous 16-byte
-// copies into shared memory, ldmatrix (x4 and x2), the warp matrix
-// instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
-// accumulation), the warpgroup ones (wgmma m64n64k16 in bf16, m64n64k32
-// in s8 and m64n64k8 in tf32, A in registers and B read from shared memory
-// through a descriptor), the tf32 rounding, setmaxnreg and a warp barrier.
+// The PTX the conv kernels need, and nothing else: asynchronous 16- and
+// 4-byte copies into shared memory, ldmatrix (x4 and x2), the warp matrix
+// instructions (mma.sync m16n8k16 in bf16, m16n8k8 in tf32, m16n8k32 in
+// s8 with s32 accumulation), the warpgroup ones (wgmma m64n64k16 in bf16,
+// m64n64k32 in s8 and m64n64k8 in tf32, A in registers and B read from
+// shared memory through a descriptor), the tf32 rounding, setmaxnreg, a
+// warp barrier and a warp shuffle.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -108,6 +109,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(bytes)
                : "memory");
 }
+// 4 bytes global -> shared, asynchronously, through L1; zero instead when
+// !valid (src must still be a readable address).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -150,6 +160,20 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
                                              const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A (16x8, row) * B (8x8, col), tf32 in (the operands' low 13 bits
+// ignored), f32 accumulate.  A: a[0] = A[g][q], a[1] = A[g+8][q], a[2] =
+// A[g][q+4], a[3] = A[g+8][q+4]; B: b[0] = B[q][g], b[1] = B[q+4][g]; D as
+// the f32 D of m16n8k16.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -271,6 +295,11 @@ __device__ __forceinline__ void tf32_split(uint32_t v, uint32_t& hi,
 // visible to the warp after it).
 __device__ __forceinline__ void warp_sync() { __syncwarp(); }
 
+// v of lane (lane ^ m) of the calling thread's warp (all 32 lanes call it).
+__device__ __forceinline__ float shfl_xor(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+
 #else
 // ---------------------------------------------------------- emulation ----
 
@@ -279,7 +308,7 @@ inline uint32_t smem_u32(const void* p) {
 }
 
 namespace emu {
-struct Copy { uint32_t dst; unsigned char bytes[16]; };
+struct Copy { uint32_t dst; int n; unsigned char bytes[16]; };
 // groups of copies this thread has started; the last one is still open
 inline thread_local std::vector<std::vector<Copy>> groups(1);
 inline float bf16_at(uint32_t word, int half) {
@@ -317,8 +346,13 @@ inline float a_at(const uint32_t* frag, int row, int k) {
 // The copy is deferred until a wait retires its group, as on the card: a
 // missing commit or wait leaves the destination unwritten.
 inline void cp_async16(uint32_t dst, const void* src, bool valid) {
-  emu::Copy c{dst, {}};
+  emu::Copy c{dst, 16, {}};
   if (valid) std::memcpy(c.bytes, src, 16);
+  emu::groups.back().push_back(c);
+}
+inline void cp_async4(uint32_t dst, const void* src, bool valid) {
+  emu::Copy c{dst, 4, {}};
+  if (valid) std::memcpy(c.bytes, src, 4);
   emu::groups.back().push_back(c);
 }
 inline void cp_async_commit() { emu::groups.emplace_back(); }
@@ -326,7 +360,7 @@ template <int N>
 inline void cp_async_wait() {
   while ((int)emu::groups.size() - 1 > N) {
     for (const emu::Copy& c : emu::groups.front())
-      std::memcpy(::mock::smem_base() + c.dst, c.bytes, 16);
+      std::memcpy(::mock::smem_base() + c.dst, c.bytes, c.n);
     emu::groups.erase(emu::groups.begin());
   }
 }
@@ -387,6 +421,26 @@ inline void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
     for (int k = 0; k < 16; ++k)
       acc += emu::a_at(sa, row, k) *
              emu::bf16_at(sb[(col * 4 + (k % 8) / 2) * 2 + k / 8], k % 2);
+    d[e] = acc;
+  }
+  ::mock::warp_sync();
+}
+
+inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                             const uint32_t (&b)[2]) {
+  uint32_t* sa = ::mock::warp_scratch();  // [32][4]
+  uint32_t* sb = sa + 128;                // [32][2]
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) sa[lane * 4 + i] = a[i];
+  for (int i = 0; i < 2; ++i) sb[lane * 2 + i] = b[i];
+  ::mock::warp_sync();
+  for (int e = 0; e < 4; ++e) {
+    const int row = lane / 4 + 8 * (e / 2), col = 2 * (lane % 4) + e % 2;
+    float acc = d[e];
+    for (int k = 0; k < 8; ++k)
+      acc += emu::tf32_at(sa[((row % 8) * 4 + k % 4) * 4 + row / 8 +
+                             2 * (k / 4)]) *
+             emu::tf32_at(sb[(col * 4 + k % 4) * 2 + k / 4]);
     d[e] = acc;
   }
   ::mock::warp_sync();
@@ -491,6 +545,17 @@ inline void tf32_split(uint32_t v, uint32_t& hi, uint32_t& lo) {
 }
 
 inline void warp_sync() { ::mock::warp_sync(); }
+
+inline float shfl_xor(float v, int m) {
+  uint32_t* s = ::mock::warp_scratch();
+  const int lane = threadIdx.x % 32;
+  std::memcpy(&s[lane], &v, 4);
+  ::mock::warp_sync();
+  float r;
+  std::memcpy(&r, &s[lane ^ m], 4);
+  ::mock::warp_sync();
+  return r;
+}
 
 #endif  // CID_EMULATE_MMA
 

@@ -1,6 +1,7 @@
 """Where the conv kernels' time goes: the kernels timed with parts taken out.
 
-    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation [--only bf16|s8|f32]
+    python3 -m celebrity_image_denoiser_tpu_torch.ops.cuda.ablation
+        [--only bf16|s8|f32|narrow]
 
 Builds variants of the conv sources in which one or more parts are patched
 out of the source text (the matrix instructions, the ldmatrix loads, the
@@ -18,8 +19,14 @@ products) beside the design's alternatives, which compute the right
 function: K3's items of one tap row where all 9 taps fit, its 16x16 tile
 at C1p = 128, and one wgmma accumulator taking every product instead of a
 partial sum a chunk; each launch's error against the plain version is
-printed too (batch 1, the f32 rows' 512x512 input).  Needs one CUDA card
-and nvcc.
+printed too (batch 1, the f32 rows' 512x512 input).  With it, ``f32
+narrow`` (or ``--only narrow`` alone): K2's f32 body for Cout <= 4 at its
+three rows (``upconv1.2``, dncnn's ``body.47``, the cGAN's tail at 2048²)
+as built and as the alternative design (the same ring on mma.sync m16n8k8,
+three TF32 products a multiply), with runs of 8 pixels and four stages, runs
+of 4 pixels, chunks of 32 or 16 channels, and with its copies, its FMAs (and
+their shared-memory loads) or its epilogue (the shuffles and the stores)
+patched out; timed on the device's clock.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import ctypes
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -158,6 +166,32 @@ PARTS = {
         ("double_conv3x3_relu.cu",
          "      if (last) conv::add_part(acc2, part2, cur.chunk == 0);",
          "      if (last) conv::add_part(acc2, part2, true);")],
+    # K2's narrow f32 body (Cout <= 4): its parts, and the design's
+    # alternatives (each computes the right function)
+    "narrow copies": [("conv3x3_bias_relu.cu",
+                       "  auto fill32 = [&](int item, int stage) {\n",
+                       "  auto fill32 = [&](int item, int stage) {\n"
+                       "    if (H > 0) return;\n")],
+    "narrow FMAs": [("conv3x3_bias_relu.cu",
+                     "    compute32(item % S, wr, acc);",
+                     "    if (H < 0) compute32(item % S, wr, acc);")],
+    "narrow epilogue": [("conv3x3_bias_relu.cu",
+                         "if (chunk == nchunks - 1) store32(",
+                         "if (chunk == nchunks - 1 && H < 0) store32(")],
+    "narrow P 4": [("conv3x3_bias_relu.cu", "constexpr int kN32P = 16;",
+                    "constexpr int kN32P = 4;")],
+    "narrow P 8": [("conv3x3_bias_relu.cu", "constexpr int kN32P = 16;",
+                    "constexpr int kN32P = 8;")],
+    "narrow 4 stages": [("conv3x3_bias_relu.cu",
+                         "constexpr int kN32Stages = 2;",
+                         "constexpr int kN32Stages = 4;")],
+    "narrow KC 32": [("conv3x3_bias_relu.cu", "constexpr int kN32KC = 64;",
+                      "constexpr int kN32KC = 32;")],
+    "narrow KC 16": [("conv3x3_bias_relu.cu", "constexpr int kN32KC = 64;",
+                      "constexpr int kN32KC = 16;")],
+    "narrow tensor cores": [("conv3x3_bias_relu.cu",
+                             "#else\nconstexpr bool kN32TensorCores = false;",
+                             "#else\nconstexpr bool kN32TensorCores = true;")],
 }
 # what each timed variant leaves out: the bf16 kernels (K2, K3) and K2's s8
 # mode
@@ -225,6 +259,27 @@ def _time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn`` with no host time between launches: the
+    card first sleeps while the host enqueues every launch behind it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the card's clocks
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    end.synchronize()
+    if host > 0.02:
+        raise RuntimeError(f"enqueueing {reps} launches took {host:.3f} s: "
+                           "not a device time")
+    return start.elapsed_time(end) / reps
+
+
 # the f32 bodies and their alternatives
 F32_VARIANTS = {
     "as built": (),
@@ -232,6 +287,21 @@ F32_VARIANTS = {
     "K3: 16x16 tile, 3-tap items at C1p = 128": ("k3 16x16 tile at C1p 128",),
     "K3: 12x16 tile, 2 stages at C1p = 128": ("k3 12x16 tile at C1p 128",),
     "one wgmma accumulator, no chunk partials": ("one accumulator",),
+}
+# K2's narrow f32 body: as built, the alternatives, and parts patched out
+NARROW_VARIANTS = {
+    "as built": (),
+    "mma.sync m16n8k8, three TF32 products": ("narrow tensor cores",),
+    "runs of 8 pixels (8x16 tiles), 4 stages": ("narrow P 8",
+                                                "narrow 4 stages"),
+    "runs of 4 pixels (8x8 tiles)": ("narrow P 4",),
+    "32-channel chunks (16x32 tiles)": ("narrow KC 32",),
+    "16-channel chunks (32x32 tiles)": ("narrow KC 16",),
+    "no copies": ("narrow copies",),
+    "no FMAs (nor their shared-memory loads)": ("narrow FMAs",),
+    "no epilogue": ("narrow epilogue",),
+    "skeleton (none of the three)": ("narrow copies", "narrow FMAs",
+                                     "narrow epilogue"),
 }
 F32_SIZE = 512
 K3_F32 = {"down1": (1, F32_SIZE, F32_SIZE, 3, 64, 64),
@@ -269,6 +339,31 @@ def _f32_calls(gen):
             x, None, conv3x3.tf32_weights(k), b, y, n, h, w, cin, 0, cout,
             relu, 0, 0, 0, None], y,
             conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=bool(relu)))
+    return calls
+
+
+# the narrow rows: (N, H, W, Cin, Cout, zero bias)
+NARROW = {"upconv1.2": (1, F32_SIZE, F32_SIZE, 64, 3, False),
+          "dncnn body.47": (1, F32_SIZE, F32_SIZE, 64, 3, True),
+          "cgan tail": (1, 2048, 2048, 64, 3, False)}
+
+
+def _narrow_calls(gen):
+    """The same for K2's narrow f32 body at its three rows (no ReLU)."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import conv3x3
+
+    calls = {}
+    for layer, (n, h, w, cin, cout, nobias) in NARROW.items():
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+        k = torch.randn((3, 3, cin, cout), generator=gen,
+                        device="cuda") * (9 * cin) ** -0.5
+        b = (torch.zeros(cout, device="cuda") if nobias else
+             torch.randn((cout,), generator=gen, device="cuda") * 0.1)
+        y = torch.empty((n, h, w, cout), device="cuda")
+        calls[layer] = ("cid_conv3x3_bias_relu", [
+            x, None, k, b, y, n, h, w, cin, 0, cout, 0, 0, 0, 0,
+            _build.dtype_code(torch.float32), None], y,
+            conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=False))
     return calls
 
 
@@ -341,15 +436,22 @@ GROUPS = {"bf16": (VARIANTS, ("conv3x3_bias_relu.cu",
                               "double_conv3x3_relu.cu")),
           "s8": (S8_VARIANTS, ("conv3x3_s8.cu", "convt2x2_s8.cu")),
           "f32": (F32_VARIANTS, ("conv3x3_bias_relu.cu",
-                                 "double_conv3x3_relu.cu"))}
+                                 "double_conv3x3_relu.cu")),
+          "f32 narrow": (NARROW_VARIANTS, ("conv3x3_bias_relu.cu",
+                                           "double_conv3x3_relu.cu"))}
+# --only: the groups it runs (f32: both f32 groups)
+ONLY = {"bf16": ("bf16",), "s8": ("s8",), "f32": ("f32", "f32 narrow"),
+        "narrow": ("f32 narrow",)}
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=sorted(GROUPS),
-                    help="time one group of kernels (default: all)")
+    ap.add_argument("--only", choices=sorted(ONLY),
+                    help="time one group of kernels (default: all; f32: "
+                         "the wide and the narrow f32 bodies, narrow: the "
+                         "narrow one alone)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablation: needs an NVIDIA card", file=sys.stderr)
@@ -366,20 +468,26 @@ def main(argv=None) -> int:
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    groups = [args.only] if args.only else list(GROUPS)
+    groups = list(ONLY[args.only]) if args.only else list(GROUPS)
     with tempfile.TemporaryDirectory(prefix="cid_ablation_") as tmp:
         # every variant of every group builds at once
-        procs = {(g, name): _build_variant(Path(tmp) / f"{g}{i}", parts,
+        procs = {(g, name): _build_variant(Path(tmp) / _dir(g, i), parts,
                                            GROUPS[g][1])
                  for g in groups
                  for i, (name, parts) in enumerate(GROUPS[g][0].items())}
         for g in groups:
             calls = (_bf16_calls(rnd) if g == "bf16" else _s8_calls(gen)
-                     if g == "s8" else _f32_calls(gen))
+                     if g == "s8" else _f32_calls(gen) if g == "f32"
+                     else _narrow_calls(gen))
             _time_group(g, calls, procs, Path(tmp))
             del calls
             torch.cuda.empty_cache()
     return 0
+
+
+def _dir(group: str, i: int) -> str:
+    """The build directory of a group's i-th variant."""
+    return f"{group.replace(' ', '_')}{i}"
 
 
 def _time_group(group, calls, procs, tmp: Path) -> None:
@@ -390,13 +498,16 @@ def _time_group(group, calls, procs, tmp: Path) -> None:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(tmp / f"{group}{i}" / "lib.so"))
+        lib = ctypes.CDLL(str(tmp / _dir(group, i) / "lib.so"))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if group == "f32":
             lib.cid_conv3x3_bias_relu_tf32.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [P])
             lib.cid_double_conv3x3_relu_tf32.argtypes = (
                 [P] * 7 + [I] * 7 + [L] * 3 + [P])
+        elif group == "f32 narrow":
+            lib.cid_conv3x3_bias_relu.argtypes = (
+                [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
         elif group == "bf16":
             lib.cid_conv3x3_bias_relu.argtypes = (
                 [P] * 5 + [I] * 7 + [L] * 3 + [I, P])
@@ -416,7 +527,10 @@ def _time_group(group, calls, procs, tmp: Path) -> None:
                 y, ref = checked
                 errs.append(((y - ref).abs().max()
                              / ref.abs().max()).item())
-            row.append(_time_ms(lambda: fn(*args)))
+            # the narrow body's launches are short: timed on the device's
+            # clock, so that no host time between launches counts
+            row.append(_device_ms(lambda: fn(*args)) if group == "f32 narrow"
+                       else _time_ms(lambda: fn(*args)))
         print(f"{name:38s}" + "".join(f"{ms:13.3f}" for ms in row),
               flush=True)
         if errs:

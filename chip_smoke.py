@@ -26,7 +26,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              bf16, TF32 off; ``upconv2`` and ``upconv1.0`` also with their
              input given as two tensors, the second a cropped strided view
              (in bf16 the kernels read the two through two pointers, in f32
-             the wrapper concatenates); then, as a control, the f32 plain versions with
+             the wrapper concatenates); K2's narrow f32 body (Cout <= 4)
+             for every Cout 1-4 against Cin 3, 10, 16, 64 and 67 at 97×130,
+             batch 2 past a tile, a tile larger than the image, a zero bias
+             and an unaligned input, each launch twice and bit-equal; then,
+             as a control, the f32 plain versions with
              TF32 on must fail the f32 check at 128² batch 8;
 3b. int8   — the s8 probes against exact integer products: wgmma
              m64n64k32 (A by ldmatrix, K-major B with the 32-byte swizzle by
@@ -103,9 +107,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              untiled forward (f32 within 1 count, int8 bit-equal), with
              exactly tiles × the per-forward launches; p50/p90 of 30
              ``/enhance`` requests (256², srgan 64² LR) per family and mode;
-             forward times at 256² (srgan 64² LR) and a 2048² tile; the
-             srgan 2048² LR forward (8192² out) at batch 1 with its time
-             and peak memory; then K2 and K3 in f32 at the family shapes and
+             forward times at 256² (srgan 64² LR) and a 2048² tile; in a
+             fresh process (see phase 7), whole profiles of dncnn's forward
+             at 256² in f32 and on its int8 rung and of srgan's at 2048² LR
+             (8192² out), batch 1, in both modes, with its time and peak
+             memory; then K2 and K3 in f32 at the family shapes and
              the U-Net's at 512² beside cuDNN (TF32 off) and their bound
              (operations at 67 TFLOP/s, f32 outside the tensor cores, or
              bytes at 3.35 TB/s);
@@ -164,7 +170,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              down1's output holds 2^31 elements and upconv1's input 2^32,
              checked against the plain forward (64-bit indexing);
 7. profile — one bf16 and one int8 bench step under torch.profiler: device
-             time by kernel and the device's busy share of the step;
+             time by kernel, the hand-written kernels' time and the
+             device's busy share; every profiled window of the script holds
+             its records of each hand-written kernel against the launch
+             counters' deltas over it and fails where one is missing; this
+             process's windows (without and with the pads) are printed
+             only, since a process's later profiler sessions lose records,
+             and the checked windows (these two and phase 11's train step)
+             run in a fresh process of their own;
 8. noise   — the input stage's kernel (``noise_batch``: each sample its
              noise kind, the noisy batch and the clean target in one
              launch) against its plain version on the card, bit-equal in
@@ -232,9 +245,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              and each kind alone (the probes) at the same batch; the kernel
              on the device's clock; ``random_noise_batch`` under
              ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
-             fails the run); the input stage's share of the step; one bf16
-             train step under torch.profiler (device time by kernel, busy
-             share);
+             fails the run); the input stage's share of the step (its
+             profiled train step is phase 7's);
 12. train-families — ``cli.train --model dncnn|esrgan|cgan|srgan`` at full
              width (dncnn depth 17, esrgan 8 blocks, cgan's Keras generator,
              srgan ×4 with 5 blocks and the shipped ``weights/perceptual``
@@ -312,7 +324,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``cli.train --profile-dir --graph-dir`` (run right after
              phase 2, before any other profiler of the script: 14h): a
              Chrome trace that parses and names each of the noise kernel's
-             8 launches, one warning for the missing matplotlib, exit 0;
+             8 launches, and as many records of each hand-written kernel as
+             were launched, one warning for the missing matplotlib, exit 0;
 15. multi-device — one card, so every run here shows exactness and
              overhead, not scaling: (a) two gloo ranks on cuda:0
              (``make_train_step(mesh=)`` over ``process_mesh``) fine-tune
@@ -774,10 +787,11 @@ def tf32_truncated(t):
 
 def phase_tf32_probes(lib, gen):
     """The tf32 wgmma m64n64k8 (A by ldmatrix from 32-byte f32 rows, B
-    K-major with the 32-byte swizzle) against the exact product of its
-    operands with their low 13 bits dropped: integers in [-8, 8] with
-    random low bits, so the truncated product is exact and a card that
-    rounded those bits instead would differ; then mma.cuh's split of an
+    K-major with the 32-byte swizzle) and mma.sync m16n8k8 (its fragments
+    read from memory) against the exact product of their operands with
+    their low 13 bits dropped: integers in [-8, 8] with random low bits, so
+    the truncated product is exact and a card that rounded those bits
+    instead would differ; then mma.cuh's split of an
     f32 into hi + lo tf32 values (cvt.rna) bit-equal to the wrappers'
     ``round_tf32`` of the weights, ties included."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import _build, conv3x3
@@ -802,6 +816,19 @@ def phase_tf32_probes(lib, gen):
             f"{8 * ksteps}: {'exact on the truncated operands' if ok else 'FAIL'}")
         if not ok:
             fail("tf32 wgmma probe disagrees with the truncated product")
+    # mma.sync m16n8k8 tf32 (the narrow f32 body's alternative design)
+    a, b = operand(16, 8), operand(8, 8)
+    d = torch.full((16, 8), float("nan"), device="cuda")
+    _build.check(lib.cid_probe_mma_tf32(a.data_ptr(), b.data_ptr(),
+                                        d.data_ptr(), None),
+                 "tf32 mma.sync probe")
+    torch.cuda.synchronize()
+    ok = torch.equal(d.double(), tf32_truncated(a).double()
+                     @ tf32_truncated(b).double())
+    say(f"  mma.cuh mma.sync m16n8k8 tf32: "
+        f"{'exact on the truncated operands' if ok else 'FAIL'}")
+    if not ok:
+        fail("tf32 mma.sync probe disagrees with the truncated product")
     v = torch.randn(1 << 20, generator=gen, device="cuda") * torch.exp2(
         torch.randint(-30, 30, (1 << 20,), generator=gen,
                       device="cuda").float())
@@ -999,6 +1026,37 @@ def phase_kernels(_build, conv3x3, double_conv):
             check("conv3x3_bias_relu", layer, shape, f32,
                   conv3x3.conv3x3_bias_relu(x, k, b, relu=relu),
                   conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)))
+    # K2's narrow f32 body (Cout <= 4; 32x64 tiles, 8-channel chunks):
+    # every Cout against Cin 3, 10, 16, 64, 67 at an odd size; batch 2 one
+    # row and column past a tile, one short of it, an image smaller than a
+    # tile, a zero bias, x off its 16-byte boundary (the 4-byte copies);
+    # each launch twice, bit-equal
+    narrow = [(f"narrow {co}<-{ci}", (1, 97, 130, ci, co, ci % 2 == 1))
+              for co in (1, 2, 3, 4) for ci in (3, 10, 16, 64, 67)]
+    narrow += [("narrow batch2", (2, 33, 65, 64, 3, True)),
+               ("narrow short", (1, 31, 63, 16, 3, False)),
+               ("narrow small", (1, 12, 20, 64, 3, False)),
+               ("narrow no bias", (1, 45, 77, 64, 3, False))]
+    for layer, shape in narrow:
+        (x, k, b), relu = single_inputs(gen, shape, f32)
+        if layer == "narrow no bias":
+            b = torch.zeros_like(b)
+        ref = conv3x3.conv3x3_bias_relu_plain(x, k, b, relu=relu)
+        got = conv3x3.conv3x3_bias_relu(x, k, b, relu=relu)
+        worst["conv3x3_bias_relu"] = max(
+            worst["conv3x3_bias_relu"],
+            check("conv3x3_bias_relu", layer, shape, f32, got, ref))
+        if not torch.equal(got, conv3x3.conv3x3_bias_relu(x, k, b,
+                                                          relu=relu)):
+            fail(f"K2 {layer} {shape}: two launches differ")
+        if layer == "narrow no bias":  # unaligned x (4-byte copies) and y
+            xu = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+            xu.copy_(x)
+            got_u = conv3x3.conv3x3_bias_relu(xu, k, b, relu=relu)
+            if not torch.equal(got_u, got):
+                fail(f"K2 {layer}: an unaligned x changes the output")
+    say(f"  narrow f32 body: {len(narrow)} shapes, each launched twice "
+        "bit-equal")
     say("kernels: conv3x3_bias_relu, conv3x3_bias_relu_v2, "
         "double_conv3x3_relu")
     say(f"  f32 (three TF32 products, the narrow K2 body on the CUDA cores): "
@@ -1831,6 +1889,10 @@ FAMILY_TILE = 2048  # the forward-time tile, a side
 # f32 forwards at FAMILY_TILE² when K2 and K3 computed f32 on the CUDA
 # cores (NVIDIA H100 80GB HBM3, 700.00 W): the TF32 bodies' yardstick
 CUDA_CORE_F32_FORWARD_MS = {"dncnn": 278.7, "esrgan": 260.2}
+# K2's narrow f32 rows on the CUDA-core body the ring body replaced (32x64
+# tiles, 4-channel chunks; H100 80GB HBM3, 700 W), for comparison
+NARROW_BEFORE_MS = {"unet upconv1.2": 0.189, "dncnn body.47 (no bias)": 0.182,
+                    "cgan tail model.11": 2.290}
 F32_TIMES_SIZE = 512  # the f32 kernel rows' input, a side
 
 
@@ -2099,44 +2161,26 @@ def phase_families(conv3x3, double_conv, k5, k6, device="cuda"):
                             f" (the CUDA-core f32 bodies: {before} ms, "
                             f"{before / ms:.2f}x this)"))
                     del x
-        # 7. srgan at 2048² LR (8192² out), batch 1: time and peak memory,
-        # then the same forward under the profiler
-        from torch.profiler import ProfilerActivity, profile
-
-        x = family_input(st_f, "srgan", test_image(SRGAN_BIG, SRGAN_BIG,
-                                                    seed=62), "cpu").numpy()
-        for mode in ("float", "int8"):
-            for run in (0, 1):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                int8_counts(conv3x3, double_conv, k5, k6, reset=True)
-                prof = (profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
-                        if run else contextlib.nullcontext())
-                with prof:
-                    t0 = time.perf_counter()
-                    y = sts[mode]._forward("srgan", x)
-                    dt = time.perf_counter() - t0
-                counts = int8_counts(conv3x3, double_conv, k5, k6)
-                peak = torch.cuda.max_memory_allocated() / 2 ** 30
-                say(f"  srgan {mode} {SRGAN_BIG}x{SRGAN_BIG} LR -> "
-                    f"{y.shape[2]}x{y.shape[1]} (run {run}"
-                    f"{', profiled' if run else ''}): {dt:.3f} s (forward + "
-                    f"D2H of the u8 output), peak {peak:.2f} GiB, launches "
-                    f"{counts}")
-                if run == 1:
-                    report_profile(prof, dt * 1e3, top=8)
-                if y.shape != (1, 4 * SRGAN_BIG, 4 * SRGAN_BIG, 3) or \
-                        counts != (F32_PER_FORWARD["srgan"] + (0, 0)
-                                   if mode == "float" else
-                                   (0, 0, K5_PER_FORWARD[(
-                                       "srgan", st_q.int8_rung["srgan"])], 0)):
-                    fail(f"srgan {mode} {SRGAN_BIG}²: shape {y.shape}, "
-                         f"launches {counts}")
-                records["srgan"][f"{mode}_big_s_run{run}"] = dt
-                records["srgan"][f"{mode}_big_peak_gib"] = peak
-                del y
-        del x
+        # 7. whole profiles, in a fresh process: dncnn's forward at 256² in
+        # f32 and int8 (where the int8 rung's time goes); srgan's at 2048² LR
+        # (8192² out), batch 1, whose first call gives its time and peak
+        # memory
+        prof = profile_in_child("families")
+        for label, r in prof.items():
+            fam, mode = label.split()[0], (
+                "float" if label.split()[1] == "f32" else "int8")
+            records[fam][f"{mode}_profile"] = {
+                k: r.get(k) for k in ("busy_ms", "kernel_ms", "wall_ms")}
+            if fam == "srgan":
+                say(f"  srgan {mode} {SRGAN_BIG}x{SRGAN_BIG} LR -> output "
+                    f"{r['shape']}: {r['warm_s']:.3f} s (forward + D2H of "
+                    f"the u8 output; the profiled one {r['wall_ms'] / 1e3:.3f}"
+                    f" s), peak {r['peak_gib']:.2f} GiB")
+                if r["shape"] != [1, 4 * SRGAN_BIG, 4 * SRGAN_BIG, 3]:
+                    fail(f"srgan {mode} {SRGAN_BIG}²: shape {r['shape']}")
+                records["srgan"][f"{mode}_big_s_run0"] = r["warm_s"]
+                records["srgan"][f"{mode}_big_s_run1"] = r["wall_ms"] / 1e3
+                records["srgan"][f"{mode}_big_peak_gib"] = r["peak_gib"]
     finally:
         for srv, thread, _ in servers:
             stop_server(srv, thread)
@@ -2207,7 +2251,8 @@ def f32_bounds(flops, nbytes):
 def family_f32_times(conv3x3, double_conv, device="cuda"):
     """K2 and K3 in f32 at the families' shapes and the U-Net's (batch 1,
     ``F32_TIMES_SIZE``²), each checked against its plain version, timed
-    beside it, beside cuDNN (``F.conv2d`` + bias + ReLU, NCHW, TF32 off) and
+    (the narrow body, Cout <= 4, on the device's clock) beside it, beside
+    cuDNN (``F.conv2d`` + bias + ReLU, NCHW, TF32 off) and
     beside its bound (``f32_bounds``: operations as three TF32 products,
     bytes; and the old CUDA-core bound).  The kernels get their weights'
     split copies made once, as the models' caches hand them over."""
@@ -2283,8 +2328,11 @@ def family_f32_times(conv3x3, double_conv, device="cuda"):
             got = conv3x3.conv3x3_bias_relu(x, wt, b, relu=relu,
                                             kernel_tf32=split)
             ref = conv3x3.conv3x3_bias_relu_plain(x, wt, b, relu=relu)
-            ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(
-                x, wt, b, relu=relu, kernel_tf32=split), 10)
+            # the narrow body's launch is short: on the device's clock, so
+            # that the wrapper's host time between launches does not count
+            ms = (device_ms if cout <= 4 else functools.partial(
+                time_ms, reps=10))(lambda: conv3x3.conv3x3_bias_relu(
+                    x, wt, b, relu=relu, kernel_tf32=split))
             plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
                 x, wt, b, relu=relu), 10)
             lib = time_ms(lambda: act(F.conv2d(xc, wo, b, padding=1)), 10)
@@ -2292,6 +2340,10 @@ def family_f32_times(conv3x3, double_conv, device="cuda"):
         nbytes = 4 * (x.numel() + wt.numel() + cout + n * h * w * cout)
         row("conv3x3_bias_relu", layer, (n, h, w, cin, cout, relu), got, ref,
             ms, plain, lib, flops, nbytes)
+        if layer in NARROW_BEFORE_MS:
+            before = NARROW_BEFORE_MS[layer]
+            say(f"    (the replaced narrow body here: {before} ms, "
+                f"{before / ms:.2f}x this)")
     return rows
 
 
@@ -2740,9 +2792,9 @@ def cgan_k5_times(k5, quant, device="cuda"):
 
 def cgan_tail_time(conv3x3, device="cuda"):
     """K2 in f32 on the cGAN's tail (64 -> 3, bias, no ReLU: the narrow
-    CUDA-core body) at a ``CGAN_BIG``² input: checked against its plain
-    version, timed beside it, beside cuDNN (TF32 off) and beside its bound
-    (``f32_bounds``)."""
+    body) at a ``CGAN_BIG``² input: checked against its plain
+    version, timed on the device's clock beside it, beside cuDNN (TF32 off)
+    and beside its bound (``f32_bounds``)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2758,18 +2810,20 @@ def cgan_tail_time(conv3x3, device="cuda"):
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         if err > TOL[torch.float32]:
             fail(f"cgan tail K2: {err:.2e} x max|ref| off plain")
-        ms = time_ms(lambda: conv3x3.conv3x3_bias_relu(x, wt, b,
-                                                       relu=False), 10)
+        ms = device_ms(lambda: conv3x3.conv3x3_bias_relu(x, wt, b,
+                                                         relu=False))
         plain = time_ms(lambda: conv3x3.conv3x3_bias_relu_plain(
             x, wt, b, relu=False), 10)
         lib = time_ms(lambda: F.conv2d(xc, wo, b, padding=1), 10)
     flops = 2 * s * s * 9 * 64 * 3
     nbytes = 4 * (x.numel() + wt.numel() + 3 + s * s * 3)
     bnd, by, old = f32_bounds(flops, nbytes)
+    before = NARROW_BEFORE_MS["cgan tail model.11"]
     say(f"  f32 conv3x3_bias_relu cgan tail model.11 (1, {s}, {s}, 64, 3) "
         f"{ms:.3f} ms plain {plain:.3f} cuDNN {lib:.3f} bound {bnd:.3f} "
         f"({by}), {bnd / ms:.1%} of bound; CUDA-core bound {old:.3f} "
-        f"({old / ms:.1%}); {err:.2e} x max|ref|")
+        f"({old / ms:.1%}); {err:.2e} x max|ref|; the replaced narrow body "
+        f"{before} ms, {before / ms:.2f}x this")
     return {"layer": "cgan tail model.11", "shape": [1, s, s, 64, 3],
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
             "bound_by": by, "cuda_core_bound_ms": old, "max_rel_err": err}
@@ -3040,63 +3094,336 @@ def phase_big_batch(bench):
           torch.bfloat16, got, ref)
 
 
-def report_profile(prof, wall_ms: float, top: int = 10) -> None:
-    """Device time by kernel and the busy share of a profiled window."""
+# Each hand-written kernel's device functions (``csrc/``), by the wrapper
+# module whose launch counter counts them: a profiled window must name as
+# many records of each as the counters made in it.
+KERNEL_RECORDS = {
+    "K2": ("conv3x3_wgmma_kernel", "conv3x3_narrow_kernel",
+           "conv3x3_f32_narrow_kernel", "conv3x3_tf32_kernel"),
+    "K3": ("double_conv3x3_wgmma_kernel", "double_conv3x3_tf32_kernel"),
+    "K4": ("noise_batch_kernel",),
+    "K5": ("conv3x3_s8_wgmma_kernel", "conv3x3_s8_narrow_kernel"),
+    "K6": ("convt2x2_s8_kernel",),
+}
+_KERNEL_OF = {name: k for k, names in KERNEL_RECORDS.items()
+              for name in names}
+# a name as it stands in a demangled record: "(anonymous
+# namespace)::conv3x3_wgmma_kernel<32, 4, false>(...)"; never a suffix of a
+# longer name (double_conv3x3_wgmma_kernel)
+_RECORD_NAME = re.compile(r"(?:^|[\s:])(" + "|".join(_KERNEL_OF)
+                          + r")\s*[<(]")
+# host sleep inside a profiled window before and after its work (see
+# profiled)
+PROFILE_PAD_S = 0.2
+# chip_smoke.py PROFILE_CHILD <group>: one group of profiled windows in a
+# process of its own (see profile_child)
+PROFILE_CHILD = "--profile-windows"
+
+
+def kernel_of(record: str):
+    """The kernel (K2...K6) a device record belongs to, or None."""
+    m = _RECORD_NAME.search(record)
+    return _KERNEL_OF[m.group(1)] if m else None
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch count now, by kernel."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import (
+        conv3x3,
+        conv3x3_s8,
+        convt2x2_s8,
+        double_conv,
+        noise,
+    )
+
+    return {"K2": conv3x3.LAUNCHES, "K3": double_conv.LAUNCHES,
+            "K4": noise.LAUNCHES + noise.GAUSSIAN_LAUNCHES,
+            "K5": conv3x3_s8.LAUNCHES, "K6": convt2x2_s8.LAUNCHES}
+
+
+def trace_records(events) -> tuple:
+    """From a Chrome trace's events: the kernels' records by kernel, and the
+    least (kernel start − its launch call's start) in µs, which is below 0
+    only where the card's and the host's clocks disagree."""
+    records = {k: 0 for k in KERNEL_RECORDS}
+    launch = {e.get("args", {}).get("correlation"): e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "ts" in e}
+    lead = None
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        k = kernel_of(str(e.get("name")))
+        if k:
+            records[k] += 1
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if t is not None:
+            lead = e["ts"] - t if lead is None else min(lead, e["ts"] - t)
+    return records, lead
+
+
+def check_records(label, records, launches, fail_short=True) -> bool:
+    """Print each kernel's records against its launches in a window; fail
+    (with ``fail_short``) where they differ."""
+    whole = all(records[k] == launches[k] for k in KERNEL_RECORDS)
+    held = ", ".join(f"{k} {records[k]}/{launches[k]}"
+                     for k in KERNEL_RECORDS if records[k] or launches[k])
+    say(f"  {label}: kernel records / launches {held or 'none / none'}"
+        f" ({'whole' if whole else 'RECORDS MISSING'})")
+    if fail_short and not whole:
+        fail(f"{label}: the profile names {records} for the launches "
+             f"{launches}")
+    return whole
+
+
+def profiled(label, fn, top: int = 10, pad_s: float = PROFILE_PAD_S,
+             expect=None, check: bool = True):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA).  With ``pad_s``
+    the window opens and closes with a synchronise and the host idles
+    ``pad_s`` between each and the work; without, it holds the work and a
+    synchronise only.  Then the window's kernel records are held against
+    the launch counters' deltas over it (and ``expect``, a dict of kernel:
+    launches, where given): with ``check``, a window that names fewer
+    records than were launched fails the script.  Only a whole window's
+    device busy share, its hand-written kernels' device time and its top
+    kernels are printed.  Returns (fn's result, wall ms of fn, a dict:
+    ``whole``, ``records``, ``launches`` and, for a whole window,
+    ``busy_ms`` and ``kernel_ms`` by kernel).
+
+    A window is whole only as a process's first profiler session or soon
+    after it (``PERF.md`` §6): later sessions of the same process
+    lose kernel records, more the longer the process has profiled.  So the
+    checked windows run in a fresh process each (``profile_child``)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = launch_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if pad_s:
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if pad_s:
+            time.sleep(pad_s)
+            torch.cuda.synchronize()
+    after = launch_counters()
+    launches = {k: after[k] - before[k] for k in KERNEL_RECORDS}
+    if expect is not None and any(launches[k] != expect.get(k, 0)
+                                  for k in KERNEL_RECORDS):
+        fail(f"{label}: launched {launches}, expected {expect}")
+    with tempfile.TemporaryDirectory(prefix="cid_prof_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    _, lead = trace_records(events)
     from torch.autograd import DeviceType
 
+    records = {k: 0 for k in KERNEL_RECORDS}
+    kernel_ms = {k: 0.0 for k in KERNEL_RECORDS}
     rows = []  # device-side events only, so no kernel is counted twice
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
+        k = kernel_of(ev.key)
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
+        if k:
+            records[k] += ev.count
+            kernel_ms[k] += dev_us / 1e3
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
+    lead_s = "none" if lead is None else f"{lead:.1f} us"
+    info = {"whole": check_records(
+        f"{label} (pad {pad_s:g} s; least kernel start after its launch "
+        f"call {lead_s})", records, launches, fail_short=check),
+        "records": records, "launches": launches}
+    if not info["whole"]:
+        return out, wall, info
     busy = sum(r[0] for r in rows)
     if not rows:
         say("  profiler saw no device time: not measured")
-        return
-    say(f"  step wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"({busy / wall_ms:.1%} of the step; idle {1 - busy / wall_ms:.1%})")
+        return out, wall, info
+    info.update(busy_ms=busy, kernel_ms=kernel_ms)
+    mine = ", ".join(f"{k} {ms:.3f} ms ({ms / busy:.1%})"
+                     for k, ms in kernel_ms.items() if launches[k])
+    say(f"  wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / wall:.1%} of the wall; idle {1 - busy / wall:.1%}); "
+        f"the hand-written kernels: {mine or 'none'}")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         say(f"  {ms:9.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:90]}")
+    return out, wall, info
 
 
-def phase_profile(bench):
-    from torch.profiler import ProfilerActivity, profile
-
+def bench_windows(tmp: str) -> list:
+    """Phase 7's windows, one bench step at batch ``BENCH_BATCH`` in bf16 and
+    on the s8 program (random weights), and phase 11's, one bf16 train step
+    of ``cli.train``'s denoise trainer at ``TRAIN_SIZE``², batch
+    ``TRAIN_BATCH``, its images written to ``tmp``: (label, fn, expected
+    launches, top rows)."""
+    from celebrity_image_denoiser_tpu_torch import bench
+    from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
+    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
+        calibration_batch,
+    )
     from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
         DenoiseGenerator,
         serve_step,
-    )
-
-    from celebrity_image_denoiser_tpu_torch.data.synthetic import (
-        calibration_batch,
     )
     from celebrity_image_denoiser_tpu_torch.ops.quant_unet import (
         quantize_apply_denoise_unet,
     )
 
-    say(f"== phase 7: profile of one bench step, bf16 and int8 (batch "
-        f"{BENCH_BATCH})")
     model = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
     model = model.to(device="cuda").eval()
     prog = quantize_apply_denoise_unet(model, calibration_batch(True).cuda())
     model = model.to(torch.bfloat16)
     x = torch.randint(0, 256, (BENCH_BATCH, bench.SIZE, bench.SIZE, 3),
                       dtype=torch.uint8, device="cuda")
-    for label, step in (("bf16", lambda: serve_step(model, x)),
-                        ("int8-s8skip", lambda: bench.int8_step(prog, x))):
-        step()
+    imgs = write_train_pngs(tmp)
+    tr = cli_train.build_trainer(cli_train.build_parser().parse_args([
+        "--model", "denoise", "--clean-dir", tmp, "--image-size",
+        str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size", str(TRAIN_BATCH),
+        "--num-epochs", "1", "--compute-dtype", "bfloat16",
+        "--checkpoint-dir", f"{tmp}/ckpt"]))
+    batch = torch.from_numpy(imgs[:TRAIN_BATCH]).cuda()
+    return [("bf16 bench step", lambda: serve_step(model, x),
+             {"K2": 2, "K3": 4}, 14),
+            ("int8-s8skip bench step", lambda: bench.int8_step(prog, x),
+             {"K2": 1, "K5": 9, "K6": 2}, 14),
+            # one noise_batch launch; the step's convs are PyTorch's
+            ("bf16 train step", lambda: tr.step_fn(
+                tr.opt, None, batch, tr.noise_gen, 1e-4, 1e-4), {"K4": 1},
+             12)]
+
+
+def family_windows(tmp: str) -> list:
+    """Phase 4e's windows on the shipped weights: dncnn's served forward at
+    256², batch 1, in f32 and on its int8 rung, then srgan's at
+    ``SRGAN_BIG``² LR in f32 and int8 (its first call, the warm-up, gives
+    the forward's time and peak memory); ``tmp`` unused."""
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    sts = {"float": ServeState(device="cuda",
+                               tile_threshold_rows=FAMILY_THRESHOLD),
+           "int8": ServeState(device="cuda", quantize="int8",
+                              tile_threshold_rows=FAMILY_THRESHOLD)}
+    windows = []
+    img = test_image(256, 256, seed=61)
+    for mode, st in sts.items():
+        rung = sts["int8"].ladder("dncnn") if mode == "int8" else "f32"
+        expect = ({"K2": F32_PER_FORWARD["dncnn"][0],
+                   "K3": F32_PER_FORWARD["dncnn"][1]} if mode == "float"
+                  else {"K5": K5_PER_FORWARD[("dncnn", rung)]})
+        apply = st._apply("dncnn", "kernel")
+        x = family_input(st, "dncnn", img)
+
+        def fwd(st=st, apply=apply, x=x):
+            with torch.inference_mode():
+                return st._to_u8("dncnn", apply(x))
+
+        windows.append((f"dncnn {rung} forward at 256x256", fwd, expect, 8))
+    big = family_input(sts["float"], "srgan", test_image(
+        SRGAN_BIG, SRGAN_BIG, seed=62), "cpu").numpy()
+    for mode, st in sts.items():
+        rung = sts["int8"].ladder("srgan") if mode == "int8" else "f32"
+        expect = ({"K2": F32_PER_FORWARD["srgan"][0]} if mode == "float"
+                  else {"K5": K5_PER_FORWARD[("srgan", rung)]})
+        windows.append((f"srgan {rung} {SRGAN_BIG}x{SRGAN_BIG} LR forward",
+                        lambda st=st: st._forward("srgan", big), expect, 8))
+    return windows
+
+
+def profile_child(group: str) -> int:
+    """``chip_smoke.py PROFILE_CHILD <group>``: the group's profiled windows
+    (``bench_windows``, ``family_windows``), each called once to warm up
+    (its time, peak memory and output shape recorded), then each in a
+    checked ``profiled`` window: the process's first profiler sessions,
+    back to back.  The last line is the results' JSON."""
+    import tempfile
+
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
+
+    _build.library()
+    with tempfile.TemporaryDirectory(prefix="cid_prof_") as tmp:
+        return _profile_windows(
+            {"bench": bench_windows, "families": family_windows}[group](tmp))
+
+
+def _profile_windows(windows) -> int:
+    out = {}
+    for label, fn, _, _ in windows:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        say(f"  {label} step:")
-        report_profile(prof, wall, top=14)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        out[label] = {"warm_s": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "shape": list(getattr(y, "shape", ()))}
+        del y
+    for label, fn, expect, top in windows:
+        _, wall, info = profiled(label, fn, top=top, expect=expect)
+        out[label].update({"wall_ms": wall, **{
+            k: info.get(k) for k in ("whole", "records", "launches",
+                                     "busy_ms", "kernel_ms")}})
+    print(json.dumps({"profile_windows": out}), flush=True)
+    return 0
+
+
+def profile_in_child(group: str, timeout: float = 300.0) -> dict:
+    """``profile_child(group)`` in a fresh process, its lines relayed; fails
+    where the child failed.  The card's cached memory is released first."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    script = os.path.abspath(__file__)
+    r = subprocess.run([sys.executable, script, PROFILE_CHILD, group],
+                       capture_output=True, text=True, timeout=timeout,
+                       cwd=os.path.dirname(script))
+    lines = r.stdout.splitlines()
+    for line in lines[:-1]:
+        say(line)
+    if r.returncode != 0 or not lines or "profile_windows" not in lines[-1]:
+        say(lines[-1] if lines else "")
+        say(r.stderr[-4000:])
+        fail(f"the {group} profile windows' process exited {r.returncode}")
+    say(f"  ({group}: a fresh process, {time.perf_counter() - t0:.1f} s)")
+    return json.loads(lines[-1])["profile_windows"]
+
+
+def phase_profile(bench):
+    """Phase 7 (and phase 11's window): first one bench step profiled in
+    this process, which has profiled before, without and with the pads,
+    its records only printed; then ``bench_windows`` in a fresh process,
+    checked."""
+    from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
+        DenoiseGenerator,
+        serve_step,
+    )
+
+    say(f"== phase 7: profile of one bench step, bf16 and int8 (batch "
+        f"{BENCH_BATCH}); phase 11's bf16 train step")
+    model = DenoiseGenerator(generator=torch.Generator().manual_seed(SEED))
+    model = model.to(device="cuda").eval().to(torch.bfloat16)
+    x = torch.randint(0, 256, (BENCH_BATCH, bench.SIZE, bench.SIZE, 3),
+                      dtype=torch.uint8, device="cuda")
+    step = lambda: serve_step(model, x)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    here = {}
+    for label, pad in (("bare", 0.0), ("padded", PROFILE_PAD_S)):
+        _, _, info = profiled(f"bf16 bench step in this process, {label}",
+                              step, pad_s=pad, expect={"K2": 2, "K3": 4},
+                              check=False)
+        here[label] = info["records"]
+    del model, x
+    return {"this_process": here, "fresh_process": profile_in_child("bench")}
 
 
 # ---------------------------------------------------------------------------
@@ -4127,8 +4454,6 @@ def issue_floor_ms(issue, kinds, x) -> float:
 
 def phase_train_profile(_build, probes, noise, trainer, batch, step_sec,
                         issue):
-    from torch.profiler import ProfilerActivity, profile
-
     from celebrity_image_denoiser_tpu_torch.data import noise as noise_lib
 
     say("== phase 11: the input stage's kernel at the train batch, and one "
@@ -4225,14 +4550,7 @@ def phase_train_profile(_build, probes, noise, trainer, batch, step_sec,
     say(f"  input stage (random_noise_batch: draws + one launch) {stage:.4f} "
         f"ms of a {step_sec * 1e3:.3f} ms bf16 step (phase 10's median): "
         f"{stage / (step_sec * 1e3):.2%}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step_fn(trainer.opt, None, batch, trainer.noise_gen, 1e-4,
-                        1e-4)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall, top=12)
+    say("  one bf16 train step's profile: phase 7, in a fresh process")
     stats["gaussian_only"] = g_stats[torch.float32]
     return stats
 
@@ -5293,6 +5611,7 @@ def ship_profile(noise, tmp) -> dict:
     from celebrity_image_denoiser_tpu_torch.cli import train as cli_train
 
     noise.LAUNCHES = 0
+    before = launch_counters()
     with LogLines("cid_torch.cli.train") as log:
         rc = cli_train.main([
             "--clean-dir", f"{tmp}/clean", "--image-size", str(TRAIN_SIZE),
@@ -5305,25 +5624,34 @@ def ship_profile(noise, tmp) -> dict:
         fail(f"cli.train --profile-dir: rc {rc}, traces {traces}")
     with open(f"{tmp}/prof/{traces[0]}") as f:
         events = json.load(f)["traceEvents"]
-    k4 = [e for e in events if "noise_batch_kernel" in str(e.get("name"))]
-    if len(k4) != SHIP_STEPS or noise.LAUNCHES != SHIP_STEPS:
-        fail(f"the trace names {len(k4)} noise_batch_kernel launches for "
+    # every hand-written kernel's records against its launches: one
+    # noise_batch launch a step, no conv kernel (the train step's convs are
+    # PyTorch's)
+    after = launch_counters()
+    records, lead = trace_records(events)
+    launches = {k: after[k] - before[k] for k in KERNEL_RECORDS}
+    check_records(f"cli.train --profile-dir trace (least kernel start after "
+                  f"its launch call {lead} us)", records, launches)
+    k4 = records["K4"]
+    if k4 != SHIP_STEPS or noise.LAUNCHES != SHIP_STEPS:
+        fail(f"the trace names {k4} noise_batch_kernel launches for "
              f"{noise.LAUNCHES} launched")
     if not any("matplotlib" in line for line in log.lines) or \
             os.path.exists(f"{tmp}/graphs_prof"):
         fail(f"--graph-dir without matplotlib: {log.lines}")
     say(f"  cli.train --profile-dir: a Chrome trace of {len(events)} events "
-        f"naming {len(k4)} noise_batch_kernel launches of {noise.LAUNCHES} "
+        f"naming {k4} noise_batch_kernel launches of {noise.LAUNCHES} "
         "(one a step); --graph-dir: "
         f"'{next(l for l in log.lines if 'matplotlib' in l)}', exit 0")
     return {"k4": noise.LAUNCHES, "events": len(events),
-            "k4_in_trace": len(k4)}
+            "k4_in_trace": k4}
 
 
 def phase_ship_trace(noise) -> dict:
     """Phase 14's profiling step (``ship_profile``), run before any other
-    ``torch.profiler`` session of this process: after phases 4e, 7 and 11
-    had profiled, its trace once held 7 of the 8 kernel records."""
+    ``torch.profiler`` session of this process: a process's later sessions
+    lose kernel records (``profiled``); after phases 4e, 7 and 11 had
+    profiled, its trace once held 7 of the 8."""
     import tempfile
 
     say("== phase 14h (run first, before the other profilers): cli.train "
@@ -6261,6 +6589,8 @@ def main() -> int:
     # the plain versions are the reference: full f32, no TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if len(sys.argv) == 3 and sys.argv[1] == PROFILE_CHILD:
+        return profile_child(sys.argv[2])
 
     t_start = time.perf_counter()
     card = phase_device()
