@@ -108,8 +108,8 @@
 //   * a tile's partial sums are summed over the run's 16 lanes by shuffles
 //     in a fixed tree, no split, no atomics: two runs are bit-equal.
 // ops/cuda/ablation.py --only narrow times the alternatives (on an H100):
-// runs of 8 pixels with four stages, chunks of 32 or 16 channels, and the
-// same ring on mma.sync TF32 (three products a multiply) were all slower.
+// runs of 8 pixels with four stages and chunks of 32 or 16 channels were
+// slower, as was the same ring on mma.sync TF32 (three products a multiply).
 // The TPU artifacts of the Pallas version (channel padding to 128 lanes,
 // H % tile_h == 0) are not carried over.
 
@@ -148,14 +148,6 @@ constexpr int kN32WinCols = kN32Cols + 2, kN32WinRows = kN32Rows + 2;
 constexpr int kN32Pitch = kN32KC * 4;  // bytes a window pixel
 constexpr int kN32WinBytes = kN32WinRows * kN32WinCols * kN32Pitch;
 constexpr int kN32Swz = (kN32GL < 8 ? kN32GL : 8) - 1;  // the piece swizzle
-// The alternative design, timed beside this one by ops/cuda/ablation.py:
-// the same items, ring and stages on mma.sync m16n8k8, three TF32 products
-// a multiply (conv3x3_f32_narrow_tc_kernel).
-#ifdef CID_NARROW_TENSOR_CORES
-constexpr bool kN32TensorCores = true;
-#else
-constexpr bool kN32TensorCores = false;
-#endif
 static_assert(kN32GL >= 2 && 32 % kN32GL == 0, "a run's lanes in one warp");
 static_assert((kN32P & (kN32P - 1)) == 0, "the shuffle tree halves runs");
 template <int COUT>
@@ -398,128 +390,13 @@ conv3x3_f32_narrow_kernel(const float* __restrict__ x,
   }
 }
 
-// The alternative: the same items, ring and stages on the tensor cores.
-// The tile is cut into 16-pixel m16 tiles along its rows, MT of them for
-// each warp; a tap is a shift of ldmatrix's row addresses (the tf32 A
-// fragment: rows of 16-byte pieces, 4 f32 a piece), N = 8 (Cout padded in
-// the B fragments only), K = 8 channels a step.  Every multiply is three
-// TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi, the split of the wide
-// TF32 bodies), each chunk's products summed in a fresh accumulator and
-// added to the running total rounded to nearest.
-template <int COUT, int S>
-__global__ void __launch_bounds__(kN32Threads, 1)
-conv3x3_f32_narrow_tc_kernel(const float* __restrict__ x,
-                             const float* __restrict__ w,
-                             const float* __restrict__ bias,
-                             float* __restrict__ y, int H, int W, int Cin,
-                             int relu, int tiles_h, int tiles_w,
-                             int total_tiles, int vec_x) {
-  constexpr int NT = kN32Threads, PER_ROW = kN32Cols / 16;
-  constexpr int MT = kN32Rows * PER_ROW / (NT / 32);  // m16 tiles a warp
-  constexpr int SB = n32_stage_bytes<COUT>();
-  static_assert(S > 1 && kN32Cols % 16 == 0 && MT >= 1, "m16 tiles");
-  namespace mma = cid::mma;
-  extern __shared__ __align__(1024) unsigned char smem_mma[];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, q = lane % 4;
-  const Narrow32 nw(x, w, H, W, Cin, tiles_h, tiles_w, total_tiles, vec_x);
-  const int nchunks = nw.nchunks, nitems = nw.nitems;
-  // this lane's ldmatrix row (pixel) and piece within an m16 tile
-  const int lrow = (lane % 8) + 8 * ((lane / 8) % 2), lpiece = lane / 16;
-
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nitems) nw.fill<COUT, NT, S>(smem_mma + s * SB, s, tid);
-    mma::cp_async_commit();
-  }
-  float acc[MT][4];
-  for (int item = 0; item < nitems; ++item) {
-    mma::cp_async_wait<S - 2>();
-    __syncthreads();
-    if (item + S - 1 < nitems)
-      nw.fill<COUT, NT, S>(smem_mma + ((item + S - 1) % S) * SB, item + S - 1,
-                           tid);
-    mma::cp_async_commit();
-    const int chunk = item % nchunks;
-    const unsigned char* st = smem_mma + (item % S) * SB;
-    const float* ws = reinterpret_cast<const float*>(st + kN32WinBytes);
-    const uint32_t base = mma::smem_u32(st);
-    float part[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
-    for (int ks = 0; ks < kN32KC / 8; ++ks) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        // B: b[i] = W[tap][8 ks + 4 i + q][g], zero for g >= Cout
-        uint32_t bhi[2], blo[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float v =
-              g < COUT ? ws[(((2 * ks + i) * 9 + tap) * 4 + q) * COUT +
-                            (g < COUT ? g : 0)]
-                       : 0.f;
-          uint32_t bits;
-          memcpy(&bits, &v, 4);
-          mma::tf32_split(bits, bhi[i], blo[i]);
-        }
-        const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int m = warp * MT + mt;
-          const int p = (m / PER_ROW + dy) * kN32WinCols +
-                        16 * (m % PER_ROW) + dx + lrow;
-          uint32_t a[4], ahi[4], alo[4];
-          mma::ldmatrix_x4(a, base + n32_at(p, 2 * ks + lpiece));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mma::tf32_split(a[e], ahi[e], alo[e]);
-#ifndef CID_TF32_NO_CORRECTION
-          mma::mma_m16n8k8_tf32(part[mt], alo, bhi);
-          mma::mma_m16n8k8_tf32(part[mt], ahi, blo);
-#endif
-          mma::mma_m16n8k8_tf32(part[mt], ahi, bhi);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[mt][e] =
-            chunk == 0 ? part[mt][e] : __fadd_rn(acc[mt][e], part[mt][e]);
-    if (chunk == nchunks - 1) {
-      const Tile32 at = nw.tile(item / nchunks);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = warp * MT + mt;
-          const int gy = at.y0 + m / PER_ROW;
-          const int gx = at.x0 + 16 * (m % PER_ROW) + g + 8 * (e / 2);
-          const int co = 2 * q + e % 2;
-          if (co >= COUT || gy >= H || gx >= W) continue;
-          const float s = acc[mt][e] + bias[co];
-          y[(((size_t)at.n * H + gy) * W + gx) * COUT + co] =
-              relu ? cid::relu_f32(s) : s;
-        }
-    }
-  }
-}
-
 template <int COUT>
 cudaError_t launch_f32_narrow_t(const float* x, const float* w, const float* b,
                                 float* y, int n, int h, int wd, int cin,
                                 int relu, cudaStream_t stream) {
   constexpr int S = kN32Stages;
   constexpr int smem = S * n32_stage_bytes<COUT>();
-  const auto kernel = [] {  // only the body in use is instantiated
-    if constexpr (kN32TensorCores)
-      return conv3x3_f32_narrow_tc_kernel<COUT, S>;
-    else
-      return conv3x3_f32_narrow_kernel<COUT, S>;
-  }();
+  const auto kernel = conv3x3_f32_narrow_kernel<COUT, S>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,10 +1,10 @@
 // The PTX the conv kernels need, and nothing else: asynchronous 16- and
 // 4-byte copies into shared memory, ldmatrix (x4 and x2), the warp matrix
-// instructions (mma.sync m16n8k16 in bf16, m16n8k8 in tf32, m16n8k32 in
-// s8 with s32 accumulation), the warpgroup ones (wgmma m64n64k16 in bf16,
-// m64n64k32 in s8 and m64n64k8 in tf32, A in registers and B read from
-// shared memory through a descriptor), the tf32 rounding, setmaxnreg, a
-// warp barrier and a warp shuffle.
+// instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
+// accumulation), the warpgroup ones (wgmma m64n64k16 in bf16, m64n64k32
+// in s8 and m64n64k8 in tf32, A in registers and B read from shared memory
+// through a descriptor), the tf32 rounding, setmaxnreg, a warp barrier and
+// a warp shuffle.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -160,20 +160,6 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
                                              const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += A (16x8, row) * B (8x8, col), tf32 in (the operands' low 13 bits
-// ignored), f32 accumulate.  A: a[0] = A[g][q], a[1] = A[g+8][q], a[2] =
-// A[g][q+4], a[3] = A[g+8][q+4]; B: b[0] = B[q][g], b[1] = B[q+4][g]; D as
-// the f32 D of m16n8k16.
-__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -421,26 +407,6 @@ inline void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
     for (int k = 0; k < 16; ++k)
       acc += emu::a_at(sa, row, k) *
              emu::bf16_at(sb[(col * 4 + (k % 8) / 2) * 2 + k / 8], k % 2);
-    d[e] = acc;
-  }
-  ::mock::warp_sync();
-}
-
-inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
-                             const uint32_t (&b)[2]) {
-  uint32_t* sa = ::mock::warp_scratch();  // [32][4]
-  uint32_t* sb = sa + 128;                // [32][2]
-  const int lane = threadIdx.x % 32;
-  for (int i = 0; i < 4; ++i) sa[lane * 4 + i] = a[i];
-  for (int i = 0; i < 2; ++i) sb[lane * 2 + i] = b[i];
-  ::mock::warp_sync();
-  for (int e = 0; e < 4; ++e) {
-    const int row = lane / 4 + 8 * (e / 2), col = 2 * (lane % 4) + e % 2;
-    float acc = d[e];
-    for (int k = 0; k < 8; ++k)
-      acc += emu::tf32_at(sa[((row % 8) * 4 + k % 4) * 4 + row / 8 +
-                             2 * (k / 4)]) *
-             emu::tf32_at(sb[(col * 4 + k % 4) * 2 + k / 4]);
     d[e] = acc;
   }
   ::mock::warp_sync();

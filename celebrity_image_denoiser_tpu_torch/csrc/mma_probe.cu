@@ -1,7 +1,7 @@
 // Probes of mma.cuh: each computes one small matrix product through the
 // wrappers exactly as the conv kernels use them (cp.async into the swizzled
 // shared-memory layouts of conv_mma.cuh and conv_s8.cuh, ldmatrix, then
-// mma.sync in bf16, tf32 or s8, or wgmma in bf16, s8 or tf32)
+// mma.sync in bf16 or s8, or wgmma in bf16, s8 or tf32)
 // and writes the result out by the documented fragment layout.  The CPU
 // tests run them under the g++ emulation and chip_smoke.py runs them on the
 // card, both against a plain product, so the emulation's layouts are held
@@ -229,33 +229,7 @@ __global__ void probe_quantize_kernel(const float* __restrict__ h, int nh,
   }
 }
 
-// d (16x8) = a (16x8, row-major) * b (8x8, [k][n]) through mma.sync
-// m16n8k8 tf32, the fragments read straight from memory by the layout of
-// mma.cuh; one warp.
-__global__ void probe_mma_tf32_kernel(const uint32_t* __restrict__ a,
-                                      const uint32_t* __restrict__ b,
-                                      float* __restrict__ d) {
-  const int lane = threadIdx.x, g = lane / 4, q = lane % 4;
-  uint32_t fa[4], fb[2];
-  for (int i = 0; i < 4; ++i)
-    fa[i] = a[(g + 8 * (i % 2)) * 8 + q + 4 * (i / 2)];
-  for (int i = 0; i < 2; ++i) fb[i] = b[(q + 4 * i) * 8 + g];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  mma::mma_m16n8k8_tf32(acc, fa, fb);
-  for (int e = 0; e < 4; ++e)
-    d[(g + 8 * (e / 2)) * 8 + 2 * q + e % 2] = acc[e];
-}
-
 }  // namespace
-
-extern "C" int cid_probe_mma_tf32(const void* a, const void* b, void* d,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  probe_mma_tf32_kernel<<<1, 32, 0, s>>>(static_cast<const uint32_t*>(a),
-                                         static_cast<const uint32_t*>(b),
-                                         static_cast<float*>(d));
-  return (int)cudaGetLastError();
-}
 
 extern "C" int cid_probe_wgmma_s8(const void* a, const void* b, void* d,
                                   int ksteps, void* stream) {

@@ -165,8 +165,6 @@ def library() -> ctypes.CDLL:
             lib.cid_probe_mma_s8.restype = I
             lib.cid_probe_wgmma_s8.argtypes = [P] * 3 + [I, P]
             lib.cid_probe_wgmma_s8.restype = I
-            lib.cid_probe_mma_tf32.argtypes = [P] * 4
-            lib.cid_probe_mma_tf32.restype = I
             lib.cid_probe_wgmma_tf32.argtypes = [P] * 3 + [I, P]
             lib.cid_probe_wgmma_tf32.restype = I
             lib.cid_probe_tf32_split.argtypes = [P, L, P, P, P]

@@ -22,11 +22,11 @@ partial sum a chunk; each launch's error against the plain version is
 printed too (batch 1, the f32 rows' 512x512 input).  With it, ``f32
 narrow`` (or ``--only narrow`` alone): K2's f32 body for Cout <= 4 at its
 three rows (``upconv1.2``, dncnn's ``body.47``, the cGAN's tail at 2048²)
-as built and as the alternative design (the same ring on mma.sync m16n8k8,
-three TF32 products a multiply), with runs of 8 pixels and four stages, runs
-of 4 pixels, chunks of 32 or 16 channels, and with its copies, its FMAs (and
-their shared-memory loads) or its epilogue (the shuffles and the stores)
-patched out; timed on the device's clock.  Needs one CUDA card and nvcc.
+as built, with runs of 8 pixels and four stages, runs of 4 pixels, chunks
+of 32 or 16 channels, and with its copies, its FMAs (and their
+shared-memory loads) or its epilogue (the shuffles and the stores) patched
+out; timed on the device's clock (``ops/cuda/timing.py``).  Needs one CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -35,12 +35,11 @@ import ctypes
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 import torch
 
-from celebrity_image_denoiser_tpu_torch.ops.cuda import _build
+from celebrity_image_denoiser_tpu_torch.ops.cuda import _build, timing
 
 BATCH = 256
 # layer: (N, H, W, C0, C1, C2) for the double conv, (N, H, W, Cin, Cout,
@@ -189,9 +188,6 @@ PARTS = {
                       "constexpr int kN32KC = 32;")],
     "narrow KC 16": [("conv3x3_bias_relu.cu", "constexpr int kN32KC = 64;",
                       "constexpr int kN32KC = 16;")],
-    "narrow tensor cores": [("conv3x3_bias_relu.cu",
-                             "#else\nconstexpr bool kN32TensorCores = false;",
-                             "#else\nconstexpr bool kN32TensorCores = true;")],
 }
 # what each timed variant leaves out: the bf16 kernels (K2, K3) and K2's s8
 # mode
@@ -259,27 +255,6 @@ def _time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 50) -> float:
-    """Mean device time of ``fn`` with no host time between launches: the
-    card first sleeps while the host enqueues every launch behind it."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms at the card's clocks
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    host = time.perf_counter() - t0
-    end.synchronize()
-    if host > 0.02:
-        raise RuntimeError(f"enqueueing {reps} launches took {host:.3f} s: "
-                           "not a device time")
-    return start.elapsed_time(end) / reps
-
-
 # the f32 bodies and their alternatives
 F32_VARIANTS = {
     "as built": (),
@@ -291,7 +266,6 @@ F32_VARIANTS = {
 # K2's narrow f32 body: as built, the alternatives, and parts patched out
 NARROW_VARIANTS = {
     "as built": (),
-    "mma.sync m16n8k8, three TF32 products": ("narrow tensor cores",),
     "runs of 8 pixels (8x16 tiles), 4 stages": ("narrow P 8",
                                                 "narrow 4 stages"),
     "runs of 4 pixels (8x8 tiles)": ("narrow P 4",),
@@ -529,8 +503,9 @@ def _time_group(group, calls, procs, tmp: Path) -> None:
                              / ref.abs().max()).item())
             # the narrow body's launches are short: timed on the device's
             # clock, so that no host time between launches counts
-            row.append(_device_ms(lambda: fn(*args)) if group == "f32 narrow"
-                       else _time_ms(lambda: fn(*args)))
+            timer = (timing.device_ms if group == "f32 narrow"
+                     else _time_ms)
+            row.append(timer(lambda: fn(*args)))
         print(f"{name:38s}" + "".join(f"{ms:13.3f}" for ms in row),
               flush=True)
         if errs:

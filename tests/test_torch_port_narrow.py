@@ -9,17 +9,15 @@ is not 16-byte aligned), with Cout a template parameter (1-4, never padded);
 their partial sums by shuffles.
 Covered here: every Cout against Cin 3, 10, 16, 64 and 67 (the scalar and
 the vector copies, one chunk and several, a ragged last chunk); ragged H and
-W on every tile edge; an image smaller than a tile; batch 2; more tiles than
-the emulated card's two blocks; ReLU on and off; a zero bias; unaligned x
-and y; two launches bit-equal; and a control build that leaves the ring's
-last chunk out (``-DCID_NARROW_DROP_LAST_CHUNK``), which must miss the same
+W on every tile edge; an image smaller than a tile in both dimensions, one
+row, one column and one pixel; batch 2; more tiles than the emulated card's
+two blocks; ReLU on and off; a zero bias; unaligned x and y; two launches
+bit-equal; and a control build that leaves the ring's last chunk out (``-DCID_NARROW_DROP_LAST_CHUNK``), which must miss the same
 check.  The body's output is also held against the JAX package's Pallas
 kernel in interpret mode, and the plain version at each narrow Cout.  Only
 the two conv sources are built, so this file runs beside the heavier
 ``test_torch_port_kernels.py``.
 """
-
-import ctypes
 
 import numpy as np
 import pytest
@@ -48,17 +46,6 @@ def narrow_lib_dropped(tmp_path_factory):
     """The same sources with the ring's last chunk left out of the sums."""
     return _build_emulated(tmp_path_factory.mktemp("narrow_dropped"),
                            ("-DCID_NARROW_DROP_LAST_CHUNK",), _SOURCES)
-
-
-@pytest.fixture(scope="module")
-def narrow_lib_tc(tmp_path_factory):
-    """The same sources with the alternative body (``CID_NARROW_TENSOR_CORES``:
-    the ring on mma.sync m16n8k8, three TF32 products), and the probes."""
-    lib = _build_emulated(tmp_path_factory.mktemp("narrow_tc"),
-                          ("-DCID_NARROW_TENSOR_CORES",),
-                          _SOURCES + ("mma_probe.cu",))
-    lib.cid_probe_mma_tf32.argtypes = [ctypes.c_void_p] * 4
-    return lib
 
 
 @pytest.fixture()
@@ -119,13 +106,18 @@ def test_narrow_body_emulated_on_cpu(narrow_lib, cout, cin):
 
 
 @pytest.mark.parametrize("shape, relu, zero_bias", [
-    ((1, 12, 20, 64), False, False),   # an image smaller than one tile
+    ((1, 5, 20, 64), False, False),    # smaller than a tile both ways
     ((2, 33, 65, 64), True, False),    # batch 2, one row/column past a tile
     ((1, 31, 63, 16), False, True),    # one row/column short of a tile
     ((2, 1, 1, 8), True, False),       # one pixel
     ((1, 97, 130, 64), False, True),   # dncnn's last conv: odd, no bias
     ((3, 40, 200, 12), True, False),   # Cin % 8 == 4: half a chunk is zeros
-], ids=["small", "batch2_past", "short", "pixel", "dncnn_tail", "cin12"])
+    ((1, 12, 20, 64), False, False),   # past a tile in H, short of it in W
+    ((1, 8, 32, 64), True, False),     # exactly one tile
+    ((1, 1, 70, 67), False, False),    # one row, a ragged last chunk
+    ((2, 17, 1, 64), True, True),      # one column
+], ids=["small", "batch2_past", "short", "pixel", "dncnn_tail", "cin12",
+        "tall", "one_tile", "one_row", "one_col"])
 def test_narrow_body_shapes_emulated_on_cpu(narrow_lib, shape, relu,
                                             zero_bias):
     n, h, w, cin = shape
@@ -194,40 +186,3 @@ def test_narrow_plain_matches_pallas(interpret_pallas, cout):
     got = conv3x3.conv3x3_bias_relu(x, k, b, relu=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
-
-
-def test_mma_tf32_probe_emulated_on_cpu(narrow_lib_tc):
-    """mma.cuh's mma.sync m16n8k8 tf32 through ``cid_probe_mma_tf32``:
-    integers in [-8, 8] with random low bits, so the product of the
-    operands truncated to tf32 (the tensor cores ignore the low 13 bits) is
-    exact, and a fragment read at the wrong place shows."""
-    rng = np.random.default_rng(16)
-
-    def operand(*shape):
-        ints = rng.integers(-8, 9, shape).astype(np.float32)
-        bits = ints.view(np.int32) | rng.integers(1, 1 << 13, shape,
-                                                  dtype=np.int32)
-        return np.where(ints != 0, bits, 0).view(np.float32)
-
-    a, b = operand(16, 8), operand(8, 8)
-    d = np.full((16, 8), np.nan, np.float32)
-    assert narrow_lib_tc.cid_probe_mma_tf32(a.ctypes.data, b.ctypes.data,
-                                            d.ctypes.data, None) == 0
-
-    def trunc(t):
-        return (t.view(np.int32) & -0x2000).view(np.float32)
-
-    np.testing.assert_array_equal(d, trunc(a).astype(np.float64)
-                                  @ trunc(b).astype(np.float64))
-
-
-@pytest.mark.parametrize("shape", [(1, 20, 40, 64, 3), (2, 9, 17, 10, 1),
-                                   (1, 37, 21, 67, 4)],
-                         ids=["64to3", "10to1_batch2", "67to4"])
-def test_narrow_tensor_core_alternative_emulated_on_cpu(narrow_lib_tc, shape):
-    """The alternative design (what the ablation times beside the kept body)
-    computes the same function within the f32 tolerance."""
-    n, h, w, cin, cout = shape
-    x, k, b = _inputs(17 + cin, n, h, w, cin, cout)
-    _, err = _check(narrow_lib_tc, x, k, b, True)
-    assert err <= _TOL, err
