@@ -28,6 +28,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from celebrity_image_denoiser_tpu_torch.utils.profiling import span
+
 
 def _pow2_at_least(n: int, cap: int) -> int:
     p = 1
@@ -46,10 +48,12 @@ def default_fence(ys):
     the device slot blocks the leader until the batch is done, so arrivals
     pile up in ``pending`` meanwhile and the next leader takes them all:
     the batch size adapts to the service time.  The copy is the bytes the
-    waiters need anyway, as one transfer instead of one per request."""
-    if isinstance(ys, torch.Tensor):
-        return ys.cpu().numpy()
-    return ys  # a test's fake forward
+    waiters need anyway, as one transfer instead of one per request.  Runs
+    in the span ``cid.batch.fence``."""
+    with span("cid.batch.fence"):
+        if isinstance(ys, torch.Tensor):
+            return ys.cpu().numpy()
+        return ys  # a test's fake forward
 
 
 class MicroBatcher:

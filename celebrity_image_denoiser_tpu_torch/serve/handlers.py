@@ -170,6 +170,7 @@ from celebrity_image_denoiser_tpu_torch.serve.batching import (
 )
 from celebrity_image_denoiser_tpu_torch.serve.stats import ServeStats
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
+from celebrity_image_denoiser_tpu_torch.utils.profiling import span
 
 logger = get_logger("cid_torch.serve")
 
@@ -568,7 +569,7 @@ class ServeState:
             apply = self._apply(name, "kernel")
 
             def dispatch(xs: torch.Tensor) -> torch.Tensor:
-                with torch.inference_mode():
+                with span("cid.batch.forward"), torch.inference_mode():
                     return self._to_u8(name, apply(xs))
             return dispatch
 
@@ -580,10 +581,11 @@ class ServeState:
         def dispatch_dp(xs: torch.Tensor) -> torch.Tensor:
             n = xs.shape[0]
             rem = (-n) % n_dev
-            if rem:
-                xs = torch.cat([xs, xs[-1:].expand(rem, *xs.shape[1:])])
-            with torch.inference_mode():
-                return dp(xs)[:n]
+            with span("cid.batch.forward"):
+                if rem:
+                    xs = torch.cat([xs, xs[-1:].expand(rem, *xs.shape[1:])])
+                with torch.inference_mode():
+                    return dp(xs)[:n]
         return dispatch_dp
 
     def _forward(self, name: str, x: np.ndarray, plain: bool = False
@@ -593,28 +595,32 @@ class ServeState:
         through the int8 forward where one was built; sharded over the mesh
         or tiled when H or W is over ``tile_threshold_rows``
         (``_big_route``); through the micro-batcher for a batch-1 input
-        that runs whole when micro-batching is on."""
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        that runs whole when micro-batching is on (whose fence, not this
+        thread, brings the output to the host: no download span then)."""
+        with span("cid.request.upload"):
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         route = "plain" if plain else "kernel"
         label = "float" if self.ladder(name) is None else "int8"
         big, dim = self._big_route(x.shape)
         # the label is this thread's: a micro-batch may run in another
         self._path_note.value = label + ("" if big is None else "+" + big)
-        if big is None and not plain and self.batchers is not None \
-                and x.shape[0] == 1:
-            batcher = self.batchers.get((name, tuple(x.shape[1:])),
-                                        self._batched_dispatch(name))
-            return batcher(xt)
-        if big == "sharded":
-            fn = self._sharded(name, dim, route)
-        elif big == "tiled":
-            fn = self._tiler(name, x.shape[1] > self.tile_threshold_rows,
-                             x.shape[2] > self.tile_threshold_rows, route)
-        else:
-            fn = self._apply(name, route)
-        with torch.inference_mode():
-            u8 = self._to_u8(name, fn(xt))
-        return u8.cpu().numpy()
+        with span("cid.request.forward"):
+            if big is None and not plain and self.batchers is not None \
+                    and x.shape[0] == 1:
+                batcher = self.batchers.get((name, tuple(x.shape[1:])),
+                                            self._batched_dispatch(name))
+                return batcher(xt)
+            if big == "sharded":
+                fn = self._sharded(name, dim, route)
+            elif big == "tiled":
+                fn = self._tiler(name, x.shape[1] > self.tile_threshold_rows,
+                                 x.shape[2] > self.tile_threshold_rows, route)
+            else:
+                fn = self._apply(name, route)
+            with torch.inference_mode():
+                u8 = self._to_u8(name, fn(xt))
+        with span("cid.request.download"):
+            return u8.cpu().numpy()
 
     def _padding(self, name: str, h: int, w: int):
         """(left, top, right, bottom) padding of an (h, w) input, to the
@@ -656,12 +662,21 @@ class ServeState:
         family's serving domain (the module docstring): the input's size,
         or 4× its padded size for srgan; ``"cgan"`` is the Keras cGAN.
         ``plain`` runs the kernels' plain versions (the reference on the
-        card)."""
-        xin, _, box = self._served_input(model, image)
-        which = KERAS if model == "cgan" else model
-        y01 = _as01(self._forward(which, xin, plain=plain))
-        y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
-        return _pil_crop(y_u8, box) if model in _CROPPED else y_u8
+        card).  Runs in the span ``cid.request``, its stages in theirs
+        (``utils/profiling.py::SPANS``)."""
+        with span("cid.request"):
+            with span("cid.request.prepare"):
+                xin, _, box = self._served_input(model, image)
+            which = KERAS if model == "cgan" else model
+            y = self._forward(which, xin, plain=plain)
+            with span("cid.request.finish"):
+                y01 = _as01(y)
+                # dropped before the passes below allocate, as the request
+                # path always did: held to the return, with y01 freed
+                # early, p50 read about 10 ms more on the H100's host
+                del y
+                y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
+                return _pil_crop(y_u8, box) if model in _CROPPED else y_u8
 
     def _cgan_torch(self, image: np.ndarray, label: Optional[int],
                     cond_bytes: Optional[bytes]) -> np.ndarray:

@@ -2,9 +2,14 @@
 
 Port of ``celebrity_image_denoiser_tpu/utils/profiling.py``: ``trace:23``
 (here ``torch.profiler`` over the CPU and, where there is one, the card,
-written as a Chrome trace), ``debug_nans:34`` (here autograd's anomaly mode
-with its NaN check) and ``StepTimer:44`` (wall-clock per-step timing with
-items/s, fenced on a result).
+written as a Chrome trace, with every thread's host events), ``debug_nans:34``
+(here autograd's anomaly mode with its NaN check) and ``StepTimer:44``
+(wall-clock per-step timing with items/s, fenced on a result).
+
+``span(name)`` marks a stage of the program's own work (``SPANS`` names
+every one) in whatever profiler records, on the same clock as the kernels
+and copies it launches, so an idle gap of the card can be put down to the
+stage the host was in.  With no profiler a span costs one flag check.
 """
 
 from __future__ import annotations
@@ -15,22 +20,53 @@ import time
 from typing import Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from celebrity_image_denoiser_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("cid_torch.profiling")
 
+# Every span the program enters, in the order a request meets them.
+# ``cid.request`` is ``ServeState.denoise_image``; its stages, in order on
+# the request's thread: ``prepare`` (``_served_input``: padding, to float,
+# normalise), ``upload`` (the input to the device), ``forward`` (the
+# forward's launches and the uint8 output map, or the micro-batcher's call
+# when it takes the request), ``download`` (the uint8 output to the host,
+# which waits for the card), ``finish`` (back to [0, 1], clip, x255, to
+# uint8, crop).  ``cid.batch.forward`` is the batched dispatch of a
+# coalesced batch, ``cid.batch.fence`` its copy to the host
+# (``serve/batching.py::default_fence``).
+SPANS = ("cid.request", "cid.request.prepare", "cid.request.upload",
+         "cid.request.forward", "cid.request.download",
+         "cid.request.finish", "cid.batch.forward", "cid.batch.fence")
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records, else a shared
+    no-op context.  The test is ``autograd.profiler._is_profiler_enabled``,
+    a module global set on every thread while ``torch.profiler.profile``
+    runs (``torch._C._autograd._profiler_enabled()`` is thread-local and
+    reads False on a thread the profiler was not started on)."""
+    if autograd_profiler._is_profiler_enabled:
+        return autograd_profiler.record_function(name)
+    return _NO_SPAN
+
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """``torch.profiler`` over the body; on exit a Chrome trace
-    ``trace_<pid>_<ns>.json`` in ``log_dir`` (open it in Perfetto or
-    chrome://tracing)."""
+    """``torch.profiler`` over the body, the host events of every thread
+    included (by default it records only the thread that started it); on
+    exit a Chrome trace ``trace_<pid>_<ns>.json`` in ``log_dir`` (open it in
+    Perfetto or chrome://tracing)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=torch.profiler._ExperimentalConfig(
+            profile_all_threads=True))
     prof.start()
     try:
         yield prof
