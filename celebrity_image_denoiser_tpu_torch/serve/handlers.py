@@ -2,7 +2,7 @@
 srgan, esrgan and dncnn families, float and int8.
 
 Port of ``celebrity_image_denoiser_tpu/serve/handlers.py`` (``EnhanceError:60``,
-``run_enhance:69``, ``_as01:115``, ``ServeState``): the same contract —
+``run_enhance:69``, ``ServeState``): the same contract —
 unknown model → 400 listing the five families, content type must be
 image/* (400), uploads capped at 50 MB (400), undecodable image → 500,
 response ``{denoised_image_base64, noise_graph_base64, backend}``, tolerant
@@ -38,6 +38,16 @@ JAX server's (:761-828):
 * esrgan: [0, 1], unpadded, then cropped at the padding offsets the JAX
   server computes for it, as Pillow's ``crop`` does: shifted by (left,
   top), zeros past the border (the JAX server's quirk, kept).
+
+A request's host side holds uint8 only (``denoise_image``): the upload
+goes to the device as uint8, is zero-padded there where the family pads,
+and each value is mapped through the family's 256-entry table of its
+serving domain (``_domain_table``: the host conversion of
+``_served_input`` applied to 0..255, so the forward's input is the same
+bits); the served image is the forward's uint8 output itself (copied
+into host pages zeroed while the card computes), cropped where the family
+is.  The JAX server's ``_as01:115`` round trip (u8 → /255 → clip → ×255 →
+u8) is the identity on uint8 and is not run.
 
 On the card the float forward is each generator's kernel route
 (``models/folded.py``): K2/K3 for every 3×3 conv, the eval BatchNorm
@@ -236,12 +246,6 @@ def run_enhance(st: "ServeState", *, model: str, file_bytes: bytes,
         raise
 
 
-def _as01(y_u8: np.ndarray) -> np.ndarray:
-    """Forward output (1, H, W, 3) uint8 → host float [0,1] (``_as01:115``;
-    u8 → /255 → ×255 → u8 round-trips as in the JAX server)."""
-    return np.asarray(y_u8)[0].astype(np.float32) / 255.0
-
-
 def _pil_crop(img: np.ndarray, box) -> np.ndarray:
     """Pillow's ``Image.crop(box)`` on an (H, W, C) array: box = (left, top,
     right, bottom); what lies outside the image is zero."""
@@ -313,6 +317,9 @@ class ServeState:
         if self.keras_cgan is not None:
             self.keras_cgan.to(self.device).eval()
         self._path_note = threading.local()
+        # each family's serving domain of the 256 uint8 values, on the device
+        self._tables = {name: torch.from_numpy(self._domain_table(name)).to(
+            self.device) for name in MODEL_CFG}
         # per family whose ladder is built: the int8 forward (None: float),
         # the gate's dB and the rung it came from (written last: the flag)
         self._qapply: Dict[str, object] = {}
@@ -588,17 +595,15 @@ class ServeState:
                     return dp(xs)[:n]
         return dispatch_dp
 
-    def _forward(self, name: str, x: np.ndarray, plain: bool = False
+    def _forward(self, name: str, x: torch.Tensor, plain: bool = False
                  ) -> np.ndarray:
-        """(N, H, W, 3) float32 in the family's domain → (N, H·s, W·s, 3)
-        uint8, truncated;
+        """(N, H, W, 3) float32 on the device, in the family's domain →
+        (N, H·s, W·s, 3) uint8 on the host, truncated;
         through the int8 forward where one was built; sharded over the mesh
         or tiled when H or W is over ``tile_threshold_rows``
         (``_big_route``); through the micro-batcher for a batch-1 input
         that runs whole when micro-batching is on (whose fence, not this
         thread, brings the output to the host: no download span then)."""
-        with span("cid.request.upload"):
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         route = "plain" if plain else "kernel"
         label = "float" if self.ladder(name) is None else "int8"
         big, dim = self._big_route(x.shape)
@@ -609,7 +614,7 @@ class ServeState:
                     and x.shape[0] == 1:
                 batcher = self.batchers.get((name, tuple(x.shape[1:])),
                                             self._batched_dispatch(name))
-                return batcher(xt)
+                return batcher(x)
             if big == "sharded":
                 fn = self._sharded(name, dim, route)
             elif big == "tiled":
@@ -618,9 +623,14 @@ class ServeState:
             else:
                 fn = self._apply(name, route)
             with torch.inference_mode():
-                u8 = self._to_u8(name, fn(xt))
+                u8 = self._to_u8(name, fn(x))
         with span("cid.request.download"):
-            return u8.cpu().numpy()
+            # the host's pages of the output, faulted in while the card
+            # still computes: a pageable copy into fresh pages holds the
+            # card's stream until the host has faulted each one in (3.1 MB
+            # at 1024²: 1.7 ms of copy against 0.45 on an H100's host)
+            out = torch.zeros(u8.shape, dtype=u8.dtype)
+            return out.copy_(u8).numpy()
 
     def _padding(self, name: str, h: int, w: int):
         """(left, top, right, bottom) padding of an (h, w) input, to the
@@ -637,9 +647,36 @@ class ServeState:
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
         return h + pt_ + pb_, w + pl_ + pr_
 
+    @staticmethod
+    def _domain_table(name: str) -> np.ndarray:
+        """The family's serving domain of each uint8 value 0..255 (256
+        float32): ``_served_input``'s conversion, elementwise, so gathering
+        it gives that conversion's bits for every pixel."""
+        x01 = imageio.to_float01(np.arange(256, dtype=np.uint8))
+        norm = ServeState._cfg(name)["normalize"]
+        if norm is None:
+            return x01
+        mean, std = norm
+        return imageio.normalize(x01, mean[0], std[0])
+
+    def _to_domain(self, name: str, u8: torch.Tensor, pads) -> torch.Tensor:
+        """The forward's (1, H, W, 3) f32 input from the (h, w, 3) uint8
+        image ``u8`` on the device: zero-padded by ``pads`` (left, top,
+        right, bottom) where the family pads, then mapped through its
+        table (``_domain_table``); equal to ``_served_input``'s first
+        output.  Runs in the span ``cid.request.to_domain``."""
+        with span("cid.request.to_domain"):
+            if self._cfg(name)["normalize"] is not None:
+                pl_, pt_, pr_, pb_ = pads
+                u8 = torch.nn.functional.pad(u8, (0, 0, pl_, pr_, pt_, pb_))
+            x = self._tables[name].index_select(0, u8.reshape(-1).int())
+            return x.view(1, *u8.shape)
+
     def _served_input(self, name: str, image: np.ndarray):
         """(the forward's (1, H, W, 3) f32 input, its [0, 1] view, the crop
-        box of the original (left, top, right, bottom))."""
+        box of the original (left, top, right, bottom)), on the host: the
+        analysis figure's view (``_input_view``); a request's input is
+        ``_to_domain``'s, the same bits."""
         h, w = image.shape[:2]
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
         cfg = self._cfg(name)
@@ -662,21 +699,23 @@ class ServeState:
         family's serving domain (the module docstring): the input's size,
         or 4× its padded size for srgan; ``"cgan"`` is the Keras cGAN.
         ``plain`` runs the kernels' plain versions (the reference on the
-        card).  Runs in the span ``cid.request``, its stages in theirs
+        card).  The host handles uint8 only: the image goes to the device
+        as it is and is mapped there (``_to_domain``), and the forward's
+        uint8 output is served as it is, cropped where the family is.
+        Runs in the span ``cid.request``, its stages in theirs
         (``utils/profiling.py::SPANS``)."""
         with span("cid.request"):
             with span("cid.request.prepare"):
-                xin, _, box = self._served_input(model, image)
+                h, w = image.shape[:2]
+                pads = self._padding(model, h, w)
+                box = (pads[0], pads[1], pads[0] + w, pads[1] + h)
+                u8 = torch.from_numpy(np.ascontiguousarray(image))
+            with span("cid.request.upload"):
+                xt = self._to_domain(model, u8.to(self.device), pads)
             which = KERAS if model == "cgan" else model
-            y = self._forward(which, xin, plain=plain)
+            y = self._forward(which, xt, plain=plain)
             with span("cid.request.finish"):
-                y01 = _as01(y)
-                # dropped before the passes below allocate, as the request
-                # path always did: held to the return, with y01 freed
-                # early, p50 read about 10 ms more on the H100's host
-                del y
-                y_u8 = (np.clip(y01, 0, 1) * 255).astype(np.uint8)
-                return _pil_crop(y_u8, box) if model in _CROPPED else y_u8
+                return _pil_crop(y[0], box) if model in _CROPPED else y[0]
 
     def _cgan_torch(self, image: np.ndarray, label: Optional[int],
                     cond_bytes: Optional[bytes]) -> np.ndarray:
@@ -717,9 +756,10 @@ class ServeState:
         return x_u8
 
     def warmup(self, sizes=((256, 256),), models=None) -> None:
-        """Run each (H, W) input size once per model (sizes before padding)
-        so that first requests do not pay for the kernels' build (nvcc at
-        first use) or a first launch at their shapes: a size over the
+        """Serve each (H, W) input size once per model (sizes before
+        padding; ``denoise_image`` on a zero image) so that first requests
+        do not pay for the kernels' build (nvcc at first use) or a first
+        launch at their shapes, the input's map included: a size over the
         threshold runs its tile shapes (or its strips over the mesh).  With
         micro-batching on, also every batch size the batcher can dispatch
         at that padded shape (the pow2 series up to ``microbatch_max``, the
@@ -741,7 +781,7 @@ class ServeState:
                     which = KERAS
                 hh, ww = self._input_shape(name, h, w)
                 t0 = time.perf_counter()
-                self._forward(which, np.zeros((1, hh, ww, 3), np.float32))
+                self.denoise_image(np.zeros((h, w, 3), np.uint8), name)
                 whole = self._big_route((1, hh, ww, 3))[0] is None
                 if self.batchers is not None and whole:
                     dispatch = self._batched_dispatch(which)

@@ -28,17 +28,21 @@ logger = get_logger("cid_torch.profiling")
 
 # Every span the program enters, in the order a request meets them.
 # ``cid.request`` is ``ServeState.denoise_image``; its stages, in order on
-# the request's thread: ``prepare`` (``_served_input``: padding, to float,
-# normalise), ``upload`` (the input to the device), ``forward`` (the
-# forward's launches and the uint8 output map, or the micro-batcher's call
-# when it takes the request), ``download`` (the uint8 output to the host,
-# which waits for the card), ``finish`` (back to [0, 1], clip, x255, to
-# uint8, crop).  ``cid.batch.forward`` is the batched dispatch of a
-# coalesced batch, ``cid.batch.fence`` its copy to the host
+# the request's thread: ``prepare`` (the padding and the crop box; the
+# uint8 image as a tensor), ``upload`` (the uint8 image to the device),
+# inside it ``to_domain`` (``_to_domain``: the zero padding on the device
+# and the map through the family's 256-entry table, once a request),
+# ``forward`` (the forward's launches and the uint8 output map, or the
+# micro-batcher's call when it takes the request), ``download`` (the uint8
+# output to the host, into pages zeroed while the card computes; it waits
+# for the card), ``finish`` (the crop).
+# ``cid.batch.forward`` is the batched dispatch of a coalesced batch,
+# ``cid.batch.fence`` its copy to the host
 # (``serve/batching.py::default_fence``).
 SPANS = ("cid.request", "cid.request.prepare", "cid.request.upload",
-         "cid.request.forward", "cid.request.download",
-         "cid.request.finish", "cid.batch.forward", "cid.batch.fence")
+         "cid.request.to_domain", "cid.request.forward",
+         "cid.request.download", "cid.request.finish", "cid.batch.forward",
+         "cid.batch.fence")
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -3325,7 +3325,7 @@ def family_windows(tmp: str) -> list:
                     {"K2": F32_PER_FORWARD["dncnn"][0],
                      "K3": F32_PER_FORWARD["dncnn"][1]}, 8))
     big = family_input(sts["float"], "srgan", test_image(
-        SRGAN_BIG, SRGAN_BIG, seed=62), "cpu").numpy()
+        SRGAN_BIG, SRGAN_BIG, seed=62))
     for mode, st in sts.items():
         rung = sts["int8"].ladder("srgan") if mode == "int8" else "f32"
         expect = ({"K2": F32_PER_FORWARD["srgan"][0]} if mode == "float"

@@ -5,7 +5,9 @@
 * ``utils/profiling.trace`` records the host events of every thread;
 * ``ServeState.denoise_image`` called from four threads gives one
   ``cid.request`` a call, its five stages nested inside it on its thread and
-  in order; a micro-batched request's forward holds the batch's spans;
+  in order, and one ``cid.request.to_domain`` (the input's map on the
+  device) inside its ``cid.request.upload``; a micro-batched request's
+  forward holds the batch's spans;
 * the batched dispatch (one device and a mesh) and ``default_fence`` run in
   ``cid.batch.forward`` and ``cid.batch.fence``;
 * every name the program enters is in ``SPANS``, and every name of
@@ -31,6 +33,7 @@ from torch_port_threads import _one_torch_thread  # noqa: F401
 PACKAGE = pathlib.Path(profiling.__file__).resolve().parents[1]
 STAGES = ("cid.request.prepare", "cid.request.upload", "cid.request.forward",
           "cid.request.download", "cid.request.finish")
+TO_DOMAIN = "cid.request.to_domain"  # nested in cid.request.upload
 TIMEOUT = 60  # seconds for any one thread
 
 
@@ -129,14 +132,17 @@ def test_each_request_from_four_threads_has_its_stages_in_order(
     requests = [e for e in spans if e["name"] == "cid.request"]
     assert len(requests) == 4
     assert len({e["tid"] for e in requests}) == 4
-    assert {e["name"] for e in spans} == {"cid.request", *STAGES}
+    assert {e["name"] for e in spans} == {"cid.request", TO_DOMAIN, *STAGES}
     for req in requests:
         stages = [e for e in spans if e["name"] in STAGES
                   and _inside(e, req)]
         assert tuple(e["name"] for e in stages) == STAGES
         for a, b in zip(stages, stages[1:]):
             assert a["ts"] + a["dur"] <= b["ts"]
-    assert len(spans) == 4 * (1 + len(STAGES))
+        (to_domain,) = [e for e in spans if e["name"] == TO_DOMAIN
+                        and _inside(e, req)]
+        assert _inside(to_domain, stages[1])  # the upload
+    assert len(spans) == 4 * (2 + len(STAGES))
     # the same answers as without a profiler
     for img, y in zip(images, got):
         np.testing.assert_array_equal(y, server.denoise_image(img, model))
@@ -154,6 +160,10 @@ def test_a_micro_batched_requests_forward_holds_the_batch(tmp_path):
     names = [e["name"] for e in spans]
     assert names.count("cid.request") == n
     assert names.count("cid.request.forward") == n
+    assert names.count(TO_DOMAIN) == n
+    for to_domain in (e for e in spans if e["name"] == TO_DOMAIN):
+        assert any(_inside(to_domain, e) for e in spans
+                   if e["name"] == "cid.request.upload")
     assert "cid.request.download" not in names
     (fwd,) = [e for e in spans if e["name"] == "cid.batch.forward"]
     (fence,) = [e for e in spans if e["name"] == "cid.batch.fence"]
