@@ -10,7 +10,8 @@ ladder that passes the runtime agreement gate (denoise: the s8
 skip-storage program; every family: the generic transform; esrgan: then
 the trunk-float policy; ``serve/handlers.py``); ``--quantize off`` serves
 the float32 forwards.  Inputs taller or wider than
-``--tile-threshold-rows`` are tiled exactly; ``--microbatch-ms`` coalesces
+``--tile-threshold-rows`` are tiled exactly (restormer refuses them: its
+attention spans the whole image); ``--microbatch-ms`` coalesces
 concurrent same-shape requests into one batch; ``--precompile`` runs the
 given sizes for every family (and, with micro-batching, every batch size)
 before the server listens, as the JAX ``warmup(models=None)`` does.
@@ -53,7 +54,8 @@ def build_parser():
     p.add_argument("--tile-threshold-rows", type=int, default=2048,
                    help="inputs taller or wider than this (after padding) "
                         "are served by exact tiling, in tiles of this many "
-                        "rows or columns with a 32-pixel halo")
+                        "rows or columns with a 32-pixel halo (restormer, "
+                        "whose attention spans the image, refuses them)")
     p.add_argument("--microbatch-ms", type=float, default=None,
                    help="coalesce concurrent same-shape requests into one "
                         "batch, waiting up to this many ms (off by default)")

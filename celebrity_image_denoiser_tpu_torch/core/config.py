@@ -135,6 +135,26 @@ MODEL_CFG = {
         "pad_divisor": 4,
         "scale": 1,
     },
+    # Restormer for blind Gaussian colour denoising (Zamir et al., CVPR
+    # 2022; models/restormer.py), served in float32 only: [0, 1], zero
+    # padded to a multiple of 8 (three halvings) and cropped back.  With no
+    # trained weights in weights/ it serves the seeded initialisation:
+    # init_seed, the temperatures' range and the output conv's scale
+    # (models/restormer.py::seed_parameters).  tiles: False — its channel
+    # attention spans the whole image, so no tile or strip gives the same
+    # answer: the server refuses an input it would tile or shard
+    "restormer": {
+        "normalize": None,
+        "activation": None,
+        "pad_divisor": 8,
+        "scale": 1,
+        "padded": True,
+        "int8": False,
+        "tiles": False,
+        "init_seed": 2022,
+        "temperature_range": (0.5, 2.0),
+        "output_scale": 0.25,
+    },
 }
 
 

@@ -21,6 +21,7 @@ from celebrity_image_denoiser_tpu_torch.models.esrgan import (
     ESRGANDiscriminator,
     ESRGANGenerator,
 )
+from celebrity_image_denoiser_tpu_torch.models.restormer import Restormer
 from celebrity_image_denoiser_tpu_torch.models.srgan import (
     SRGANDiscriminator,
     SRGANGenerator,
@@ -35,6 +36,12 @@ GENERATORS: Dict[str, Callable] = {
     "dncnn": DnCNN,
 }
 
+# families the port serves that the JAX package has none of (never trained
+# here: no discriminator, no trainer)
+SERVE_ONLY: Dict[str, Callable] = {
+    "restormer": Restormer,
+}
+
 DISCRIMINATORS: Dict[str, Callable] = {
     "denoise": DenoiseDiscriminator,
     "srgan": SRGANDiscriminator,
@@ -44,10 +51,11 @@ DISCRIMINATORS: Dict[str, Callable] = {
 
 
 def build_generator(name: str, **kwargs):
-    if name not in GENERATORS:
+    table = {**GENERATORS, **SERVE_ONLY}
+    if name not in table:
         raise ValueError(f"Unknown model '{name}'. Choose one of "
-                         f"{list(GENERATORS)}")
-    return GENERATORS[name](**kwargs)
+                         f"{list(table)}")
+    return table[name](**kwargs)
 
 
 def build_discriminator(name: str, **kwargs):

@@ -49,6 +49,16 @@ def pixel_shuffle_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(n, h * r, w * r, c // (r * r))
 
 
+def pixel_unshuffle_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The inverse of ``pixel_shuffle_nhwc``: (N, H, W, C) with H and W
+    multiples of r → contiguous (N, H/r, W/r, C·r²), PyTorch's
+    ``PixelUnshuffle`` order (pixel (dy, dx) of channel c lands in channel
+    c·r² + dy·r + dx)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, h // r, w // r, c * r * r)
+
+
 class SRGANGenerator(FoldedConvNet):
     """Input (N, 3, H, W) in [-1, 1]; output (N, 3, H·s, W·s) through tanh."""
 

@@ -30,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
            "normalize_gaussian_noise.cu", "conv3x3_s8.cu", "convt2x2_s8.cu",
-           "mma_probe.cu")
+           "mma_probe.cu", "dwconv3x3.cu", "mdta_attention.cu")
 HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh", "conv_s8.cuh",
            "noise.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -171,6 +171,14 @@ def library() -> ctypes.CDLL:
             lib.cid_probe_tf32_split.restype = I
             lib.cid_probe_quantize.argtypes = [P, I, P, I, P, P]
             lib.cid_probe_quantize.restype = I
+            lib.cid_dwconv3x3.argtypes = [P] * 3 + [I] * 5 + [P]
+            lib.cid_dwconv3x3.restype = I
+            lib.cid_mdta_workspace.argtypes = [I] * 4
+            lib.cid_mdta_workspace.restype = L
+            lib.cid_mdta_splits.argtypes = [I, I, L]
+            lib.cid_mdta_splits.restype = I
+            lib.cid_mdta_attention.argtypes = [P] * 5 + [I, L, I, I, I, P]
+            lib.cid_mdta_attention.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

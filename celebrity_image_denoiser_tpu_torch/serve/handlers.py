@@ -1,9 +1,10 @@
 """Serving logic — the ``POST /enhance`` contract for the denoise, cgan,
-srgan, esrgan and dncnn families, float and int8.
+srgan, esrgan and dncnn families, float and int8, and for restormer, a
+family the JAX package does not have, in float.
 
 Port of ``celebrity_image_denoiser_tpu/serve/handlers.py`` (``EnhanceError:60``,
 ``run_enhance:69``, ``ServeState``): the same contract —
-unknown model → 400 listing the five families, content type must be
+unknown model → 400 listing the families, content type must be
 image/* (400), uploads capped at 50 MB (400), undecodable image → 500,
 response ``{denoised_image_base64, noise_graph_base64, backend}``, tolerant
 weight loading that warns and keeps the random init.
@@ -37,7 +38,19 @@ JAX server's (:761-828):
 * dncnn: [0, 1], unpadded, not cropped;
 * esrgan: [0, 1], unpadded, then cropped at the padding offsets the JAX
   server computes for it, as Pillow's ``crop`` does: shifted by (left,
-  top), zeros past the border (the JAX server's quirk, kept).
+  top), zeros past the border (the JAX server's quirk, kept);
+* restormer (``models/restormer.py``): [0, 1], zero-padded to a multiple of
+  8 (centred, as every padded family is: the published test script pads
+  with reflection on the right and bottom instead), the output cropped
+  back; float32 only (no int8 rung); built at its first use, not with the
+  server (its seeded initialisation draws 26 M parameters), from a
+  generator of its own seeded with ``MODEL_CFG``'s ``init_seed``, then its
+  published checkpoint ``gaussian_color_denoising_blind.pth`` loaded where
+  ``weights/`` holds it.  Never tiled or sharded: its channel attention
+  spans the whole image, so no tile or strip of it gives the same answer
+  (the published demo's ``--tile`` option gives another, approximate
+  function).  An input that would be is refused (400, ``_forward``); with
+  ``use_tiling=False`` and no mesh it runs whole at any size.
 
 A request's host side holds uint8 only (``denoise_image``): the upload
 goes to the device as uint8, is zero-padded there where the family pads,
@@ -90,7 +103,8 @@ rows, the output cropped at ``scale`` × the input offsets), along the axis
 that is over, or with a width tiler nested inside the height
 tiler when both are; under ``quantize="int8"`` every tile runs the int8
 forward the ladder built.  Such a request is labelled ``float+tiled`` or
-``int8+tiled``.
+``int8+tiled``.  A family whose configuration says ``tiles: False``
+(restormer) is refused instead of tiled or sharded.
 
 Micro-batching (``microbatch_window_ms``, ``serve/batching.py``):
 concurrent batch-1 requests of one padded shape under the threshold share
@@ -162,6 +176,7 @@ from celebrity_image_denoiser_tpu_torch.models.denoise_unet import (
 )
 from celebrity_image_denoiser_tpu_torch.models.dncnn import DnCNN
 from celebrity_image_denoiser_tpu_torch.models.esrgan import ESRGANGenerator
+from celebrity_image_denoiser_tpu_torch.models.restormer import Restormer
 from celebrity_image_denoiser_tpu_torch.models.srgan import SRGANGenerator
 from celebrity_image_denoiser_tpu_torch.ops import quant, quant_unet
 from celebrity_image_denoiser_tpu_torch.parallel.dataparallel import (
@@ -195,14 +210,21 @@ _CKPT_CANDIDATES = {
     "srgan": ("srgan_epoch_499.pth", "srgan"),
     "esrgan": ("esrgan_epoch_500.pth", "esrgan"),
     "dncnn": ("dncnn_epoch_499.pth", "dncnn"),
+    "restormer": ("gaussian_color_denoising_blind.pth", "restormer"),
 }
+# where a family's .pth keeps its state_dict, where not under the default
+# keys (the published Restormer checkpoints: ``params``)
+_PTH_KEYS = {"restormer": ("params",)}
 _CGAN_KERAS = "cgan_epoch_500.keras"
 KERAS = "cgan:keras"  # the Keras cGAN's name on the ladder and the batcher
 
 
+# the families served, in the order the info routes list them
+FAMILIES = tuple(MODEL_CFG)
+
 # the families whose output is cropped back to the upload at the padding
 # offsets (esrgan runs unpadded and is cropped all the same: a JAX quirk)
-_CROPPED = ("denoise", "cgan", "esrgan")
+_CROPPED = ("denoise", "cgan", "esrgan", "restormer")
 
 
 class EnhanceError(Exception):
@@ -261,7 +283,8 @@ def _pil_crop(img: np.ndarray, box) -> np.ndarray:
 
 class ServeState:
     """Loaded models + float or int8 forwards on ``device`` (the card by
-    default).  Big inputs route through exact tiling automatically.
+    default).  Big inputs route through exact tiling automatically, or are
+    refused where the family cannot be tiled exactly (restormer).
 
     ``microbatch_window_ms``: coalesce concurrent same-shape requests into
     batches of up to ``microbatch_max`` (off by default: it adds up to that
@@ -299,6 +322,7 @@ class ServeState:
         self.batchers = (None if microbatch_window_ms is None else
                          BatcherPool(microbatch_window_ms, microbatch_max))
         gen = torch.Generator().manual_seed(seed)
+        # the built models: restormer joins at its first use (``_model``)
         self.models: Dict[str, torch.nn.Module] = {
             "denoise": DenoiseGenerator(generator=gen),
             "cgan": CGANTorchGenerator(generator=gen),
@@ -307,6 +331,7 @@ class ServeState:
             "esrgan": ESRGANGenerator(num_residuals=8, generator=gen),
             "dncnn": DnCNN(generator=gen),
         }
+        self._build_lock = threading.Lock()
         # the Keras cGAN, when its weights load (None: the torch fallback)
         self.keras_cgan: Optional[CGANKerasGenerator] = None
         self.stats = ServeStats()
@@ -328,14 +353,40 @@ class ServeState:
         self._ladder_lock = threading.Lock()
         self._mesh_lock = threading.Lock()
 
+    def _build_restormer(self) -> torch.nn.Module:
+        """Restormer from its own seeded generator (``MODEL_CFG``), its
+        published checkpoint loaded where present, on the device."""
+        cfg = MODEL_CFG["restormer"]
+        # ordinary tensors even where the first lookup runs under
+        # inference_mode: a later checkpoint load or copy may write them
+        with torch.inference_mode(False):
+            model = Restormer(init_seed=cfg["init_seed"],
+                              temperature_range=cfg["temperature_range"],
+                              output_scale=cfg["output_scale"])
+            self._load_family(model, "restormer")
+            return model.to(self.device).eval()
+
     def _model(self, name: str) -> torch.nn.Module:
         """The image-to-image model ``name`` serves with (``KERAS``: the Keras
-        cGAN)."""
-        return self.keras_cgan if name == KERAS else self.models[name]
+        cGAN); restormer built here at its first use."""
+        if name == KERAS:
+            return self.keras_cgan
+        if name == "restormer" and name not in self.models:
+            with self._build_lock:
+                if name not in self.models:
+                    self.models[name] = self._build_restormer()
+        return self.models[name]
 
     @staticmethod
     def _cfg(name: str) -> dict:
         return MODEL_CFG[name.split(":")[0]]
+
+    @staticmethod
+    def _pads(name: str) -> bool:
+        """Whether ``name``'s forward runs on a padded input: the normalized
+        families, and the [0, 1] ones whose configuration says so."""
+        cfg = ServeState._cfg(name)
+        return cfg["normalize"] is not None or cfg.get("padded", False)
 
     def ladder(self, name: str) -> Optional[str]:
         """The int8 rung that serves ``name`` (None: float, or
@@ -378,6 +429,10 @@ class ServeState:
         return calibration_batch(cls._tanh(name), sigmas=sigmas)
 
     def _maybe_quantize(self, name: str) -> None:
+        if not self._cfg(name).get("int8", True):  # a float-only family
+            self._qapply[name], self.int8_gate_db[name] = None, None
+            self.int8_rung[name] = None
+            return
         model = self._model(name)
         calib = self.calibration(name).to(self.device)
         builders = []
@@ -426,49 +481,8 @@ class ServeState:
 
     # -- weight loading (warn-and-continue, app.py:327-345) -----------------
     def _load_weights(self):
-        for name, (fname, sub) in _CKPT_CANDIDATES.items():
-            path = os.path.join(self.weights_dir, fname)
-            npz_dir = os.path.join(self.weights_dir, sub)
-            model = self.models[name]
-            own = model.state_dict()
-            # BatchNorm's batch counters have no JAX counterpart
-            need = {k for k in own if not k.endswith("num_batches_tracked")}
-            try:
-                if os.path.exists(path):
-                    # tolerant like the reference's load_state_safely: keys
-                    # missing from the file keep their init, and a tensor of
-                    # the wrong shape is skipped with a warning
-                    sd = load_pth_state_dict(path)
-                    fit = {k: v for k, v in sd.items()
-                           if k in own and own[k].shape == v.shape}
-                    for k in sorted(set(sd) - set(fit)):
-                        logger.warning("[%s] skipping %s from %s", name, k,
-                                       path)
-                    src = path
-                elif os.path.isdir(npz_dir):
-                    # the native checkpoint is all or nothing, checked
-                    # before any tensor is copied
-                    fit = load_npz_state_dict(npz_dir, module=model)
-                    if set(fit) != need or any(
-                            fit[k].shape != own[k].shape for k in need):
-                        raise ValueError(f"{npz_dir} does not hold the "
-                                         f"{name} generator")
-                    src = npz_dir
-                else:
-                    raise FileNotFoundError(path)
-                model.load_state_dict(fit, strict=False)
-                self._weights_loaded.add(name)
-                logger.info("[%s] loaded weights from %s", name, src)
-            except FileNotFoundError as e:
-                if name == "cgan":  # no torch cGAN is shipped (as in JAX)
-                    logger.info("[cgan] no torch checkpoint (%s); the Keras "
-                                "backend serves when its weights load", e)
-                else:
-                    logger.warning("[%s] checkpoint not loaded (%s). Using "
-                                   "random init for that backend.", name, e)
-            except Exception as e:  # a PRESENT but unloadable checkpoint
-                logger.warning("[%s] checkpoint failed to load (%s). Using "
-                               "random init for that backend.", name, e)
+        for name, model in self.models.items():  # restormer: at its build
+            self._load_family(model, name)
         keras_path = os.path.join(self.weights_dir, _CGAN_KERAS)
         try:
             model = CGANKerasGenerator()
@@ -478,6 +492,52 @@ class ServeState:
             logger.info("Loaded Keras cGAN from %s", keras_path)
         except Exception as e:  # absent or unloadable: the torch fallback
             logger.warning("Keras cGAN not loaded (%s).", e)
+
+    def _load_family(self, model: torch.nn.Module, name: str) -> None:
+        """``name``'s checkpoint into ``model``, where one loads."""
+        fname, sub = _CKPT_CANDIDATES[name]
+        path = os.path.join(self.weights_dir, fname)
+        npz_dir = os.path.join(self.weights_dir, sub)
+        own = model.state_dict()
+        # BatchNorm's batch counters have no JAX counterpart
+        need = {k for k in own if not k.endswith("num_batches_tracked")}
+        try:
+            if os.path.exists(path):
+                # tolerant like the reference's load_state_safely: keys
+                # missing from the file keep their init, and a tensor of
+                # the wrong shape is skipped with a warning
+                sd = (load_pth_state_dict(path, _PTH_KEYS[name])
+                      if name in _PTH_KEYS else load_pth_state_dict(path))
+                fit = {k: v for k, v in sd.items()
+                       if k in own and own[k].shape == v.shape}
+                for k in sorted(set(sd) - set(fit)):
+                    logger.warning("[%s] skipping %s from %s", name, k,
+                                   path)
+                src = path
+            elif os.path.isdir(npz_dir):
+                # the native checkpoint is all or nothing, checked
+                # before any tensor is copied
+                fit = load_npz_state_dict(npz_dir, module=model)
+                if set(fit) != need or any(
+                        fit[k].shape != own[k].shape for k in need):
+                    raise ValueError(f"{npz_dir} does not hold the "
+                                     f"{name} generator")
+                src = npz_dir
+            else:
+                raise FileNotFoundError(path)
+            model.load_state_dict(fit, strict=False)
+            self._weights_loaded.add(name)
+            logger.info("[%s] loaded weights from %s", name, src)
+        except FileNotFoundError as e:
+            if name == "cgan":  # no torch cGAN is shipped (as in JAX)
+                logger.info("[cgan] no torch checkpoint (%s); the Keras "
+                            "backend serves when its weights load", e)
+            else:
+                logger.warning("[%s] checkpoint not loaded (%s). Using "
+                               "random init for that backend.", name, e)
+        except Exception as e:  # a PRESENT but unloadable checkpoint
+            logger.warning("[%s] checkpoint failed to load (%s). Using "
+                           "random init for that backend.", name, e)
 
     # -- the forward (_build_forward:278-301, _dispatch_forward:303-407) ----
     def _served(self, name: str, route: str):
@@ -607,6 +667,13 @@ class ServeState:
         route = "plain" if plain else "kernel"
         label = "float" if self.ladder(name) is None else "int8"
         big, dim = self._big_route(x.shape)
+        if big is not None and not self._cfg(name).get("tiles", True):
+            raise EnhanceError(
+                400, f"Image too large for {name}: its attention spans the "
+                     f"whole image, so no tile or strip of it gives the same "
+                     f"answer; inputs over {self.tile_threshold_rows} rows "
+                     f"or columns (after padding) are refused, got "
+                     f"{x.shape[1]}x{x.shape[2]}")
         # the label is this thread's: a micro-batch may run in another
         self._path_note.value = label + ("" if big is None else "+" + big)
         with span("cid.request.forward"):
@@ -641,8 +708,8 @@ class ServeState:
 
     def _input_shape(self, name: str, h: int, w: int):
         """The forward's (H, W) for an (h, w) upload: padded, or as it is
-        for the [0, 1] families."""
-        if self._cfg(name)["normalize"] is None:
+        for the [0, 1] families that do not pad."""
+        if not self._pads(name):
             return h, w
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
         return h + pt_ + pb_, w + pl_ + pr_
@@ -666,7 +733,7 @@ class ServeState:
         table (``_domain_table``); equal to ``_served_input``'s first
         output.  Runs in the span ``cid.request.to_domain``."""
         with span("cid.request.to_domain"):
-            if self._cfg(name)["normalize"] is not None:
+            if self._pads(name):
                 pl_, pt_, pr_, pb_ = pads
                 u8 = torch.nn.functional.pad(u8, (0, 0, pl_, pr_, pt_, pb_))
             x = self._tables[name].index_select(0, u8.reshape(-1).int())
@@ -680,14 +747,16 @@ class ServeState:
         h, w = image.shape[:2]
         pl_, pt_, pr_, pb_ = self._padding(name, h, w)
         cfg = self._cfg(name)
-        if cfg["normalize"] is None:  # dncnn, esrgan: [0, 1], unpadded
+        if not self._pads(name):  # dncnn, esrgan: [0, 1], unpadded
             x01 = imageio.to_float01(image)
             x = x01
         else:
             x01 = imageio.to_float01(np.pad(image, ((pt_, pb_), (pl_, pr_),
                                                     (0, 0))))
-            mean, std = cfg["normalize"]
-            x = imageio.normalize(x01, mean[0], std[0])
+            x = x01
+            if cfg["normalize"] is not None:
+                mean, std = cfg["normalize"]
+                x = imageio.normalize(x01, mean[0], std[0])
         # expand_dims, not [None]: a [None] view has a batch stride of 0,
         # and PyTorch's CPU convolution then sums conv 0 in another order
         # than for the same image inside a batch (one s8 step in int8)
@@ -767,11 +836,11 @@ class ServeState:
         split over it), for the sizes the batcher serves (those that run
         whole).  ``models``: only
         these families (default: every family, as the JAX
-        ``warmup(models=None)``).  The [0, 1] families run unpadded; cgan
+        ``warmup(models=None)``).  dncnn and esrgan run unpadded; cgan
         warms its Keras generator (the torch one draws from a latent, at one
         shape)."""
         for h, w in sizes:
-            for name in self.models:
+            for name in FAMILIES:
                 if models is not None and name not in models:
                     continue
                 which = name
@@ -780,9 +849,11 @@ class ServeState:
                         continue
                     which = KERAS
                 hh, ww = self._input_shape(name, h, w)
+                whole = self._big_route((1, hh, ww, 3))[0] is None
+                if not (whole or self._cfg(name).get("tiles", True)):
+                    continue  # refused at this size (``_forward``)
                 t0 = time.perf_counter()
                 self.denoise_image(np.zeros((h, w, 3), np.uint8), name)
-                whole = self._big_route((1, hh, ww, 3))[0] is None
                 if self.batchers is not None and whole:
                     dispatch = self._batched_dispatch(which)
                     mb = self.batchers.max_batch
@@ -797,11 +868,11 @@ class ServeState:
     def info(self) -> dict:
         return {
             "message": "Unified GAN API is running",
-            "models": list(self.models.keys()),
+            "models": list(FAMILIES),
             "default_backends": {
                 name: ("keras" if self.keras_cgan is not None else "torch")
                 + " (configurable)" if name == "cgan" else "torch"
-                for name in self.models},
+                for name in FAMILIES},
         }
 
     def healthz(self) -> dict:
@@ -811,7 +882,7 @@ class ServeState:
         return {
             "status": "ok",
             "device": dev,
-            "models": list(self.models.keys()),
+            "models": list(FAMILIES),
             "weights_loaded": sorted(self._weights_loaded),
             "quantize": self.quantize,
             "int8_rungs": dict(self.int8_rung),
@@ -849,10 +920,10 @@ class ServeState:
                       cond_bytes: Optional[bytes], include_graph: bool
                       ) -> dict:
         t_start = time.perf_counter()
-        if model not in self.models:
+        if model not in FAMILIES:
             raise EnhanceError(
                 400, f"Unknown model '{model}'. Choose one of "
-                     f"{list(self.models.keys())}")
+                     f"{list(FAMILIES)}")
         if not (content_type or "").startswith("image/"):
             raise EnhanceError(400, "Uploaded file must be an image")
         if len(file_bytes) > MAX_UPLOAD:

@@ -39,10 +39,17 @@ logger = get_logger("cid_torch.profiling")
 # ``cid.batch.forward`` is the batched dispatch of a coalesced batch,
 # ``cid.batch.fence`` its copy to the host
 # (``serve/batching.py::default_fence``).
+# Inside Restormer's forward (``models/restormer.py``):
+# ``cid.restormer.attention`` is one MDTA block from its LayerNorm to the
+# projection and residual add (44 a forward at the published depths),
+# ``cid.restormer.ffn`` one GDFN block likewise (44), and
+# ``cid.restormer.resample`` one down or up step with its skip concatenation
+# and 1×1 reduction (6).
 SPANS = ("cid.request", "cid.request.prepare", "cid.request.upload",
          "cid.request.to_domain", "cid.request.forward",
          "cid.request.download", "cid.request.finish", "cid.batch.forward",
-         "cid.batch.fence")
+         "cid.batch.fence", "cid.restormer.attention", "cid.restormer.ffn",
+         "cid.restormer.resample")
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -147,6 +147,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              equal to itself twice) beside cuDNN's transpose conv with its
              default and its deterministic algorithms; and K2 on the tail at
              2048² beside cuDNN and its bound;
+4g. restormer — Restormer (seeded weights, published widths, f32) served
+             by ``ServeState.denoise_image``: at 1024², 256² and 203×130
+             every K2, K7 (``channel_attention``) and K8 (``dwconv3x3``)
+             launch held against its plain version on the same inputs
+             (3e-5·max|ref|; K7 1e-3, ``K7_SERVED_TOL``), exactly 8 K2,
+             44 K7 and 88 K8 launches a request, the served pixels within
+             1 count of the plain route;
+             the share of served values at 0 or 255 on four of the
+             benchmark's 1024² images; K7 and K8 at every shape of a 1024²
+             forward (checked, twice bit-equal, K8's float4 body equal to
+             its scalar body on an unaligned copy) beside their plain
+             versions, the library (depthwise ``F.conv2d`` and the gate;
+             ``torch.matmul`` and the softmax) and their bound (operations
+             at 67 TFLOP/s or bytes at 3.35 TB/s), and summed over one
+             forward; then one 1024² request profiled in a fresh process
+             (see phase 7), its counters zeroed just before the window.
+             ``python3 chip_smoke.py --restormer-only`` runs phases 1 and
+             4g alone (after the build, with K7's and K8's ptxas lines);
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -1899,9 +1917,10 @@ class Holds:
     tolerance; ``exact``: bit-equal).  The holds' plain calls launch
     nothing."""
 
-    def __init__(self, entries, exact=False):
+    def __init__(self, entries, exact=False, tol=TOL[torch.float32]):
         self.entries = entries  # (module, entry name, plain function)
         self.exact = exact
+        self.tol = tol  # f32: the largest error allowed, x max|ref|
         self.n = 0
         self.worst = 0.0  # the largest error / max|ref|
         self.shapes = set()
@@ -1922,7 +1941,7 @@ class Holds:
             err = (y.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             self.worst = max(self.worst, rel)
-            if rel > TOL[torch.float32] or not bool(torch.isfinite(y).all()):
+            if rel > self.tol or not bool(torch.isfinite(y).all()):
                 fail(f"{name} {tuple(args[0].shape)} -> {tuple(y.shape)}: "
                      f"{rel:.2e} x max|ref| off its plain version")
             return y
@@ -2182,6 +2201,248 @@ def phase_families(conv3x3, double_conv, k5, k6, device="cuda"):
         f"/enhance launches K2 {totals[0]} K3 {totals[1]} K5 {totals[2]} "
         f"K6 {totals[3]}")
     return totals, records, rows + k5_rows, f32_holds.worst
+
+# ---------------------------------------------------------------------------
+# phase 4g: Restormer on K2, K7 and K8
+RESTORMER_SIZES = ((1024, 1024), (256, 256), (203, 130))  # (H, W) requests
+RESTORMER_PER_FORWARD = {"K2": 8, "K7": 44, "K8": 88}
+RESTORMER_SIDE = 1024  # the benchmark cell's uploads, a side
+# K7 on a served request's activations, x max|ref|: its Gram sums and the
+# plain version's GEMM add some 10^5 to 10^6 products a value in other
+# orders, which on the model's (far from zero-mean) activations moved the
+# softmaxed maps by 3.8e-5 of their largest (H100 80GB HBM3) where random
+# inputs read 3e-8.  A wrong head, a missing temperature or norm, or a
+# block of pixels left out of a sum moves them by 1e-2 or more.
+K7_SERVED_TOL = 1e-3
+
+
+def restormer_arch() -> dict:
+    """The published widths, as the benchmark's configuration states them."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "port_bench", "configs", "restormer.json")
+    with open(path) as f:
+        return json.load(f)["arch"]
+
+
+def restormer_launch_shapes(arch: dict, side: int) -> dict:
+    """One forward's K7 and K8 launches at a side² input, by shape: (kernel,
+    side, channels in, heads for K7 or the gate for K8) → launches."""
+    from port_bench.roofline_restormer import hidden, levels
+
+    shapes = {}
+    for _, c, heads, n, div in levels(arch):
+        s = side // div
+        for key in (("K7", s, 3 * c, heads), ("K8", s, 3 * c, False),
+                    ("K8", s, 2 * hidden(arch, c), True)):
+            shapes[key] = shapes.get(key, 0) + n
+    return shapes
+
+
+def restormer_times(k7, k8, arch) -> dict:
+    """K7 and K8 at each shape of a ``RESTORMER_SIDE``² forward on the
+    device's clock: the kernel (against its plain version on the same
+    random inputs, twice bit-equal; K8 without the gate also equal to its
+    scalar body, on a copy one float off alignment), its plain version, the
+    library
+    (PyTorch's depthwise ``F.conv2d`` and the gate for K8, ``torch.matmul``
+    and the softmax for K7) and the bound (operations at 67 TFLOP/s or bytes
+    at 3.35 TB/s); and by kernel the sums over one forward's launches."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, sums = [], {}
+    for (kern, side, cin, arg), n in restormer_launch_shapes(
+            arch, RESTORMER_SIDE).items():
+        if kern == "K8":
+            gate, cout = arg, cin // 2 if arg else cin
+            x = torch.randn((1, side, side, cin), generator=g, device="cuda")
+            w = torch.randn((3, 3, cin), generator=g, device="cuda") / 3
+            wl = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+            xl = x.permute(0, 3, 1, 2)  # channels-last memory
+
+            def run(x=x, w=w, gate=gate):
+                return k8.dwconv3x3(x, w, gate=gate)
+
+            def plain(x=x, w=w, gate=gate):
+                return k8.dwconv3x3_plain(x, w, gate=gate)
+
+            def lib(xl=xl, wl=wl, cin=cin, gate=gate):
+                y = F.conv2d(xl, wl, padding=1, groups=cin)
+                return F.gelu(y[:, :cin // 2]) * y[:, cin // 2:] if gate \
+                    else y
+            ops = 2 * side * side * 9 * cin
+            nbytes = 4 * (side * side * (cin + cout) + 9 * cin)
+            label = f"K8 {side}x{side}x{cin}" + (" gated" if gate else "")
+        else:
+            heads, c = arg, cin // 3
+            d = c // heads
+            qkv = torch.randn((1, side, side, cin), generator=g,
+                              device="cuda")
+            temp = torch.rand((heads,), generator=g, device="cuda") + 0.5
+            q, k = k7.heads_of(qkv, heads)
+            qc, kc = q.contiguous(), k.contiguous()
+
+            def run(qkv=qkv, heads=heads, temp=temp):
+                return k7.channel_attention(qkv, heads, temp)
+
+            def plain(qkv=qkv, heads=heads, temp=temp):
+                return k7.channel_attention_plain(qkv, heads, temp)
+
+            def lib(qc=qc, kc=kc):
+                return torch.matmul(qc, kc.transpose(-2, -1)).softmax(-1)
+            ops = 2 * side * side * (c * d + 2 * c)
+            nbytes = 4 * (2 * c * side * side + heads * d * d + heads)
+            label = f"K7 {side}x{side} C {c}, {heads} head(s)"
+        y, ref = run(), plain()
+        err = ((y - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+               ).item()
+        if err > TOL[torch.float32] or not torch.equal(y, run()):
+            fail(f"{label}: {err:.2e} x max|ref| off its plain version, or "
+                 "two launches differ")
+        if kern == "K8" and not arg:
+            # one float off 16-byte alignment: the scalar body, which
+            # must give the float4 body's bits
+            buf = torch.empty(x.numel() + 1, device="cuda")
+            xs = buf[1:].view(x.shape)
+            xs.copy_(x)
+            if not torch.equal(k8.dwconv3x3(xs, w), y):
+                fail(f"{label}: the float4 body's bits differ from the "
+                     "scalar body's")
+            del buf, xs
+        del y, ref
+        ms, plain_ms, lib_ms = device_ms(run), device_ms(plain), \
+            device_ms(lib)
+        b = bound_ms(ops, nbytes, PEAK_F32_FLOPS)
+        by = "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES \
+            else "bytes"
+        rows.append({"kernel": kern, "shape": label, "per_forward": n,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b, "bound_by": by, "max_rel_err": err})
+        say(f"  {label} (x{n} a forward): {ms:.4f} ms, plain {plain_ms:.4f}, "
+            f"library {lib_ms:.4f}, bound {b:.4f} by {by} "
+            f"({b / ms:.1%}); {err:.2e} x max|ref|")
+        s = sums.setdefault(kern, {k: 0.0 for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")})
+        for k in s:
+            s[k] += n * rows[-1][k]
+    for kern, s in sums.items():
+        say(f"  {kern} over one {RESTORMER_SIDE}x{RESTORMER_SIDE} forward: "
+            f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f}, library "
+            f"{s['library_ms']:.3f}, bound {s['bound_ms']:.3f} "
+            f"({s['bound_ms'] / s['ms']:.1%})")
+    return {"rows": rows, "sums": sums}
+
+
+def phase_restormer(conv3x3) -> dict:
+    """Phase 4g: Restormer (seeded weights) served by ``ServeState`` on K2,
+    K7 and K8: every launch of a request at 1024², 256² and 203×130 held
+    against its plain version on the same inputs (f32: ``TOL``; K7
+    ``K7_SERVED_TOL``), the
+    launches of each request exactly ``RESTORMER_PER_FORWARD``, the served
+    pixels within 1 count of the plain route; the share of served values
+    at 0 or 255 on four of the benchmark's 1024² images; K7 and K8 at the
+    shapes of a 1024² forward (``restormer_times``); and a profiled 1024²
+    request in a fresh process (``restormer_windows``).  Returns launches,
+    errors and times by kernel."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import (
+        channel_attention as k7,
+    )
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import dwconv3x3 as k8
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+    from port_bench import gen
+
+    say("== phase 4g: restormer (seeded weights, f32) on K2, K7 and K8")
+    st = ServeState(device="cuda")
+    t0 = time.perf_counter()
+    model = st._model("restormer")
+    say(f"  built at its first use in {time.perf_counter() - t0:.2f} s; "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters")
+    holds = {"K2": Holds([(conv3x3, "conv3x3_bias_relu",
+                           conv3x3.conv3x3_bias_relu_plain)]),
+             "K7": Holds([(k7, "channel_attention",
+                           k7.channel_attention_plain)], tol=K7_SERVED_TOL),
+             "K8": Holds([(k8, "dwconv3x3", k8.dwconv3x3_plain)])}
+    launches = {k: 0 for k in RESTORMER_PER_FORWARD}
+    for i, (h, w) in enumerate(RESTORMER_SIZES):
+        img = test_image(h, w, seed=70 + i)
+        before = launch_counters()
+        with holds["K2"], holds["K7"], holds["K8"]:
+            y = st.denoise_image(img, "restormer")
+        torch.cuda.synchronize()
+        after = launch_counters()
+        got = {k: after[k] - before[k] for k in after
+               if after[k] != before[k]}
+        if got != RESTORMER_PER_FORWARD:
+            fail(f"restormer {w}x{h}: launched {got}, expected "
+                 f"{RESTORMER_PER_FORWARD}")
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        yp = st.denoise_image(img, "restormer", plain=True)
+        d = np.abs(y.astype(np.int16) - yp.astype(np.int16))
+        if y.shape != img.shape or d.max() > 1:
+            fail(f"restormer {w}x{h}: shape {y.shape}, kernel route "
+                 f"{d.max()} counts off the plain route")
+        say(f"  {w}x{h}: launches {got}; kernel vs plain route max "
+            f"{d.max()} count(s), {np.mean(d == 0):.5f} equal")
+    for k, hold in holds.items():
+        say(f"  {k}: {hold.n} launches held against the plain version, "
+            f"worst {hold.worst:.2e} x max|ref| ({len(hold.shapes)} shapes)")
+    u8 = gen.noisy_u8(2 ** 31 + 99, 4, RESTORMER_SIDE, 0.1, "cuda")
+    clipped = inputs = 0
+    for img in u8.cpu().numpy():
+        y = st.denoise_image(img, "restormer")
+        clipped += int(np.sum((y == 0) | (y == 255)))
+        inputs += int(np.sum((img == 0) | (img == 255)))
+    say(f"  served values at 0 or 255 on four of the benchmark's 1024x1024 "
+        f"images: {clipped / u8.numel():.4f} (their inputs: "
+        f"{inputs / u8.numel():.4f})")
+    del st, model, u8
+    torch.cuda.empty_cache()
+    times = restormer_times(k7, k8, restormer_arch())
+    prof = profile_in_child("restormer")
+    return {"launches": launches,
+            "max_rel_err": {k: h.worst for k, h in holds.items()},
+            "times": times, "profile": prof}
+
+
+def restormer_windows(tmp: str) -> list:
+    """Phase 4g's window: one 1024² Restormer request through
+    ``ServeState.denoise_image`` (seeded weights, f32); ``tmp`` unused."""
+    from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
+
+    st = ServeState(device="cuda")
+    img = test_image(RESTORMER_SIDE, RESTORMER_SIDE, seed=71)
+    return [(f"restormer f32 request at {RESTORMER_SIDE}x{RESTORMER_SIDE}",
+             lambda: st.denoise_image(img, "restormer"),
+             RESTORMER_PER_FORWARD, 12)]
+
+
+def restormer_kernel_entries(res: dict) -> list:
+    """The kernels JSON's K7 and K8 entries from phase 4g."""
+    entries = []
+    for kern, name, source in (
+            ("K7", "channel_attention", "mdta_attention.cu"),
+            ("K8", "dwconv3x3", "dwconv3x3.cu")):
+        if res["launches"][kern] < 1:
+            fail(f"{name} was not launched on the main path")
+        s = res["times"]["sums"][kern]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"celebrity_image_denoiser_tpu_torch/csrc/{source}",
+            # the JAX package serves no model with channel attention or a
+            # depthwise conv
+            "replaces": None,
+            # phase 4g's restormer requests
+            "launches": res["launches"][kern],
+            # the largest error of a served launch, x max|ref|
+            "max_rel_err": res["max_rel_err"][kern],
+            # per 1024² Restormer forward, summed over its launches
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "library_ms": s["library_ms"], "bound_ms": s["bound_ms"],
+            "shapes": [r for r in res["times"]["rows"]
+                       if r["kernel"] == kern],
+        })
+    return entries
 
 
 def family_layout_probe(device="cuda"):
@@ -3093,6 +3354,8 @@ KERNEL_RECORDS = {
     "K4": ("noise_batch_kernel",),
     "K5": ("conv3x3_s8_wgmma_kernel", "conv3x3_s8_narrow_kernel"),
     "K6": ("convt2x2_s8_kernel",),
+    "K7": ("mdta_attention_kernel",),
+    "K8": ("dwconv3x3_f32_kernel",),
 }
 _KERNEL_OF = {name: k for k, names in KERNEL_RECORDS.items()
               for name in names}
@@ -3113,7 +3376,7 @@ PROFILE_CHILD = "--profile-windows"
 
 
 def kernel_of(record: str):
-    """The kernel (K2...K6) a device record belongs to, or None."""
+    """The kernel (K2...K8) a device record belongs to, or None."""
     m = _RECORD_NAME.search(record)
     return _KERNEL_OF[m.group(1)] if m else None
 
@@ -3121,16 +3384,37 @@ def kernel_of(record: str):
 def launch_counters() -> dict:
     """Every kernel wrapper's launch count now, by kernel."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import (
+        channel_attention,
         conv3x3,
         conv3x3_s8,
         convt2x2_s8,
         double_conv,
+        dwconv3x3,
         noise,
     )
 
     return {"K2": conv3x3.LAUNCHES, "K3": double_conv.LAUNCHES,
             "K4": noise.LAUNCHES + noise.GAUSSIAN_LAUNCHES,
-            "K5": conv3x3_s8.LAUNCHES, "K6": convt2x2_s8.LAUNCHES}
+            "K5": conv3x3_s8.LAUNCHES, "K6": convt2x2_s8.LAUNCHES,
+            "K7": channel_attention.LAUNCHES, "K8": dwconv3x3.LAUNCHES}
+
+
+def zero_counters() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import (
+        channel_attention,
+        conv3x3,
+        conv3x3_s8,
+        convt2x2_s8,
+        double_conv,
+        dwconv3x3,
+        noise,
+    )
+
+    for m in (channel_attention, conv3x3, conv3x3_s8, convt2x2_s8,
+              double_conv, dwconv3x3, noise):
+        m.LAUNCHES = 0
+    noise.GAUSSIAN_LAUNCHES = 0
 
 
 def trace_records(events) -> tuple:
@@ -3209,11 +3493,14 @@ def profiled(label, fn, top: int = 10, expect=None):
     _, lead = trace_records(events)
     from torch.autograd import DeviceType
 
+    from celebrity_image_denoiser_tpu_torch.utils.profiling import SPANS
+
     records = {k: 0 for k in KERNEL_RECORDS}
     kernel_ms = {k: 0.0 for k in KERNEL_RECORDS}
     rows = []  # device-side events only, so no kernel is counted twice
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a span's device-side range covers the kernels it launched
+        if ev.device_type != DeviceType.CUDA or ev.key in SPANS:
             continue
         k = kernel_of(ev.key)
         dev_us = getattr(ev, "self_device_time_total",
@@ -3348,7 +3635,8 @@ def profile_child(group: str) -> int:
     _build.library()
     with tempfile.TemporaryDirectory(prefix="cid_prof_") as tmp:
         return _profile_windows(
-            {"bench": bench_windows, "families": family_windows}[group](tmp))
+            {"bench": bench_windows, "families": family_windows,
+             "restormer": restormer_windows}[group](tmp))
 
 
 def _profile_windows(windows) -> int:
@@ -3364,6 +3652,7 @@ def _profile_windows(windows) -> int:
                       "shape": list(getattr(y, "shape", ()))}
         del y
     for label, fn, expect, top in windows:
+        zero_counters()  # a fresh process: nothing else counts them
         _, wall, info = profiled(label, fn, top=top, expect=expect)
         out[label].update({"wall_ms": wall, **{
             k: info.get(k) for k in ("records", "launches", "busy_ms",
@@ -6538,6 +6827,35 @@ def phase_retrain(card, conv3x3, double_conv, k5, noise) -> dict:
     return out
 
 
+# chip_smoke.py RESTORMER_ONLY: phases 1, the build's K7 and K8 lines, and 4g
+RESTORMER_ONLY = "--restormer-only"
+
+
+def restormer_only(_build, conv3x3) -> int:
+    """Phase 4g alone, after the card's line and a build whose ptxas lines
+    for K7 and K8 (registers, shared memory, spills) are printed; then the
+    kernels JSON of K7 and K8 and the ok line."""
+    t_start = time.perf_counter()
+    card = phase_device()
+    res = _build.build()
+    say(f"== build: {res.seconds:.1f} s (cached {res.cached})")
+    keep = False
+    for line in res.log.splitlines():
+        if line.startswith("== "):
+            keep = line[3:] in ("dwconv3x3.cu", "mdta_attention.cu")
+        if keep and ("Compiling" in line or "registers" in line
+                     or "spill" in line):
+            say("  " + line.strip())
+    _build.library()
+    kernels = restormer_kernel_entries(phase_restormer(conv3x3))
+    say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     # the port first: run outside a checkout, this fails before anything
     from celebrity_image_denoiser_tpu_torch import bench
@@ -6559,6 +6877,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if len(sys.argv) == 3 and sys.argv[1] == PROFILE_CHILD:
         return profile_child(sys.argv[2])
+    if sys.argv[1:] == [RESTORMER_ONLY]:
+        return restormer_only(_build, conv3x3)
 
     t_start = time.perf_counter()
     card = phase_device()
@@ -6574,6 +6894,7 @@ def main() -> int:
         conv3x3, double_conv, k5, k6)
     cgan_launches, families["cgan"], cgan_rows, cgan_tail, cgan_err = \
         phase_cgan(conv3x3, double_conv, k5, k6)
+    restormer = phase_restormer(conv3x3)
     # (K2, K3, K5, K6) launched by the serving phases 4b-4f
     served = [sum(c) for c in zip(int8_launches, tiled_launches, mb_launches,
                                   family_launches, cgan_launches)]
@@ -6644,9 +6965,10 @@ def main() -> int:
             # and phase 14's (cli.eval, the epoch extras, cli.qat, the
             # export round trip)
             # and phase 15's mesh paths, phase 16's evaluations, recordings
-            # and quickstart
+            # and quickstart; K2 also phase 4g's restormer requests
             "launches": (launches[name] + bench_launches[name]
                          + (served[0] + ship_k2 + multi_k[0] + retrain_k[0]
+                            + restormer["launches"]["K2"]
                             if name == "conv3x3_bias_relu"
                             else served[1] + ship_k3 + multi_k[1]
                             + retrain_k[1])),
@@ -6712,6 +7034,7 @@ def main() -> int:
                                       if "int_mm_ms" in r]
             # cgan's 4x4 stride-2 layers through the exact rewrites, 2048²
             kernels[-1]["cgan_rewrites"] = cgan_rows
+    kernels += restormer_kernel_entries(restormer)
     g = noise_stats["gaussian_only"]
     kernels.append({
         "name": "noise_batch", "route": "cuda",

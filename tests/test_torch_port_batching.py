@@ -346,8 +346,8 @@ def test_warmup_without_microbatching_runs_batch_1():
 
 def test_warmup_covers_every_family_by_default():
     """As the JAX ``warmup(models=None)``: every family at its forward's
-    shape (cgan: its Keras generator), the [0, 1] families unpadded, srgan
-    padded to 16."""
+    shape (cgan: its Keras generator), dncnn and esrgan unpadded, srgan
+    padded to 16, and restormer, which only the port serves, padded to 8."""
     st = ServeState(device="cpu")
     shapes = []
     apply = st._apply
@@ -364,7 +364,8 @@ def test_warmup_covers_every_family_by_default():
     st.warmup(((10, 14),))
     assert shapes == [("denoise", (1, 12, 16, 3)),
                       ("cgan:keras", (1, 12, 16, 3)), ("srgan", (1, 16, 16, 3)),
-                      ("esrgan", (1, 10, 14, 3)), ("dncnn", (1, 10, 14, 3))]
+                      ("esrgan", (1, 10, 14, 3)), ("dncnn", (1, 10, 14, 3)),
+                      ("restormer", (1, 16, 16, 3))]
 
 
 def test_cli_serve_microbatching_and_precompile_flags(monkeypatch):

@@ -744,12 +744,22 @@ def test_torch_backend_refuses_a_label_outside_the_table(servers, label):
         assert status == 200, (q, payload)
 
 
+def _jax_info_and_restormer(jst) -> dict:
+    """The JAX server's ``info()`` with restormer, the family only the port
+    serves, after its five."""
+    want = jst.info()
+    want["models"] = list(want["models"]) + ["restormer"]
+    want["default_backends"] = dict(want["default_backends"],
+                                    restormer="torch")
+    return want
+
+
 def test_info_and_healthz_list_the_five_families(servers):
     st = servers["port_state"]
     jst = servers["jax_state"]
-    assert st.info() == jst.info()
+    assert st.info() == _jax_info_and_restormer(jst)
     assert list(st.info()["models"]) == ["denoise", "cgan", "srgan",
-                                         "esrgan", "dncnn"]
+                                         "esrgan", "dncnn", "restormer"]
     assert "cgan" in st.healthz()["weights_loaded"]
 
 
@@ -760,7 +770,8 @@ def test_keras_cgan_missing_falls_back_to_torch(tmp_path):
     st = ServeState(weights_dir=str(tmp_path), device="cpu")
     jst = JaxState(weights_dir=str(tmp_path), quantize=None)
     png = imageio.encode_png(_image(16, 20, seed=2))
-    assert st.keras_cgan is None and st.info() == jst.info()
+    assert st.keras_cgan is None and st.info() == _jax_info_and_restormer(
+        jst)
     for backend, label, status in (("auto", None, 400), ("auto", 2, 200),
                                    ("keras", 2, 500)):
         for state in (st, jst):

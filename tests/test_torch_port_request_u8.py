@@ -16,9 +16,11 @@ forward's uint8 output itself.  Held here:
   for byte: every family (cgan: the Keras generator on the shipped
   ``weights/cgan_epoch_500.keras``) at a size that is a multiple of 4 and
   one that is not (esrgan's shifted, zero-filled crop), on the kernel and
-  the plain route, micro-batched, and tiled.
+  the plain route, micro-batched, and tiled (restormer, never tiled: the
+  same refusal on both paths).
 """
 
+import functools
 import threading
 
 import numpy as np
@@ -29,6 +31,7 @@ from celebrity_image_denoiser_tpu_torch.core.config import MODEL_CFG
 from celebrity_image_denoiser_tpu_torch.serve.handlers import (
     _CROPPED,
     KERAS,
+    EnhanceError,
     ServeState,
     _pil_crop,
 )
@@ -177,6 +180,13 @@ def test_denoise_image_equals_the_float_pipeline(
         image = np.concatenate([image, _image(h, w, seed=2)])
         assert st._big_route((1, *st._input_shape(model, 2 * h, w), 3))[0] \
             == "tiled"
+        if not MODEL_CFG[model].get("tiles", True):
+            # restormer: refused, not tiled, on both paths alike
+            for serve in (st.denoise_image, functools.partial(
+                    _float_pipeline, st)):
+                with pytest.raises(EnhanceError, match="too large"):
+                    serve(image, model)
+            return
     y = st.denoise_image(image, model, plain=plain)
     _check_served(y, _float_pipeline(st, image, model, plain=plain))
     if model == "srgan":  # 4x the padded input, not cropped
