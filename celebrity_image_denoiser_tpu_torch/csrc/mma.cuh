@@ -1,10 +1,11 @@
-// The PTX the conv kernels need, and nothing else: asynchronous 16- and
+// The PTX the kernels need, and nothing else: asynchronous 16- and
 // 4-byte copies into shared memory, ldmatrix (x4 and x2), the warp matrix
 // instructions (mma.sync m16n8k16 in bf16, m16n8k32 in s8 with s32
 // accumulation), the warpgroup ones (wgmma m64n64k16 in bf16, m64n64k32
-// in s8 and m64n64k8 in tf32, A in registers and B read from shared memory
-// through a descriptor), the tf32 rounding, setmaxnreg, a warp barrier and
-// a warp shuffle.
+// in s8, m64n64k8 and m64n128k8 in tf32, A in registers and B read from
+// shared memory through a descriptor), the tf32 rounding, setmaxnreg, a
+// warp barrier, a warp shuffle, and the shared-memory barriers (mbarrier)
+// that copies and threads arrive on.
 //
 // Every wrapper has two bodies.  nvcc compiles the PTX.  With
 // CID_EMULATE_MMA defined (only the CPU tests' g++ build defines it) the
@@ -16,6 +17,7 @@
 //   mock::warpgroup_sync()     a barrier over its warpgroup (4 warps)
 //   mock::warp_scratch()       >= 192 uint32 shared by the warp
 //   mock::warpgroup_scratch()  >= 512 uint32 shared by the warpgroup
+// and, for the mbarriers, std::atomic_ref and std::this_thread::yield.
 //
 // Fragment layouts (lane = thread % 32, g = lane / 4, q = lane % 4):
 //   A, 16 rows x 16 k, four registers of two bf16 (low half = lower k):
@@ -57,13 +59,17 @@
 //     addressing above (piece = l / 16).  B, 8 k x 64 n, is K-major (the
 //     only form wgmma takes for 32-bit types): column n is the 32 bytes of
 //     its 8 k, laid out exactly as the s8 B above (32-byte swizzle, SBO 256,
-//     the same descriptor).
+//     the same descriptor).  m64n128k8 in tf32 is the same with 128
+//     columns: 16 groups of 8 columns, d[64] (d[4i..4i+3] for column block
+//     i < 16 as above).
 #pragma once
 
 #include <cstdint>
 #ifdef CID_EMULATE_MMA
+#include <atomic>
 #include <cstdlib>
 #include <cstring>
+#include <thread>
 #include <vector>
 #endif
 
@@ -265,6 +271,42 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
         "r"((int)accumulate));
 }
 
+// d (64x128 f32, this warpgroup's) = A (64x8 tf32, registers) * B (8x128
+// tf32, shared memory, K-major, 32-byte swizzle) + (accumulate ? d : 0).
+// Asynchronous as above.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc,
+                                                     bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"((int)accumulate));
+}
+
 // The f32 value v (given as its bits) as hi + lo, two tf32 values: hi = v
 // rounded to tf32 (nearest, ties away from zero), lo = v - hi (exact in
 // f32) rounded the same way.  lo is formed from the rounded hi, never from
@@ -284,6 +326,46 @@ __device__ __forceinline__ void warp_sync() { __syncwarp(); }
 // v of lane (lane ^ m) of the calling thread's warp (all 32 lanes call it).
 __device__ __forceinline__ float shfl_xor(float v, int m) {
   return __shfl_xor_sync(0xffffffffu, v, m);
+}
+
+// A shared-memory barrier (8 bytes at addr, 8-aligned) whose phase
+// completes after `count` arrivals.  Initialised by one thread; the block
+// then meets at __syncthreads before any other use.
+__device__ __forceinline__ void mbar_init(uint32_t addr, uint32_t count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(addr), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival of the calling thread.
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(
+          addr)
+      : "memory");
+}
+// One arrival once every cp.async this thread started has landed (counted
+// among the barrier's `count`).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t addr) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(addr)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed (the barrier's
+// current phase has the other parity).
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(addr),
+      "r"(parity)
+      : "memory");
+}
+// Order this thread's generic-proxy shared-memory accesses before the
+// async proxy's (wgmma's reads of B).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 #else
@@ -473,8 +555,12 @@ inline void wgmma_m64n64k32_s8(int (&d)[32], const uint32_t (&a)[4],
   ::mock::warpgroup_sync();
 }
 
-inline void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
-                                uint64_t desc, bool accumulate) {
+namespace emu {
+// d (64 x N f32, this warpgroup's) = A (64x8 tf32) * B (8 x N, K-major,
+// 32-byte swizzle) + (accumulate ? d : 0)
+template <int N>
+inline void wgmma_k8_tf32(float* d, const uint32_t (&a)[4], uint64_t desc,
+                          bool accumulate) {
   uint32_t* sa = ::mock::warpgroup_scratch();  // [4 warps][32][4]
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   for (int i = 0; i < 4; ++i) sa[t * 4 + i] = a[i];
@@ -484,7 +570,7 @@ inline void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
   if ((desc >> 62) != 3 || ((desc >> 32) & 0x3FFF) != 16) std::abort();
   const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
   const uint32_t* fa = sa + warp * 128;
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < N / 2; ++e) {
     const int row = lane / 4 + 8 * ((e % 4) / 2);
     const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
     float acc = accumulate ? d[e] : 0.f;
@@ -493,13 +579,23 @@ inline void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
       off ^= ((off >> 7) & 1) << 4;
       uint32_t b;
       std::memcpy(&b, ::mock::smem_base() + off, 4);
-      acc += emu::tf32_at(fa[((row % 8) * 4 + k % 4) * 4 + row / 8 +
-                             2 * (k / 4)]) *
-             emu::tf32_at(b);
+      acc += tf32_at(fa[((row % 8) * 4 + k % 4) * 4 + row / 8 +
+                        2 * (k / 4)]) *
+             tf32_at(b);
     }
     d[e] = acc;
   }
   ::mock::warpgroup_sync();
+}
+}  // namespace emu
+
+inline void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                uint64_t desc, bool accumulate) {
+  emu::wgmma_k8_tf32<64>(d, a, desc, accumulate);
+}
+inline void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                 uint64_t desc, bool accumulate) {
+  emu::wgmma_k8_tf32<128>(d, a, desc, accumulate);
 }
 
 inline void tf32_split(uint32_t v, uint32_t& hi, uint32_t& lo) {
@@ -522,6 +618,44 @@ inline float shfl_xor(float v, int m) {
   ::mock::warp_sync();
   return r;
 }
+
+// The barrier's 8 bytes: pending arrivals (bits 0-31), the count (32-62)
+// and the current phase's parity (63).
+namespace emu {
+inline std::atomic_ref<uint64_t> mbar_at(uint32_t addr) {
+  return std::atomic_ref<uint64_t>(
+      *reinterpret_cast<uint64_t*>(::mock::smem_base() + addr));
+}
+}  // namespace emu
+inline void mbar_init(uint32_t addr, uint32_t count) {
+  emu::mbar_at(addr).store(((uint64_t)count << 32) | count);
+}
+inline void mbar_arrive(uint32_t addr) {
+  auto b = emu::mbar_at(addr);
+  uint64_t old = b.load();
+  for (;;) {
+    const uint32_t pending = (uint32_t)old;
+    if (pending == 0) std::abort();  // more arrivals than the count
+    const uint64_t next =
+        pending == 1 ? ((old ^ (1ull << 63)) & ~0xFFFFFFFFull) |
+                           ((old >> 32) & 0x7FFFFFFFu)
+                     : old - 1;
+    if (b.compare_exchange_weak(old, next)) return;
+  }
+}
+// the thread's copies land here, all of its groups, then the arrival
+inline void cp_async_mbar_arrive(uint32_t addr) {
+  for (const auto& group : emu::groups)
+    for (const emu::Copy& c : group)
+      std::memcpy(::mock::smem_base() + c.dst, c.bytes, c.n);
+  emu::groups.assign(1, {});
+  mbar_arrive(addr);
+}
+inline void mbar_wait(uint32_t addr, uint32_t parity) {
+  while ((emu::mbar_at(addr).load() >> 63) == parity)
+    std::this_thread::yield();
+}
+inline void fence_proxy_async() {}
 
 #endif  // CID_EMULATE_MMA
 

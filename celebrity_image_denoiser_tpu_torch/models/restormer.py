@@ -38,16 +38,24 @@ as the server hands every model):
 
 * ``"kernel"`` — the 3×3 convs on K2 (``ops/cuda/conv3x3.py``, no bias or
   ReLU), MDTA's core on K7 (``ops/cuda/channel_attention.py``), both
-  depthwise convs on K8 (``ops/cuda/dwconv3x3.py``; GDFN's gate fused), the
-  1×1 convs as float32 GEMMs (``F.linear``; the server turns TF32 off) with
-  each block's residual add folded into the GEMM that ends its branch,
-  LayerNorm and pixel (un)shuffle as tensor ops;
+  depthwise convs on K8 (``ops/cuda/dwconv3x3.py``; GDFN's gate fused),
+  every 1×1 conv on K9 (``ops/cuda/pointwise_gemm.py``, float32 as three
+  TF32 products) with each block's LayerNorm folded into the GEMM after it
+  and each block's residual add into the GEMM that ends its branch, pixel
+  (un)shuffle and the skip concatenation as tensor ops;
 * ``"plain"`` — the same function through the kernels' plain versions.
 
-One departure from the published order of operations: ``A · v`` and the
-projection are one GEMM, ``v · W_effᵀ`` with ``W_eff = W_proj ·
-blockdiag(A_h)`` (a C × C matrix per image), a re-association that saves a
-full-resolution pass.
+Two departures from the published order of operations, both
+re-associations that save full-resolution passes:
+
+* ``A · v`` and the projection are one GEMM, ``v · W_effᵀ`` with ``W_eff =
+  W_proj · blockdiag(A_h)`` (a C × C matrix per image);
+* LayerNorm is not applied before the 1×1 conv that follows it: BiasFree
+  LayerNorm takes no mean out, so ``LN(x) · Wᵀ = r ⊙ (x · (W ·
+  diag(g))ᵀ)`` with ``r = 1 / sqrt(var(x) + 1e-5)`` a pixel; the weight
+  ``g`` is folded into the conv's (cached) weight and K9 scales each
+  output row by ``r``, computed from the rows it reads.  No normalised
+  tensor is made.
 
 Spans (``utils/profiling.py::SPANS``): ``cid.restormer.attention`` (one
 MDTA, its LayerNorm and residual add included), ``cid.restormer.ffn`` (one
@@ -63,7 +71,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from celebrity_image_denoiser_tpu_torch.models.denoise_unet import nchw, nhwc
 from celebrity_image_denoiser_tpu_torch.models.srgan import (
@@ -74,11 +81,11 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda import (
     channel_attention,
     conv3x3,
     dwconv3x3,
+    pointwise_gemm,
 )
 from celebrity_image_denoiser_tpu_torch.utils.profiling import span
 
 ROUTES = ("kernel", "plain")
-LN_EPS = 1e-5
 
 
 def _conv(cin: int, cout: int, k: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -195,6 +202,19 @@ def depthwise(x: torch.Tensor, w: torch.Tensor, gate: bool,
     return dwconv3x3.dwconv3x3(x, w, gate=gate)
 
 
+def pointwise(a: torch.Tensor, w: torch.Tensor, layer_norm: bool,
+              residual: Optional[torch.Tensor], route: str,
+              w_tf32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A 1×1 conv as a GEMM over a's pixel rows, a BiasFree LayerNorm
+    folded in as a row scale where asked (its weight already in ``w``) and
+    ``residual`` added: K9, or its plain version."""
+    if route == "plain":
+        return pointwise_gemm.pointwise_gemm_plain(
+            a, w, layer_norm=layer_norm, residual=residual)
+    return pointwise_gemm.pointwise_gemm(a, w, layer_norm=layer_norm,
+                                         residual=residual, w_tf32=w_tf32)
+
+
 def fold_attention(w_proj: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """``W_proj · blockdiag(A_h)`` per image: w_proj (C, C), attn (N,
     heads, d, d) → (N, C, C), so that ``v · W_effᵀ`` is the projection of
@@ -203,12 +223,6 @@ def fold_attention(w_proj: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     c = heads * d
     w = w_proj.view(c, heads, d).permute(1, 0, 2).unsqueeze(0)  # 1,h,C,d
     return torch.matmul(w, attn).permute(0, 2, 1, 3).reshape(n, c, c)
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """BiasFree LayerNorm over the last (channel) dimension."""
-    sigma = x.var(-1, keepdim=True, unbiased=False)
-    return x / torch.sqrt(sigma + LN_EPS) * weight
 
 
 class Restormer(nn.Module):
@@ -251,14 +265,15 @@ class Restormer(nn.Module):
         self._kparams: Dict[str, tuple] = {}
 
     # -- kernel-layout weights -------------------------------------------
-    def _cached(self, name: str, p: torch.Tensor, make):
+    def _cached(self, name: str, make, *params: torch.Tensor):
         # an inference tensor has no version counter (and cannot change)
-        stamp = (p.data_ptr(), p.device,
-                 None if p.is_inference() else p._version)
+        stamp = tuple((p.data_ptr(), p.device,
+                       None if p.is_inference() else p._version)
+                      for p in params)
         hit = self._kparams.get(name)
         if hit is None or hit[0] != stamp:
             with torch.no_grad():
-                hit = (stamp, make(p.detach()))
+                hit = (stamp, make(*(p.detach() for p in params)))
             self._kparams[name] = hit
         return hit[1]
 
@@ -270,46 +285,57 @@ class Restormer(nn.Module):
             split = (conv3x3.tf32_weights(hwio) if hwio.shape[3] > 4
                      else None)
             return hwio, w.new_zeros(hwio.shape[3]), split
-        hwio, zero, split = self._cached(name, conv.weight, make)
+        hwio, zero, split = self._cached(name, make, conv.weight)
         if route == "plain":
             return conv3x3.conv3x3_bias_relu_plain(x, hwio, zero, relu=False)
         return conv3x3.conv3x3_bias_relu(x, hwio, zero, relu=False,
                                          kernel_tf32=split)
 
     def _taps(self, name: str, conv: nn.Conv2d) -> torch.Tensor:
-        return self._cached(name, conv.weight, dwconv3x3.tap_weights)
+        return self._cached(name, dwconv3x3.tap_weights, conv.weight)
+
+    def _pointwise(self, name: str, conv: nn.Conv2d, x: torch.Tensor,
+                   route: str, norm: Optional[LayerNorm] = None,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A 1×1 conv (no bias) with the LayerNorm before it folded in where
+        there is one: its weight ``W · diag(g)`` (Cout, Cin) and K9's split
+        of it are cached, rebuilt when either parameter changes."""
+        def make(w, g=None):
+            w = w.flatten(1) if g is None else w.flatten(1) * g
+            return w, pointwise_gemm.gemm_weights(w)
+        params = (conv.weight,) + (() if norm is None else
+                                   (norm.body.weight,))
+        w, split = self._cached(name, make, *params)
+        return pointwise(x, w, norm is not None, residual, route, split)
 
     # -- the blocks ---------------------------------------------------------
     def _attention(self, name: str, blk: TransformerBlock, x: torch.Tensor,
                    route: str) -> torch.Tensor:
         """x + MDTA(LN(x)) on NHWC x."""
         m = blk.attn
-        n, h, w, c = x.shape
+        c = x.shape[3]
         with span("cid.restormer.attention"):
-            t = layer_norm(x, blk.norm1.body.weight)
-            qkv = depthwise(F.linear(t, m.qkv.weight.flatten(1)),
+            qkv = depthwise(self._pointwise(f"{name}.attn.qkv", m.qkv, x,
+                                            route, norm=blk.norm1),
                             self._taps(f"{name}.attn.qkv_dwconv",
                                        m.qkv_dwconv), False, route)
             attn = attention_maps(qkv, m.num_heads, m.temperature.view(-1),
                                   route)
             w_eff = fold_attention(m.project_out.weight.flatten(1), attn)
-            v = qkv.view(n, h * w, 3 * c)[..., 2 * c:]
-            out = torch.baddbmm(x.view(n, h * w, c), v, w_eff.transpose(1, 2))
-            return out.view(n, h, w, c)
+            return pointwise(qkv[..., 2 * c:], w_eff, False, x, route)
 
     def _ffn(self, name: str, blk: TransformerBlock, x: torch.Tensor,
              route: str) -> torch.Tensor:
         """x + GDFN(LN(x)) on NHWC x."""
         m = blk.ffn
-        c = x.shape[3]
         with span("cid.restormer.ffn"):
-            t = layer_norm(x, blk.norm2.body.weight)
-            g = depthwise(F.linear(t, m.project_in.weight.flatten(1)),
+            g = depthwise(self._pointwise(f"{name}.ffn.project_in",
+                                          m.project_in, x, route,
+                                          norm=blk.norm2),
                           self._taps(f"{name}.ffn.dwconv", m.dwconv), True,
                           route)
-            out = torch.addmm(x.reshape(-1, c), g.reshape(-1, g.shape[3]),
-                              m.project_out.weight.flatten(1).t())
-            return out.view(x.shape)
+            return self._pointwise(f"{name}.ffn.project_out", m.project_out,
+                                   g, route, residual=x)
 
     def _blocks(self, name: str, seq: nn.Sequential, x: torch.Tensor,
                 route: str) -> torch.Tensor:
@@ -333,8 +359,8 @@ class Restormer(nn.Module):
             y = pixel_shuffle_nhwc(
                 self._conv3(f"{name}.body.0", m.body[0], x, route), 2)
             y = torch.cat([y, skip], dim=3)
-            return y if reduce is None else F.linear(y,
-                                                     reduce.weight.flatten(1))
+            return y if reduce is None else self._pointwise(
+                f"{name}.reduce", reduce, y, route)
 
     def forward(self, x: torch.Tensor, *, route: str = "kernel"
                 ) -> torch.Tensor:

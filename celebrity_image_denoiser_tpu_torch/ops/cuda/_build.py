@@ -30,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_bias_relu.cu", "double_conv3x3_relu.cu",
            "normalize_gaussian_noise.cu", "conv3x3_s8.cu", "convt2x2_s8.cu",
-           "mma_probe.cu", "dwconv3x3.cu", "mdta_attention.cu")
+           "mma_probe.cu", "dwconv3x3.cu", "mdta_attention.cu",
+           "pointwise_gemm.cu")
 HEADERS = ("common.cuh", "mma.cuh", "conv_mma.cuh", "conv_s8.cuh",
            "noise.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -179,6 +180,9 @@ def library() -> ctypes.CDLL:
             lib.cid_mdta_splits.restype = I
             lib.cid_mdta_attention.argtypes = [P] * 5 + [I, L, I, I, I, P]
             lib.cid_mdta_attention.restype = I
+            lib.cid_pointwise_gemm.argtypes = [P, L, P, L, P, P, I, L, I, I,
+                                               I, P]
+            lib.cid_pointwise_gemm.restype = I
             lib.cid_error_string.argtypes = [I]
             lib.cid_error_string.restype = ctypes.c_char_p
             _lib = lib

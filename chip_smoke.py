@@ -149,22 +149,28 @@ Phases, each printing its own lines; any failure exits non-zero:
              2048² beside cuDNN and its bound;
 4g. restormer — Restormer (seeded weights, published widths, f32) served
              by ``ServeState.denoise_image``: at 1024², 256² and 203×130
-             every K2, K7 (``channel_attention``) and K8 (``dwconv3x3``)
-             launch held against its plain version on the same inputs
-             (3e-5·max|ref|; K7 1e-3, ``K7_SERVED_TOL``), exactly 8 K2,
-             44 K7 and 88 K8 launches a request, the served pixels within
-             1 count of the plain route;
+             every K2, K7 (``channel_attention``), K8 (``dwconv3x3``) and
+             K9 (``pointwise_gemm``) launch held against its plain version
+             on the same inputs (3e-5·max|ref|; K7 1e-3,
+             ``K7_SERVED_TOL``), exactly 8 K2, 44 K7, 88 K8 and 178 K9
+             launches a request, the served pixels within 1 count of the
+             plain route;
              the share of served values at 0 or 255 on four of the
              benchmark's 1024² images; K7 and K8 at every shape of a 1024²
              forward (checked, twice bit-equal, K8's float4 body equal to
              its scalar body on an unaligned copy) beside their plain
              versions, the library (depthwise ``F.conv2d`` and the gate;
              ``torch.matmul`` and the softmax) and their bound (operations
-             at 67 TFLOP/s or bytes at 3.35 TB/s), and summed over one
-             forward; then one 1024² request profiled in a fresh process
-             (see phase 7), its counters zeroed just before the window.
+             at 67 TFLOP/s or bytes at 3.35 TB/s), and K9 at every GEMM
+             shape of the forward (checked, twice bit-equal) beside its
+             plain version, cuBLAS's f32 GEMM (``library_ms``) and the
+             bound of ``roofline.k9.restormer`` (operations at 495 TFLOP/s
+             or bytes), each summed over one forward; then one 1024²
+             request profiled in a fresh process (see phase 7), its
+             counters zeroed just before the window.
              ``python3 chip_smoke.py --restormer-only`` runs phases 1 and
-             4g alone (after the build, with K7's and K8's ptxas lines);
+             4g alone (after the build, with K7's, K8's and K9's ptxas
+             lines);
 5. bench   — the port's bench line at batch 256: the bf16 step (exactly 4
              double conv + 2 single conv launches per step) and the int8
              ladder, whose rungs, rates and dB are printed; the s8 rung must
@@ -642,9 +648,10 @@ def phase_build(_build, noise):
     if hgmma < 1 or igmma < 1 or hmma < 1 or imma < 1:
         fail("the built library lacks a tensor-core matrix instruction")
     # the int8 kernels K5 (its Cout > 8 path) and K6 on the s8 wgmma, the
-    # f32 bodies of K2 (Cout > 4) and K3 on the tf32 wgmma
+    # f32 bodies of K2 (Cout > 4) and K3, and K9, on the tf32 wgmma
     funcs = re.split(r"\n\s*Function : ", sass)
-    for kernel in ("conv3x3_tf32_kernel", "double_conv3x3_tf32_kernel"):
+    for kernel in ("conv3x3_tf32_kernel", "double_conv3x3_tf32_kernel",
+                   "pointwise_gemm_kernel"):
         body = "".join(f for f in funcs if f.split("\n", 1)[0].find(kernel)
                        >= 0)
         n = len(re.findall(r"\bHGMMA\.\w+\.F32\.TF32", body))
@@ -2205,7 +2212,7 @@ def phase_families(conv3x3, double_conv, k5, k6, device="cuda"):
 # ---------------------------------------------------------------------------
 # phase 4g: Restormer on K2, K7 and K8
 RESTORMER_SIZES = ((1024, 1024), (256, 256), (203, 130))  # (H, W) requests
-RESTORMER_PER_FORWARD = {"K2": 8, "K7": 44, "K8": 88}
+RESTORMER_PER_FORWARD = {"K2": 8, "K7": 44, "K8": 88, "K9": 178}
 RESTORMER_SIDE = 1024  # the benchmark cell's uploads, a side
 # K7 on a served request's activations, x max|ref|: its Gram sums and the
 # plain version's GEMM add some 10^5 to 10^6 products a value in other
@@ -2333,25 +2340,126 @@ def restormer_times(k7, k8, arch) -> dict:
     return {"rows": rows, "sums": sums}
 
 
+def restormer_k9_shapes(arch: dict, side: int) -> dict:
+    """One forward's K9 launches at a side² input, by shape: (what, side,
+    K, Cout, LayerNorm folded, residual, a weight per image) → launches."""
+    from port_bench.roofline_restormer import hidden, levels
+
+    shapes = {}
+    for _, c, _, n, div in levels(arch):
+        s, hid = side // div, hidden(arch, c)
+        for key in (("qkv", s, c, 3 * c, True, False, False),
+                    ("v W_eff + x", s, c, c, False, True, True),
+                    ("project_in", s, c, 2 * hid, True, False, False),
+                    ("project_out + x", s, hid, c, False, True, False)):
+            shapes[key] = shapes.get(key, 0) + n
+    d = arch["dim"]
+    for s, c in ((side // 4, 8 * d), (side // 2, 4 * d)):
+        shapes[("reduce_chan", s, c, c // 2, False, False, False)] = 1
+    return shapes
+
+
+def restormer_k9_times(k9, arch) -> dict:
+    """K9 at each shape of a ``RESTORMER_SIDE``² forward on the device's
+    clock: the kernel (against its plain version on the same random
+    inputs, twice bit-equal), its plain version, cuBLAS's float32 GEMM
+    (``torch.addmm`` / ``baddbmm`` with TF32 off, the residual as its
+    input where there is one; the LayerNorm not included) and the bound of
+    the benchmark's ``roofline.k9.restormer`` (operations at 495 TFLOP/s,
+    the TF32 peak, or bytes at 3.35 TB/s); and the sums over one
+    forward's launches."""
+    from port_bench.harness import BENCH_DIR, load_module
+
+    metric = load_module(BENCH_DIR / "metrics" / "roofline.k9.restormer.py")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows, total = [], {k: 0.0 for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")}
+    for (what, side, k, cout, ln, res, per_image), n in \
+            restormer_k9_shapes(arch, RESTORMER_SIDE).items():
+        m = side * side
+        if per_image:  # the v slice of MDTA's qkv, its rows 3C apart
+            a = torch.randn((1, side, side, 3 * k), generator=g,
+                            device="cuda")[..., 2 * k:]
+            w = torch.randn((1, cout, k), generator=g, device="cuda")
+        else:
+            a = torch.randn((1, side, side, k), generator=g, device="cuda")
+            w = torch.randn((cout, k), generator=g, device="cuda")
+        w /= k ** 0.5
+        r = torch.randn((1, side, side, cout), generator=g,
+                        device="cuda") if res else None
+        split = k9.gemm_weights(w)
+
+        def run(a=a, w=w, ln=ln, r=r, split=split):
+            return k9.pointwise_gemm(a, w, layer_norm=ln, residual=r,
+                                     w_tf32=split)
+
+        def plain(a=a, w=w, ln=ln, r=r):
+            return k9.pointwise_gemm_plain(a, w, layer_norm=ln, residual=r)
+
+        a2 = a.reshape(1, m, k) if per_image else a.reshape(m, k)
+        r2 = None if r is None else r.view(a2.shape[:-1] + (cout,))
+
+        def lib(a2=a2, w=w, r2=r2):
+            if a2.dim() == 3:
+                return torch.baddbmm(r2, a2, w.transpose(1, 2))
+            return torch.mm(a2, w.t()) if r2 is None else \
+                torch.addmm(r2, a2, w.t())
+        y, ref = run(), plain()
+        err = ((y - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+               ).item()
+        label = (f"K9 {what} {side}x{side} {k} -> {cout}"
+                 + (", LN folded" if ln else ""))
+        if err > TOL[torch.float32] or not torch.equal(y, run()):
+            fail(f"{label}: {err:.2e} x max|ref| off its plain version, or "
+                 "two launches differ")
+        del y, ref
+        ms, plain_ms, lib_ms = device_ms(run), device_ms(plain), \
+            device_ms(lib)
+        ops, nbytes, bound_s = metric._launch(m, k, cout, res)
+        b = bound_s * 1e3
+        by = "operations" if ops / 495e12 >= nbytes / PEAK_BYTES \
+            else "bytes"
+        ceil3 = bound_ms(ops, nbytes, PEAK_TF32X3_FLOPS)
+        rows.append({"kernel": "K9", "shape": label, "per_forward": n,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b, "bound_by": by,
+                     "tf32x3_bound_ms": ceil3, "max_rel_err": err})
+        say(f"  {label} (x{n} a forward): {ms:.4f} ms, plain {plain_ms:.4f}, "
+            f"library {lib_ms:.4f}, bound {b:.4f} by {by} ({b / ms:.1%}; "
+            f"three-product ceiling {ceil3:.4f}); {err:.2e} x max|ref|")
+        for key in total:
+            total[key] += n * rows[-1][key]
+        del a, w, r, split, a2, r2
+    say(f"  K9 over one {RESTORMER_SIDE}x{RESTORMER_SIDE} forward: "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, library "
+        f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} "
+        f"({total['bound_ms'] / total['ms']:.1%})")
+    return {"rows": rows, "sums": {"K9": total}}
+
+
 def phase_restormer(conv3x3) -> dict:
     """Phase 4g: Restormer (seeded weights) served by ``ServeState`` on K2,
-    K7 and K8: every launch of a request at 1024², 256² and 203×130 held
-    against its plain version on the same inputs (f32: ``TOL``; K7
+    K7, K8 and K9: every launch of a request at 1024², 256² and 203×130
+    held against its plain version on the same inputs (f32: ``TOL``; K7
     ``K7_SERVED_TOL``), the
     launches of each request exactly ``RESTORMER_PER_FORWARD``, the served
     pixels within 1 count of the plain route; the share of served values
-    at 0 or 255 on four of the benchmark's 1024² images; K7 and K8 at the
-    shapes of a 1024² forward (``restormer_times``); and a profiled 1024²
-    request in a fresh process (``restormer_windows``).  Returns launches,
-    errors and times by kernel."""
+    at 0 or 255 on four of the benchmark's 1024² images; K7, K8 and K9 at
+    the shapes of a 1024² forward (``restormer_times``,
+    ``restormer_k9_times``); and a profiled 1024² request in a fresh
+    process (``restormer_windows``).  Returns launches, errors and times by
+    kernel."""
     from celebrity_image_denoiser_tpu_torch.ops.cuda import (
         channel_attention as k7,
     )
     from celebrity_image_denoiser_tpu_torch.ops.cuda import dwconv3x3 as k8
+    from celebrity_image_denoiser_tpu_torch.ops.cuda import (
+        pointwise_gemm as k9,
+    )
     from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
     from port_bench import gen
 
-    say("== phase 4g: restormer (seeded weights, f32) on K2, K7 and K8")
+    say("== phase 4g: restormer (seeded weights, f32) on K2, K7, K8 and K9")
     st = ServeState(device="cuda")
     t0 = time.perf_counter()
     model = st._model("restormer")
@@ -2361,12 +2469,13 @@ def phase_restormer(conv3x3) -> dict:
                            conv3x3.conv3x3_bias_relu_plain)]),
              "K7": Holds([(k7, "channel_attention",
                            k7.channel_attention_plain)], tol=K7_SERVED_TOL),
-             "K8": Holds([(k8, "dwconv3x3", k8.dwconv3x3_plain)])}
+             "K8": Holds([(k8, "dwconv3x3", k8.dwconv3x3_plain)]),
+             "K9": Holds([(k9, "pointwise_gemm", k9.pointwise_gemm_plain)])}
     launches = {k: 0 for k in RESTORMER_PER_FORWARD}
     for i, (h, w) in enumerate(RESTORMER_SIZES):
         img = test_image(h, w, seed=70 + i)
         before = launch_counters()
-        with holds["K2"], holds["K7"], holds["K8"]:
+        with holds["K2"], holds["K7"], holds["K8"], holds["K9"]:
             y = st.denoise_image(img, "restormer")
         torch.cuda.synchronize()
         after = launch_counters()
@@ -2399,6 +2508,9 @@ def phase_restormer(conv3x3) -> dict:
     del st, model, u8
     torch.cuda.empty_cache()
     times = restormer_times(k7, k8, restormer_arch())
+    k9_times = restormer_k9_times(k9, restormer_arch())
+    times["rows"] += k9_times["rows"]
+    times["sums"].update(k9_times["sums"])
     prof = profile_in_child("restormer")
     return {"launches": launches,
             "max_rel_err": {k: h.worst for k, h in holds.items()},
@@ -2418,19 +2530,20 @@ def restormer_windows(tmp: str) -> list:
 
 
 def restormer_kernel_entries(res: dict) -> list:
-    """The kernels JSON's K7 and K8 entries from phase 4g."""
+    """The kernels JSON's K7, K8 and K9 entries from phase 4g."""
     entries = []
     for kern, name, source in (
             ("K7", "channel_attention", "mdta_attention.cu"),
-            ("K8", "dwconv3x3", "dwconv3x3.cu")):
+            ("K8", "dwconv3x3", "dwconv3x3.cu"),
+            ("K9", "pointwise_gemm", "pointwise_gemm.cu")):
         if res["launches"][kern] < 1:
             fail(f"{name} was not launched on the main path")
         s = res["times"]["sums"][kern]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"celebrity_image_denoiser_tpu_torch/csrc/{source}",
-            # the JAX package serves no model with channel attention or a
-            # depthwise conv
+            # the JAX package serves no model with channel attention, a
+            # depthwise conv or a 1x1 conv
             "replaces": None,
             # phase 4g's restormer requests
             "launches": res["launches"][kern],
@@ -3356,6 +3469,7 @@ KERNEL_RECORDS = {
     "K6": ("convt2x2_s8_kernel",),
     "K7": ("mdta_attention_kernel",),
     "K8": ("dwconv3x3_f32_kernel",),
+    "K9": ("pointwise_gemm_kernel",),
 }
 _KERNEL_OF = {name: k for k, names in KERNEL_RECORDS.items()
               for name in names}
@@ -3376,7 +3490,7 @@ PROFILE_CHILD = "--profile-windows"
 
 
 def kernel_of(record: str):
-    """The kernel (K2...K8) a device record belongs to, or None."""
+    """The kernel (K2...K9) a device record belongs to, or None."""
     m = _RECORD_NAME.search(record)
     return _KERNEL_OF[m.group(1)] if m else None
 
@@ -3391,12 +3505,14 @@ def launch_counters() -> dict:
         double_conv,
         dwconv3x3,
         noise,
+        pointwise_gemm,
     )
 
     return {"K2": conv3x3.LAUNCHES, "K3": double_conv.LAUNCHES,
             "K4": noise.LAUNCHES + noise.GAUSSIAN_LAUNCHES,
             "K5": conv3x3_s8.LAUNCHES, "K6": convt2x2_s8.LAUNCHES,
-            "K7": channel_attention.LAUNCHES, "K8": dwconv3x3.LAUNCHES}
+            "K7": channel_attention.LAUNCHES, "K8": dwconv3x3.LAUNCHES,
+            "K9": pointwise_gemm.LAUNCHES}
 
 
 def zero_counters() -> None:
@@ -3409,10 +3525,11 @@ def zero_counters() -> None:
         double_conv,
         dwconv3x3,
         noise,
+        pointwise_gemm,
     )
 
     for m in (channel_attention, conv3x3, conv3x3_s8, convt2x2_s8,
-              double_conv, dwconv3x3, noise):
+              double_conv, dwconv3x3, noise, pointwise_gemm):
         m.LAUNCHES = 0
     noise.GAUSSIAN_LAUNCHES = 0
 
@@ -6827,14 +6944,15 @@ def phase_retrain(card, conv3x3, double_conv, k5, noise) -> dict:
     return out
 
 
-# chip_smoke.py RESTORMER_ONLY: phases 1, the build's K7 and K8 lines, and 4g
+# chip_smoke.py RESTORMER_ONLY: phases 1, the build's K7, K8 and K9 lines,
+# and 4g
 RESTORMER_ONLY = "--restormer-only"
 
 
 def restormer_only(_build, conv3x3) -> int:
     """Phase 4g alone, after the card's line and a build whose ptxas lines
-    for K7 and K8 (registers, shared memory, spills) are printed; then the
-    kernels JSON of K7 and K8 and the ok line."""
+    for K7, K8 and K9 (registers, shared memory, spills) are printed; then
+    the kernels JSON of K7, K8 and K9 and the ok line."""
     t_start = time.perf_counter()
     card = phase_device()
     res = _build.build()
@@ -6842,7 +6960,8 @@ def restormer_only(_build, conv3x3) -> int:
     keep = False
     for line in res.log.splitlines():
         if line.startswith("== "):
-            keep = line[3:] in ("dwconv3x3.cu", "mdta_attention.cu")
+            keep = line[3:] in ("dwconv3x3.cu", "mdta_attention.cu",
+                                "pointwise_gemm.cu")
         if keep and ("Compiling" in line or "registers" in line
                      or "spill" in line):
             say("  " + line.strip())

@@ -10,7 +10,8 @@ and times are ``chip_smoke.py``'s phase 4g (``--restormer-only``).
 * ``faults`` — ``harness.run`` of ``restormer.requests1024`` with each
   planted fault of ``models/restormer_faults.py`` in the served model (the
   temperature left out, k's normalisation left out, GELU in its tanh form,
-  one head's attention on another head's v), each of which must read
+  one head's attention on another head's v, LayerNorm's row scale left out
+  of the 1×1 convs that fold it), each of which must read
   ``correct: false``; and the sound program, which must read ``correct:
   true``.  Exits 1 where one does not.
 * ``sweep`` — the cell's request loop at each of ``--rates`` for

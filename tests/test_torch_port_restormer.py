@@ -1,6 +1,7 @@
 """Restormer on the port (``models/restormer.py``), its kernels K7
-(``csrc/mdta_attention.cu``) and K8 (``csrc/dwconv3x3.cu``) and its place
-on the request path, on the CPU.
+(``csrc/mdta_attention.cu``), K8 (``csrc/dwconv3x3.cu``) and K9
+(``csrc/pointwise_gemm.cu``) and its place on the request path, on the
+CPU.
 
 Held here:
 
@@ -12,16 +13,21 @@ Held here:
 * the forward against the reference: the kernel and plain routes at a
   shrunken width, and ``ServeState.denoise_image(image, "restormer")`` at
   the published widths at sizes that need padding;
-* K7 and K8 compiled by g++ under the CUDA emulation of
+* K7, K8 and K9 compiled by g++ under the CUDA emulation of
   ``test_torch_port_kernels.py`` against their plain versions, at
   Restormer's odd channel counts (hidden 127, 255 and 1021), head sizes 48
-  and 96 and pixel counts that do not fill a block;
+  and 96, pixel counts that do not fill a block, and for K9 each GEMM shape
+  of the forward, the v slice of qkv read in place, a weight per image and
+  rows whose channel mean is large against their spread; K9's one-product
+  control build misses its tolerance;
 * the spans and the kernel calls of one forward (44 MDTA, 44 GDFN, 6
-  resampling steps; K2 8, K7 44, K8 88);
+  resampling steps; K2 8, K7 44, K8 88, K9 178 of which 88 fold a
+  LayerNorm, and no LayerNorm pass);
 * the planted faults of ``models/restormer_faults.py`` (the temperature left
   out, k's normalisation left out, GELU in its tanh form, one head's
-  attention on another head's v), each above the configuration's limit on
-  ``worst_image_mad``, the sound program below it;
+  attention on another head's v, LayerNorm's row scale left out), each
+  above the configuration's limit on ``worst_image_mad``, the sound program
+  below it;
 * the serving contract: built at first use, float only, listed, served.
 """
 
@@ -46,6 +52,7 @@ from celebrity_image_denoiser_tpu_torch.ops.cuda import (
     channel_attention,
     conv3x3,
     dwconv3x3,
+    pointwise_gemm,
 )
 from celebrity_image_denoiser_tpu_torch.reference import restormer as ref
 from celebrity_image_denoiser_tpu_torch.serve.handlers import ServeState
@@ -181,11 +188,11 @@ def test_denoise_image_matches_the_reference(server, published_reference,
 
 
 # ---------------------------------------------------------------------------
-# K7 and K8 under the CUDA emulation
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """csrc/dwconv3x3.cu and csrc/mdta_attention.cu compiled by g++ under
-    the emulation of ``test_torch_port_kernels.py``."""
+# K7, K8 and K9 under the CUDA emulation
+def _emulate(d, defines=()):
+    """csrc/dwconv3x3.cu, csrc/mdta_attention.cu and csrc/pointwise_gemm.cu
+    compiled by g++ under the emulation of ``test_torch_port_kernels.py``
+    into ``d``."""
     import shutil
 
     from test_torch_port_kernels import _MOCK_CUDA_H, _emulated_source
@@ -193,20 +200,21 @@ def emulated(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available to emulate the CUDA sources")
-    d = tmp_path_factory.mktemp("restormer_emulation")
     (d / "mock_cuda.h").write_text(_MOCK_CUDA_H)
     srcs = []
     for p in sorted(CSRC.iterdir()):
         if p.suffix == ".cuh":
             (d / p.name).write_text(_emulated_source(p.read_text()))
-        elif p.name in ("dwconv3x3.cu", "mdta_attention.cu"):
+        elif p.name in ("dwconv3x3.cu", "mdta_attention.cu",
+                        "pointwise_gemm.cu"):
             out = d / (p.stem + ".cpp")
             out.write_text(_emulated_source(p.read_text()))
             srcs.append(str(out))
     so = d / "librestormer.so"
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared",
-                        "-fPIC", "-DCID_EMULATE_MMA", f"-I{d}", *srcs, "-o",
-                        str(so)], capture_output=True, text=True, timeout=300)
+                        "-fPIC", "-DCID_EMULATE_MMA", *defines, f"-I{d}",
+                        *srcs, "-o", str(so)], capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -215,7 +223,21 @@ def emulated(tmp_path_factory):
     lib.cid_mdta_workspace.restype = L
     lib.cid_mdta_splits.argtypes = [I, I, L]
     lib.cid_mdta_attention.argtypes = [P] * 5 + [I, L, I, I, I, P]
+    lib.cid_pointwise_gemm.argtypes = [P, L, P, L, P, P, I, L, I, I, I, P]
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _emulate(tmp_path_factory.mktemp("restormer_emulation"))
+
+
+@pytest.fixture(scope="module")
+def emulated_one_product(tmp_path_factory):
+    """The same sources built with ``-DCID_TF32_NO_CORRECTION``: K9 with
+    one TF32 product a multiply, which must miss its tolerance."""
+    return _emulate(tmp_path_factory.mktemp("restormer_one_product"),
+                    ("-DCID_TF32_NO_CORRECTION",))
 
 
 @pytest.mark.parametrize("shape", [
@@ -307,6 +329,74 @@ def test_k7_emulated_matches_its_plain_version(emulated, shape):
     assert torch.equal(outs[0], outs[1])
 
 
+# (N, H, W, K, Cout, LayerNorm folded, residual, weight per image, row
+# stride, channel offset, rows' channel mean): K9 as the forward calls it
+K9_CASES = {
+    "qkv 48->144 LN": (1, 3, 7, 48, 144, True, False, False, 48, 0, 0.0),
+    "v W_eff + x 96->96, 2 images": (2, 5, 5, 96, 96, False, True, True, 96,
+                                     0, 0.0),
+    "project_in 48->254 LN": (1, 2, 9, 48, 254, True, False, False, 48, 0,
+                              0.0),
+    "project_out 127->48 + x": (1, 4, 5, 127, 48, False, True, False, 127, 0,
+                                0.0),
+    "project_in 384->2042 LN": (1, 3, 5, 384, 2042, True, False, False, 384,
+                                0, 0.0),
+    "project_out 1021->384 + x": (1, 2, 9, 1021, 384, False, True, False,
+                                  1021, 0, 0.0),
+    # the v slice of qkv in place: rows 3C apart, from channel 2C on
+    "v slice 48->48, rows 144 apart": (1, 5, 6, 48, 48, False, True, True,
+                                       144, 96, 0.0),
+    "v slice 96->96, 2 images of 2 tiles": (2, 20, 21, 96, 96, False, True,
+                                            True, 288, 192, 0.0),
+    # 280 rows: a tile and 24 rows of the next
+    "280 rows 48->64": (1, 4, 70, 48, 64, False, False, False, 48, 0, 0.0),
+    "one pixel 48->48 LN": (1, 1, 1, 48, 48, True, False, False, 48, 0, 0.0),
+    # a channel mean of 1e3 against a spread of 1: E[x^2] - E[x]^2 would
+    # lose the variance to cancellation
+    "mean 1e3 spread 1, LN": (1, 3, 3, 48, 144, True, False, False, 48, 0,
+                              1e3),
+    # four tiles or more (two emulated SMs): a block takes all of a tile's
+    # passes and takes the variance once
+    "840 rows 48->144 LN, all passes a block": (1, 28, 30, 48, 144, True,
+                                                False, False, 48, 0, 5.0),
+    "961 rows 127->130 + x": (1, 31, 31, 127, 130, False, True, False, 127,
+                              0, 0.0),
+}
+# x max|ref|: three TF32 products and a partial sum every 32 channels read
+# 2.2e-7 to 7.3e-7 here; one TF32 product 1.9e-4 to 4.2e-4
+K9_TOL = 5e-6
+
+
+@pytest.mark.parametrize("case", [*K9_CASES, "one-product control"])
+def test_k9_emulated_matches_its_plain_version(emulated,
+                                               emulated_one_product, case):
+    control = case == "one-product control"
+    n, h, w, k, cout, ln, res, per_image, lda, off, mean = K9_CASES[
+        "qkv 48->144 LN" if control else case]
+    lib = emulated_one_product if control else emulated
+    g = torch.Generator().manual_seed(k + cout)
+    a = (torch.randn((n, h, w, lda), generator=g) + mean)[..., off:off + k]
+    wt = torch.randn(((n,) if per_image else ()) + (cout, k),
+                     generator=g) / k ** 0.5
+    r = torch.randn((n, h, w, cout), generator=g) if res else None
+    split = pointwise_gemm.gemm_weights(wt)
+    outs = []
+    for _ in range(2):
+        y = torch.full((n, h, w, cout), float("nan"))
+        assert lib.cid_pointwise_gemm(
+            a.data_ptr(), lda, split.data_ptr(),
+            split[0].numel() if per_image else 0,
+            None if r is None else r.data_ptr(), y.data_ptr(),
+            n if per_image else 1, h * w * (1 if per_image else n), k, cout,
+            int(ln), None) == 0
+        outs.append(y)
+    want = pointwise_gemm.pointwise_gemm_plain(a, wt, layer_norm=ln,
+                                               residual=r)
+    err = ((outs[0] - want).abs().max() / want.abs().max()).item()
+    assert (err <= K9_TOL) is not control, err
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_the_kernel_wrappers_refuse_what_they_cannot_run():
     x = torch.zeros((1, 4, 4, 6))
     with pytest.raises(ValueError, match="even channel count"):
@@ -317,6 +407,20 @@ def test_the_kernel_wrappers_refuse_what_they_cannot_run():
                                             1, torch.ones(1))
     assert tuple(dwconv3x3.tap_weights(torch.zeros(7, 1, 3, 3)).shape) == \
         (3, 3, 7)
+    x = torch.zeros((1, 2, 3, 24))
+    with pytest.raises(ValueError, match="one stride between pixel rows"):
+        pointwise_gemm.pointwise_gemm(x.transpose(1, 2)[..., :8],
+                                      torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="w must be"):
+        pointwise_gemm.pointwise_gemm(x, torch.zeros(2, 4, 24))  # 1 image
+    with pytest.raises(ValueError, match="split weights"):
+        pointwise_gemm.pointwise_gemm(x, torch.zeros(4, 24),
+                                      w_tf32=torch.zeros(1, 3, 2, 128, 8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pointwise_gemm.pointwise_gemm(x.to("meta"),
+                                      torch.zeros(4, 24, device="meta"))
+    assert tuple(pointwise_gemm.gemm_weights(torch.zeros(130, 40)).shape) \
+        == (2, 8, 2, 128, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +428,8 @@ def test_the_kernel_wrappers_refuse_what_they_cannot_run():
 def test_one_forward_enters_each_span_and_kernel_as_often_as_the_model_has(
         monkeypatch):
     model = restormer.Restormer(**INIT).eval()
-    spans, calls = {}, {"K2": 0, "K7": 0, "K8": 0, "K8 gated": 0}
+    spans, calls = {}, {"K2": 0, "K7": 0, "K8": 0, "K8 gated": 0, "K9": 0,
+                        "K9 LN": 0}
 
     @contextlib.contextmanager
     def counting(name):
@@ -344,6 +449,13 @@ def test_one_forward_enters_each_span_and_kernel_as_often_as_the_model_has(
                         spy("K7", channel_attention.channel_attention))
     monkeypatch.setattr(dwconv3x3, "dwconv3x3",
                         spy("K8", dwconv3x3.dwconv3x3))
+    k9 = pointwise_gemm.pointwise_gemm
+
+    def k9_spy(*a, layer_norm=False, **kw):
+        calls["K9"] += 1
+        calls["K9 LN"] += layer_norm
+        return k9(*a, layer_norm=layer_norm, **kw)
+    monkeypatch.setattr(pointwise_gemm, "pointwise_gemm", k9_spy)
     depthwise = restormer.depthwise
 
     def gated(x, w, gate, route):
@@ -354,7 +466,10 @@ def test_one_forward_enters_each_span_and_kernel_as_often_as_the_model_has(
         model(torch.rand((1, 3, 16, 16)))
     assert spans == {"cid.restormer.attention": 44, "cid.restormer.ffn": 44,
                      "cid.restormer.resample": 6}
-    assert calls == {"K2": 8, "K7": 44, "K8": 88, "K8 gated": 44}
+    assert calls == {"K2": 8, "K7": 44, "K8": 88, "K8 gated": 44, "K9": 178,
+                     "K9 LN": 88}
+    # LayerNorm runs inside K9 only: the model has no pass of its own
+    assert not hasattr(restormer, "layer_norm")
 
 
 # ---------------------------------------------------------------------------
